@@ -1,0 +1,16 @@
+"""Architectures the PyTorch port runs: ``get_config(name)``.
+
+Only ``qwen2-0.5b`` so far; the rest of the reference's zoo is ROADMAP
+queue 1, item 9."""
+from repro_torch.configs import qwen2_0_5b
+
+CONFIGS = {qwen2_0_5b.CONFIG.name: qwen2_0_5b.CONFIG}
+ALL_ARCHS = list(CONFIGS)
+
+
+def get_config(name: str):
+    if name not in CONFIGS:
+        raise KeyError(f"unknown arch '{name}' for the PyTorch port; known: "
+                       f"{ALL_ARCHS} (the rest of the zoo is ROADMAP queue "
+                       f"1, item 9)")
+    return CONFIGS[name]

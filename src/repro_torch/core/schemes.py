@@ -1,0 +1,324 @@
+"""Dense and Zen gradient synchronization over a group of workers.
+
+Port of the dense and Zen parts of ``repro.core.schemes``.  The reference
+writes each scheme as an SPMD function of one worker's gradient with named
+``jax.lax`` collectives and runs it under ``vmap``; here a scheme takes ALL
+workers' gradients stacked on a leading worker dimension ``[n, M(, d)]``
+and runs the collectives through a :class:`SimGroup`, the in-process
+simulated group:
+
+* ``all_to_all`` is a transpose of the (source, destination) dimensions;
+* ``all_gather`` hands every worker the same stacked tensor;
+* ``psum`` is a sum in worker order 0..n-1.
+
+Worker ``w`` is also server ``w``: it owns the hash partition ``I_w``.
+Outputs keep the leading worker dimension (one synced copy per worker) and
+:class:`SyncStats` fields are per-worker vectors, like the reference's
+``simulate``.
+
+``backend`` selects the route of the three kernel stages (encode, commit
+push, pull decode): ``"cuda"`` goes through ``kernels/ops.py`` (the CUDA
+kernels for CUDA tensors), ``"torch"`` calls the plain versions in
+``kernels/ref.py`` directly.  Both give the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashing import EMPTY, compact_rows, hash_mod
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+
+BACKENDS = ("torch", "cuda")
+
+
+class SyncStats(NamedTuple):
+    """Per-worker accounting: f32 wire words sent and int32 overflows."""
+
+    sent_words: torch.Tensor  # f32 [n]
+    overflow: torch.Tensor    # int32 [n]
+
+
+class SimGroup:
+    """The in-process simulated group of ``n`` workers (leading dim)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_src, n_dst, ...] -> [n_dst, n_src, ...]: destination ``j``
+        receives every source's block ``j``."""
+        return x.transpose(0, 1).contiguous()
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[n, ...] per-worker blocks -> the [n, ...] stack every worker
+        sees (one shared tensor: the copies would be identical)."""
+        return x
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """[n, ...] -> [n, ...]: every worker gets the sum, taken in worker
+        order 0..n-1 in the values' dtype."""
+        acc = x[0].clone()
+        for w in range(1, x.shape[0]):
+            acc += x[w]
+        return acc.expand_as(x)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _nnz(idx: torch.Tensor) -> torch.Tensor:
+    """f32 count of live entries along the last dim."""
+    return (idx != EMPTY).to(torch.float32).sum(-1)
+
+
+def _vwidth(dense: torch.Tensor) -> int:
+    """Words per value of a per-worker tensor: 1 element-sparse, d rows."""
+    return 1 if dense.ndim == 1 else dense.shape[-1]
+
+
+def _worker_mask(dense: torch.Tensor) -> torch.Tensor:
+    """[n, M] non-zero mask of stacked worker gradients [n, M(, d)]."""
+    return dense != 0 if dense.ndim == 2 else (dense != 0).any(dim=-1)
+
+
+def _gather_rows(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """dense[idx] with EMPTY -> 0; idx may have any shape."""
+    dead = idx == EMPTY
+    flat = torch.where(dead, 0, idx).reshape(-1).to(torch.int64)
+    vals = dense.index_select(0, flat).reshape(*idx.shape, *dense.shape[1:])
+    if dense.ndim > 1:
+        dead = dead[..., None]
+    return torch.where(dead, torch.zeros_like(vals), vals)
+
+
+def _scatter_unique(out: torch.Tensor, idx: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+    """Collision-free scatter for provably disjoint live targets (Thm. 2):
+    servers own disjoint index ranges and positions within a range are
+    unique.  EMPTY targets go to a dump row that is cut off."""
+    M = out.shape[0]
+    tgt = torch.where(idx == EMPTY, M, idx).to(torch.int64)
+    full = torch.cat([out, out.new_zeros((1, *out.shape[1:]))])
+    full.index_copy_(0, tgt, vals)
+    return full[:M]
+
+
+# ---------------------------------------------------------------------------
+# Dense baseline
+# ---------------------------------------------------------------------------
+
+def dense_sync(dense: torch.Tensor, *, group: SimGroup):
+    """Ring allreduce: every worker gets the sum of [n, ...] gradients."""
+    n = group.n
+    out = group.psum(dense)
+    words = (torch.tensor(2 * (n - 1) / n, dtype=torch.float32)
+             * dense[0].numel()).to(dense.device)
+    stats = SyncStats(sent_words=words.expand(n),
+                      overflow=torch.zeros(n, dtype=torch.int32,
+                                           device=dense.device))
+    return out, stats
+
+
+# ---------------------------------------------------------------------------
+# Zen: Balanced Parallelism via hierarchical hashing + hash bitmap
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ZenLayout:
+    """Offline, worker-shared state for one tensor shape: a pure function of
+    (length, n, seeds) and the Alg. 1 capacities."""
+
+    n: int
+    length: int
+    seeds: np.ndarray          # uint32 [k+1]
+    perm: np.ndarray           # int32 [M]   (I_0 .. I_{n-1} concatenated)
+    offsets: np.ndarray        # int32 [n+1]
+    local_pos: np.ndarray      # int32 [M]   global idx -> rank inside its I_p
+    cap_server: int            # max_i |I_i|
+    cap_index: int             # C: worker-side nnz budget
+    r1: int
+    r2: int
+    k: int
+
+    @property
+    def cap_bitmap_words(self) -> int:
+        return (self.cap_server + 31) // 32
+
+    @property
+    def cap_pull(self) -> int:
+        """Aggregated nnz kept per server (<= the sum of its pushes)."""
+        return self.r1 + self.r2
+
+    def static_seeds(self) -> tuple:
+        return tuple(int(s) for s in self.seeds)
+
+    def tables(self, device) -> dict:
+        """perm / local_pos / offsets as int64 tensors on ``device``,
+        uploaded once per device and cached on the layout."""
+        cache = self.__dict__.setdefault("_tables", {})
+        key = str(torch.device(device))
+        if key not in cache:
+            cache[key] = {
+                name: torch.as_tensor(getattr(self, name).astype(np.int64),
+                                      device=device)
+                for name in ("perm", "local_pos", "offsets")}
+        return cache[key]
+
+
+def default_seeds(key: int, k: int) -> np.ndarray:
+    """The port's own k+1 hash seeds: uint32 drawn from
+    ``np.random.default_rng(key)`` in [1, 2**31 - 1).  The reference draws
+    its seeds with JAX's threefry, so the two defaults differ; pass the
+    reference layout's ``seeds`` to reproduce its partitions."""
+    rng = np.random.default_rng(key)
+    return rng.integers(1, 2**31 - 1, size=k + 1).astype(np.uint32)
+
+
+def make_zen_layout(length: int, n: int, *, density_budget: float,
+                    key: int = 0, k: int = 3, r1_factor: float = 2.0,
+                    r2_ratio: float = 0.1,
+                    seeds: Sequence[int] | None = None) -> ZenLayout:
+    """Precompute the Zen layout (offline, numpy).
+
+    ``seeds`` (uint32 [k+1]) fixes the hash family; by default it is
+    :func:`default_seeds` of ``key``, which differs from the reference's
+    default for the same key.  Capacities follow the reference:
+    ``C = max(32, ceil(length * density_budget))``,
+    ``r1 = max(8, ceil(r1_factor * C / n))``, ``r2 = max(4, ceil(r2_ratio
+    * r1))``."""
+    seeds = (default_seeds(key, k) if seeds is None
+             else np.asarray(seeds, dtype=np.uint32))
+    if seeds.shape[0] < k + 1:
+        raise ValueError(f"need {k + 1} seeds, got {seeds.shape[0]}")
+    idx = torch.arange(length, dtype=torch.int32)
+    p = hash_mod(idx, int(seeds[0]), n).numpy()
+    order = np.argsort(p, kind="stable").astype(np.int32)
+    counts = np.bincount(p, minlength=n)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    local = np.empty(length, dtype=np.int32)
+    local[order] = np.arange(length, dtype=np.int32) - offsets[p[order]]
+    cap_index = max(32, int(math.ceil(length * density_budget)))
+    r1 = max(8, int(math.ceil(r1_factor * cap_index / n)))
+    r2 = max(4, int(math.ceil(r2_ratio * r1)))
+    return ZenLayout(n=n, length=length, seeds=seeds, perm=order,
+                     offsets=offsets, local_pos=local,
+                     cap_server=int(counts.max()), cap_index=cap_index,
+                     r1=r1, r2=r2, k=k)
+
+
+class ZenEncoded(NamedTuple):
+    """Output of ``zen_encode`` for all workers: what the push needs."""
+
+    pidx: torch.Tensor      # int32 [n_workers, n_servers, r1+r2]
+    pval: torch.Tensor      # [n_workers, n_servers, r1+r2(, d)]
+    overflow: torch.Tensor  # int32 [n_workers]
+
+
+def zen_encode(dense: torch.Tensor, *, layout: ZenLayout,
+               backend: str = "torch") -> ZenEncoded:
+    """Zen stage 1 on every worker: compact the local non-zero rows,
+    hierarchically hash them into n partitions (one encode launch per
+    worker) and gather their values.  Collective-free."""
+    _check_backend(backend)
+    lo = layout
+    encode = kops.zen_encode_fused_op if backend == "cuda" else kref.zen_encode_ref
+    idx, ov_c = compact_rows(_worker_mask(dense), lo.cap_index)      # [n, C]
+    pidx, ovf = [], []
+    for w in range(dense.shape[0]):
+        p, _occ, o = encode(idx[w], lo.static_seeds(), lo.n, lo.r1, lo.r2)
+        pidx.append(p)
+        ovf.append(o)
+    pidx = torch.stack(pidx)
+    pval = torch.stack([_gather_rows(dense[w], pidx[w])
+                        for w in range(dense.shape[0])])
+    return ZenEncoded(pidx=pidx, pval=pval, overflow=ov_c + torch.stack(ovf))
+
+
+def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
+               layout: ZenLayout, use_hash_bitmap: bool = True,
+               backend: str = "torch"):
+    """Zen stages 2-4: push all_to_all, server aggregation (one push launch
+    per server), bitmap pull (one decode launch per worker) and the
+    collision-free apply.  ``dense`` gives only shapes and dtype."""
+    _check_backend(backend)
+    lo, n = layout, group.n
+    M = dense.shape[1]
+    vshape = tuple(dense.shape[2:])
+    vw = _vwidth(dense[0])
+    dev = dense.device
+    tabs = lo.tables(dev)
+    push = (kops.zen_commit_push_fused_op if backend == "cuda"
+            else kref.zen_commit_push_ref)
+    pull = (kops.zen_commit_pull_fused_op if backend == "cuda"
+            else kref.zen_commit_pull_ref)
+    cap_pull = lo.cap_pull
+
+    # --- 2. Push (balanced all_to_all) ---------------------------------------
+    got_idx = group.all_to_all(enc.pidx).reshape(n, -1)       # [srv, n*L]
+    got_val = group.all_to_all(enc.pval).reshape(n, -1, *vshape)
+    live = got_idx != EMPTY
+    lp = torch.where(live, tabs["local_pos"][torch.where(live, got_idx, 0)
+                                             .to(torch.int64)],
+                     lo.cap_server).to(torch.int32)
+
+    # --- 3. server aggregation + pull payload --------------------------------
+    lpos, vals, bms, ov_p = [], [], [], []
+    for s in range(n):
+        res = push(lp[s], got_val[s], cap_server=lo.cap_server,
+                   cap_pull=cap_pull)
+        for acc, x in zip((lpos, vals, bms, ov_p), res):
+            acc.append(x)
+    lpos, vals = torch.stack(lpos), torch.stack(vals)
+    bms, ov_p = torch.stack(bms), torch.stack(ov_p)
+
+    # --- 4. Pull --------------------------------------------------------------
+    all_val = group.all_gather(vals).reshape(-1, *vshape)     # [n*cap_pull,..]
+    if use_hash_bitmap:
+        all_bm = group.all_gather(bms)                        # [n, W]
+        globs = []
+        for _w in range(n):   # every worker decodes the gathered bitmaps
+            lpos_all = pull(all_bm, lo.cap_server, cap_pull)
+            gidx = (tabs["offsets"][:n, None] + lpos_all).clamp(0, M - 1)
+            globs.append(torch.where(lpos_all == EMPTY, EMPTY,
+                                     tabs["perm"][gidx]))
+        pull_words = (n - 1) * (_nnz(lpos) * vw + lo.cap_bitmap_words)
+    else:  # COO pull (the Fig. 18 ablation)
+        gidx = (tabs["offsets"][:n, None] + lpos).clamp(0, M - 1)
+        glob = group.all_gather(
+            torch.where(lpos == EMPTY, EMPTY, tabs["perm"][gidx]))
+        globs = [glob] * n
+        pull_words = (n - 1) * _nnz(lpos) * (vw + 1)
+    out = torch.stack([
+        _scatter_unique(torch.zeros_like(dense[w]), globs[w].reshape(-1),
+                        all_val) for w in range(n)])
+
+    nnz = _nnz(enc.pidx)                                      # [worker, srv]
+    own = nnz[torch.arange(n, device=dev), torch.arange(n, device=dev)]
+    push_sent = (nnz.sum(-1) - own) * (1 + vw)
+    stats = SyncStats(sent_words=push_sent + pull_words,
+                      overflow=enc.overflow + ov_p)
+    return out, stats
+
+
+def zen_sync(dense: torch.Tensor, *, group: SimGroup, layout: ZenLayout,
+             use_hash_bitmap: bool = True, backend: str = "torch"):
+    """Zen synchronization of [n, M(, d)] worker gradients: Alg. 1 push +
+    Alg. 2 (hash bitmap) pull; ``use_hash_bitmap=False`` pulls COO."""
+    enc = zen_encode(dense, layout=layout, backend=backend)
+    return zen_commit(enc, dense, group=group, layout=layout,
+                      use_hash_bitmap=use_hash_bitmap, backend=backend)
+
+
+def simulate(fn, per_worker_dense: torch.Tensor, **kwargs):
+    """Run a scheme over [n, M(, d)] worker gradients on a simulated group
+    of n workers: (aggregated [n, M(, d)], per-worker SyncStats)."""
+    return fn(per_worker_dense, group=SimGroup(per_worker_dense.shape[0]),
+              **kwargs)

@@ -1,0 +1,162 @@
+"""Gradient-synchronization API (port of ``repro.core.zen``).
+
+``GradSync`` maps the per-worker gradients of a model (one ``[n, ...]``
+stack per leaf) to their mean over the data-parallel group.  Leaves named
+in ``sparse_paths`` (the row-sparse input embedding ``embed/table``) go
+through the configured sparse scheme; every other leaf is a psum.  The
+port covers the flat topology with ``scheme`` in {``zen``, ``dense``} and
+no compression; any other setting raises ``NotImplementedError`` naming
+the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import buckets as bk
+from repro_torch.core import schemes
+from repro_torch.core.schemes import SimGroup, SyncStats, make_zen_layout
+from repro_torch.train import schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncConfig:
+    """How gradients are synchronized across the data-parallel group; the
+    reference's fields, of which the port runs a subset (see GradSync)."""
+
+    scheme: str = "zen"           # zen | dense
+    density_budget: float = 0.25  # capacity sizing for sparse buffers
+    k: int = 3                    # Alg. 1 rehash rounds
+    r1_factor: float = 2.0        # r1 = r1_factor * nnz_budget / n
+    r2_ratio: float = 0.1         # r2 = r2_ratio * r1
+    use_hash_bitmap: bool = True  # Alg. 2 on Pull (Fig. 18 ablation knob)
+    seed: int = 0                 # hash seeds: schemes.default_seeds(seed)
+    # Route of Zen's encode / commit / pull stages: "cuda" runs the CUDA
+    # kernels (their plain versions for CPU tensors), "torch" the plain
+    # versions everywhere.  "cuda" is the counterpart of the reference's
+    # "pallas" route with both fusions on; "torch" of its "xla" route.
+    backend: str = "cuda"
+    fused_encode: bool = True
+    fused_commit: bool = True
+    calib_file: str | None = None
+    bucket_bytes: int | None = None
+    alpha_beta: str | None = None
+    compress: str = "none"
+
+
+def _unsupported(cfg: SyncConfig) -> str | None:
+    """Why the port cannot run ``cfg`` yet, or None."""
+    if cfg.scheme not in ("zen", "dense"):
+        return (f"scheme {cfg.scheme!r}: the port runs 'zen' and 'dense'; "
+                f"the other schemes and 'auto' are ROADMAP queue 1, item 6")
+    if cfg.compress != "none":
+        return "EF compression: ROADMAP queue 1, item 5 (core/sparsify.py)"
+    if cfg.bucket_bytes is not None:
+        return ("fused dense buckets (bucket_bytes): ROADMAP queue 1, "
+                "item 5 (core/buckets.py)")
+    if cfg.calib_file is not None:
+        return "measured-cost calibration: ROADMAP queue 1, item 7"
+    if cfg.alpha_beta is not None:
+        return "two-level topologies: ROADMAP queue 1, item 9"
+    if not (cfg.fused_encode and cfg.fused_commit):
+        return ("the unfused encode/commit chains: ROADMAP queue 2, "
+                "items 4-7 (their kernels)")
+    return None
+
+
+class GradSync:
+    """Synchronize stacked per-worker gradients over a flat group.
+
+    Args:
+      cfg: SyncConfig.
+      sparse_paths: path substrings marking row-sparse 2-D leaves.
+      leaves: ``[(name, per-worker shape), ...]`` in gradient order; the
+          Zen layouts and the bucket plan are built from them offline.
+      n_data: size of the data-parallel group.
+    """
+
+    def __init__(self, cfg: SyncConfig, sparse_paths: Sequence[str],
+                 leaves: Sequence[tuple[str, tuple]], n_data: int):
+        why = _unsupported(cfg)
+        if why:
+            raise NotImplementedError(f"GradSync: {why}")
+        if cfg.backend not in schemes.BACKENDS:
+            raise ValueError(f"backend must be one of {schemes.BACKENDS}, "
+                             f"got {cfg.backend!r}")
+        self.cfg = cfg
+        self.n_data = n_data
+        self.group = SimGroup(n_data)
+        self.sparse_paths = tuple(sparse_paths)
+
+        def resolve_scheme(name: str, shape: tuple) -> str:
+            if len(shape) > 2:
+                raise ValueError(f"sparse leaf {name} must be 2-D, got {shape}")
+            return cfg.scheme
+
+        self.plan = bk.make_bucket_plan(leaves, self._is_sparse,
+                                        resolve_scheme)
+        self._layouts = {
+            b.key: make_zen_layout(
+                b.shape[0], n_data, density_budget=cfg.density_budget,
+                key=cfg.seed, k=cfg.k, r1_factor=cfg.r1_factor,
+                r2_ratio=cfg.r2_ratio)
+            for b in self.plan.buckets
+            if b.kind == bk.SPARSE and b.scheme == "zen" and n_data > 1}
+
+    def _is_sparse(self, name: str) -> bool:
+        return any(s in name for s in self.sparse_paths)
+
+    def describe(self) -> list[str]:
+        """One line per bucket: scheme, kind, per-worker shape, leaf."""
+        lines = [f"topology: flat data[{self.n_data}]"]
+        for b in self.plan.buckets:
+            lines.append(f"bucket {b.bid:3d} {b.kind:11s} "
+                         f"{'x'.join(map(str, b.shape)):>12s} "
+                         f"plan=[{b.scheme}@data[{self.n_data}]]  {b.key}")
+        return lines
+
+    def _encode_bucket(self, bucket: bk.Bucket, payload: torch.Tensor):
+        """Local, collective-free stage: Zen buckets encode to (indices,
+        values); everything else passes through."""
+        if bucket.key in self._layouts:
+            enc = schemes.zen_encode(payload, layout=self._layouts[bucket.key],
+                                     backend=self.cfg.backend)
+            return (payload, enc)
+        return (payload,)
+
+    def _commit_bucket(self, bucket: bk.Bucket,
+                       enc) -> tuple[torch.Tensor, SyncStats]:
+        """Collectives + decode-apply, then the mean (every scheme sums)."""
+        g, n = enc[0], self.n_data
+        if n <= 1:
+            zero = torch.zeros(n, dtype=torch.float32, device=g.device)
+            return g, SyncStats(sent_words=zero,
+                                overflow=zero.to(torch.int32))
+        if len(enc) > 1:
+            out, st = schemes.zen_commit(
+                enc[1], g, group=self.group,
+                layout=self._layouts[bucket.key],
+                use_hash_bitmap=self.cfg.use_hash_bitmap,
+                backend=self.cfg.backend)
+        else:
+            out, st = schemes.dense_sync(g, group=self.group)
+        if out.stride(0) == 0:   # one psum result seen by every worker
+            return (out[0] / n).expand_as(out), st
+        return out / n, st
+
+    def __call__(self, grads: dict[str, torch.Tensor]):
+        """``{leaf name: [n, ...] per-worker grads}`` -> (the same dict of
+        [n, ...] synced means, metric dict of per-worker vectors)."""
+        names = [b.name for b in self.plan.buckets]
+        flat = [grads[name] for name in names]
+        payloads = [bk.gather_bucket(b, flat) for b in self.plan.buckets]
+        outs, per_bucket = schedule.run_schedule(
+            self.plan.buckets, payloads, self._encode_bucket,
+            self._commit_bucket)
+        synced = list(flat)
+        for b, out in zip(self.plan.buckets, outs):
+            bk.scatter_bucket(b, out, synced)
+        return dict(zip(names, synced)), bk.reduce_stats(self.plan,
+                                                         per_bucket)

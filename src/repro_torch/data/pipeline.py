@@ -1,0 +1,44 @@
+"""Synthetic Zipf token stream (numpy copy of ``repro.data.pipeline``).
+
+Token ids follow a Zipf distribution over the vocabulary, the frequency law
+that makes embedding gradients row-sparse and skewed.  Deterministic per
+(seed, step, shard): the same seed yields the reference's batches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+from repro_torch.models.common import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int
+    batch: int              # batch drawn per step
+    zipf: float = 1.2       # token-frequency skew
+    seed: int = 0
+
+
+class SyntheticLM:
+    """Infinite stream of {tokens, labels} int32 [batch, seq_len]."""
+
+    def __init__(self, cfg: ArchConfig, dc: DataConfig, shard: int = 0):
+        self.cfg, self.dc, self.shard = cfg, dc, shard
+        ranks = np.arange(1, cfg.vocab + 1, dtype=np.float64)
+        w = ranks ** (-dc.zipf)
+        self._p = w / w.sum()
+        self._step = 0
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        rng = np.random.default_rng((self.dc.seed, self._step, self.shard))
+        self._step += 1
+        toks = rng.choice(self.cfg.vocab,
+                          size=(self.dc.batch, self.dc.seq_len + 1),
+                          p=self._p).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,0 +1,93 @@
+"""Build and load the CUDA kernels under ``csrc/`` (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/repro_torch/lib<name>_<hash>.so``
+under the repository root, at first use.  The hash covers the source, the
+shared headers and the flags, so an edited source rebuilds.  Nothing here
+runs at import time; the CPU tests import this module without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("zen_encode", "zen_commit")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch`` at the repository root (git-ignored)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}_{_digest(name)}.so"
+
+
+def build(names=SOURCES, *, verbose: bool = False) -> dict[str, Path]:
+    """Compile every missing library of ``names``, one ``nvcc`` per source,
+    all started together.  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report (registers, shared memory, spills)."""
+    out = {n: lib_path(n) for n in names}
+    todo = [n for n in names if verbose or not out[n].exists()]
+    if not todo:
+        return out
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(CSRC / f"{n}.cu")]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for n, tmp, p in procs:
+        log, _ = p.communicate()
+        if verbose:
+            print(f"[nvcc {n}]\n{log}")
+        if p.returncode != 0:
+            Path(tmp).unlink(missing_ok=True)
+            errors.append(f"nvcc {n}.cu failed ({p.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out[n])  # atomic: readers never see half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build((name,))[name]))
+        _loaded[name] = lib
+    return lib

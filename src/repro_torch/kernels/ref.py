@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the Zen CUDA kernels.
+
+Port of ``repro.kernels.ref``.  Each function here is the plain version of
+one hand-written kernel in ``csrc/``: the CPU tests hold it against the JAX
+reference, and ``chip_smoke.py`` holds the kernel against it on the card.
+They run on any device; ``kernels/ops.py`` takes them for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.formats import bitmap_decode_compact, bitmap_encode, pack_rows
+from repro_torch.core.hashing import (EMPTY, compact_indices, hierarchical_hash,
+                                      row_compact)
+
+
+def coo_scatter_add_ref(out_rows: int, idx: torch.Tensor,
+                        vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx[i]] += vals[i]`` into zeros [out_rows, d]; EMPTY and
+    out-of-range rows dropped; duplicates accumulate in stream order, in the
+    values' dtype (one rounding per add, as the reference's scatter-add).
+
+    Stream order per target is kept by adding occurrence by occurrence: pass
+    ``j`` adds every row that is the ``j``-th occurrence of its target, so
+    targets are unique within a pass and ``index_add_`` is exact whatever
+    its internal order."""
+    C = idx.shape[0]
+    live = (idx >= 0) & (idx < out_rows)
+    tgt = torch.where(live, idx.to(torch.int64), out_rows)
+    order = torch.argsort(tgt, stable=True)
+    srt = tgt[order]
+    pos = torch.arange(C, device=idx.device)
+    start = torch.ones(C, dtype=torch.bool, device=idx.device)
+    start[1:] = srt[1:] != srt[:-1]
+    run_start = torch.cummax(torch.where(start, pos, 0), dim=0).values
+    occ = torch.empty_like(pos)
+    occ[order] = pos - run_start
+    occ = torch.where(live, occ, -1)
+    out = torch.zeros((out_rows, vals.shape[-1]), dtype=vals.dtype,
+                      device=vals.device)
+    for j in range(int(occ.max().item()) + 1 if C else 0):
+        sel = occ == j
+        out.index_add_(0, tgt[sel], vals[sel])
+    return out
+
+
+def zen_encode_ref(indices: torch.Tensor, seeds: Sequence[int], n: int,
+                   r1: int, r2: int):
+    """Plain version of the encode kernel: Alg. 1 + row compaction + the
+    prefix occupancy bitmap.  indices int32 [C] (unique, EMPTY-padded) ->
+    (pidx int32 [n, r1+r2], occ int32 words [n, ceil((r1+r2)/32)],
+    overflow int32 scalar)."""
+    part = hierarchical_hash(indices, n=n, r1=r1, r2=r2, k=len(seeds) - 1,
+                             seeds=seeds)
+    pidx = row_compact(part.memory)
+    return pidx, pack_rows(pidx != EMPTY), part.overflow
+
+
+def zen_commit_push_ref(lp: torch.Tensor, vals: torch.Tensor,
+                        cap_server: int, cap_pull: int):
+    """Plain version of the commit push kernel: aggregation into
+    [cap_server, d], mask ``any(row != 0)``, ascending compaction to
+    ``cap_pull``, value gather and the LSB-first server bitmap.
+    lp int32 [C], vals [C(, d)] -> (lpos int32 [cap_pull], vals
+    [cap_pull(, d)], bm int32 words [ceil(cap_server/32)], overflow)."""
+    squeeze = vals.ndim == 1
+    v2 = vals[:, None] if squeeze else vals
+    buf = coo_scatter_add_ref(cap_server, lp, v2)
+    mask = (buf != 0).any(dim=-1)
+    lpos, overflow = compact_indices(mask, cap_pull)
+    dead = lpos == EMPTY
+    out = buf[torch.where(dead, 0, lpos).to(torch.int64)]
+    out = torch.where(dead[:, None], torch.zeros_like(out), out)
+    return lpos, (out[:, 0] if squeeze else out), bitmap_encode(mask), overflow
+
+
+def zen_commit_pull_ref(words: torch.Tensor, cap_server: int,
+                        cap_pull: int) -> torch.Tensor:
+    """Plain version of the pull kernel: each row's set bits below
+    ``cap_server``, ascending, first ``cap_pull``, EMPTY-padded.
+    words int32 [n, W] -> int32 [n, cap_pull]."""
+    return bitmap_decode_compact(words, cap_server, cap_pull)

@@ -1,0 +1,139 @@
+"""Training launcher of the PyTorch port (the reference's flags).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --mesh 8x1 --sync zen --global-batch 8 --seq-len 512 --steps 4
+
+Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
+The D ranks of a ``Dx1`` mesh are held in one process (train/steps.py).
+Flags the port does not run yet raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.  ``--no-zero1`` is accepted: the port always
+runs the full update, which gives the same numbers as ZeRO-1.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.zen import SyncConfig
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.optim.optimizers import OptConfig
+from repro_torch.train.build import attach_train, build_program
+from repro_torch.train.steps import TrainerConfig
+
+# the reference's --sync choices (registry schemes + auto)
+SYNC_CHOICES = ("dense", "agsparse", "sparcml", "sparse_ps", "omnireduce",
+                "balanced", "zen", "auto")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--mesh", default="1x1", help="DxM, e.g. 8x1")
+    ap.add_argument("--sync", default="zen", choices=SYNC_CHOICES)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--density-budget", type=float, default=0.25)
+    ap.add_argument("--bucket-bytes", type=int, default=None)
+    ap.add_argument("--node-size", type=int, default=1)
+    ap.add_argument("--alpha-beta", default=None)
+    ap.add_argument("--compress", default="none")
+    ap.add_argument("--calib-file", default=None)
+    ap.add_argument("--no-fused-commit", action="store_true")
+    ap.add_argument("--replan-every", type=int, default=0)
+    ap.add_argument("--no-zero1", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain PyTorch path)")
+    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
+                    help="Zen kernel route: the CUDA kernels, or their "
+                         "plain PyTorch versions")
+    return ap.parse_args(argv)
+
+
+def _check_ported(args) -> None:
+    todo = {
+        "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
+        "--replan-every": (args.replan_every > 0, "ROADMAP queue 1, item 5"),
+        "--ckpt-dir": (args.ckpt_dir is not None, "ROADMAP queue 1, item 8"),
+    }
+    for flag, (hit, item) in todo.items():
+        if hit:
+            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+
+
+def main(argv=None) -> dict:
+    """Train; returns losses, final tok/s, sparse words, overflow, step
+    times (host clock after a device sync, seconds)."""
+    args = parse_args(argv)
+    _check_ported(args)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    tcfg = TrainerConfig(
+        opt=OptConfig(lr=args.lr),
+        sync=SyncConfig(scheme=args.sync, density_budget=args.density_budget,
+                        bucket_bytes=args.bucket_bytes, compress=args.compress,
+                        alpha_beta=args.alpha_beta, calib_file=args.calib_file,
+                        fused_commit=not args.no_fused_commit,
+                        backend=args.backend, seed=args.seed))
+    prog = build_program(cfg, args.mesh, tcfg, device=args.device,
+                         seed=args.seed)
+    attach_train(prog)
+    dev = prog.device
+    n_params = sum(p.numel() for p in prog.model.parameters())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
+          f"sync={args.sync} backend={args.backend} device={dev} "
+          f"dtype={str(cfg.dtype).replace('torch.', '')}", flush=True)
+    for line in prog.gradsync.describe():
+        if "sparse" in line or line.startswith("topology"):
+            print(f"  {line}")
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    data = iter(SyntheticLM(cfg, DataConfig(
+        seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
+    losses, step_s, words, ovf = [], [], [], []
+    tokens_done = 0
+    sync()
+    t0 = time.time()
+    for step in range(args.steps):
+        b = next(data)
+        t_step = time.time()
+        batch = {k: torch.as_tensor(v, device=dev).long()
+                 for k, v in b.items()}
+        m = prog.train_step(batch)
+        tokens_done += args.global_batch * args.seq_len
+        if step % args.log_every == 0 or step == args.steps - 1:
+            sync()
+            dt = time.time() - t0
+            step_s.append(time.time() - t_step)
+            losses.append(float(m["loss"]))
+            words.append(float(m["sync/sparse_sent_words"]))
+            ovf.append(int(float(m["sync/overflow"])))
+            print(f"step {step:5d} loss={losses[-1]:.4f} "
+                  f"tok/s={tokens_done / dt:,.0f} "
+                  f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
+                  flush=True)
+    sync()
+    dt = time.time() - t0
+    print("done")
+    return {"losses": losses, "tok_per_s": tokens_done / dt,
+            "sparse_words": words[-1] if words else 0.0,
+            "overflow": max(ovf) if ovf else 0, "step_s": step_s,
+            "median_step_s": float(np.median(step_s)) if step_s else 0.0}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,43 @@
+"""AdamW on parameter tensors (port of ``repro.optim.optimizers``).
+
+The update runs elementwise in f32 on the full leaf; the reference's ZeRO-1
+applies the same update to a flat chunk per rank, so the numbers agree with
+its ``--no-zero1`` and its ZeRO-1 runs alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    kind: str = "adamw"      # only adamw is ported
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0   # global-norm clip (0 = off)
+
+
+def adamw_init(p: torch.Tensor) -> dict:
+    return {"m": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+            "v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, p: torch.Tensor, g: torch.Tensor,
+                 st: dict, step: int) -> None:
+    """In-place AdamW step ``step`` (0-based) of leaf ``p`` with gradient
+    ``g``; the moments ``st`` are f32 and updated in place."""
+    g = g.float()
+    pf = p.float()
+    st["m"].mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    st["v"].mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    t = float(step) + 1.0
+    mh = st["m"] / (1 - cfg.b1 ** t)
+    vh = st["v"] / (1 - cfg.b2 ** t)
+    upd = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
+    p.copy_((pf - cfg.lr * upd).to(p.dtype))

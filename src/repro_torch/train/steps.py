@@ -1,0 +1,111 @@
+"""The data-parallel train step (port of ``repro.train.steps.make_train_step``).
+
+Data parallelism runs as ``--mesh Dx1`` with the D ranks held in one
+process on one device, the way the reference's tests hold 8 host devices
+in one process.  One step:
+
+  1. rank ``w`` takes contiguous rows ``w`` of the global batch (every rank
+     takes the whole batch when D does not divide it, as the reference
+     replicates it) and computes its local loss and gradients;
+  2. ``GradSync`` syncs the stacked per-rank gradients over the simulated
+     group: Zen on ``embed/table``, a psum on the rest, then ``/D``;
+  3. global-norm clip and the AdamW update of the (replicated) parameters.
+
+Tensor parallelism and ZeRO-1 raise ``NotImplementedError``; ZeRO-1 is a
+layout of the same elementwise update, so the full update here gives the
+numbers of the reference's ZeRO-1 and ``--no-zero1`` runs alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.zen import GradSync, SyncConfig
+from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import OptConfig, adamw_init, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    opt: OptConfig = OptConfig()
+    sync: SyncConfig = SyncConfig()
+    zero1: bool = False
+
+
+def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int) -> GradSync:
+    """The trainer's GradSync, built offline from the per-rank grad shapes
+    (the parameter shapes: parameters are replicated)."""
+    leaves = [(n, tuple(p.shape)) for n, p in model.named_leaves()]
+    return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data)
+
+
+def split_batch(batch: dict, n: int) -> list[dict]:
+    """Per-rank batches: contiguous row blocks, or the whole batch on every
+    rank when ``n`` does not divide the batch."""
+    B = batch["tokens"].shape[0]
+    if B % n:
+        return [batch] * n
+    r = B // n
+    return [{k: v[w * r:(w + 1) * r] for k, v in batch.items()}
+            for w in range(n)]
+
+
+def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
+                    gradsync: GradSync | None = None):
+    """Returns ``step_fn(batch) -> metrics`` that updates ``model`` in place.
+
+    ``batch`` holds int tensors tokens/labels [B, S] on the model's device;
+    metrics are f32 scalars averaged over ranks (``loss``, ``grad_norm``
+    and the ``sync/*`` counters)."""
+    if tcfg.zero1:
+        raise NotImplementedError(
+            "ZeRO-1 sharded optimizer state is not ported (ROADMAP queue 1, "
+            "item 9); the full update gives the same numbers: zero1=False")
+    if tcfg.opt.kind != "adamw":
+        raise NotImplementedError(f"optimizer {tcfg.opt.kind!r}: only adamw "
+                                  f"is ported")
+    if gradsync is None:
+        gradsync = make_gradsync(model, tcfg, n_data)
+    leaves = model.named_leaves()
+    state = {name: adamw_init(p) for name, p in leaves}
+    # per-rank gradients, stacked: [n, ...] per leaf, reused every step
+    stacks = {name: torch.empty((n_data, *p.shape), dtype=p.dtype,
+                                device=p.device) for name, p in leaves}
+    step_no = [0]
+
+    def step_fn(batch: dict) -> dict:
+        losses = []
+        for w, b in enumerate(split_batch(batch, n_data)):
+            model.zero_grad(set_to_none=True)
+            loss = model(b["tokens"], b["labels"])
+            loss.backward()
+            losses.append(loss.detach().float())
+            for name, p in leaves:
+                if p.grad is None:
+                    stacks[name][w].zero_()
+                else:
+                    stacks[name][w].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        synced, sync_stats = gradsync(stacks)
+        grads = {name: synced[name][0] for name, _ in leaves}
+
+        metrics = {}
+        if tcfg.opt.grad_clip > 0:
+            sq = torch.zeros((), dtype=torch.float32, device=losses[0].device)
+            for name, _ in leaves:
+                sq = sq + (grads[name].float() ** 2).sum()
+            gn = torch.sqrt(sq)
+            scale = torch.clamp(tcfg.opt.grad_clip / (gn + 1e-9), max=1.0)
+            grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
+            metrics["grad_norm"] = gn
+        for name, p in leaves:
+            adamw_update(tcfg.opt, p, grads[name], state[name], step_no[0])
+        step_no[0] += 1
+        metrics["loss"] = torch.stack(losses).mean()
+        for k, v in sync_stats.items():
+            metrics[k] = v.float().mean()
+        return metrics
+
+    step_fn.gradsync = gradsync
+    return step_fn

@@ -1,0 +1,135 @@
+"""Port parity: ``zen_sync`` on the simulated group against the reference's
+``schemes.simulate(schemes.zen_sync, ..., backend="xla")``, bitwise on the
+synced values, the wire words and the overflow counts, plus GradSync.
+
+Inputs are integer-valued worker gradients (``_integer_workers`` of
+tests/test_zen_commit_fused.py), so sums are exact in bf16 too; the hash
+seeds are the reference layout's."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.core import metrics
+from repro.core import schemes as S
+from repro.core.zen import GradSync as RefGradSync
+from repro.core.zen import SyncConfig as RefSyncConfig
+from repro_torch.core import schemes as TS
+from repro_torch.core.zen import GradSync, SyncConfig
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _integer_workers(seed, n, m, density, dtype, d=None):
+    key = jax.random.PRNGKey(seed)
+    masks = metrics.synth_sparse_masks(key, n, m, density)
+    shape = (n, m) if d is None else (n, m, d)
+    vals = jnp.round(jax.random.normal(key, shape) * 8)
+    if d is not None:
+        masks = masks[..., None]
+    return (vals * masks).astype(dtype)
+
+
+def _to_torch(x, td) -> torch.Tensor:
+    return torch.from_numpy(np.array(x.astype(jnp.float32))).to(td)
+
+
+def _assert_sync_equal(got, ref):
+    out, st = got
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref[0].astype(jnp.float32)))
+    np.testing.assert_array_equal(st.sent_words.numpy(),
+                                  np.asarray(ref[1].sent_words))
+    np.testing.assert_array_equal(st.overflow.numpy(),
+                                  np.asarray(ref[1].overflow))
+
+
+@pytest.mark.parametrize("mode", ["element", "row"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("density", [0.01, 0.1, 1.0])
+def test_zen_sync_bitwise_vs_reference(density, dtype, mode):
+    """One layout sized for density 1.0 serves every density, so the
+    reference compiles once per (dtype, mode)."""
+    n, m = 4, 1 << 11
+    d = None if mode == "element" else 8
+    jd, td = DTYPES[dtype]
+    vals = _integer_workers(2, n, m, density, jd, d)
+    lo = S.make_zen_layout(m, n, density_budget=1.0)
+    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla")
+    tlo = TS.make_zen_layout(m, n, density_budget=1.0, seeds=lo.seeds)
+    tv = _to_torch(vals, td)
+    for backend in ("torch", "cuda"):   # "cuda" on CPU tensors: plain route
+        got = TS.simulate(TS.zen_sync, tv, layout=tlo, backend=backend)
+        assert got[0].dtype == td
+        _assert_sync_equal(got, ref)
+
+
+@pytest.mark.parametrize("use_hash_bitmap", [True, False],
+                         ids=["bitmap-pull", "coo-pull"])
+def test_zen_sync_overflow_edge_and_coo_pull(use_hash_bitmap):
+    """An undersized layout (tiny r1/r2) overflows: the port must drop the
+    same rows and count the same overflow; the COO-pull ablation changes
+    the wire words only."""
+    n, m = 4, 1 << 11
+    vals = _integer_workers(4, n, m, 0.2, jnp.float32)
+    lo = S.make_zen_layout(m, n, density_budget=0.05, r1_factor=0.5)
+    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla",
+                     use_hash_bitmap=use_hash_bitmap)
+    assert int(np.asarray(ref[1].overflow).sum()) > 0
+    tlo = TS.make_zen_layout(m, n, density_budget=0.05, r1_factor=0.5,
+                             seeds=lo.seeds)
+    got = TS.simulate(TS.zen_sync, _to_torch(vals, torch.float32),
+                      layout=tlo, use_hash_bitmap=use_hash_bitmap)
+    _assert_sync_equal(got, ref)
+
+
+def test_dense_sync_matches_reference():
+    n, m = 4, 300
+    vals = _integer_workers(1, n, m, 0.3, jnp.float32, 3)
+    ref = S.simulate(S.dense_sync, vals)
+    got = TS.simulate(TS.dense_sync, _to_torch(vals, torch.float32))
+    _assert_sync_equal(got, ref)
+
+
+@pytest.mark.parametrize("scheme", ["zen", "dense"])
+def test_gradsync_matches_reference(scheme):
+    """GradSync over a small model-shaped pytree: zen (or a psum) on the
+    row-sparse embedding, psum on the rest, mean over 4 workers; the
+    synced grads and the sync metrics equal the reference's."""
+    n = 4
+    rng = np.random.default_rng(0)
+    emb = np.array(_integer_workers(3, n, 512, 0.05, jnp.float32, 8))
+    dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(np.float32)
+    shapes = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
+              "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
+    ref_gs = RefGradSync(RefSyncConfig(scheme=scheme), ["embed/table"],
+                         shapes, n)
+    ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
+        {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
+    leaves = [("embed/table", (512, 8)), ("w", (6, 5))]
+    gs = GradSync(SyncConfig(scheme=scheme), ["embed/table"], leaves, n)
+    if scheme == "zen":    # the reference's layout seeds
+        lo = ref_gs._layouts["embed/table", 0]
+        gs._layouts["embed/table"] = TS.make_zen_layout(
+            512, n, density_budget=0.25, seeds=lo.seeds)
+    out, st = gs({"embed/table": torch.from_numpy(emb),
+                  "w": torch.from_numpy(dense)})
+    np.testing.assert_array_equal(out["embed/table"].numpy(),
+                                  np.asarray(ref_out["embed"]["table"]))
+    np.testing.assert_array_equal(out["w"].numpy(), np.asarray(ref_out["w"]))
+    for k in ("sync/sparse_sent_words", "sync/overflow", "sync/dense_words",
+              "sync/n_buckets"):
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(ref_st[k]),
+                                      err_msg=k)
+
+
+def test_gradsync_rejects_unported_settings():
+    leaves = [("embed/table", (64, 4))]
+    for cfg in (SyncConfig(scheme="agsparse"), SyncConfig(scheme="auto"),
+                SyncConfig(compress="topk:0.01"), SyncConfig(bucket_bytes=1024),
+                SyncConfig(fused_commit=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GradSync(cfg, ["embed/table"], leaves, 4)
