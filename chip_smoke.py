@@ -8,14 +8,21 @@ Phases (any failure exits non-zero; nothing is caught):
      holds each against its plain PyTorch version on the card at the
      qwen2-0.5b Zen slice shapes (M = 151936 embedding rows, d = 896,
      n = 8): a realistic stream (512 tokens per rank), a dense stream near
-     the capacity budget, and an overflow-edge layout; f32 and bf16.  Every
-     output must be bitwise equal.
+     the capacity budget, and an overflow-edge layout; f32 and bf16; for
+     the scatter-add also a non-zero ``out`` with EMPTY, negative and
+     out-of-range indices, and one target repeated 64 times.  Each fused
+     kernel is also held against its unfused chain.  Every output must be
+     bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
-     ``backend="cuda"`` must equal ``backend="torch"`` bitwise.
+     ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
+     fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
   4. trainer: ``launch/train.py --arch qwen2-0.5b --mesh 8x1 --sync zen
      --global-batch 8 --seq-len 512 --steps 4`` at full width and depth;
-     finite, falling loss, no overflow, every kernel launched 8 x steps
-     times, no call on the plain route.
+     finite, falling loss, no overflow, every fused-route kernel launched
+     8 x steps times, no call on the plain route.  Then the same trainer
+     with ``SyncConfig(fused_encode=False, fused_commit=False)``: the same
+     checks on the unfused chain's five kernels, the fused kernels not
+     launched, the fused run's wire words, losses within 5e-3 of it.
   5. breakdown: one profiled trainer step (torch.profiler): device time by
      kernel category and the device's idle share.
   6. times: median of 20 CUDA-event timings of each kernel and its plain
@@ -39,17 +46,31 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+# H100 SXM float32 rate outside the tensor cores (data sheet); the integer
+# and float work of these kernels runs on the same units, at most this fast
+OPS_PER_S = 67e12
 SLICE = dict(M=151936, d=896, n=8, density_budget=0.25, tokens=512)
 REPLACES = {
     "zen_encode": "src/repro/kernels/zen_encode.py:108",
     "zen_commit_push": "src/repro/kernels/zen_commit.py:104",
     "zen_commit_pull": "src/repro/kernels/zen_commit.py:163",
+    "hash_stage": "src/repro/kernels/hash_stage.py:56",
+    "row_compact": "src/repro/kernels/compact.py:49",
+    "coo_scatter_add": "src/repro/kernels/scatter_add.py:44",
+    "bitmap_pack": "src/repro/kernels/bitmap.py:38",
+    "bitmap_unpack": "src/repro/kernels/bitmap.py:54",
 }
 SOURCES = {
     "zen_encode": "src/repro_torch/csrc/zen_encode.cu",
     "zen_commit_push": "src/repro_torch/csrc/zen_commit.cu",
     "zen_commit_pull": "src/repro_torch/csrc/zen_commit.cu",
+    "hash_stage": "src/repro_torch/csrc/hash_stage.cu",
+    "row_compact": "src/repro_torch/csrc/row_compact.cu",
+    "coo_scatter_add": "src/repro_torch/csrc/scatter_add.cu",
+    "bitmap_pack": "src/repro_torch/csrc/bitmap.cu",
+    "bitmap_unpack": "src/repro_torch/csrc/bitmap.cu",
 }
+UNFUSED = dict(fused_encode=False, fused_commit=False)
 
 
 def log(msg: str) -> None:
@@ -108,11 +129,12 @@ def dense_rows(rng, n: int, vocab: int, density: float, d: int, dtype, dev):
 
 
 def kernel_inputs(g: torch.Tensor, lo):
-    """The three kernels' inputs on the zen_sync path for worker/server 0:
-    the compacted index vector, the server's pushed stream, the gathered
-    server bitmaps (built with the plain route)."""
+    """The kernels' inputs on the zen_sync path for worker/server 0: the
+    compacted index vector, its Alg. 1 memory, the server's pushed stream
+    and aggregated mask, the gathered server bitmaps (built with the plain
+    route)."""
     from repro_torch.core import schemes as S
-    from repro_torch.core.hashing import EMPTY, compact_rows
+    from repro_torch.core.hashing import EMPTY, compact_rows, hierarchical_hash
     from repro_torch.kernels import ref as R
 
     enc = S.zen_encode(g, layout=lo, backend="torch")
@@ -128,7 +150,36 @@ def kernel_inputs(g: torch.Tensor, lo):
         R.zen_commit_push_ref(lp[s], got_val[s], cap_server=lo.cap_server,
                               cap_pull=lo.cap_pull)[2]
         for s in range(lo.n)])
-    return idx, lp[0].contiguous(), got_val[0].contiguous(), bms
+    mem = hierarchical_hash(idx, n=lo.n, r1=lo.r1, r2=lo.r2, k=lo.k,
+                            seeds=lo.static_seeds()).memory
+    mask = (R.coo_scatter_add_ref(lo.cap_server, lp[0], got_val[0]) != 0) \
+        .any(dim=-1)
+    return dict(idx=idx, mem=mem, lp=lp[0].contiguous(),
+                vals=got_val[0].contiguous(), mask=mask, bms=bms)
+
+
+def scatter_cases(lp: torch.Tensor, vals: torch.Tensor, rows: int, rng):
+    """(name, out, idx, vals) cases for the scatter-add at the server's
+    shapes: the pushed stream into zeros; a non-zero ``out`` with EMPTY,
+    negative and out-of-range indices mixed in; one target repeated 64
+    times among the others."""
+    dev = vals.device
+    cases = [("stream", torch.zeros((rows, vals.shape[1]), dtype=vals.dtype,
+                                    device=dev), lp, vals)]
+    idx = lp.clone()
+    pick = torch.as_tensor(rng.random(idx.numel()) < 0.02, device=dev)
+    junk = torch.as_tensor(rng.choice([2**31 - 1, -1, -7, rows, rows + 5],
+                                      size=idx.numel()), device=dev)
+    idx = torch.where(pick, junk.to(torch.int32), idx).contiguous()
+    out = torch.randn((rows, vals.shape[1]), device=dev).to(vals.dtype)
+    out[torch.as_tensor(rng.random(rows) < 0.5, device=dev)] = 0
+    cases.append(("nonzero-out+junk", out, idx, vals))
+    rep = lp.clone()
+    live = torch.nonzero(lp < rows)[:, 0]
+    rep[live[torch.as_tensor(rng.choice(live.numel(), 64, replace=False),
+                             device=dev)]] = 3
+    cases.append(("repeat64", out, rep.contiguous(), vals))
+    return cases
 
 
 def cuda_time_ms(fn, iters: int = 20) -> float:
@@ -179,6 +230,10 @@ def phase_kernels(dev) -> dict:
         f"L={lo.cap_pull} cap_server={lo.cap_server}")
     rng = np.random.default_rng(0)
     err = {k: 0.0 for k in K.KERNELS}
+
+    def check(name, a, b, what):
+        err[name] = max(err[name], same(a, b, f"{name} {what}"))
+
     cases = [("realistic", lo, zipf_rows(rng, n, M, SLICE["tokens"], d,
                                          torch.bfloat16, dev)),
              ("dense", lo, dense_rows(rng, n, M, 0.2, d, torch.bfloat16,
@@ -188,35 +243,72 @@ def phase_kernels(dev) -> dict:
     cases.append(("overflow-edge", edge, cases[1][2]))
     shapes = {}
     for name, lay, g in cases:
-        idx, lp, vals, bms = kernel_inputs(g, lay)
+        inp = kernel_inputs(g, lay)
+        idx, lp, vals, bms = (inp[k] for k in ("idx", "lp", "vals", "bms"))
+        seeds = lay.static_seeds()
         for nm, r2 in (("", lay.r2), ("/r2=4", 4)):
-            a = K.zen_encode_fused_op(idx, lay.static_seeds(), n, lay.r1, r2)
-            b = R.zen_encode_ref(idx, lay.static_seeds(), n, lay.r1, r2)
-            err["zen_encode"] = max(err["zen_encode"],
-                                    same(a, b, f"zen_encode {name}{nm}"))
-            log(f"[kernels] zen_encode {name}{nm}: equal "
-                f"(nnz={int((idx != 2**31 - 1).sum())}, ovf={int(b[2])})")
+            a = K.zen_encode_fused_op(idx, seeds, n, lay.r1, r2)
+            b = R.zen_encode_ref(idx, seeds, n, lay.r1, r2)
+            check("zen_encode", a, b, f"{name}{nm}")
+            # the fused kernel against the unfused chain's kernels
+            check("zen_encode", a,
+                  K.zen_encode_unfused(idx, seeds, n, lay.r1, r2),
+                  f"{name}{nm} vs unfused chain")
+            log(f"[kernels] zen_encode {name}{nm}: equal, and to the unfused "
+                f"chain (nnz={int((idx != 2**31 - 1).sum())}, ovf={int(b[2])})")
+        check("hash_stage", K.hash_stage_op(idx, seeds, n, lay.r1),
+              R.hash_stage_ref(idx, seeds, n, lay.r1), name)
+        check("row_compact", [K.row_compact_op(inp["mem"])],
+              [R.row_compact_ref(inp["mem"])], name)
+        mask = inp["mask"]
+        for m_len in (mask.numel(), mask.numel() - 5, 64):   # ragged tails
+            m = mask[:m_len].contiguous()
+            W = -(-m_len // 32)
+            bits = torch.zeros(W * 32, dtype=torch.int32, device=dev)
+            bits[:m_len] = m.to(torch.int32)
+            check("bitmap_pack", [K.bitmap_pack_op(m)],
+                  [R.bitmap_pack_ref(bits)], f"{name} M={m_len}")
+        words = bms.reshape(-1)
+        for length in (words.numel() * 32, lay.cap_server):
+            check("bitmap_unpack", [K.bitmap_unpack_op(words, length)],
+                  [R.bitmap_unpack_ref(words)[:length] != 0],
+                  f"{name} length={length}")
+        log(f"[kernels] hash_stage, row_compact, bitmap_pack, bitmap_unpack "
+            f"{name}: equal (live slots={int(mask.sum())})")
         caps = [lay.cap_pull] + ([97] if name != "realistic" else [])
         for dtype in (torch.float32, torch.bfloat16):
+            v = vals.to(dtype)
+            for cname, out, sidx, _ in scatter_cases(lp, v, lay.cap_server,
+                                                     rng):
+                a = K.coo_scatter_add_op(out.clone(), sidx, v)
+                b = R.coo_scatter_add_ref(out, sidx, v)
+                check("coo_scatter_add", [a], [b], f"{name}/{cname} {dtype}")
             for cap_pull in caps:
-                v = vals.to(dtype)
                 a = K.zen_commit_push_fused_op(lp, v, cap_server=lay.cap_server,
                                                cap_pull=cap_pull)
                 b = R.zen_commit_push_ref(lp, v, cap_server=lay.cap_server,
                                           cap_pull=cap_pull)
-                err["zen_commit_push"] = max(err["zen_commit_push"], same(
-                    a, b, f"zen_commit_push {name} {dtype} cap_pull={cap_pull}"))
-                log(f"[kernels] zen_commit_push {name} {dtype} "
-                    f"cap_pull={cap_pull}: equal (live rows="
+                what = f"{name} {dtype} cap_pull={cap_pull}"
+                check("zen_commit_push", a, b, what)
+                check("zen_commit_push", a, K.zen_commit_push_unfused(
+                    lp, v, cap_server=lay.cap_server, cap_pull=cap_pull),
+                    what + " vs unfused chain")
+                log(f"[kernels] zen_commit_push {what}: equal, and to the "
+                    f"unfused chain (live rows="
                     f"{int((lp < lay.cap_server).sum())}, ovf={int(b[3])})")
+            log(f"[kernels] coo_scatter_add {name} {dtype}: equal (stream, "
+                f"non-zero out + EMPTY/negative/out-of-range, 64 repeats)")
         for cap_pull in caps:
             a = K.zen_commit_pull_fused_op(bms, lay.cap_server, cap_pull)
             b = R.zen_commit_pull_ref(bms, lay.cap_server, cap_pull)
-            err["zen_commit_pull"] = max(err["zen_commit_pull"], same(
-                [a], [b], f"zen_commit_pull {name} cap_pull={cap_pull}"))
-        log(f"[kernels] zen_commit_pull {name}: equal")
+            check("zen_commit_pull", [a], [b], f"{name} cap_pull={cap_pull}")
+            check("zen_commit_pull", [a], [K.zen_commit_pull_unfused(
+                bms, lay.cap_server, cap_pull)],
+                f"{name} cap_pull={cap_pull} vs unfused chain")
+        log(f"[kernels] zen_commit_pull {name}: equal, and to the unfused "
+            f"chain")
         if name == "realistic":
-            shapes = dict(idx=idx, lp=lp, vals=vals, bms=bms, lo=lay)
+            shapes = dict(inp, lo=lay)
     torch.cuda.synchronize()
     return {"err": err, "inputs": shapes}
 
@@ -233,6 +325,18 @@ def phase_zen_sync(dev) -> None:
     b_out, b_st = S.simulate(S.zen_sync, g, layout=lo, backend="torch")
     same([a_out, a_st.sent_words, a_st.overflow],
          [b_out, b_st.sent_words, b_st.overflow], "zen_sync cuda vs torch")
+    for fe, fc in ((False, True), (True, False), (False, False)):
+        for backend in ("cuda", "torch"):
+            c_out, c_st = S.simulate(S.zen_sync, g, layout=lo,
+                                     backend=backend, fused=fe,
+                                     fused_commit=fc)
+            same([c_out, c_st.sent_words, c_st.overflow],
+                 [a_out, a_st.sent_words, a_st.overflow],
+                 f"zen_sync {backend} fused={fe} fused_commit={fc} vs "
+                 f"fused cuda")
+            del c_out
+        log(f"[zen_sync] fused={fe} fused_commit={fc}: cuda and torch equal "
+            f"the fused cuda route bitwise")
     # and the sum every worker receives is the psum of the inputs
     ref = g.float().sum(0)
     if not torch.allclose(a_out[0].float(), ref, atol=0.1, rtol=0.02):
@@ -260,10 +364,12 @@ def phase_trainer(steps: int = 4) -> dict:
         raise AssertionError(f"trainer loss not finite and falling: {losses}")
     if res["overflow"] != 0:
         raise AssertionError(f"trainer overflow {res['overflow']}")
+    on_path = K.path_kernels()
     for k in K.KERNELS:
-        if launches[k] != 8 * steps:
+        want = 8 * steps if k in on_path else 0
+        if launches[k] != want:
             raise AssertionError(f"{k} launched {launches[k]} times, "
-                                 f"expected {8 * steps}")
+                                 f"expected {want}")
         if plain[k]:
             raise AssertionError(f"{k} took the plain route {plain[k]} times")
     # the same run through the plain versions: the sync is bitwise equal,
@@ -275,7 +381,85 @@ def phase_trainer(steps: int = 4) -> dict:
         f"{diff} tok/s={plain_res['tok_per_s']}")
     if diff > 5e-3:
         raise AssertionError(f"kernel and plain routes diverge: {diff}")
-    return {"launches": launches, "plain_route": plain_res, **res}
+    torch.cuda.empty_cache()
+    unf = train_unfused(steps)
+    udiff = max(abs(a - b) for a, b in zip(losses, unf["losses"]))
+    log(f"[trainer] unfused chain: losses={unf['losses']} max |diff| vs "
+        f"fused={udiff} sparse_words={unf['words']} overflow={unf['overflow']}"
+        f" tok/s={unf['tok_per_s']} step_s={unf['step_s']} launches="
+        f"{unf['launches']} plain={unf['plain']}")
+    log(f"[trainer] median step s after the first: fused "
+        f"{np.median(res['step_s'][1:])}, plain route "
+        f"{np.median(plain_res['step_s'][1:])}, unfused chain "
+        f"{np.median(unf['step_s'][1:])}")
+    if not all(np.isfinite(unf["losses"])) \
+            or not unf["losses"][-1] < unf["losses"][0]:
+        raise AssertionError(f"unfused trainer loss not finite and falling: "
+                             f"{unf['losses']}")
+    if max(unf["overflow"]) != 0:
+        raise AssertionError(f"unfused trainer overflow {unf['overflow']}")
+    if unf["words"][-1] != res["sparse_words"]:
+        raise AssertionError(f"unfused sparse words {unf['words'][-1]} != "
+                             f"fused {res['sparse_words']}")
+    if udiff > 5e-3:
+        raise AssertionError(f"unfused and fused routes diverge: {udiff}")
+    on_path = K.path_kernels(**UNFUSED)
+    for k in K.KERNELS:
+        want = 8 * steps if k in on_path else 0
+        if unf["launches"][k] != want:
+            raise AssertionError(f"unfused run: {k} launched "
+                                 f"{unf['launches'][k]} times, expected "
+                                 f"{want}")
+        if unf["plain"][k]:
+            raise AssertionError(f"unfused run: {k} took the plain route "
+                                 f"{unf['plain'][k]} times")
+    for k in on_path:
+        launches[k] = unf["launches"][k]
+    return {"launches": launches, "plain_route": plain_res, "unfused": unf,
+            **res}
+
+
+def train_unfused(steps: int) -> dict:
+    """The smoke trainer (``launch/train.py``'s flags and SyntheticLM
+    batches) with ``SyncConfig(fused_encode=False, fused_commit=False)``,
+    built through ``build_program`` + ``attach_train``: the launcher has
+    no flag for the unfused encode, as the reference's has none."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.zen import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as K
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
+
+    cfg = get_config("qwen2-0.5b")
+    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4),
+                         sync=SyncConfig(scheme="zen", density_budget=0.25,
+                                         **UNFUSED))
+    prog = build_program(cfg, "8x1", tcfg, device="cuda", seed=0)
+    attach_train(prog)
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8, seed=0)))
+    losses, words, ovf, step_s = [], [], [], []
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.time()
+    for _ in range(steps):   # timed as launch/train.py times a logged step
+        b = next(data)
+        t_step = time.time()
+        m = prog.train_step({k: torch.as_tensor(v, device="cuda").long()
+                             for k, v in b.items()})
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t_step)
+        losses.append(float(m["loss"]))
+        words.append(float(m["sync/sparse_sent_words"]))
+        ovf.append(int(float(m["sync/overflow"])))
+    dt = time.time() - t0
+    out = {"losses": losses, "words": words, "overflow": ovf,
+           "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS),
+           "tok_per_s": steps * 8 * 512 / dt, "step_s": step_s}
+    del prog
+    torch.cuda.empty_cache()
+    return out
 
 
 def _kernel_category(name: str) -> str:
@@ -336,44 +520,87 @@ def phase_breakdown(steps: int = 2) -> dict:
     return out
 
 
+def bound(nbytes: int, nops: int = 0) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the compute rate, in ms."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def phase_times(inp: dict, smi: str) -> list:
     from repro_torch.kernels import ops as K, ref as R
 
-    lo, idx, lp, vals, bms = (inp[k] for k in ("lo", "idx", "lp", "vals",
-                                                "bms"))
+    lo, idx, lp, vals, bms, mem, mask = (inp[k] for k in (
+        "lo", "idx", "lp", "vals", "bms", "mem", "mask"))
     n, L, d = lo.n, lo.cap_pull, vals.shape[1]
     W = -(-L // 32)
     live = int((lp < lo.cap_server).sum())
+    touched = int(torch.unique(lp[lp < lo.cap_server]).numel())
     el = vals.element_size()
     seeds = lo.static_seeds()
+    C, k = idx.numel(), len(seeds) - 1
+    Ws = -(-lo.cap_server // 32)
+    bits = torch.zeros(Ws * 32, dtype=torch.int32, device=mask.device)
+    bits[:mask.numel()] = mask.to(torch.int32)
+    words = bms.reshape(-1)
+    out = torch.zeros((lo.cap_server, d), dtype=vals.dtype,
+                      device=vals.device)
+    keep = lp < lo.cap_server
+    lib_idx, lib_vals = lp[keep].long(), vals[keep]
+    # per index: k+1 hashes of 2 fmix32 rounds (8 ops each), 2 xors and a
+    # modulo
+    hash_ops = C * (k + 1) * 19
     rows = {
         "zen_encode": (
             lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
             lambda: R.zen_encode_ref(idx, seeds, n, lo.r1, lo.r2),
-            idx.numel() * 4 + n * (L + W + 1) * 4),
+            C * 4 + n * (L + W + 1) * 4, 0, None),
         "zen_commit_push": (
             lambda: K.zen_commit_push_fused_op(
                 lp, vals, cap_server=lo.cap_server, cap_pull=L),
             lambda: R.zen_commit_push_ref(
                 lp, vals, cap_server=lo.cap_server, cap_pull=L),
             lp.numel() * 4 + live * d * el + L * (4 + d * el)
-            + lo.cap_bitmap_words * 4 + 4),
+            + lo.cap_bitmap_words * 4 + 4, live * d, None),
         "zen_commit_pull": (
             lambda: K.zen_commit_pull_fused_op(bms, lo.cap_server, L),
             lambda: R.zen_commit_pull_ref(bms, lo.cap_server, L),
-            bms.numel() * 4 + n * L * 4),
+            bms.numel() * 4 + n * L * 4, 0, None),
+        "hash_stage": (
+            lambda: K.hash_stage_op(idx, seeds, n, lo.r1),
+            lambda: R.hash_stage_ref(idx, seeds, n, lo.r1),
+            C * 4 * (2 + k), hash_ops, None),
+        "row_compact": (
+            lambda: K.row_compact_op(mem),
+            lambda: R.row_compact_ref(mem),
+            2 * mem.numel() * 4, 0, None),
+        "coo_scatter_add": (
+            lambda: K.coo_scatter_add_op(out, lp, vals),
+            lambda: R.coo_scatter_add_ref(out, lp, vals),
+            lp.numel() * 4 + live * d * el + 2 * touched * d * el, live * d,
+            lambda: out.index_add_(0, lib_idx, lib_vals)),
+        "bitmap_pack": (
+            lambda: K.bitmap_pack_op(mask),
+            lambda: R.bitmap_pack_ref(bits),
+            mask.numel() + Ws * 4, 0, None),
+        "bitmap_unpack": (
+            lambda: K.bitmap_unpack_op(words, words.numel() * 32),
+            lambda: R.bitmap_unpack_ref(words) != 0,
+            words.numel() * 4 + words.numel() * 32, 0, None),
     }
-    out = []
-    for name, (kern, plain, nbytes) in rows.items():
+    res = []
+    for name, (kern, plain, nbytes, nops, lib) in rows.items():
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": "bytes",
-                    "bytes": nbytes})
-        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms from {nbytes} B) | {smi}")
-    return out
+        lib_ms = cuda_time_ms(lib) if lib is not None else None
+        bound_ms, bound_by = bound(nbytes, nops)
+        res.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "bytes": nbytes, "ops": nops})
+        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{lib_ms} ms, bound {bound_ms:.6f} ms by {bound_by} from "
+            f"{nbytes} B / {nops} ops) | {smi}")
+    return res
 
 
 def main(argv=None) -> None:
@@ -407,7 +634,7 @@ def main(argv=None) -> None:
             "max_abs_err": kern["err"][name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "library_ms": row["library_ms"]})
     log(f"[done] {time.time() - t_start:.1f}s | {dev_info['smi']}")
     print(json.dumps({"kernels": table}))
     print(dev_info["smi"])

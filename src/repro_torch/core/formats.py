@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.hashing import compact_rows
+from repro_torch.core.hashing import check_backend, compact_rows
 
 BITS = 32
 
@@ -31,14 +31,35 @@ def pack_rows(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def bitmap_encode(mask: torch.Tensor) -> torch.Tensor:
-    """bool [M] -> int32 [ceil(M/32)] packed words."""
+def bitmap_encode(mask: torch.Tensor, *, backend: str = "torch") -> torch.Tensor:
+    """bool [M] -> int32 [ceil(M/32)] packed words.  ``backend="cuda"``
+    routes through the pack kernel (``kernels/ops.py::bitmap_pack_op``;
+    its plain version for a CPU tensor), with the same words."""
+    check_backend(backend)
+    if backend == "cuda":
+        from repro_torch.kernels import ops  # deferred: kernels import core
+
+        return ops.bitmap_pack_op(mask)
     return pack_rows(mask[None])[0]
 
 
-def bitmap_decode_batch(words: torch.Tensor, length: int) -> torch.Tensor:
-    """int32 [n, W] words -> bool [n, length]: every server bitmap at once."""
+def bitmap_decode(words: torch.Tensor, length: int, *,
+                  backend: str = "torch") -> torch.Tensor:
+    """int32 [W] words -> bool [length]."""
+    return bitmap_decode_batch(words[None], length, backend=backend)[0]
+
+
+def bitmap_decode_batch(words: torch.Tensor, length: int, *,
+                        backend: str = "torch") -> torch.Tensor:
+    """int32 [n, W] words -> bool [n, length]: every server bitmap at once
+    (``backend="cuda"``: one unpack launch over all n*W words)."""
+    check_backend(backend)
     n, W = words.shape
+    if backend == "cuda":
+        from repro_torch.kernels import ops  # deferred: kernels import core
+
+        bits = ops.bitmap_unpack_op(words.reshape(-1), n * W * BITS)
+        return bits.reshape(n, W * BITS)[:, :length]
     w = words.to(torch.int64) & 0xFFFFFFFF
     bits = (w[:, :, None] & _weights(words.device)) != 0
     return bits.reshape(n, W * BITS)[:, :length]

@@ -18,6 +18,10 @@ from typing import NamedTuple, Sequence
 import torch
 
 EMPTY = 2**31 - 1  # sentinel for "no index in this slot"
+# kernel routes: "cuda" goes through kernels/ops.py (the CUDA kernels for
+# CUDA tensors, their plain versions for CPU tensors), "torch" runs the
+# plain versions everywhere
+BACKENDS = ("torch", "cuda")
 
 _MASK32 = 0xFFFFFFFF
 
@@ -73,26 +77,44 @@ def partition_rank(p: torch.Tensor, surv: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(surv, rank, torch.full_like(rank, -1))
 
 
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
 def hierarchical_hash(indices: torch.Tensor, *, n: int, r1: int, r2: int,
-                      k: int, seeds: Sequence[int]) -> HashPartition:
+                      k: int, seeds: Sequence[int],
+                      backend: str = "torch") -> HashPartition:
     """Algorithm 1 on unique EMPTY-padded int32 ``indices`` [C].
 
     ``seeds`` holds k+1 uint32 values: ``seeds[0]`` is ``h0`` (the partition
-    hash every worker must share), ``seeds[1:]`` are ``h1..hk``."""
+    hash every worker must share), ``seeds[1:]`` are ``h1..hk``.
+    ``backend="cuda"`` takes p and the k candidate slots from the hash-stage
+    kernel (``kernels/ops.py::hash_stage_op``); the insertion rounds and the
+    serial rank stay in plain torch on both routes."""
+    check_backend(backend)
     seeds = [int(s) for s in seeds]
     if len(seeds) < k + 1:
         raise ValueError(f"need {k + 1} seeds, got {len(seeds)}")
     row = r1 + r2
     dev = indices.device
     valid = indices != EMPTY
-    p = hash_mod(indices, seeds[0], n).clamp(0, n - 1).to(torch.int64)
+    if backend == "cuda":
+        from repro_torch.kernels import ops  # deferred: kernels/ref.py imports us
+
+        p, q = ops.hash_stage_op(indices, seeds[:k + 1], n, r1)
+        qs = list(q.clamp(0, r1 - 1))   # EMPTY's r1 sentinel never proposes
+    else:
+        p = hash_mod(indices, seeds[0], n)
+        qs = [hash_mod(indices, seeds[i], r1) for i in range(1, k + 1)]
+    p = p.clamp(0, n - 1).to(torch.int64)
     # one extra dump slot at n*row takes the serial writes that do not fit
     memory = torch.full((n * row + 1,), EMPTY, dtype=torch.int32, device=dev)
     empty = torch.full_like(indices, EMPTY)
     pending = valid
     rounds = []
-    for i in range(1, k + 1):
-        slot = p * row + hash_mod(indices, seeds[i], r1).to(torch.int64)
+    for q in qs:
+        slot = p * row + q.to(torch.int64)
         propose = pending & (memory[slot] == EMPTY)
         cand = torch.where(propose, indices, empty)
         memory.scatter_reduce_(0, slot, cand, "amin")
@@ -120,6 +142,19 @@ def row_compact(mem: torch.Tensor) -> torch.Tensor:
                      device=mem.device)
     out.scatter_(1, torch.where(valid, pos, L), mem)   # dead -> dump column
     return out[:, :L].contiguous()
+
+
+def extract_partitions(part: HashPartition, *,
+                       backend: str = "torch") -> torch.Tensor:
+    """Alg. 1 lines 19-23: each partition's live indices compacted to the
+    front in slot order, EMPTY-padded: int32 [n, r1+r2].
+    ``backend="cuda"`` runs the row-compaction kernel."""
+    check_backend(backend)
+    if backend == "cuda":
+        from repro_torch.kernels import ops  # deferred: kernels/ref.py imports us
+
+        return ops.row_compact_op(part.memory)
+    return row_compact(part.memory)
 
 
 def compact_indices(mask: torch.Tensor,

@@ -19,7 +19,10 @@ Outputs keep the leading worker dimension (one synced copy per worker) and
 ``backend`` selects the route of the three kernel stages (encode, commit
 push, pull decode): ``"cuda"`` goes through ``kernels/ops.py`` (the CUDA
 kernels for CUDA tensors), ``"torch"`` calls the plain versions in
-``kernels/ref.py`` directly.  Both give the same bits.
+``kernels/ref.py`` directly.  ``fused`` (encode) and ``fused_commit``
+(push + pull) pick the fused megakernels or the pre-fusion chain of
+smaller kernels (hash stage, row compaction, scatter-add, bitmap pack and
+unpack).  Every combination gives the same bits.
 """
 from __future__ import annotations
 
@@ -30,11 +33,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.hashing import EMPTY, compact_rows, hash_mod
+from repro_torch.core import formats
+from repro_torch.core.hashing import (EMPTY, check_backend, compact_rows,
+                                      extract_partitions, hash_mod,
+                                      hierarchical_hash)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-
-BACKENDS = ("torch", "cuda")
 
 
 class SyncStats(NamedTuple):
@@ -67,11 +71,6 @@ class SimGroup:
         for w in range(1, x.shape[0]):
             acc += x[w]
         return acc.expand_as(x)
-
-
-def _check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
 def _nnz(idx: torch.Tensor) -> torch.Tensor:
@@ -109,6 +108,14 @@ def _scatter_unique(out: torch.Tensor, idx: torch.Tensor,
     full = torch.cat([out, out.new_zeros((1, *out.shape[1:]))])
     full.index_copy_(0, tgt, vals)
     return full[:M]
+
+
+def _coo_reduce(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                *, backend: str = "torch") -> torch.Tensor:
+    """The batched segment-reduce of the server aggregation: ``out [M(, d)]
+    += vals`` at row ``idx``, EMPTY / out-of-range dropped, ``out`` updated
+    in place and returned (``kernels.ops.batched_coo_reduce_op``)."""
+    return kops.batched_coo_reduce_op(out, idx, vals, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -223,17 +230,25 @@ class ZenEncoded(NamedTuple):
 
 
 def zen_encode(dense: torch.Tensor, *, layout: ZenLayout,
-               backend: str = "torch") -> ZenEncoded:
+               backend: str = "torch", fused: bool = True) -> ZenEncoded:
     """Zen stage 1 on every worker: compact the local non-zero rows,
-    hierarchically hash them into n partitions (one encode launch per
-    worker) and gather their values.  Collective-free."""
-    _check_backend(backend)
+    hierarchically hash them into n partitions and gather their values.
+    Collective-free.  ``fused`` runs one encode launch per worker; the
+    unfused chain runs the hash stage, the insertion rounds and the
+    extraction (``hierarchical_hash`` + ``extract_partitions``)."""
+    check_backend(backend)
     lo = layout
     encode = kops.zen_encode_fused_op if backend == "cuda" else kref.zen_encode_ref
     idx, ov_c = compact_rows(_worker_mask(dense), lo.cap_index)      # [n, C]
     pidx, ovf = [], []
     for w in range(dense.shape[0]):
-        p, _occ, o = encode(idx[w], lo.static_seeds(), lo.n, lo.r1, lo.r2)
+        if fused:
+            p, _occ, o = encode(idx[w], lo.static_seeds(), lo.n, lo.r1, lo.r2)
+        else:
+            part = hierarchical_hash(idx[w], n=lo.n, r1=lo.r1, r2=lo.r2,
+                                     k=lo.k, seeds=lo.static_seeds(),
+                                     backend=backend)
+            p, o = extract_partitions(part, backend=backend), part.overflow
         pidx.append(p)
         ovf.append(o)
     pidx = torch.stack(pidx)
@@ -242,13 +257,33 @@ def zen_encode(dense: torch.Tensor, *, layout: ZenLayout,
     return ZenEncoded(pidx=pidx, pval=pval, overflow=ov_c + torch.stack(ovf))
 
 
+def _push_unfused(lp: torch.Tensor, got_val: torch.Tensor, dense, lo,
+                  backend: str):
+    """The pre-fusion server aggregation of every server: scatter-add into
+    a zero [cap_server(, d)] buffer, mask any(row != 0), ascending
+    compaction to cap_pull, value gather, and the server bitmap.  Returns
+    (lpos [n, cap_pull], vals [n, cap_pull(, d)], mask [n, cap_server],
+    overflow [n])."""
+    n = lp.shape[0]
+    bufs = torch.zeros((n, lo.cap_server, *dense.shape[2:]),
+                       dtype=dense.dtype, device=dense.device)
+    for s in range(n):
+        _coo_reduce(bufs[s], lp[s], got_val[s], backend=backend)
+    mask = _worker_mask(bufs)
+    lpos, ov_p = compact_rows(mask, lo.cap_pull)
+    vals = torch.stack([_gather_rows(bufs[s], lpos[s]) for s in range(n)])
+    return lpos, vals, mask, ov_p
+
+
 def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
                layout: ZenLayout, use_hash_bitmap: bool = True,
-               backend: str = "torch"):
-    """Zen stages 2-4: push all_to_all, server aggregation (one push launch
-    per server), bitmap pull (one decode launch per worker) and the
-    collision-free apply.  ``dense`` gives only shapes and dtype."""
-    _check_backend(backend)
+               backend: str = "torch", fused: bool = True):
+    """Zen stages 2-4: push all_to_all, server aggregation, bitmap pull and
+    the collision-free apply.  ``fused`` runs one push launch per server and
+    one pull-decode launch per worker; the unfused chain runs a scatter-add
+    and a pack per server and an unpack per worker, with the compactions in
+    plain torch.  ``dense`` gives only shapes and dtype."""
+    check_backend(backend)
     lo, n = layout, group.n
     M = dense.shape[1]
     vshape = tuple(dense.shape[2:])
@@ -270,14 +305,22 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
                      lo.cap_server).to(torch.int32)
 
     # --- 3. server aggregation + pull payload --------------------------------
-    lpos, vals, bms, ov_p = [], [], [], []
-    for s in range(n):
-        res = push(lp[s], got_val[s], cap_server=lo.cap_server,
-                   cap_pull=cap_pull)
-        for acc, x in zip((lpos, vals, bms, ov_p), res):
-            acc.append(x)
-    lpos, vals = torch.stack(lpos), torch.stack(vals)
-    bms, ov_p = torch.stack(bms), torch.stack(ov_p)
+    if fused:
+        lpos, vals, bms, ov_p = [], [], [], []
+        for s in range(n):
+            res = push(lp[s], got_val[s], cap_server=lo.cap_server,
+                       cap_pull=cap_pull)
+            for acc, x in zip((lpos, vals, bms, ov_p), res):
+                acc.append(x)
+        lpos, vals = torch.stack(lpos), torch.stack(vals)
+        bms, ov_p = torch.stack(bms), torch.stack(ov_p)
+    else:
+        lpos, vals, srv_mask, ov_p = _push_unfused(lp, got_val, dense, lo,
+                                                   backend)
+        if use_hash_bitmap:
+            bms = torch.stack([formats.bitmap_encode(srv_mask[s],
+                                                     backend=backend)
+                               for s in range(n)])
 
     # --- 4. Pull --------------------------------------------------------------
     all_val = group.all_gather(vals).reshape(-1, *vshape)     # [n*cap_pull,..]
@@ -285,7 +328,11 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
         all_bm = group.all_gather(bms)                        # [n, W]
         globs = []
         for _w in range(n):   # every worker decodes the gathered bitmaps
-            lpos_all = pull(all_bm, lo.cap_server, cap_pull)
+            if fused:
+                lpos_all = pull(all_bm, lo.cap_server, cap_pull)
+            else:
+                lpos_all = compact_rows(formats.bitmap_decode_batch(
+                    all_bm, lo.cap_server, backend=backend), cap_pull)[0]
             gidx = (tabs["offsets"][:n, None] + lpos_all).clamp(0, M - 1)
             globs.append(torch.where(lpos_all == EMPTY, EMPTY,
                                      tabs["perm"][gidx]))
@@ -309,12 +356,15 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
 
 
 def zen_sync(dense: torch.Tensor, *, group: SimGroup, layout: ZenLayout,
-             use_hash_bitmap: bool = True, backend: str = "torch"):
+             use_hash_bitmap: bool = True, backend: str = "torch",
+             fused: bool = True, fused_commit: bool = True):
     """Zen synchronization of [n, M(, d)] worker gradients: Alg. 1 push +
-    Alg. 2 (hash bitmap) pull; ``use_hash_bitmap=False`` pulls COO."""
-    enc = zen_encode(dense, layout=layout, backend=backend)
+    Alg. 2 (hash bitmap) pull; ``use_hash_bitmap=False`` pulls COO.
+    ``fused`` / ``fused_commit`` pick the encode / commit kernel route."""
+    enc = zen_encode(dense, layout=layout, backend=backend, fused=fused)
     return zen_commit(enc, dense, group=group, layout=layout,
-                      use_hash_bitmap=use_hash_bitmap, backend=backend)
+                      use_hash_bitmap=use_hash_bitmap, backend=backend,
+                      fused=fused_commit)
 
 
 def simulate(fn, per_worker_dense: torch.Tensor, **kwargs):

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import buckets as bk
 from repro_torch.core import schemes
+from repro_torch.core.hashing import check_backend
 from repro_torch.core.schemes import SimGroup, SyncStats, make_zen_layout
 from repro_torch.train import schedule
 
@@ -36,8 +37,10 @@ class SyncConfig:
     # Route of Zen's encode / commit / pull stages: "cuda" runs the CUDA
     # kernels (their plain versions for CPU tensors), "torch" the plain
     # versions everywhere.  "cuda" is the counterpart of the reference's
-    # "pallas" route with both fusions on; "torch" of its "xla" route.
+    # "pallas" route; "torch" of its "xla" route.
     backend: str = "cuda"
+    # the fused encode / commit megakernels, or the pre-fusion chain of
+    # smaller kernels; the same bits either way
     fused_encode: bool = True
     fused_commit: bool = True
     calib_file: str | None = None
@@ -60,9 +63,6 @@ def _unsupported(cfg: SyncConfig) -> str | None:
         return "measured-cost calibration: ROADMAP queue 1, item 7"
     if cfg.alpha_beta is not None:
         return "two-level topologies: ROADMAP queue 1, item 9"
-    if not (cfg.fused_encode and cfg.fused_commit):
-        return ("the unfused encode/commit chains: ROADMAP queue 2, "
-                "items 4-7 (their kernels)")
     return None
 
 
@@ -82,9 +82,7 @@ class GradSync:
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(f"GradSync: {why}")
-        if cfg.backend not in schemes.BACKENDS:
-            raise ValueError(f"backend must be one of {schemes.BACKENDS}, "
-                             f"got {cfg.backend!r}")
+        check_backend(cfg.backend)
         self.cfg = cfg
         self.n_data = n_data
         self.group = SimGroup(n_data)
@@ -122,7 +120,8 @@ class GradSync:
         values); everything else passes through."""
         if bucket.key in self._layouts:
             enc = schemes.zen_encode(payload, layout=self._layouts[bucket.key],
-                                     backend=self.cfg.backend)
+                                     backend=self.cfg.backend,
+                                     fused=self.cfg.fused_encode)
             return (payload, enc)
         return (payload,)
 
@@ -139,7 +138,7 @@ class GradSync:
                 enc[1], g, group=self.group,
                 layout=self._layouts[bucket.key],
                 use_hash_bitmap=self.cfg.use_hash_bitmap,
-                backend=self.cfg.backend)
+                backend=self.cfg.backend, fused=self.cfg.fused_commit)
         else:
             out, st = schemes.dense_sync(g, group=self.group)
         if out.stride(0) == 0:   # one psum result seen by every worker

@@ -19,6 +19,8 @@
 //   4. per slot: sort its few row ids ascending (= stream order), sum the
 //      rows column by column in that order, write the slot's buffer row and
 //      its mask any(row != 0) (-0.0 counts as zero);
+//      (steps 1, 3 and 4's sort and sum are csr_by_target.cuh's, shared
+//      with the scatter-add, csrc/scatter_add.cu);
 //   5. one CTA: ascending compaction of the mask to cap_pull (block scan),
 //      the LSB-first bitmap words (__ballot_sync) and the overflow count;
 //   6. gather the kept slots' rows into the pull payload, zero the rest.
@@ -35,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
+#include "csr_by_target.cuh"
 
 namespace {
 
@@ -42,19 +45,10 @@ constexpr int kScanThreads = 1024;
 constexpr int kRowThreads = 128;
 constexpr int kStreamThreads = 256;
 
-__device__ __forceinline__ bool live_slot(int v, int cap_server) {
-  return (unsigned)v < (unsigned)cap_server;  // EMPTY and negatives drop
-}
-
-__global__ void zen_count_kernel(const int* __restrict__ lp, int C,
-                                 int cap_server, int* __restrict__ cnt) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < C && live_slot(lp[r], cap_server)) atomicAdd(&cnt[lp[r]], 1);
-}
-
+// start[s] = cursor[s] = exclusive prefix sum of cnt over the slots.
 __global__ void __launch_bounds__(kScanThreads)
 zen_scan_kernel(const int* __restrict__ cnt, int cap_server,
-                int* __restrict__ start) {
+                int* __restrict__ start, int* __restrict__ cursor) {
   __shared__ int warp_sums[32];
   int base = 0;
   for (int s0 = 0; s0 < cap_server; s0 += blockDim.x) {
@@ -62,47 +56,10 @@ zen_scan_kernel(const int* __restrict__ cnt, int cap_server,
     const int v = s < cap_server ? cnt[s] : 0;
     int tile = 0;
     const int e = zen::block_excl_scan(v, warp_sums, tile);
-    if (s < cap_server) start[s] = base + e;
+    if (s < cap_server) start[s] = cursor[s] = base + e;
     base += tile;
   }
 }
-
-__global__ void zen_fill_kernel(const int* __restrict__ lp, int C,
-                                int cap_server, const int* __restrict__ start,
-                                int* __restrict__ cursor,
-                                int* __restrict__ list) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < C && live_slot(lp[r], cap_server)) {
-    const int s = lp[r];
-    list[start[s] + atomicAdd(&cursor[s], 1)] = r;
-  }
-}
-
-template <typename T>
-struct Acc;
-
-template <>
-struct Acc<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float add(float a, float v) {
-    return __fadd_rn(a, v);
-  }
-  static __device__ __forceinline__ float store(float a) { return a; }
-};
-
-template <>
-struct Acc<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  // one rounding to bf16 per add, exactly as a bf16 scatter-add
-  static __device__ __forceinline__ float add(float a, float v) {
-    return __bfloat162float(__float2bfloat16_rn(__fadd_rn(a, v)));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float a) {
-    return __float2bfloat16_rn(a);
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
@@ -117,27 +74,9 @@ zen_aggregate_kernel(const T* __restrict__ vals, int d,
     return;
   }
   int* seg = list + start[s];
-  if (threadIdx.x == 0) {  // segments hold a few rows: insertion sort
-    for (int a = 1; a < m; ++a) {
-      const int key = seg[a];
-      int b = a - 1;
-      while (b >= 0 && seg[b] > key) {
-        seg[b + 1] = seg[b];
-        --b;
-      }
-      seg[b + 1] = key;
-    }
-  }
-  __syncthreads();
-  int nz = 0;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = 0.0f;
-    for (int e = 0; e < m; ++e)
-      acc = Acc<T>::add(acc, Acc<T>::load(vals + (size_t)seg[e] * d + c));
-    buf[(size_t)s * d + c] = Acc<T>::store(acc);
-    nz |= acc != 0.0f;
-  }
-  nz = __syncthreads_or(nz);
+  zen::sort_segment(seg, m);
+  const int nz = __syncthreads_or(zen::ordered_row_sum<T>(
+      vals, d, seg, m, nullptr, buf + (size_t)s * d));
   if (threadIdx.x == 0) mask[s] = nz;
 }
 
@@ -173,7 +112,7 @@ zen_gather_kernel(const int* __restrict__ lpos, const T* __restrict__ buf,
   T* dst = out + (size_t)j * d;
   if (s == ZEN_EMPTY) {
     for (int c = threadIdx.x; c < d; c += blockDim.x)
-      dst[c] = Acc<T>::store(0.0f);
+      dst[c] = zen::Acc<T>::store(0.0f);
     return;
   }
   const T* src = buf + (size_t)s * d;
@@ -217,17 +156,19 @@ int push(const int* lp, const T* vals, int C, int d, int cap_server,
   int* mask = start + cap_server;      // [cap_server]
   int* list = mask + cap_server;       // [C]
   cudaError_t err =
-      cudaMemsetAsync(cnt, 0, 2 * (size_t)cap_server * sizeof(int), st);
+      cudaMemsetAsync(cnt, 0, (size_t)cap_server * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   const int gs = (C + kStreamThreads - 1) / kStreamThreads;
   if (C > 0)
-    zen_count_kernel<<<gs, kStreamThreads, 0, st>>>(lp, C, cap_server, cnt);
+    zen::csr_count_kernel<<<gs, kStreamThreads, 0, st>>>(
+        lp, C, cap_server, cnt, nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  zen_scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, cap_server, start);
+  zen_scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, cap_server, start,
+                                              cursor);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (C > 0)
-    zen_fill_kernel<<<gs, kStreamThreads, 0, st>>>(lp, C, cap_server, start,
-                                                   cursor, list);
+    zen::csr_fill_kernel<<<gs, kStreamThreads, 0, st>>>(lp, C, cap_server,
+                                                        cursor, list);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   zen_aggregate_kernel<T><<<cap_server, kRowThreads, 0, st>>>(
       vals, d, cnt, start, list, buf, mask);

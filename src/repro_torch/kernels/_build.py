@@ -17,7 +17,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("zen_encode", "zen_commit")
+SOURCES = ("zen_encode", "zen_commit", "hash_stage", "row_compact", "bitmap",
+           "scatter_add")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -7,7 +7,15 @@ device from its tensors: a CUDA tensor launches the hand-written kernel
 
 ``LAUNCHES[name]`` counts kernel launches and ``PLAIN_CALLS[name]`` counts
 calls that took the plain version; ``reset_counts()`` zeroes both.  The
-counters are plain integers so a run can show which route its path took.
+counters are plain integers so a run can show which route its path took;
+``path_kernels`` names the kernels a Zen sync route launches.
+
+Two kernel sets carry the Zen sync.  The fused route (the default) runs the
+three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
+and/or ``fused_commit=False``) runs the pre-fusion chain of five smaller
+kernels, whose compositions ``zen_encode_unfused``,
+``zen_commit_push_unfused`` and ``zen_commit_pull_unfused`` give the fused
+kernels' outputs bit for bit.
 """
 from __future__ import annotations
 
@@ -16,11 +24,16 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.hashing import (EMPTY, check_backend, compact_indices,
+                                      compact_rows, hierarchical_hash)
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 BITS = 32
-KERNELS = ("zen_encode", "zen_commit_push", "zen_commit_pull")
+FUSED_KERNELS = ("zen_encode", "zen_commit_push", "zen_commit_pull")
+UNFUSED_KERNELS = ("hash_stage", "row_compact", "coo_scatter_add",
+                   "bitmap_pack", "bitmap_unpack")
+KERNELS = FUSED_KERNELS + UNFUSED_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -38,6 +51,24 @@ _SIGNATURES = {
         "zen_commit_pull_launch": ([_P, _I, _I, _I, _I, _P, _P], _I),
         "zen_commit_error_string": ([_I], ctypes.c_char_p),
     },
+    "hash_stage": {
+        "hash_stage_launch": ([_P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+        "hash_stage_error_string": ([_I], ctypes.c_char_p),
+    },
+    "row_compact": {
+        "row_compact_launch": ([_P, _I, _I, _P, _P], _I),
+        "row_compact_error_string": ([_I], ctypes.c_char_p),
+    },
+    "bitmap": {
+        "bitmap_pack_launch": ([_P, _I, _P, _P], _I),
+        "bitmap_unpack_launch": ([_P, _I, _P, _P], _I),
+        "bitmap_error_string": ([_I], ctypes.c_char_p),
+    },
+    "scatter_add": {
+        "scatter_add_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "scatter_add_iscratch": ([_I, _I], _LL),
+        "scatter_add_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 
@@ -46,6 +77,20 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+
+
+def path_kernels(fused_encode: bool = True, fused_commit: bool = True,
+                 use_hash_bitmap: bool = True) -> tuple[str, ...]:
+    """The kernels one Zen sync launches on a route, each once per worker
+    (encode, pull decode) or server (commit push) of the group."""
+    enc = ("zen_encode",) if fused_encode else ("hash_stage", "row_compact")
+    if fused_commit:
+        com = ("zen_commit_push",) + (
+            ("zen_commit_pull",) if use_hash_bitmap else ())
+    else:
+        com = ("coo_scatter_add",) + (
+            ("bitmap_pack", "bitmap_unpack") if use_hash_bitmap else ())
+    return enc + com
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -159,3 +204,190 @@ def zen_commit_pull_fused_op(words: torch.Tensor, cap_server: int,
     _check(lib, "zen_commit", rc, "zen_commit_pull launch")
     LAUNCHES["zen_commit_pull"] += 1
     return lpos
+
+
+# ---------------------------------------------------------------------------
+# The pre-fusion chain's kernels
+# ---------------------------------------------------------------------------
+
+def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
+                  r1: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 1's hash stage: indices int32 [C] (EMPTY-padded) -> (p int32
+    [C], q int32 [k, C]) with k = len(seeds) - 1; EMPTY maps to (n, r1)."""
+    if not indices.is_cuda:
+        PLAIN_CALLS["hash_stage"] += 1
+        return ref.hash_stage_ref(indices, seeds, n, r1)
+    _need(indices, torch.int32, 1, "hash_stage indices")
+    seeds = [int(s) & 0xFFFFFFFF for s in seeds]
+    lib = _lib("hash_stage")
+    C, k = indices.shape[0], len(seeds) - 1
+    p = torch.empty((C,), dtype=torch.int32, device=indices.device)
+    q = torch.empty((k, C), dtype=torch.int32, device=indices.device)
+    sd = (ctypes.c_uint * len(seeds))(*seeds)
+    rc = lib.hash_stage_launch(indices.data_ptr(), C, ctypes.cast(sd, _P),
+                               len(seeds), n, r1, p.data_ptr(), q.data_ptr(),
+                               _stream(indices))
+    _check(lib, "hash_stage", rc, "hash_stage launch")
+    LAUNCHES["hash_stage"] += 1
+    return p, q
+
+
+def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
+    """int32 [R, L] -> [R, L]: each row's live (non-EMPTY) entries to the
+    front in slot order, EMPTY-padded tail."""
+    if not mem.is_cuda:
+        PLAIN_CALLS["row_compact"] += 1
+        return ref.row_compact_ref(mem)
+    _need(mem, torch.int32, 2, "row_compact mem")
+    lib = _lib("row_compact")
+    R, L = mem.shape
+    out = torch.empty_like(mem)
+    rc = lib.row_compact_launch(mem.data_ptr(), R, L, out.data_ptr(),
+                                _stream(mem))
+    _check(lib, "row_compact", rc, "row_compact launch")
+    LAUNCHES["row_compact"] += 1
+    return out
+
+
+def bitmap_pack_op(mask: torch.Tensor) -> torch.Tensor:
+    """bool [M] -> int32 words [ceil(M/32)], LSB first (the reference's
+    uint32 bits)."""
+    M = mask.shape[0]
+    W = -(-M // BITS)
+    if not mask.is_cuda:
+        PLAIN_CALLS["bitmap_pack"] += 1
+        bits = torch.zeros(W * BITS, dtype=torch.int32, device=mask.device)
+        bits[:M] = mask.to(torch.int32)
+        return ref.bitmap_pack_ref(bits)
+    _need(mask, torch.bool, 1, "bitmap_pack mask")
+    lib = _lib("bitmap")
+    words = torch.empty((W,), dtype=torch.int32, device=mask.device)
+    rc = lib.bitmap_pack_launch(mask.data_ptr(), M, words.data_ptr(),
+                                _stream(mask))
+    _check(lib, "bitmap", rc, "bitmap_pack launch")
+    LAUNCHES["bitmap_pack"] += 1
+    return words
+
+
+def bitmap_unpack_op(words: torch.Tensor, length: int) -> torch.Tensor:
+    """int32 words [W] -> bool [length], length <= 32 W: bit i is bit
+    (i mod 32) of word i // 32."""
+    if length > words.shape[0] * BITS:
+        raise ValueError(f"bitmap_unpack: length {length} exceeds the "
+                         f"{words.shape[0] * BITS} bits of the words")
+    if not words.is_cuda:
+        PLAIN_CALLS["bitmap_unpack"] += 1
+        return ref.bitmap_unpack_ref(words)[:length] != 0
+    _need(words, torch.int32, 1, "bitmap_unpack words")
+    lib = _lib("bitmap")
+    bits = torch.empty((length,), dtype=torch.bool, device=words.device)
+    rc = lib.bitmap_unpack_launch(words.data_ptr(), length, bits.data_ptr(),
+                                  _stream(words))
+    _check(lib, "bitmap", rc, "bitmap_unpack launch")
+    LAUNCHES["bitmap_unpack"] += 1
+    return bits
+
+
+def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
+                       vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx[i]] += vals[i]`` IN PLACE, and returns ``out`` [M, d].
+
+    EMPTY, negative and >= M indices are dropped; duplicates accumulate in
+    stream order, in the values' dtype (one rounding per add), starting
+    from ``out``'s row.  Only touched rows of ``out`` are read and written.
+    ``out`` and ``vals`` share a dtype (float32 or bfloat16)."""
+    if not out.is_cuda:
+        PLAIN_CALLS["coo_scatter_add"] += 1
+        return out.copy_(ref.coo_scatter_add_ref(out, idx, vals))
+    _need(idx, torch.int32, 1, "coo_scatter_add idx")
+    if out.dtype not in _DTYPE_CODE or vals.dtype != out.dtype:
+        raise ValueError(f"coo_scatter_add: out and vals must share a dtype "
+                         f"of float32 or bfloat16, got {out.dtype} and "
+                         f"{vals.dtype}")
+    _need(out, out.dtype, 2, "coo_scatter_add out")
+    _need(vals, vals.dtype, 2, "coo_scatter_add vals")
+    if not (vals.device == idx.device == out.device) \
+            or vals.shape != (idx.shape[0], out.shape[1]):
+        raise ValueError(f"coo_scatter_add: need idx [C], vals [C, d] and "
+                         f"out [M, d] on one device, got {tuple(idx.shape)}, "
+                         f"{tuple(vals.shape)}, {tuple(out.shape)}")
+    (M, d), C = out.shape, idx.shape[0]
+    if C == 0 or M == 0:
+        return out
+    lib = _lib("scatter_add")
+    iscr = torch.empty((lib.scatter_add_iscratch(C, M),), dtype=torch.int32,
+                       device=out.device)
+    rc = lib.scatter_add_launch(idx.data_ptr(), vals.data_ptr(), C, d,
+                                _DTYPE_CODE[out.dtype], M, out.data_ptr(),
+                                iscr.data_ptr(), _stream(out))
+    _check(lib, "scatter_add", rc, "coo_scatter_add launch")
+    LAUNCHES["coo_scatter_add"] += 1
+    return out
+
+
+def batched_coo_reduce_op(out: torch.Tensor, idx: torch.Tensor,
+                          vals: torch.Tensor, *,
+                          backend: str = "torch") -> torch.Tensor:
+    """The flattened segment-reduce every scheme's server aggregation
+    shares: COO segments ``idx [..]`` / ``vals [.., (d)]`` of any leading
+    shape scatter-added into ``out [M(, d)]``, which is updated IN PLACE
+    and returned.  EMPTY and out-of-range indices are dropped.
+    ``backend="cuda"`` runs the scatter-add kernel (its plain version for a
+    CPU tensor), ``"torch"`` the plain version."""
+    check_backend(backend)
+    idx = idx.reshape(-1).contiguous()
+    out2 = out[:, None] if out.ndim == 1 else out
+    vals2 = vals.reshape(idx.shape[0], out2.shape[1]).contiguous()
+    if backend == "cuda":
+        coo_scatter_add_op(out2, idx, vals2)
+    else:
+        out2.copy_(ref.coo_scatter_add_ref(out2, idx, vals2))
+    return out
+
+
+def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
+    """bool [n, L] -> int32 words [n, ceil(L/32)]: rows are padded to a
+    word boundary and packed in one launch."""
+    n, L = mask.shape
+    W = -(-L // BITS)
+    m = torch.zeros((n, W * BITS), dtype=torch.bool, device=mask.device)
+    m[:, :L] = mask
+    return bitmap_pack_op(m.reshape(-1)).reshape(n, W)
+
+
+def zen_encode_unfused(indices: torch.Tensor, seeds: Sequence[int], n: int,
+                       r1: int, r2: int):
+    """The pre-fusion encode chain: hash-stage kernel + plain insertion
+    rounds + row-compaction kernel + pack kernel; the same outputs as
+    ``zen_encode_fused_op``."""
+    part = hierarchical_hash(indices, n=n, r1=r1, r2=r2, k=len(seeds) - 1,
+                             seeds=seeds, backend="cuda")
+    pidx = row_compact_op(part.memory)
+    return pidx, bitmap_pack_rows_op(pidx != EMPTY), part.overflow
+
+
+def zen_commit_push_unfused(lp: torch.Tensor, vals: torch.Tensor, *,
+                            cap_server: int, cap_pull: int):
+    """The pre-fusion commit push: scatter-add kernel + plain compaction
+    and gather + pack kernel; the same outputs as
+    ``zen_commit_push_fused_op``."""
+    squeeze = vals.ndim == 1
+    v2 = vals[:, None] if squeeze else vals
+    buf = coo_scatter_add_op(
+        torch.zeros((cap_server, v2.shape[-1]), dtype=v2.dtype,
+                    device=v2.device), lp, v2.contiguous())
+    mask = (buf != 0).any(dim=-1)
+    lpos, overflow = compact_indices(mask, cap_pull)
+    dead = lpos == EMPTY
+    out = buf[torch.where(dead, 0, lpos).to(torch.int64)]
+    out = torch.where(dead[:, None], torch.zeros_like(out), out)
+    return lpos, (out[:, 0] if squeeze else out), bitmap_pack_op(mask), overflow
+
+
+def zen_commit_pull_unfused(words: torch.Tensor, cap_server: int,
+                            cap_pull: int) -> torch.Tensor:
+    """The pre-fusion pull decode: unpack kernel over all n*W words + plain
+    row compaction; the same output as ``zen_commit_pull_fused_op``."""
+    n, W = words.shape
+    bits = bitmap_unpack_op(words.reshape(-1), n * W * BITS)
+    return compact_rows(bits.reshape(n, W * BITS)[:, :cap_server], cap_pull)[0]

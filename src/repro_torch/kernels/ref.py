@@ -4,6 +4,7 @@ Port of ``repro.kernels.ref``.  Each function here is the plain version of
 one hand-written kernel in ``csrc/``: the CPU tests hold it against the JAX
 reference, and ``chip_smoke.py`` holds the kernel against it on the card.
 They run on any device; ``kernels/ops.py`` takes them for CPU tensors.
+Bitmap words are int32 tensors carrying the reference's uint32 bits.
 """
 from __future__ import annotations
 
@@ -11,24 +12,61 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.formats import bitmap_decode_compact, bitmap_encode, pack_rows
-from repro_torch.core.hashing import (EMPTY, compact_indices, hierarchical_hash,
-                                      row_compact)
+from repro_torch.core.formats import (BITS, bitmap_decode_compact,
+                                      bitmap_encode, pack_rows)
+from repro_torch.core.hashing import (EMPTY, compact_indices, hash_u32,
+                                      hierarchical_hash)
+# the cumsum + scatter compaction IS the plain route's extraction, so the
+# kernel's plain version is an alias, as in the reference
+from repro_torch.core.hashing import row_compact as row_compact_ref  # noqa: F401
 
 
-def coo_scatter_add_ref(out_rows: int, idx: torch.Tensor,
+def hash_stage_ref(indices: torch.Tensor, seeds: Sequence[int], n: int,
+                   r1: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hash stage of Alg. 1: p = h0(idx) mod n and q_i = h_i(idx) mod
+    r1 for the k seeds after the first.  indices int32 [C] (EMPTY-padded)
+    -> (p int32 [C], q int32 [k, C]); EMPTY maps to the (n, r1) sentinels."""
+    valid = indices != EMPTY
+    seeds = [int(s) for s in seeds]
+    p = (hash_u32(indices, seeds[0]) % n).to(torch.int32)
+    qs = [torch.where(valid, (hash_u32(indices, s) % r1).to(torch.int32), r1)
+          for s in seeds[1:]]
+    return torch.where(valid, p, n), torch.stack(qs)
+
+
+def bitmap_pack_ref(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 [W*32] -> int32 [W] packed words (LSB first)."""
+    return pack_rows(bits.reshape(-1, BITS) != 0)[:, 0]
+
+
+def bitmap_unpack_ref(words: torch.Tensor) -> torch.Tensor:
+    """int32 [W] words -> int32 0/1 [W*32]."""
+    w = words.to(torch.int64)[:, None] & 0xFFFFFFFF
+    shift = torch.arange(BITS, dtype=torch.int64, device=words.device)
+    return ((w >> shift) & 1).reshape(-1).to(torch.int32)
+
+
+def coo_scatter_add_ref(out: int | torch.Tensor, idx: torch.Tensor,
                         vals: torch.Tensor) -> torch.Tensor:
-    """``out[idx[i]] += vals[i]`` into zeros [out_rows, d]; EMPTY and
-    out-of-range rows dropped; duplicates accumulate in stream order, in the
-    values' dtype (one rounding per add, as the reference's scatter-add).
+    """``out[idx[i]] += vals[i]``, returned as a new tensor; an int ``out``
+    means zeros of that many rows.  EMPTY, negative and out-of-range rows
+    are dropped (the reference's kernel drops negatives; its XLA route,
+    which no caller feeds one, wraps them).  Duplicates accumulate in
+    stream order, in the values' dtype, starting from ``out``'s row (one
+    rounding per add, as the reference's scatter-add).
 
     Stream order per target is kept by adding occurrence by occurrence: pass
     ``j`` adds every row that is the ``j``-th occurrence of its target, so
     targets are unique within a pass and ``index_add_`` is exact whatever
     its internal order."""
-    C = idx.shape[0]
-    live = (idx >= 0) & (idx < out_rows)
-    tgt = torch.where(live, idx.to(torch.int64), out_rows)
+    if isinstance(out, int):
+        out = torch.zeros((out, vals.shape[-1]), dtype=vals.dtype,
+                          device=vals.device)
+    else:
+        out = out.clone()
+    rows, C = out.shape[0], idx.shape[0]
+    live = (idx >= 0) & (idx < rows)
+    tgt = torch.where(live, idx.to(torch.int64), rows)
     order = torch.argsort(tgt, stable=True)
     srt = tgt[order]
     pos = torch.arange(C, device=idx.device)
@@ -38,8 +76,6 @@ def coo_scatter_add_ref(out_rows: int, idx: torch.Tensor,
     occ = torch.empty_like(pos)
     occ[order] = pos - run_start
     occ = torch.where(live, occ, -1)
-    out = torch.zeros((out_rows, vals.shape[-1]), dtype=vals.dtype,
-                      device=vals.device)
     for j in range(int(occ.max().item()) + 1 if C else 0):
         sel = occ == j
         out.index_add_(0, tgt[sel], vals[sel])
@@ -54,7 +90,7 @@ def zen_encode_ref(indices: torch.Tensor, seeds: Sequence[int], n: int,
     overflow int32 scalar)."""
     part = hierarchical_hash(indices, n=n, r1=r1, r2=r2, k=len(seeds) - 1,
                              seeds=seeds)
-    pidx = row_compact(part.memory)
+    pidx = row_compact_ref(part.memory)
     return pidx, pack_rows(pidx != EMPTY), part.overflow
 
 

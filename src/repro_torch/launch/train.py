@@ -8,6 +8,9 @@ The D ranks of a ``Dx1`` mesh are held in one process (train/steps.py).
 Flags the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.  ``--no-zero1`` is accepted: the port always
 runs the full update, which gives the same numbers as ZeRO-1.
+``--no-fused-commit`` runs Zen's commit through the pre-fusion chain of
+kernels (scatter-add, bitmap pack and unpack) instead of the push and pull
+megakernels, with the same results.
 """
 from __future__ import annotations
 

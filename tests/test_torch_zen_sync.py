@@ -1,10 +1,15 @@
 """Port parity: ``zen_sync`` on the simulated group against the reference's
 ``schemes.simulate(schemes.zen_sync, ..., backend="xla")``, bitwise on the
-synced values, the wire words and the overflow counts, plus GradSync.
+synced values, the wire words and the overflow counts, plus GradSync; on
+the fused route and on the unfused chains (``fused_encode=False`` and/or
+``fused_commit=False``), which the reference's contract makes bitwise equal
+to its "xla" route.
 
 Inputs are integer-valued worker gradients (``_integer_workers`` of
 tests/test_zen_commit_fused.py), so sums are exact in bf16 too; the hash
 seeds are the reference layout's."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -18,9 +23,12 @@ from repro.core.zen import GradSync as RefGradSync
 from repro.core.zen import SyncConfig as RefSyncConfig
 from repro_torch.core import schemes as TS
 from repro_torch.core.zen import GradSync, SyncConfig
+from repro_torch.kernels import ops as tops
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
+ROUTES = [(False, True), (True, False), (False, False)]
+ROUTE_IDS = ["encode-unfused", "commit-unfused", "both-unfused"]
 
 
 def _integer_workers(seed, n, m, density, dtype, d=None):
@@ -129,7 +137,121 @@ def test_gradsync_matches_reference(scheme):
 def test_gradsync_rejects_unported_settings():
     leaves = [("embed/table", (64, 4))]
     for cfg in (SyncConfig(scheme="agsparse"), SyncConfig(scheme="auto"),
-                SyncConfig(compress="topk:0.01"), SyncConfig(bucket_bytes=1024),
-                SyncConfig(fused_commit=False)):
+                SyncConfig(compress="topk:0.01"), SyncConfig(bucket_bytes=1024)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GradSync(cfg, ["embed/table"], leaves, 4)
+    # the unfused chains run (tests/test_torch_unfused_chain.py holds them
+    # against the reference)
+    for cfg in (SyncConfig(fused_commit=False), SyncConfig(fused_encode=False)):
+        g = torch.zeros((4, 64, 4))
+        g[:, :8] = 1.0
+        out, st = GradSync(cfg, ["embed/table"], leaves, 4)({"embed/table": g})
+        assert torch.equal(out["embed/table"], g)
+        assert not st["sync/overflow"].any()
+
+
+# ---------------------------------------------------------------------------
+# the unfused routes (fused_encode=False and/or fused_commit=False): the same
+# cases and reference programs as above
+# ---------------------------------------------------------------------------
+
+N, MLEN = 4, 1 << 11
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_case(density, dtype, mode):
+    """(reference result, port inputs, port layout) of one zen_sync case;
+    one layout sized for density 1.0 serves every density."""
+    d = None if mode == "element" else 8
+    jd, td = DTYPES[dtype]
+    vals = _integer_workers(2, N, MLEN, density, jd, d)
+    lo = S.make_zen_layout(MLEN, N, density_budget=1.0)
+    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla")
+    tlo = TS.make_zen_layout(MLEN, N, density_budget=1.0, seeds=lo.seeds)
+    return ref, _to_torch(vals, td), tlo
+
+
+@pytest.mark.parametrize("fused,fused_commit", ROUTES, ids=ROUTE_IDS)
+@pytest.mark.parametrize("mode", ["element", "row"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("density", [0.01, 1.0])
+def test_zen_sync_unfused_bitwise_vs_reference(density, dtype, mode, fused,
+                                               fused_commit):
+    ref, tv, tlo = _sync_case(density, dtype, mode)
+    for backend in ("torch", "cuda"):   # "cuda" on CPU tensors: plain route
+        tops.reset_counts()
+        got = TS.simulate(TS.zen_sync, tv, layout=tlo, backend=backend,
+                          fused=fused, fused_commit=fused_commit)
+        assert got[0].dtype == tv.dtype
+        _assert_sync_equal(got, ref)
+        want = dict.fromkeys(tops.KERNELS, 0)
+        if backend == "cuda":
+            want.update(dict.fromkeys(tops.path_kernels(fused, fused_commit),
+                                      N))
+        assert tops.PLAIN_CALLS == want
+
+
+def test_zen_sync_unfused_encode_vs_reference_pallas_route():
+    """The reference's own unfused encode (interpret-mode hash-stage and
+    row-compaction kernels) gives the port's bits too."""
+    vals = _integer_workers(6, N, 1 << 10, 0.02, jnp.float32, 4)
+    lo = S.make_zen_layout(1 << 10, N, density_budget=0.05)
+    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="pallas",
+                     fused=False)
+    tlo = TS.make_zen_layout(1 << 10, N, density_budget=0.05, seeds=lo.seeds)
+    got = TS.simulate(TS.zen_sync, _to_torch(vals, torch.float32), layout=tlo,
+                      backend="cuda", fused=False, fused_commit=False)
+    _assert_sync_equal(got, ref)
+
+
+@pytest.mark.parametrize("fused,fused_commit", ROUTES, ids=ROUTE_IDS)
+@pytest.mark.parametrize("use_hash_bitmap", [True, False],
+                         ids=["bitmap-pull", "coo-pull"])
+def test_zen_sync_unfused_overflow_edge_and_coo_pull(use_hash_bitmap, fused,
+                                                     fused_commit):
+    vals = _integer_workers(4, N, MLEN, 0.2, jnp.float32)
+    lo = S.make_zen_layout(MLEN, N, density_budget=0.05, r1_factor=0.5)
+    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla",
+                     use_hash_bitmap=use_hash_bitmap)
+    assert int(np.asarray(ref[1].overflow).sum()) > 0
+    tlo = TS.make_zen_layout(MLEN, N, density_budget=0.05, r1_factor=0.5,
+                             seeds=lo.seeds)
+    tops.reset_counts()
+    got = TS.simulate(TS.zen_sync, _to_torch(vals, torch.float32),
+                      layout=tlo, use_hash_bitmap=use_hash_bitmap,
+                      backend="cuda", fused=fused, fused_commit=fused_commit)
+    _assert_sync_equal(got, ref)
+    ran = {k for k, v in tops.PLAIN_CALLS.items() if v}
+    assert ran == set(tops.path_kernels(fused, fused_commit, use_hash_bitmap))
+
+
+@pytest.mark.parametrize("fused_encode,fused_commit", ROUTES, ids=ROUTE_IDS)
+def test_gradsync_unfused_matches_reference(fused_encode, fused_commit):
+    """GradSync with the unfused chain(s) on the row-sparse embedding vs
+    the reference GradSync on its "xla" route, bitwise."""
+    n = 4
+    rng = np.random.default_rng(0)
+    emb = np.array(_integer_workers(3, n, 512, 0.05, jnp.float32, 8))
+    dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(np.float32)
+    shapes = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
+              "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
+    ref_gs = RefGradSync(RefSyncConfig(), ["embed/table"], shapes, n)
+    ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
+        {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
+    cfg = SyncConfig(fused_encode=fused_encode, fused_commit=fused_commit)
+    gs = GradSync(cfg, ["embed/table"],
+                  [("embed/table", (512, 8)), ("w", (6, 5))], n)
+    lo = ref_gs._layouts["embed/table", 0]
+    gs._layouts["embed/table"] = TS.make_zen_layout(
+        512, n, density_budget=0.25, seeds=lo.seeds)
+    tops.reset_counts()
+    out, st = gs({"embed/table": torch.from_numpy(emb),
+                  "w": torch.from_numpy(dense)})
+    np.testing.assert_array_equal(out["embed/table"].numpy(),
+                                  np.asarray(ref_out["embed"]["table"]))
+    np.testing.assert_array_equal(out["w"].numpy(), np.asarray(ref_out["w"]))
+    for k in ("sync/sparse_sent_words", "sync/overflow"):
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(ref_st[k]),
+                                      err_msg=k)
+    ran = {k for k, v in tops.PLAIN_CALLS.items() if v}
+    assert ran == set(tops.path_kernels(fused_encode, fused_commit))
