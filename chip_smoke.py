@@ -25,8 +25,26 @@ Phases (any failure exits non-zero; nothing is caught):
      launched, the fused run's wire words, losses within 5e-3 of it.
   5. breakdown: one profiled trainer step (torch.profiler): device time by
      kernel category and the device's idle share.
-  6. times: median of 20 CUDA-event timings of each kernel and its plain
-     version at the slice shapes, with the least time the card could take.
+  6. serve_kernels: the models' prefill kernels against their plain
+     versions at the serve shapes, within stated tolerances (the sums run
+     in another order): ``flash_fwd`` at the qwen2-0.5b prefill (B 8,
+     S 512, 14 q heads on 2 KV heads, hd 64, causal) in bf16 (one bf16 ulp)
+     and f32 (2e-5), then S 500, KV = H, window 64, non-causal and a
+     decode-style q_offset; ``ssd_fwd`` at the mamba2-370m prefill (B 8,
+     S 512, 32 heads, hd 64, N 128, Q 64; 2e-4), at S 500 through
+     ``_ssd_chunked``'s padding (with D != 0) and at Q 16.
+  7. serve: ``launch/serve.py`` for qwen2-0.5b and mamba2-370m at full
+     width and depth, batch 8, prompt 512, 16 new tokens: twice on the
+     kernels in the config's bf16 (timed; 24 flash_fwd / 48 ssd_fwd
+     launches per prefill, no plain call), then in f32 on the kernels and
+     on the plain route (``--backend torch``): prefill logits within 1e-3
+     (qwen2) / 1e-2 (mamba2, beside the logit shift that merely reordering
+     the plain scan gives) and the same greedy tokens.  One profiled bf16
+     prefill per model.
+  8. times: median of 20 CUDA-event timings of each kernel and its plain
+     version at the slice and serve shapes, with the least time the card
+     could take and, where one PyTorch call computes the same function,
+     that call's time.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -34,6 +52,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,7 +68,20 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # H100 SXM float32 rate outside the tensor cores (data sheet); the integer
 # and float work of these kernels runs on the same units, at most this fast
 OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 SLICE = dict(M=151936, d=896, n=8, density_budget=0.25, tokens=512)
+SERVE = dict(batch=8, prompt=512, gen=16)
+FLASH = dict(B=8, S=512, H=14, KV=2, hd=64)       # qwen2-0.5b prefill
+SSD = dict(B=8, S=512, H=32, hd=64, N=128, Q=64)   # mamba2-370m prefill
+FLASH_F32_TOL = 2e-5       # the reference's own flash test
+SSD_TOL = 2e-4             # the reference's own SSD test (atol and rtol)
+# f32 prefill logits, kernels vs plain route.  Random-init Mamba2 carries a
+# rounding difference through its 48 layers far more than qwen2's 24
+# attention layers do: reordering the plain route's own scan (chunk 32 for
+# 64) moves its logits further than the kernel route does (the serve phase
+# logs both), so mamba2's gate is 10x qwen2's.
+SERVE_LOGIT_TOL = {"qwen2-0.5b": 1e-3, "mamba2-370m": 1e-2}
+SERVE_KERNEL = {"qwen2-0.5b": "flash_fwd", "mamba2-370m": "ssd_fwd"}
 REPLACES = {
     "zen_encode": "src/repro/kernels/zen_encode.py:108",
     "zen_commit_push": "src/repro/kernels/zen_commit.py:104",
@@ -59,6 +91,8 @@ REPLACES = {
     "coo_scatter_add": "src/repro/kernels/scatter_add.py:44",
     "bitmap_pack": "src/repro/kernels/bitmap.py:38",
     "bitmap_unpack": "src/repro/kernels/bitmap.py:54",
+    "flash_fwd": "src/repro/kernels/flash.py:66",
+    "ssd_fwd": "src/repro/kernels/ssd.py:57",
 }
 SOURCES = {
     "zen_encode": "src/repro_torch/csrc/zen_encode.cu",
@@ -69,6 +103,8 @@ SOURCES = {
     "coo_scatter_add": "src/repro_torch/csrc/scatter_add.cu",
     "bitmap_pack": "src/repro_torch/csrc/bitmap.cu",
     "bitmap_unpack": "src/repro_torch/csrc/bitmap.cu",
+    "flash_fwd": "src/repro_torch/csrc/flash_fwd.cu",
+    "ssd_fwd": "src/repro_torch/csrc/ssd_fwd.cu",
 }
 UNFUSED = dict(fused_encode=False, fused_commit=False)
 
@@ -219,11 +255,8 @@ def phase_device() -> dict:
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version, bitwise, on the card."""
     from repro_torch.core import schemes as S
-    from repro_torch.kernels import _build, ops as K, ref as R
+    from repro_torch.kernels import ops as K, ref as R
 
-    t0 = time.time()
-    _build.build(verbose=True)
-    log(f"[kernels] built in {time.time() - t0:.1f}s")
     M, d, n = SLICE["M"], SLICE["d"], SLICE["n"]
     lo = S.make_zen_layout(M, n, density_budget=SLICE["density_budget"])
     log(f"[kernels] layout C={lo.cap_index} r1={lo.r1} r2={lo.r2} "
@@ -463,18 +496,51 @@ def train_unfused(steps: int) -> dict:
 
 
 def _kernel_category(name: str) -> str:
-    if "zen_" in name:        # every kernel in csrc/ is named zen_*_kernel
+    if "zen_" in name:        # the Zen kernels in csrc/ are named zen_*_kernel
         return "zen kernels"
-    if any(g in name.lower() for g in ("gemm", "xmma", "cutlass", "cublas")):
+    if "flash_fwd" in name or "ssd_fwd" in name:
+        return "prefill kernels"
+    if any(g in name.lower() for g in ("gemm", "xmma", "cutlass", "cublas",
+                                       "nvjet")):
         return "matmul"
     return "other"
+
+
+def device_breakdown(run, tag: str) -> dict:
+    """Run ``run()`` once under torch.profiler: wall ms (host clock to a
+    device sync), device ms by kernel category, and the device's idle
+    share; logs the ten largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats: dict[str, float] = {}
+    names: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            c = _kernel_category(e.name)
+            cats[c] = cats.get(c, 0.0) + ms
+            names[e.name] = names.get(e.name, 0.0) + ms
+    busy = sum(cats.values())
+    out = {"wall_ms": wall_ms, "device_ms": cats, "busy_ms": busy,
+           "idle_share": (1 - busy / wall_ms) if busy else None}
+    log(f"[{tag}] wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"(idle share {out['idle_share']}), by category "
+        f"{ {k: round(v, 3) for k, v in cats.items()} }")
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[{tag}]   {ms:9.3f} ms  {name[:110]}")
+    return out
 
 
 def phase_breakdown(steps: int = 2) -> dict:
     """Device time of one trainer step (the smoke config) by kernel
     category, from torch.profiler, and the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
@@ -492,38 +558,268 @@ def phase_breakdown(steps: int = 2) -> dict:
     for _ in range(steps - 1):            # warm-up
         prog.train_step(batch())
     b = batch()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prog.train_step(b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cats: dict[str, float] = {}
-    names: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            c = _kernel_category(e.name)
-            cats[c] = cats.get(c, 0.0) + ms
-            names[e.name] = names.get(e.name, 0.0) + ms
-    busy = sum(cats.values())
-    out = {"wall_ms": wall_ms, "device_ms": cats, "busy_ms": busy,
-           "idle_share": (1 - busy / wall_ms) if busy else None}
-    log(f"[breakdown] step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle share {out['idle_share']}), by category "
-        f"{ {k: round(v, 3) for k, v in cats.items()} }")
-    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"[breakdown]   {ms:9.3f} ms  {name[:110]}")
+    out = device_breakdown(lambda: prog.train_step(b), "breakdown")
     del prog
     torch.cuda.empty_cache()
     return out
 
 
-def bound(nbytes: int, nops: int = 0) -> tuple[float, str]:
+# ---------------------------------------------------------------------------
+# the serving slice: prefill kernels and the server
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def flash_inputs(dtype, B, S, H, KV, hd, Sk=None):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Sk = S if Sk is None else Sk
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+def ssd_inputs(B, S, H, hd, N):
+    """xh, dt (softplus), a_log, B, C, D at the scales of the model."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    return (r(B, S, H, hd) * 0.5, torch.nn.functional.softplus(r(B, S, H)),
+            r(H) * 0.3, r(B, S, N) * 0.4, r(B, S, N) * 0.4, r(H))
+
+
+def ssd_scan_inputs(xh, dt, a_log, Bm, Cm):
+    """The scan's own inputs: dt folded into x, dA = dt * A."""
+    return ((xh * dt[..., None]).contiguous(),
+            (dt * -torch.exp(a_log)).contiguous(), Bm, Cm)
+
+
+def phase_serve_kernels() -> dict:
+    """flash_fwd and ssd_fwd against their plain versions, with stated
+    tolerances, at the serve shapes and their edges."""
+    from repro_torch.kernels import ops as K, ref as R
+    from repro_torch.models.ssm import _ssd_chunked
+
+    err = {"flash_fwd": 0.0, "ssd_fwd": 0.0}
+    f = FLASH
+    cases = [("serve", dict(S=f["S"], KV=f["KV"]), {}),
+             ("S=500", dict(S=500, KV=f["KV"]), {}),
+             ("KV=H", dict(S=f["S"], KV=f["H"]), {}),
+             ("window=64", dict(S=f["S"], KV=f["KV"]), dict(window=64)),
+             ("causal=False", dict(S=f["S"], KV=f["KV"]), dict(causal=False)),
+             ("q_offset", dict(S=37, KV=f["KV"], Sk=600), dict(q_offset=563))]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shp, kw in cases:
+            q, k, v = flash_inputs(dtype, f["B"], H=f["H"], hd=f["hd"], **shp)
+            got = K.flash_fwd_op(q, k, v, **kw)
+            want = R.flash_fwd_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            tol = (bf16_ulp(want) + 1e-6 if dtype == torch.bfloat16
+                   else FLASH_F32_TOL)
+            worst = float(diff.max())
+            if got.shape != want.shape or got.dtype != want.dtype \
+                    or not bool((diff <= tol).all()):
+                raise AssertionError(f"flash_fwd {name} {dtype}: differs from "
+                                     f"the plain version (max abs {worst})")
+            err["flash_fwd"] = max(err["flash_fwd"], worst)
+            log(f"[serve_kernels] flash_fwd {name} {dtype}: max abs "
+                f"{worst} within "
+                f"{'one bf16 ulp' if dtype == torch.bfloat16 else tol}")
+    c = SSD
+
+    def ssd_check(name, got, want):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=SSD_TOL, rtol=SSD_TOL,
+                                       msg=lambda m: f"ssd_fwd {name}: {m}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        err["ssd_fwd"] = max(err["ssd_fwd"], worst)
+        log(f"[serve_kernels] ssd_fwd {name}: max abs {worst} within "
+            f"{SSD_TOL} (atol and rtol)")
+
+    raw = ssd_inputs(c["B"], c["S"], c["H"], c["hd"], c["N"])
+    scan = ssd_scan_inputs(*raw[:5])
+    for Q in (c["Q"], 16):
+        ssd_check(f"serve Q={Q}", K.ssd_fwd_op(*scan, chunk=Q),
+                  R.ssd_fwd_ref(*scan, chunk=Q))
+    short = [t[:, :500] if t.ndim > 1 else t for t in raw]
+    ssd_check("S=500 via _ssd_chunked (D != 0)",
+              _ssd_chunked(*short, c["Q"], backend="cuda"),
+              _ssd_chunked(*short, c["Q"], backend="torch"))
+    return {"err": err, "flash": flash_inputs(torch.bfloat16, f["B"], f["S"],
+                                              f["H"], f["KV"], f["hd"]),
+            "ssd": scan}
+
+
+def serve_run(arch: str, *extra: str) -> dict:
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve
+
+    K.reset_counts()
+    res = serve.main(["--arch", arch, "--batch", str(SERVE["batch"]),
+                      "--prompt-len", str(SERVE["prompt"]),
+                      "--gen", str(SERVE["gen"]), *extra])
+    return res
+
+
+def serve_breakdown(arch: str) -> dict:
+    """One profiled bf16 prefill (after a warm one) of the serve batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import attach_serve, build_program
+
+    cfg = get_config(arch)
+    prog = build_program(cfg, "1x1", device="cuda")
+    attach_serve(prog, SERVE["prompt"], SERVE["batch"], "prefill")
+    tok = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
+        seq_len=SERVE["prompt"], batch=SERVE["batch"]))))["tokens"],
+        device="cuda").long()
+    prog.prefill_step({"tokens": tok})
+    out = device_breakdown(lambda: prog.prefill_step({"tokens": tok}),
+                           f"serve {arch} prefill")
+    del prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def reorder_control(arch: str) -> float | None:
+    """Max |logit| difference between two f32 plain-route prefills of the
+    serve batch that differ only in the SSD chunk (64, then 32): how far
+    summation order alone moves the logits through the model's depth.
+    None for attention models (the plain attention has no such knob)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import build_program
+
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    if cfg.kind != "ssm":
+        return None
+    tok = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
+        seq_len=SERVE["prompt"], batch=SERVE["batch"]))))["tokens"],
+        device="cuda").long()
+    out = []
+    for chunk in (cfg.ssm_chunk, cfg.ssm_chunk // 2):
+        prog = build_program(dataclasses.replace(cfg, ssm_chunk=chunk), "1x1",
+                             device="cuda", backend="torch")
+        out.append(prog.model.prefill(tok)[0].float())
+        del prog
+    return float((out[0] - out[1]).abs().max())
+
+
+def phase_serve() -> dict:
+    """Both models served at full width and depth: timed on the kernels in
+    bf16, then the f32 kernel route against the f32 plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+
+    out = {}
+    for arch, kern in SERVE_KERNEL.items():
+        n_layers, vocab = get_config(arch).n_layers, get_config(arch).vocab
+        runs = [serve_run(arch) for _ in range(2)]
+        for i, r in enumerate(runs):
+            want = {k: n_layers if k == kern else 0 for k in K.MODEL_KERNELS}
+            if r["launches"] != want or any(r["plain_calls"].values()):
+                raise AssertionError(
+                    f"serve {arch} bf16 run {i}: launches {r['launches']} "
+                    f"(expected {want}), plain calls {r['plain_calls']}")
+            log(f"[serve] {arch} bf16 run {i}: prefill {r['prefill_ms']} ms, "
+                f"decode {r['decode_tok_per_s']} tok/s "
+                f"({SERVE['gen'] - 1} steps in {r['decode_s']} s), launches "
+                f"{r['launches']}, plain calls {r['plain_calls']}")
+        kf = serve_run(arch, "--dtype", "float32")
+        pf = serve_run(arch, "--dtype", "float32", "--backend", "torch")
+        if kf["launches"][kern] != n_layers or any(kf["plain_calls"].values()) \
+                or any(pf["launches"].values()):
+            raise AssertionError(f"serve {arch} f32: kernel route launches "
+                                 f"{kf['launches']} plain {kf['plain_calls']};"
+                                 f" plain route launches {pf['launches']}")
+        dlog = float((kf["prefill_logits"] - pf["prefill_logits"]).abs().max())
+        tol, reorder = SERVE_LOGIT_TOL[arch], reorder_control(arch)
+        top = float(pf["prefill_logits"][:, :vocab].abs().max())
+        log(f"[serve] {arch} f32 kernels vs plain route: prefill logits max "
+            f"abs {dlog} (tolerance {tol}; reordering the plain scan alone: "
+            f"{reorder}; max |logit| {top}), prefill {kf['prefill_ms']} vs "
+            f"{pf['prefill_ms']} ms")
+        if not dlog <= tol:
+            raise AssertionError(f"serve {arch}: f32 prefill logits differ by "
+                                 f"{dlog} > {tol}")
+        diff = kf["tokens"] != pf["tokens"]
+        if diff.any():
+            b, j = (int(x) for x in np.argwhere(diff)[0])
+            raise AssertionError(
+                f"serve {arch}: greedy token {j} of sequence {b} differs "
+                f"(kernels {kf['tokens'][b, j]}, plain {pf['tokens'][b, j]});"
+                f" top-2 logit gap there: kernels {kf['top2_gap'][j, b]}, "
+                f"plain {pf['top2_gap'][j, b]}")
+        log(f"[serve] {arch} f32: the same {kf['tokens'].size} greedy tokens "
+            f"on both routes; smallest top-2 gap "
+            f"{float(pf['top2_gap'].min())}")
+        out[arch] = {"bf16": runs, "f32": kf, "f32_plain": pf,
+                     "launches": runs[0]["launches"][kern],
+                     "breakdown": serve_breakdown(arch)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_times(inp: dict, smi: str) -> list:
+    """Rows 9 and 10 at the serve shapes: kernel, plain version, library
+    (SDPA for attention; nothing computes the SSD scan), and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K, ref as R
+
+    q, k, v = inp["flash"]
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
+    x, dA, Bm, Cm = inp["ssd"]
+    Bt, Ss, Hs, hds = x.shape
+    N, Q = Bm.shape[-1], SSD["Q"]
+    tri, nc = Q * (Q + 1) // 2, Ss // Q
+    # per chunk: C B^T once per sequence (ngroups = 1; its lower triangle);
+    # per head the masked product with x, C S^T and the state update
+    ssd_ops = Bt * nc * (2 * tri * N + Hs * (2 * tri * hds + 4 * Q * N * hds))
+    rows = {
+        "flash_fwd": (
+            lambda: K.flash_fwd_op(q, k, v),
+            lambda: R.flash_fwd_ref(q, k, v),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * pairs * hd, BF16_OPS_PER_S, sdpa),
+        "ssd_fwd": (
+            lambda: K.ssd_fwd_op(x, dA, Bm, Cm, chunk=Q),
+            lambda: R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=Q),
+            4 * (2 * x.numel() + dA.numel() + Bm.numel() + Cm.numel()
+                 + Bt * Hs * hds * N), ssd_ops, OPS_PER_S, None),
+    }
+    res = []
+    for name, (kern, plain, nbytes, nops, rate, lib) in rows.items():
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain)
+        lib_ms = cuda_time_ms(lib) if lib is not None else None
+        bound_ms, bound_by = bound(nbytes, nops, rate)
+        res.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "bytes": nbytes, "ops": nops})
+        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{lib_ms} ms, bound {bound_ms:.6f} ms by {bound_by} from "
+            f"{nbytes} B / {nops} ops at {rate:.3g}/s) | {smi}")
+    return res
+
+
+def bound(nbytes: int, nops: int = 0,
+          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the compute rate, in ms."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+    the memory rate and the operations over the compute rate for their
+    type, in ms."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -607,7 +903,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
-                         "all: kernels,zen_sync,trainer,breakdown,times")
+                         "all: kernels,zen_sync,trainer,breakdown,"
+                         "serve_kernels,serve,times")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     want = (lambda p: not only or p in only)
@@ -616,22 +913,35 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    _build.build(verbose=True)   # every kernel, one nvcc per source at once
+    log(f"[build] {len(_build.SOURCES)} libraries in {time.time() - t0:.1f}s")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     if want("zen_sync"):
         phase_zen_sync(dev)
     trainer = phase_trainer() if want("trainer") else None
     if want("breakdown"):
         phase_breakdown()
-    times = phase_times(kern["inputs"], dev_info["smi"]) if want("times") \
-        else []
+    skern = phase_serve_kernels() if want("serve_kernels") or want("times") \
+        else None
+    served = phase_serve() if want("serve") else None
+    times = []
+    if want("times"):
+        times = phase_times(kern["inputs"], dev_info["smi"]) \
+            + phase_serve_times(skern, dev_info["smi"])
+    launches = dict(trainer["launches"]) if trainer else {}
+    if served:
+        launches.update({k: served[a]["launches"]
+                         for a, k in SERVE_KERNEL.items()})
+    errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
     table = []
     for row in times:
         name = row["name"]
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": trainer["launches"][name] if trainer else None,
-            "max_abs_err": kern["err"][name],
+            "replaces": REPLACES[name], "launches": launches.get(name),
+            "max_abs_err": errs[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

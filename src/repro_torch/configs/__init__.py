@@ -1,10 +1,10 @@
 """Architectures the PyTorch port runs: ``get_config(name)``.
 
-Only ``qwen2-0.5b`` so far; the rest of the reference's zoo is ROADMAP
-queue 1, item 9."""
-from repro_torch.configs import qwen2_0_5b
+``qwen2-0.5b`` (dense GQA) and ``mamba2-370m`` (attention-free SSD) so far;
+the rest of the reference's zoo is ROADMAP queue 1, item 9."""
+from repro_torch.configs import mamba2_370m, qwen2_0_5b
 
-CONFIGS = {qwen2_0_5b.CONFIG.name: qwen2_0_5b.CONFIG}
+CONFIGS = {c.name: c for c in (qwen2_0_5b.CONFIG, mamba2_370m.CONFIG)}
 ALL_ARCHS = list(CONFIGS)
 
 

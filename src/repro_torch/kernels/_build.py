@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("zen_encode", "zen_commit", "hash_stage", "row_compact", "bitmap",
-           "scatter_add")
+           "scatter_add", "flash_fwd", "ssd_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

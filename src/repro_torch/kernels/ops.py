@@ -1,4 +1,4 @@
-"""Wrappers around the Zen CUDA kernels, with their launch counters.
+"""Wrappers around the port's CUDA kernels, with their launch counters.
 
 Port of the dispatch half of ``repro.kernels.ops``.  Each wrapper takes the
 device from its tensors: a CUDA tensor launches the hand-written kernel
@@ -15,7 +15,8 @@ three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
 and/or ``fused_commit=False``) runs the pre-fusion chain of five smaller
 kernels, whose compositions ``zen_encode_unfused``,
 ``zen_commit_push_unfused`` and ``zen_commit_pull_unfused`` give the fused
-kernels' outputs bit for bit.
+kernels' outputs bit for bit.  Two more carry the models' prefill:
+``flash_fwd`` (attention) and ``ssd_fwd`` (the Mamba2 scan).
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ BITS = 32
 FUSED_KERNELS = ("zen_encode", "zen_commit_push", "zen_commit_pull")
 UNFUSED_KERNELS = ("hash_stage", "row_compact", "coo_scatter_add",
                    "bitmap_pack", "bitmap_unpack")
-KERNELS = FUSED_KERNELS + UNFUSED_KERNELS
+MODEL_KERNELS = ("flash_fwd", "ssd_fwd")
+KERNELS = FUSED_KERNELS + UNFUSED_KERNELS + MODEL_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -68,6 +70,15 @@ _SIGNATURES = {
         "scatter_add_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
         "scatter_add_iscratch": ([_I, _I], _LL),
         "scatter_add_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_fwd": {
+        "flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 10 + [_P], _I),
+        "flash_fwd_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ssd_fwd": {
+        "ssd_fwd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        "ssd_fwd_smem_bytes": ([_I, _I, _I], _I),
+        "ssd_fwd_error_string": ([_I], ctypes.c_char_p),
     },
 }
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
@@ -118,6 +129,14 @@ def _need(t: torch.Tensor, dtype, ndim: int, what: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _aligned(*ts: torch.Tensor) -> None:
+    """float4 loads: every base pointer must be 16-byte aligned."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel input is not 16-byte aligned (a view "
+                             "with a storage offset?); pass .clone()")
 
 
 def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
@@ -391,3 +410,93 @@ def zen_commit_pull_unfused(words: torch.Tensor, cap_server: int,
     n, W = words.shape
     bits = bitmap_unpack_op(words.reshape(-1), n * W * BITS)
     return compact_rows(bits.reshape(n, W * BITS)[:, :cap_server], cap_pull)[0]
+
+
+# ---------------------------------------------------------------------------
+# The models' prefill kernels
+# ---------------------------------------------------------------------------
+
+FLASH_HEAD_DIMS = (32, 64)
+
+
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 q_offset: int = 0) -> torch.Tensor:
+    """GQA attention with an online softmax in f32: q [B, Sq, H, hd], k/v
+    [B, Sk, KV, hd] -> [B, Sq, H, hd] in q's dtype (``ref.flash_fwd_ref``
+    says which keys each query row keeps).  The kernel takes float32 or
+    bfloat16, hd in ``FLASH_HEAD_DIMS`` and H / KV <= 128."""
+    if not q.is_cuda:
+        PLAIN_CALLS["flash_fwd"] += 1
+        return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_fwd: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _need(t, q.dtype, 4, f"flash_fwd {what}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if not (q.device == k.device == v.device) or v.shape != k.shape \
+            or k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV \
+            or H // KV > 128 or hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_fwd: need q [B, Sq, H, hd] and k = v "
+                         f"[B, Sk, KV, hd] on one device, H % KV == 0, "
+                         f"H / KV <= 128, hd in {FLASH_HEAD_DIMS}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _aligned(q, k, v)
+    lib = _lib("flash_fwd")
+    rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, Sq, Sk, H, KV, hd,
+                              _DTYPE_CODE[q.dtype], int(causal), int(window),
+                              int(q_offset), _stream(q))
+    _check(lib, "flash_fwd", rc, "flash_fwd launch")
+    LAUNCHES["flash_fwd"] += 1
+    return out
+
+
+def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, *, chunk: int = 64):
+    """The Mamba2 SSD chunk scan (``ref.ssd_fwd_ref``): x [Bt, S, H, hd],
+    dA [Bt, S, H], Bm/Cm [Bt, S, N], all float32, S a multiple of
+    Q = min(chunk, S) -> (y [Bt, S, H, hd], state [Bt, H, hd, N]).  The
+    kernel takes hd, N and Q multiples of 4 with Q <= 256."""
+    if not x.is_cuda:
+        PLAIN_CALLS["ssd_fwd"] += 1
+        return ref.ssd_fwd_ref(x, dA, Bm, Cm, chunk=chunk)
+    _need(x, torch.float32, 4, "ssd_fwd x")
+    _need(dA, torch.float32, 3, "ssd_fwd dA")
+    _need(Bm, torch.float32, 3, "ssd_fwd Bm")
+    _need(Cm, torch.float32, 3, "ssd_fwd Cm")
+    Bt, S, H, hd = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if not (x.device == dA.device == Bm.device == Cm.device) \
+            or dA.shape != (Bt, S, H) or Bm.shape != (Bt, S, N) \
+            or Cm.shape != Bm.shape or S % Q or Q > 256 \
+            or hd % 4 or N % 4 or Q % 4:
+        raise ValueError(f"ssd_fwd: need x [Bt, S, H, hd], dA [Bt, S, H], "
+                         f"B = C [Bt, S, N] on one device with S % Q == 0, "
+                         f"Q <= 256 and hd, N, Q multiples of 4; got "
+                         f"{tuple(x.shape)}, {tuple(dA.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}, Q={Q}")
+    lib = _lib("ssd_fwd")
+    smem = lib.ssd_fwd_smem_bytes(hd, N, Q)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"ssd_fwd: hd={hd}, N={N}, Q={Q} need {smem} B of "
+                         f"shared memory (> {_MAX_SMEM})")
+    y = torch.empty_like(x)
+    state = torch.empty((Bt, H, hd, N), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return y, state.zero_()
+    _aligned(x, dA, Bm, Cm)
+    rc = lib.ssd_fwd_launch(x.data_ptr(), dA.data_ptr(), Bm.data_ptr(),
+                            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bt,
+                            S, H, hd, N, Q, _stream(x))
+    _check(lib, "ssd_fwd", rc, "ssd_fwd launch")
+    LAUNCHES["ssd_fwd"] += 1
+    return y, state

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the Zen CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Port of ``repro.kernels.ref``.  Each function here is the plain version of
 one hand-written kernel in ``csrc/``: the CPU tests hold it against the JAX
@@ -8,6 +8,7 @@ Bitmap words are int32 tensors carrying the reference's uint32 bits.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -118,3 +119,96 @@ def zen_commit_pull_ref(words: torch.Tensor, cap_server: int,
     ``cap_server``, ascending, first ``cap_pull``, EMPTY-padded.
     words int32 [n, W] -> int32 [n, cap_pull]."""
     return bitmap_decode_compact(words, cap_server, cap_pull)
+
+
+NEG = -1e30   # the reference's mask value (``layers.NEG``)
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0,
+                  chunk: int = 512, q_chunk: int = 1024) -> torch.Tensor:
+    """GQA attention by online softmax over KV chunks, in f32 (the
+    reference's ``layers._flash_inner`` / ``flash_attention``).
+
+    q [B, Sq, H, hd]; k [B, Sk, KV, hd]; v [B, Sk, KV, hd_v], H % KV == 0.
+    Query row i sits at position ``q_offset + i``; key j at j.  ``causal``
+    keeps keys j <= position, ``window > 0`` keys j > position - window.
+    Returns [B, Sq, H, hd_v] in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    g = H // KV
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Sq, KV, g, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Sq, KV, g, hd_v), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, Sq, q_chunk):
+        qb = qf[:, q0:q0 + q_chunk]
+        Tq = qb.shape[1]
+        pos_q = q_offset + q0 + torch.arange(Tq, device=q.device)
+        m = torch.full((B, Tq, KV, g), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros((B, Tq, KV, g, hd_v), dtype=torch.float32,
+                        device=q.device)
+        for c0 in range(0, Sk, chunk):
+            kb, vb = kf[:, c0:c0 + chunk], vf[:, c0:c0 + chunk]
+            pos_k = c0 + torch.arange(kb.shape[1], device=q.device)
+            s = torch.einsum("bqkgh,bckh->bqkgc", qb, kb)
+            valid = torch.ones((Tq, kb.shape[1]), dtype=torch.bool,
+                               device=q.device)
+            if causal:
+                valid &= pos_k[None, :] <= pos_q[:, None]
+            if window > 0:
+                valid &= pos_k[None, :] > pos_q[:, None] - window
+            s = torch.where(valid[None, :, None, None, :], s, NEG)
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vb)
+            m = m_new
+        out[:, q0:q0 + Tq] = o / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+def ssd_fwd_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, *, chunk: int = 64):
+    """The Mamba2 SSD chunk scan (the reference's ``kernels/ssd.py``
+    ``_kernel``, looped over chunks with the state carried across them).
+
+    x [Bt, S, H, hd] f32 with dt folded in; dA [Bt, S, H] f32 log-decays
+    (dt * A); Bm, Cm [Bt, S, N] f32, shared by all heads (ngroups = 1).
+    S must be a multiple of Q = min(chunk, S).  Per chunk, with
+    cs = cumsum(dA), L_ij = exp(cs_i - cs_j) for j <= i (else 0) and
+    w = exp(cs_Q - cs):
+
+        y = ((C B^T) o L) x + exp(cs) o (C S^T)
+        S <- S exp(cs_Q) + (x o w)^T B
+
+    Returns (y [Bt, S, H, hd] f32, final state [Bt, H, hd, N] f32).  The
+    reference kernel's head-major [B*H, S, hd] layout is a transpose of
+    this one; B and C are not broadcast per head."""
+    Bt, S, H, hd = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_fwd: S={S} is not a multiple of the chunk {Q}")
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((Bt, H, hd, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((Bt, S, H, hd), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, Q):
+        xq, bq, cq = x[:, c0:c0 + Q], Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
+        cs = torch.cumsum(dA[:, c0:c0 + Q], dim=1)               # [Bt,Q,H]
+        total = cs[:, -1]                                         # [Bt,H]
+        decay = torch.where(tri[None, :, :, None],
+                            torch.exp(cs[:, :, None, :] - cs[:, None, :, :]),
+                            0.0)                                  # [Bt,Qi,Qj,H]
+        sbc = torch.einsum("bin,bjn->bij", cq, bq)                # [Bt,Qi,Qj]
+        y_in = torch.einsum("bijh,bjhd->bihd", sbc[..., None] * decay, xq)
+        y_st = torch.einsum("bin,bhdn->bihd", cq, state) \
+            * torch.exp(cs)[..., None]
+        y[:, c0:c0 + Q] = y_in + y_st
+        w = torch.exp(total[:, None, :] - cs)                     # [Bt,Q,H]
+        ds = torch.einsum("bqhd,bqn->bhdn", xq * w[..., None], bq)
+        state = state * torch.exp(total)[:, :, None, None] + ds
+    return y, state

@@ -1,9 +1,12 @@
-"""Primitive layers of the dense decoder (port of ``repro.models.layers``).
+"""Primitive layers of the port's models (port of ``repro.models.layers``).
 
-RMSNorm, RoPE, the SwiGLU MLP, the untied input embedding and the LM head
-with its cross-entropy.  Tensor parallelism is not ported (ROADMAP queue 1,
-item 9), so there are no collectives here.  Numerics follow the reference:
-norms and the softmax run in f32, matmuls in the parameters' dtype.
+RMSNorm (plain and over the SSM's d_inner), RoPE, the SwiGLU MLP, the
+untied input embedding, the LM head with its cross-entropy, prefill
+attention (:func:`flash_attention`, on the ``flash_fwd`` kernel) and
+decode attention over a KV cache.  Tensor parallelism is not ported
+(ROADMAP queue 1, item 9), so there are no collectives here and the cache
+is not sequence-sharded.  Numerics follow the reference: norms and the
+softmax run in f32, matmuls in the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-NEG = -1e30
+from repro_torch.core.hashing import check_backend
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG, flash_fwd_ref
 
 
 def _normal(gen: torch.Generator | None, shape, scale: float, dtype,
@@ -36,6 +41,15 @@ class RMSNorm(nn.Module):
         xf = x.float()
         var = (xf * xf).mean(-1, keepdim=True)
         return (xf * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
+
+
+def rmsnorm_sharded(scale: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The reference's RMSNorm over a model-sharded feature dim at tp = 1
+    (the Mamba2 gated norm over d_inner): ``sum(x^2) / d`` in f32."""
+    xf = x.float()
+    var = (xf * xf).sum(-1, keepdim=True) / x.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 class Linear(nn.Module):
@@ -85,6 +99,56 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    backend: str = "cuda") -> torch.Tensor:
+    """Prefill attention, GQA: q [B, Sq, H, hd], k/v [B, Sk, KV, hd] ->
+    [B, Sq, H, hd] in q's dtype, online softmax in f32.
+
+    ``backend="cuda"`` goes through ``ops.flash_fwd_op``: the hand-written
+    kernel for CUDA tensors (or an error), the plain version for CPU
+    tensors; ``"torch"`` takes the plain version on any device."""
+    check_backend(backend)
+    if backend == "cuda":
+        return ops.flash_fwd_op(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+    return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, t: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token attention against a KV cache (the reference's at tp = 1).
+
+    q [B, H, hd]; k/v [B, Sl, KV, hd]; pos [Sl] the position each slot
+    holds (-1 = never written).  Attends to slots with 0 <= pos <= t (and
+    pos > t - window); the current token is in the cache already."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, k.float())
+    valid = (pos >= 0) & (pos <= t)
+    if window > 0:
+        valid &= pos > t - window
+    s = torch.where(valid, s, NEG)
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    p = torch.where(valid, p, 0.0)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    out = o / p.sum(-1).clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def cache_write(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor, t: int) -> None:
+    """Write one token's K/V [B, KV, hd] at position ``t`` IN PLACE, into
+    slot ``t % Sl`` (a ring when a sliding window bounds the cache)."""
+    slot = t % k.shape[1]
+    k[:, slot] = k_new.to(k.dtype)
+    v[:, slot] = v_new.to(v.dtype)
+    pos[slot] = t
 
 
 class SwiGLU(nn.Module):

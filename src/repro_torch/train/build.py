@@ -1,5 +1,6 @@
-"""Glue: build a train program for an architecture and a mesh (port of the
-parts of ``repro.train.build`` the trainer needs)."""
+"""Glue: build a train or serve program for an architecture and a mesh
+(port of the parts of ``repro.train.build`` the trainer and the server
+need)."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,8 +35,8 @@ def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int]:
 
 @dataclasses.dataclass
 class Program:
-    """A model and its trainer on one device; the D data-parallel ranks of
-    the mesh are held in this one process."""
+    """A model and its trainer or server on one device; the D
+    data-parallel ranks of the mesh are held in this one process."""
 
     cfg: ArchConfig
     model: Model
@@ -44,15 +45,30 @@ class Program:
     device: torch.device
     train_step: Any = None
     gradsync: Any = None
+    prefill_step: Any = None
+    decode_step: Any = None
+    # the decode cache's batch, length and attention window (attach_serve)
+    cache_specs: Any = None
+
+    def fresh_cache(self) -> dict:
+        """An empty decode cache (zeros, every slot's position -1, t = 0)
+        for the shape of the last ``attach_serve(..., mode="decode")``."""
+        if self.cache_specs is None:
+            raise ValueError("fresh_cache needs attach_serve(prog, ..., "
+                             "mode='decode') first")
+        return self.model.make_cache(self.cache_specs["batch"],
+                                     self.cache_specs["cache_len"])
 
 
 def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
-                  *, device=None, seed: int = 0) -> Program:
+                  *, device=None, seed: int = 0,
+                  backend: str = "cuda") -> Program:
     """Model (initialised from ``seed`` with a torch.Generator) on
-    ``device`` (default ``cuda``; ``"cpu"`` must be asked for)."""
+    ``device`` (default ``cuda``; ``"cpu"`` must be asked for), its
+    prefill kernels on the ``backend`` route (``Model``)."""
     dp, _ = parse_mesh(mesh)
     dev = resolve_device(device)
-    model = Model(cfg, device=dev, seed=seed)
+    model = Model(cfg, device=dev, seed=seed, backend=backend)
     return Program(cfg=cfg, model=model, tcfg=tcfg or TrainerConfig(),
                    n_data=dp, device=dev)
 
@@ -62,3 +78,21 @@ def attach_train(prog: Program) -> None:
     prog.gradsync = st.make_gradsync(prog.model, prog.tcfg, prog.n_data)
     prog.train_step = st.make_train_step(prog.model, prog.tcfg, prog.n_data,
                                          gradsync=prog.gradsync)
+
+
+def attach_serve(prog: Program, seq_len: int, global_batch: int,
+                 mode: str) -> None:
+    """Build ``prog.prefill_step`` (``mode="prefill"``) or
+    ``prog.decode_step`` and the decode cache's shape (``"decode"``) for
+    ``global_batch`` sequences of ``seq_len`` tokens.  Decode attends to a
+    sliding window only above 65536 tokens, as the reference does."""
+    if mode == "prefill":
+        prog.prefill_step = st.make_prefill_step(prog.model)
+        return
+    if mode != "decode":
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    window = prog.cfg.sliding_window if seq_len > 65536 else 0
+    prog.decode_step = st.make_decode_step(prog.model, window=window)
+    prog.cache_specs = {"batch": global_batch, "window": window,
+                        "cache_len": min(seq_len, window) if window
+                        else seq_len}

@@ -109,3 +109,26 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
 
     step_fn.gradsync = gradsync
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model: Model):
+    """``prefill_fn(batch) -> (last-position logits, cache)`` for a batch
+    holding ``tokens`` [B, S] on the model's device (inference mode)."""
+    def prefill_fn(batch: dict):
+        return model.prefill(batch["tokens"])
+    return prefill_fn
+
+
+def make_decode_step(model: Model, window: int = 0, *,
+                     return_gap: bool = False):
+    """``decode_fn(cache, tokens [B, 1]) -> (next [B, 1], max logit [B],
+    cache)`` (plus the top-2 logit gap [B] with ``return_gap``); the cache
+    is updated in place (inference mode)."""
+    def decode_fn(cache: dict, tokens: torch.Tensor):
+        return model.decode(cache, tokens, window=window,
+                            return_gap=return_gap)
+    return decode_fn

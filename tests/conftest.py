@@ -8,6 +8,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute integration tests (subprocess meshes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (the port's kernels); skips without")
 
 
 @pytest.fixture(scope="session")
