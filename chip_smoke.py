@@ -28,9 +28,10 @@ Phases (any failure exits non-zero; nothing is caught):
   6. serve_kernels: the models' prefill kernels against their plain
      versions at the serve shapes, within stated tolerances (the sums run
      in another order): ``flash_fwd`` at the qwen2-0.5b prefill (B 8,
-     S 512, 14 q heads on 2 KV heads, hd 64, causal) in bf16 (one bf16 ulp)
-     and f32 (2e-5), then S 500, KV = H, window 64, non-causal and a
-     decode-style q_offset; ``ssd_fwd`` at the mamba2-370m prefill (B 8,
+     S 512, 14 q heads on 2 KV heads, hd 64, causal) in bf16 (one bf16 ulp;
+     the tensor-core kernel) and f32 (2e-5; the FMA kernel), then S 500,
+     KV = H, window 64, non-causal, a decode-style q_offset, KV = 1 and
+     hd 32 with window 64; ``ssd_fwd`` at the mamba2-370m prefill (B 8,
      S 512, 32 heads, hd 64, N 128, Q 64; 2e-4), at S 500 through
      ``_ssd_chunked``'s padding (with D != 0) and at Q 16.
   7. serve: ``launch/serve.py`` for qwen2-0.5b and mamba2-370m at full
@@ -44,15 +45,21 @@ Phases (any failure exits non-zero; nothing is caught):
   8. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
-     that call's time.
+     that call's time.  ``ms`` has the events around one call, the
+     wrapper's host work included; ``device_ms`` (and
+     ``library_device_ms``) queue a spin kernel before the start event so
+     that the host has queued the whole call before the device reaches
+     it: the events then bound device work only.
 
-The line before the last is the kernel table as JSON; the last line is
+The third line from the end is the kernel table as JSON, the second the
+card's name and power limit (``nvidia-smi``), the last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -231,6 +238,48 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+@functools.cache
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles ``torch.cuda._sleep`` spins per millisecond."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return 10_000_000 / a.elapsed_time(b)
+
+
+def cuda_device_ms(fn, iters: int = 20) -> float | None:
+    """Median of ``iters`` CUDA-event timings of ``fn`` with the host's
+    work hidden: a spin kernel queued just before the start event keeps the
+    device busy until ``fn`` is wholly queued, so the events bound its
+    device work only.  A timing counts only if the host finished queueing
+    before the spin ended (the spin doubles until it does); None if even a
+    100 ms spin did not hide it."""
+    fn()
+    torch.cuda.synchronize()
+    spin_ms, ts = 1.0, []
+    while len(ts) < iters:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        s.record()
+        torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms()))
+        a.record()
+        fn()
+        b.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        b.synchronize()
+        if host_ms < s.elapsed_time(a):
+            ts.append(a.elapsed_time(b))
+        elif spin_ms >= 100:
+            return None
+        else:
+            spin_ms *= 2
     return float(np.median(ts))
 
 
@@ -610,10 +659,14 @@ def phase_serve_kernels() -> dict:
              ("KV=H", dict(S=f["S"], KV=f["H"]), {}),
              ("window=64", dict(S=f["S"], KV=f["KV"]), dict(window=64)),
              ("causal=False", dict(S=f["S"], KV=f["KV"]), dict(causal=False)),
-             ("q_offset", dict(S=37, KV=f["KV"], Sk=600), dict(q_offset=563))]
+             ("q_offset", dict(S=37, KV=f["KV"], Sk=600), dict(q_offset=563)),
+             ("KV=1", dict(S=f["S"], KV=1), {}),
+             ("hd=32 window=64", dict(S=f["S"], KV=f["KV"], hd=32),
+              dict(window=64))]
     for dtype in (torch.bfloat16, torch.float32):
         for name, shp, kw in cases:
-            q, k, v = flash_inputs(dtype, f["B"], H=f["H"], hd=f["hd"], **shp)
+            q, k, v = flash_inputs(dtype, **{"B": f["B"], "H": f["H"],
+                                             "hd": f["hd"], **shp})
             got = K.flash_fwd_op(q, k, v, **kw)
             want = R.flash_fwd_ref(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -801,17 +854,26 @@ def phase_serve_times(inp: dict, smi: str) -> list:
     }
     res = []
     for name, (kern, plain, nbytes, nops, rate, lib) in rows.items():
-        ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
-        lib_ms = cuda_time_ms(lib) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, nops, rate)
-        res.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "bytes": nbytes, "ops": nops})
-        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-            f"{lib_ms} ms, bound {bound_ms:.6f} ms by {bound_by} from "
-            f"{nbytes} B / {nops} ops at {rate:.3g}/s) | {smi}")
+        res.append(time_row(name, kern, plain, lib, nbytes, nops, rate, smi))
     return res
+
+
+def time_row(name, kern, plain, lib, nbytes, nops, rate, smi) -> dict:
+    """One row of the kernel table: the kernel's, its plain version's and
+    the library call's times (``cuda_time_ms``), the kernel's and the
+    library call's device times (``cuda_device_ms``), and the bound."""
+    bound_ms, bound_by = bound(nbytes, nops, rate)
+    ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+    lib_ms = cuda_time_ms(lib) if lib is not None else None
+    dev_ms = cuda_device_ms(kern)
+    lib_dev_ms = cuda_device_ms(lib) if lib is not None else None
+    log(f"[times] {name}: {ms:.4f} ms, device {dev_ms} ms (plain "
+        f"{plain_ms:.4f} ms, library {lib_ms} ms, device {lib_dev_ms} ms, "
+        f"bound {bound_ms:.6f} ms by {bound_by} from {nbytes} B / {nops} "
+        f"ops at {rate:.3g}/s) | {smi}")
+    return {"name": name, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "bytes": nbytes, "ops": nops}
 
 
 def bound(nbytes: int, nops: int = 0,
@@ -886,16 +948,8 @@ def phase_times(inp: dict, smi: str) -> list:
     }
     res = []
     for name, (kern, plain, nbytes, nops, lib) in rows.items():
-        ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
-        lib_ms = cuda_time_ms(lib) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, nops)
-        res.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "bytes": nbytes, "ops": nops})
-        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-            f"{lib_ms} ms, bound {bound_ms:.6f} ms by {bound_by} from "
-            f"{nbytes} B / {nops} ops) | {smi}")
+        res.append(time_row(name, kern, plain, lib, nbytes, nops, OPS_PER_S,
+                            smi))
     return res
 
 
@@ -942,9 +996,10 @@ def main(argv=None) -> None:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name),
             "max_abs_err": errs[name],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]})
     log(f"[done] {time.time() - t_start:.1f}s | {dev_info['smi']}")
     print(json.dumps({"kernels": table}))
     print(dev_info["smi"])

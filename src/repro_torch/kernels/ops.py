@@ -424,8 +424,9 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_offset: int = 0) -> torch.Tensor:
     """GQA attention with an online softmax in f32: q [B, Sq, H, hd], k/v
     [B, Sk, KV, hd] -> [B, Sq, H, hd] in q's dtype (``ref.flash_fwd_ref``
-    says which keys each query row keeps).  The kernel takes float32 or
-    bfloat16, hd in ``FLASH_HEAD_DIMS`` and H / KV <= 128."""
+    says which keys each query row keeps).  The kernel takes bfloat16 (on
+    the tensor cores) or float32 (on the FMA units), hd in
+    ``FLASH_HEAD_DIMS`` and H / KV <= 128."""
     if not q.is_cuda:
         PLAIN_CALLS["flash_fwd"] += 1
         return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,

@@ -10,8 +10,18 @@ on the same numpy inputs: the four shapes of
 Tolerances: f32 to the reference test's 2e-5; bf16 to one bf16 ulp of the
 reference's output (plus 1e-6 for values near zero), since both round the
 same f32 result once.  The kernel itself is held against the plain version
-on the card by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+on the card by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``;
+the bf16 kernel's tile arithmetic is emulated here in plain PyTorch
+(``_mma_tile_emulation``) and held to the same one-ulp gate.
+
+    PYTHONPATH=src python tests/test_torch_flash.py
+
+prints how many outputs of the serve shape (B 8, S 512, 14 q / 2 KV heads,
+hd 64, causal) each way of feeding P to the bf16 tensor cores puts outside
+that gate.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -96,3 +106,109 @@ def test_flash_ref_matches_naive_softmax():
     want = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vv)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's arithmetic (csrc/flash_fwd.cu), emulated
+# ---------------------------------------------------------------------------
+
+def _bf16_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x truncated to bf16 (its top 16 bits), as an f32 tensor."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split_p(p: torch.Tensor, how: str) -> list:
+    """The bf16 parts the kernel feeds to P.V for P: ``exact3`` (the
+    kernel's split3_bf16: hi + mid + lo == p exactly), ``round2``
+    (bf16(p) + bf16(p - bf16(p))) or ``round1`` (bf16(p) alone)."""
+    if how == "exact3":
+        hi = _bf16_trunc(p)
+        mid = _bf16_trunc(p - hi)
+        return [hi, mid, p - hi - mid]
+    hi = p.bfloat16().float()
+    return [hi] if how == "round1" else [hi, (p - hi).bfloat16().float()]
+
+
+def _mma_tile_emulation(q, k, v, *, causal, window, q_offset, how="exact3"):
+    """The bf16 kernel's arithmetic in plain PyTorch: 64-key tiles, bf16
+    operands (exact products) with f32 sums, the online softmax on unscaled
+    scores with p = 2^(s c - m c), p = 0 on invalid keys, and P fed to P.V
+    in the bf16 parts of ``_split_p``.  Returns bf16 [B, Sq, H, hd]."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    c = math.log2(math.e) / math.sqrt(hd)
+    neg = ref.NEG
+    qf = q.float().permute(0, 2, 1, 3)                       # [B, H, Sq, hd]
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    pos = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), neg)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, hd))
+    for t0 in range(0, Sk, 64):
+        j = t0 + torch.arange(min(64, Sk - t0))[None, :]
+        valid = torch.ones((Sq, j.shape[1]), dtype=torch.bool)
+        if causal:
+            valid &= j <= pos
+        if window > 0:
+            valid &= j > pos - window
+        s = torch.where(valid, qf @ kf[:, :, t0:t0 + 64].transpose(-1, -2),
+                        neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * c)
+        mc = torch.where(m_new == neg, 0.0, m_new) * c
+        p = torch.where(valid, torch.exp2(s * c - mc), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr
+        for part in _split_p(p, how):
+            o = o + part @ vf[:, :, t0:t0 + 64]
+        m = m_new
+    out = o / l.clamp(min=1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _outside_gate(got: torch.Tensor, want: torch.Tensor) -> int:
+    err = (got.float() - want.float()).abs()
+    return int((err > _bf16_ulp(want.float()) + 1e-6).sum())
+
+
+def _bf16_case(B, Sq, Sk, H, KV, hd, seed=1):
+    return tuple(torch.as_tensor(a).to(torch.bfloat16)
+                 for a in _inputs(B, Sq, Sk, H, KV, hd, seed=seed))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,win,off", SHAPES, ids=IDS)
+def test_mma_tile_arithmetic_holds_the_bf16_gate(B, Sq, Sk, H, KV, hd, causal,
+                                                 win, off):
+    """64-key tiles, bf16 products with f32 sums and P split exactly into
+    three bf16 parts stay within one bf16 ulp (+1e-6) of the plain
+    version."""
+    q, k, v = _bf16_case(B, Sq, Sk, H, KV, hd)
+    kw = dict(causal=causal, window=win, q_offset=off)
+    got = _mma_tile_emulation(q, k, v, **kw)
+    assert got.shape == (B, Sq, H, hd) and torch.isfinite(got.float()).all()
+    assert _outside_gate(got, ref.flash_fwd_ref(q, k, v, **kw)) == 0
+
+
+def test_rounding_p_to_bf16_breaks_the_gate():
+    """Why the kernel splits P: feeding bf16(P) alone to P.V puts outputs
+    outside the one-ulp gate (PERF.md gives the share at the serve
+    shape)."""
+    B, Sq, Sk, H, KV, hd, causal, win, off = SHAPES[4]
+    q, k, v = _bf16_case(B, Sq, Sk, H, KV, hd)
+    kw = dict(causal=causal, window=win, q_offset=off)
+    want = ref.flash_fwd_ref(q, k, v, **kw)
+    assert _outside_gate(_mma_tile_emulation(q, k, v, **kw, how="round1"),
+                         want) > 0
+    assert _outside_gate(_mma_tile_emulation(q, k, v, **kw), want) == 0
+
+
+if __name__ == "__main__":
+    q, k, v = _bf16_case(8, 512, 512, 14, 2, 64, seed=0)
+    want = ref.flash_fwd_ref(q, k, v)
+    for how in ("round1", "round2", "exact3"):
+        n = _outside_gate(_mma_tile_emulation(q, k, v, causal=True, window=0,
+                                              q_offset=0, how=how), want)
+        print(f"serve shape, P as {how}: {n} of {want.numel()} outputs "
+              f"outside one bf16 ulp + 1e-6 ({100 * n / want.numel():.2f} %)")

@@ -24,6 +24,14 @@ FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (2, 100, 100, 14, 2, 64, True, 0, 0),
     (2, 130, 130, 4, 1, 64, False, 0, 0),
     (1, 37, 600, 4, 2, 32, True, 0, 563),
+    # the tensor-core kernel's tile edges (64 query rows, 64-key tiles)
+    (1, 65, 65, 4, 2, 64, True, 0, 0),
+    (2, 127, 127, 4, 2, 64, True, 0, 0),
+    (1, 65, 127, 4, 2, 64, True, 0, 62),
+    (1, 100, 300, 4, 2, 64, False, 0, 0),      # non-causal, Sk > Sq
+    (1, 200, 200, 4, 2, 32, False, 64, 0),     # hd 32, window, non-causal
+    (1, 512, 512, 14, 2, 64, True, 0, 0),      # the serve shape at B 1
+    (1, 256, 256, 8, 1, 64, True, 0, 0),       # KV = 1
 ]
 SSD_SHAPES = [  # B, S, H, hd, N, chunk
     (2, 128, 4, 32, 16, 64), (1, 96, 3, 64, 128, 32), (2, 64, 2, 64, 128, 16),
