@@ -10,9 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
      n = 8): a realistic stream (512 tokens per rank), a dense stream near
      the capacity budget, and an overflow-edge layout; f32 and bf16; for
      the scatter-add also a non-zero ``out`` with EMPTY, negative and
-     out-of-range indices, and one target repeated 64 times.  Each fused
-     kernel is also held against its unfused chain.  Every output must be
-     bitwise equal.
+     out-of-range indices, one target repeated 64 and 4096 times, and
+     every row a distinct target, each case twice in a row (the kernel
+     keeps its scratch across calls).  Each fused kernel is also held
+     against its unfused chain.  Every output must be bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -49,7 +50,10 @@ Phases (any failure exits non-zero; nothing is caught):
      wrapper's host work included; ``device_ms`` (and
      ``library_device_ms``) queue a spin kernel before the start event so
      that the host has queued the whole call before the device reaches
-     it: the events then bound device work only.
+     it: the events then bound device work only.  ``ssd_fwd``'s row also
+     gives its bound at a third of the TF32 tensor-core rate (its split
+     products), and the scatter-add is timed once more, beside the table,
+     at phase 2's dense stream.
 
 The third line from the end is the kernel table as JSON, the second the
 card's name and power limit (``nvidia-smi``), the last
@@ -76,6 +80,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # and float work of these kernels runs on the same units, at most this fast
 OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 SLICE = dict(M=151936, d=896, n=8, density_budget=0.25, tokens=512)
 SERVE = dict(batch=8, prompt=512, gen=16)
 FLASH = dict(B=8, S=512, H=14, KV=2, hd=64)       # qwen2-0.5b prefill
@@ -205,7 +210,8 @@ def scatter_cases(lp: torch.Tensor, vals: torch.Tensor, rows: int, rng):
     """(name, out, idx, vals) cases for the scatter-add at the server's
     shapes: the pushed stream into zeros; a non-zero ``out`` with EMPTY,
     negative and out-of-range indices mixed in; one target repeated 64
-    times among the others."""
+    times among the others, and 4096 times; every row a distinct target
+    (T = C = rows)."""
     dev = vals.device
     cases = [("stream", torch.zeros((rows, vals.shape[1]), dtype=vals.dtype,
                                     device=dev), lp, vals)]
@@ -217,11 +223,16 @@ def scatter_cases(lp: torch.Tensor, vals: torch.Tensor, rows: int, rng):
     out = torch.randn((rows, vals.shape[1]), device=dev).to(vals.dtype)
     out[torch.as_tensor(rng.random(rows) < 0.5, device=dev)] = 0
     cases.append(("nonzero-out+junk", out, idx, vals))
-    rep = lp.clone()
-    live = torch.nonzero(lp < rows)[:, 0]
-    rep[live[torch.as_tensor(rng.choice(live.numel(), 64, replace=False),
-                             device=dev)]] = 3
-    cases.append(("repeat64", out, rep.contiguous(), vals))
+    for reps in (64, 4096):
+        rep = lp.clone()
+        live = torch.nonzero(lp < rows)[:, 0] if reps == 64 \
+            else torch.arange(lp.numel(), device=dev)
+        rep[live[torch.as_tensor(rng.choice(live.numel(), reps,
+                                            replace=False), device=dev)]] = 3
+        cases.append((f"repeat{reps}", out, rep.contiguous(), vals))
+    perm = torch.as_tensor(rng.permutation(rows), dtype=torch.int32,
+                           device=dev)
+    cases.append(("distinct", out, perm, vals[:rows].contiguous()))
     return cases
 
 
@@ -323,7 +334,7 @@ def phase_kernels(dev) -> dict:
     edge = S.make_zen_layout(M, n, density_budget=SLICE["density_budget"],
                              r2_ratio=0.001)
     cases.append(("overflow-edge", edge, cases[1][2]))
-    shapes = {}
+    shapes, dense = {}, {}
     for name, lay, g in cases:
         inp = kernel_inputs(g, lay)
         idx, lp, vals, bms = (inp[k] for k in ("idx", "lp", "vals", "bms"))
@@ -360,11 +371,14 @@ def phase_kernels(dev) -> dict:
         caps = [lay.cap_pull] + ([97] if name != "realistic" else [])
         for dtype in (torch.float32, torch.bfloat16):
             v = vals.to(dtype)
-            for cname, out, sidx, _ in scatter_cases(lp, v, lay.cap_server,
-                                                     rng):
-                a = K.coo_scatter_add_op(out.clone(), sidx, v)
-                b = R.coo_scatter_add_ref(out, sidx, v)
-                check("coo_scatter_add", [a], [b], f"{name}/{cname} {dtype}")
+            for cname, out, sidx, sv in scatter_cases(lp, v, lay.cap_server,
+                                                      rng):
+                b = R.coo_scatter_add_ref(out, sidx, sv)
+                # twice in a row: the kept scratch is left clean
+                for call in (1, 2):
+                    a = K.coo_scatter_add_op(out.clone(), sidx, sv)
+                    check("coo_scatter_add", [a], [b],
+                          f"{name}/{cname} {dtype} call {call}")
             for cap_pull in caps:
                 a = K.zen_commit_push_fused_op(lp, v, cap_server=lay.cap_server,
                                                cap_pull=cap_pull)
@@ -378,8 +392,9 @@ def phase_kernels(dev) -> dict:
                 log(f"[kernels] zen_commit_push {what}: equal, and to the "
                     f"unfused chain (live rows="
                     f"{int((lp < lay.cap_server).sum())}, ovf={int(b[3])})")
-            log(f"[kernels] coo_scatter_add {name} {dtype}: equal (stream, "
-                f"non-zero out + EMPTY/negative/out-of-range, 64 repeats)")
+            log(f"[kernels] coo_scatter_add {name} {dtype}: equal, each case "
+                f"twice in a row (stream, non-zero out + EMPTY/negative/"
+                f"out-of-range, 64 and 4096 repeats, every row distinct)")
         for cap_pull in caps:
             a = K.zen_commit_pull_fused_op(bms, lay.cap_server, cap_pull)
             b = R.zen_commit_pull_ref(bms, lay.cap_server, cap_pull)
@@ -391,8 +406,10 @@ def phase_kernels(dev) -> dict:
             f"chain")
         if name == "realistic":
             shapes = dict(inp, lo=lay)
+        elif name == "dense":
+            dense = dict(lp=lp, vals=vals, lo=lay)
     torch.cuda.synchronize()
-    return {"err": err, "inputs": shapes}
+    return {"err": err, "inputs": shapes, "dense": dense}
 
 
 def phase_zen_sync(dev) -> None:
@@ -855,6 +872,13 @@ def phase_serve_times(inp: dict, smi: str) -> list:
     res = []
     for name, (kern, plain, nbytes, nops, rate, lib) in rows.items():
         res.append(time_row(name, kern, plain, lib, nbytes, nops, rate, smi))
+    # ssd_fwd's products run on the TF32 tensor cores with each operand
+    # split in two, three products for one: the same counted work at a
+    # third of the TF32 rate
+    split_ms = bound(rows["ssd_fwd"][2], ssd_ops, TF32_OPS_PER_S / 3)[0]
+    res[-1]["bound_split_ms"] = split_ms
+    log(f"[times] ssd_fwd: bound at the split TF32 rate (495/3 TFLOP/s) "
+        f"{split_ms:.6f} ms, at the f32 FMA rate {res[-1]['bound_ms']:.6f} ms")
     return res
 
 
@@ -883,6 +907,29 @@ def bound(nbytes: int, nops: int = 0,
     type, in ms."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def scatter_dense_times(dense: dict, smi: str) -> dict:
+    """Informational, beside the table: the scatter-add at phase 2's dense
+    stream near capacity (server 0), against ``index_add_`` on its live
+    rows."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    lp, vals, lo = dense["lp"], dense["vals"], dense["lo"]
+    d, el = vals.shape[1], vals.element_size()
+    out = torch.zeros((lo.cap_server, d), dtype=vals.dtype, device=vals.device)
+    keep = lp < lo.cap_server
+    lib_idx, lib_vals = lp[keep].long(), vals[keep]
+    live, touched = int(keep.sum()), int(torch.unique(lp[keep]).numel())
+    log(f"[times] coo_scatter_add dense stream: C={lp.numel()} live rows="
+        f"{live} touched targets={touched}")
+    return time_row(
+        "coo_scatter_add (dense stream)",
+        lambda: K.coo_scatter_add_op(out, lp, vals),
+        lambda: R.coo_scatter_add_ref(out, lp, vals),
+        lambda: out.index_add_(0, lib_idx, lib_vals),
+        lp.numel() * 4 + live * d * el + 2 * touched * d * el, live * d,
+        OPS_PER_S, smi)
 
 
 def phase_times(inp: dict, smi: str) -> list:
@@ -950,6 +997,12 @@ def phase_times(inp: dict, smi: str) -> list:
     for name, (kern, plain, nbytes, nops, lib) in rows.items():
         res.append(time_row(name, kern, plain, lib, nbytes, nops, OPS_PER_S,
                             smi))
+    sa = K._lib("scatter_add")
+    fit = sa.scatter_add_resident_blocks(K._DTYPE_CODE[vals.dtype], d,
+                                         vals.data_ptr(), out.data_ptr())
+    log(f"[times] coo_scatter_add: cooperative grid of {fit} co-resident "
+        f"blocks of 256 threads ({vals.dtype}, d {d}), capped by the "
+        f"stream's rows and targets")
     return res
 
 
@@ -984,6 +1037,7 @@ def main(argv=None) -> None:
     if want("times"):
         times = phase_times(kern["inputs"], dev_info["smi"]) \
             + phase_serve_times(skern, dev_info["smi"])
+        scatter_dense_times(kern["dense"], dev_info["smi"])
     launches = dict(trainer["launches"]) if trainer else {}
     if served:
         launches.update({k: served[a]["launches"]
@@ -999,7 +1053,9 @@ def main(argv=None) -> None:
             "ms": row["ms"], "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "library_device_ms": row["library_device_ms"]})
+            "library_device_ms": row["library_device_ms"],
+            **({"bound_split_ms": row["bound_split_ms"]}
+               if "bound_split_ms" in row else {})})
     log(f"[done] {time.time() - t_start:.1f}s | {dev_info['smi']}")
     print(json.dumps({"kernels": table}))
     print(dev_info["smi"])

@@ -1,18 +1,18 @@
-// Stream-order aggregation by target, shared by the commit push
-// (csrc/zen_commit.cu) and the COO scatter-add (csrc/scatter_add.cu).
+// Stream-order aggregation by target for the commit push
+// (csrc/zen_commit.cu); the COO scatter-add (csrc/scatter_add.cu) shares
+// live_target and Acc.
 //
 // Both add rows vals[r] into out[idx[r]] and must be bit-exact against a
 // sequential scatter-add: each target's rows are summed in stream order,
 // in the values' dtype (bf16: add in f32, round once per add).  Float
-// atomics cannot keep an order, so the rows are grouped by target into a
-// CSR list with integer atomics (whose order does not matter):
+// atomics cannot keep an order, so the push groups the rows by target
+// into a CSR list with integer atomics (whose order does not matter):
 //   1. count the live rows of each target (csr_count_kernel);
 //   2. an exclusive scan of the counts gives each target's segment;
 //   3. scatter row ids into their segment (csr_fill_kernel);
 //   4. per target: sort the segment's row ids ascending, which is stream
 //      order (sort_segment), and sum the rows in that order
 //      (ordered_row_sum).
-// Steps 2 and 4 differ between the two callers and live in their files.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,18 +25,11 @@ __device__ __forceinline__ bool live_target(int v, int rows) {
   return (unsigned)v < (unsigned)rows;
 }
 
-// cnt[t] += 1 for every live idx[r].  With a non-null `touched`, the first
-// row of each target also appends the target to touched[*ntouched++] (in
-// no particular order).
+// cnt[t] += 1 for every live idx[r].
 __global__ void csr_count_kernel(const int* __restrict__ idx, int C, int rows,
-                                 int* __restrict__ cnt,
-                                 int* __restrict__ touched,
-                                 int* __restrict__ ntouched) {
+                                 int* __restrict__ cnt) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < C && live_target(idx[r], rows)) {
-    const int old = atomicAdd(&cnt[idx[r]], 1);
-    if (touched != nullptr && old == 0) touched[atomicAdd(ntouched, 1)] = idx[r];
-  }
+  if (r < C && live_target(idx[r], rows)) atomicAdd(&cnt[idx[r]], 1);
 }
 
 // list[cursor[t]++] = r for every live row r of target t; cursor[t] starts
@@ -116,17 +109,16 @@ __device__ __forceinline__ void sort_segment(int* seg, int m) {
   }
 }
 
-// dst[c] = init[c] (0 when init is null) + vals[seg[0]][c] + ... +
-// vals[seg[m-1]][c], added left to right in the values' dtype, for the
-// columns c this thread owns.  Returns whether any of them is non-zero
-// (-0.0 counts as zero).  dst may alias init.
+// dst[c] = vals[seg[0]][c] + ... + vals[seg[m-1]][c], added left to right
+// in the values' dtype, for the columns c this thread owns.  Returns
+// whether any of them is non-zero (-0.0 counts as zero).
 template <typename T>
 __device__ __forceinline__ int ordered_row_sum(const T* __restrict__ vals,
                                                int d, const int* seg, int m,
-                                               const T* init, T* dst) {
+                                               T* dst) {
   int nz = 0;
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = init != nullptr ? Acc<T>::load(init + c) : 0.0f;
+    float acc = 0.0f;
     for (int e = 0; e < m; ++e)
       acc = Acc<T>::add(acc, Acc<T>::load(vals + (size_t)seg[e] * d + c));
     dst[c] = Acc<T>::store(acc);

@@ -19,8 +19,7 @@
 //   4. per slot: sort its few row ids ascending (= stream order), sum the
 //      rows column by column in that order, write the slot's buffer row and
 //      its mask any(row != 0) (-0.0 counts as zero);
-//      (steps 1, 3 and 4's sort and sum are csr_by_target.cuh's, shared
-//      with the scatter-add, csrc/scatter_add.cu);
+//      (steps 1, 3 and 4's sort and sum are csr_by_target.cuh's);
 //   5. one CTA: ascending compaction of the mask to cap_pull (block scan),
 //      the LSB-first bitmap words (__ballot_sync) and the overflow count;
 //   6. gather the kept slots' rows into the pull payload, zero the rest.
@@ -76,7 +75,7 @@ zen_aggregate_kernel(const T* __restrict__ vals, int d,
   int* seg = list + start[s];
   zen::sort_segment(seg, m);
   const int nz = __syncthreads_or(zen::ordered_row_sum<T>(
-      vals, d, seg, m, nullptr, buf + (size_t)s * d));
+      vals, d, seg, m, buf + (size_t)s * d));
   if (threadIdx.x == 0) mask[s] = nz;
 }
 
@@ -161,7 +160,7 @@ int push(const int* lp, const T* vals, int C, int d, int cap_server,
   const int gs = (C + kStreamThreads - 1) / kStreamThreads;
   if (C > 0)
     zen::csr_count_kernel<<<gs, kStreamThreads, 0, st>>>(
-        lp, C, cap_server, cnt, nullptr, nullptr);
+        lp, C, cap_server, cnt);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   zen_scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, cap_server, start,
                                               cursor);

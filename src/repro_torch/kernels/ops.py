@@ -21,6 +21,7 @@ kernels' outputs bit for bit.  Two more carry the models' prefill:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Sequence
 
 import torch
@@ -67,8 +68,11 @@ _SIGNATURES = {
         "bitmap_error_string": ([_I], ctypes.c_char_p),
     },
     "scatter_add": {
-        "scatter_add_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "scatter_add_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+                               _I),
+        "scatter_add_zscratch": ([_I], _LL),
         "scatter_add_iscratch": ([_I, _I], _LL),
+        "scatter_add_resident_blocks": ([_I, _I, _P, _P], _I),
         "scatter_add_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_fwd": {
@@ -76,8 +80,9 @@ _SIGNATURES = {
         "flash_fwd_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd_fwd": {
-        "ssd_fwd_launch": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        "ssd_fwd_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
         "ssd_fwd_smem_bytes": ([_I, _I, _I], _I),
+        "ssd_fwd_gscratch": ([_I, _I, _I], _LL),
         "ssd_fwd_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -307,6 +312,27 @@ def bitmap_unpack_op(words: torch.Tensor, length: int) -> torch.Tensor:
     return bits
 
 
+# The scatter-add's scratch, per (device, stream): a zeroed part that the
+# kernel leaves zero, a part it overwrites (each grows when needed), and
+# the number of calls so far, whose parity picks the word the kernel counts
+# the touched targets in.
+# The lock covers a call's use of it, from lookup to the parity's bump.
+_SCATTER_SCRATCH: dict[tuple[int, int], list] = {}
+_SCATTER_LOCK = threading.Lock()
+
+
+def _scatter_scratch(lib, dev: torch.device, stream: int, C: int, M: int):
+    """The scatter-add's [zeroed, plain, calls] state for ``stream``, kept
+    across calls, so no call zeroes memory.  Hold ``_SCATTER_LOCK``."""
+    st = _SCATTER_SCRATCH.setdefault((dev.index, stream), [None, None, 0])
+    nz, ns = lib.scatter_add_zscratch(M), lib.scatter_add_iscratch(C, M)
+    if st[0] is None or st[0].numel() < nz:
+        st[0] = torch.zeros((nz,), dtype=torch.int32, device=dev)
+    if st[1] is None or st[1].numel() < ns:
+        st[1] = torch.empty((ns,), dtype=torch.int32, device=dev)
+    return st
+
+
 def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
                        vals: torch.Tensor) -> torch.Tensor:
     """``out[idx[i]] += vals[i]`` IN PLACE, and returns ``out`` [M, d].
@@ -334,12 +360,15 @@ def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
     if C == 0 or M == 0:
         return out
     lib = _lib("scatter_add")
-    iscr = torch.empty((lib.scatter_add_iscratch(C, M),), dtype=torch.int32,
-                       device=out.device)
-    rc = lib.scatter_add_launch(idx.data_ptr(), vals.data_ptr(), C, d,
-                                _DTYPE_CODE[out.dtype], M, out.data_ptr(),
-                                iscr.data_ptr(), _stream(out))
-    _check(lib, "scatter_add", rc, "coo_scatter_add launch")
+    stream = _stream(out)
+    with _SCATTER_LOCK:
+        st = _scatter_scratch(lib, out.device, stream, C, M)
+        rc = lib.scatter_add_launch(idx.data_ptr(), vals.data_ptr(), C, d,
+                                    _DTYPE_CODE[out.dtype], M, out.data_ptr(),
+                                    st[0].data_ptr(), st[1].data_ptr(),
+                                    st[2] & 1, stream)
+        _check(lib, "scatter_add", rc, "coo_scatter_add launch")
+        st[2] += 1
     LAUNCHES["coo_scatter_add"] += 1
     return out
 
@@ -460,12 +489,18 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+SSD_HEAD_DIMS = (32, 64)
+SSD_STATE_DIMS = (16, 32, 64, 128)
+SSD_MAX_CHUNK = 64
+
+
 def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, *, chunk: int = 64):
     """The Mamba2 SSD chunk scan (``ref.ssd_fwd_ref``): x [Bt, S, H, hd],
     dA [Bt, S, H], Bm/Cm [Bt, S, N], all float32, S a multiple of
     Q = min(chunk, S) -> (y [Bt, S, H, hd], state [Bt, H, hd, N]).  The
-    kernel takes hd, N and Q multiples of 4 with Q <= 256."""
+    kernel takes hd in ``SSD_HEAD_DIMS``, N in ``SSD_STATE_DIMS`` and
+    Q <= ``SSD_MAX_CHUNK``."""
     if not x.is_cuda:
         PLAIN_CALLS["ssd_fwd"] += 1
         return ref.ssd_fwd_ref(x, dA, Bm, Cm, chunk=chunk)
@@ -478,13 +513,15 @@ def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     Q = min(chunk, S)
     if not (x.device == dA.device == Bm.device == Cm.device) \
             or dA.shape != (Bt, S, H) or Bm.shape != (Bt, S, N) \
-            or Cm.shape != Bm.shape or S % Q or Q > 256 \
-            or hd % 4 or N % 4 or Q % 4:
+            or Cm.shape != Bm.shape or Q <= 0 or S % Q \
+            or Q > SSD_MAX_CHUNK or hd not in SSD_HEAD_DIMS \
+            or N not in SSD_STATE_DIMS:
         raise ValueError(f"ssd_fwd: need x [Bt, S, H, hd], dA [Bt, S, H], "
                          f"B = C [Bt, S, N] on one device with S % Q == 0, "
-                         f"Q <= 256 and hd, N, Q multiples of 4; got "
-                         f"{tuple(x.shape)}, {tuple(dA.shape)}, "
-                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}, Q={Q}")
+                         f"0 < Q <= {SSD_MAX_CHUNK}, hd in {SSD_HEAD_DIMS} "
+                         f"and N in {SSD_STATE_DIMS}; got {tuple(x.shape)}, "
+                         f"{tuple(dA.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}, Q={Q}")
     lib = _lib("ssd_fwd")
     smem = lib.ssd_fwd_smem_bytes(hd, N, Q)
     if smem > _MAX_SMEM:
@@ -495,9 +532,11 @@ def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     if x.numel() == 0:
         return y, state.zero_()
     _aligned(x, dA, Bm, Cm)
+    cbt = torch.empty((lib.ssd_fwd_gscratch(Bt, S, Q),), dtype=torch.float32,
+                      device=x.device)
     rc = lib.ssd_fwd_launch(x.data_ptr(), dA.data_ptr(), Bm.data_ptr(),
-                            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bt,
-                            S, H, hd, N, Q, _stream(x))
+                            Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                            cbt.data_ptr(), Bt, S, H, hd, N, Q, _stream(x))
     _check(lib, "ssd_fwd", rc, "ssd_fwd launch")
     LAUNCHES["ssd_fwd"] += 1
     return y, state

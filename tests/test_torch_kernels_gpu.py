@@ -1,4 +1,5 @@
-"""The models' prefill kernels against their plain versions, on the card.
+"""The models' prefill kernels and the COO scatter-add against their plain
+versions, on the card.
 
 Imports neither JAX nor the reference, so it runs where only PyTorch is
 installed:
@@ -10,7 +11,8 @@ have no CPU mode; their plain versions are held against the reference by
 ``tests/test_torch_flash.py`` and ``tests/test_torch_ssd.py``).
 Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
 1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
-another order than their plain versions.
+another order than their plain versions; ``coo_scatter_add`` bitwise (it
+keeps the stream order of every target's adds).
 """
 import numpy as np
 import pytest
@@ -35,7 +37,14 @@ FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
 ]
 SSD_SHAPES = [  # B, S, H, hd, N, chunk
     (2, 128, 4, 32, 16, 64), (1, 96, 3, 64, 128, 32), (2, 64, 2, 64, 128, 16),
+    # the tensor-core kernel's edges: Q not a multiple of 16 (zero-padded
+    # query tiles), hd 32 with N 128 (four warps a state row), the serve
+    # shape's widths
+    (1, 60, 2, 32, 128, 20), (2, 40, 3, 64, 32, 40), (1, 512, 4, 64, 128, 64),
 ]
+EMPTY = 2**31 - 1
+# the scatter-add's cases: M rows of out, d columns, the index stream
+SCATTER_CASES = ["repeat4096", "distinct", "junk", "d=1", "d=100"]
 
 
 @pytest.fixture
@@ -101,3 +110,69 @@ def test_kernels_reject_what_they_do_not_take(gpu):
         ops.ssd_fwd_op(x, torch.zeros((1, 20, 2), device=gpu),
                        torch.zeros((1, 20, 4), device=gpu),
                        torch.zeros((1, 20, 4), device=gpu), chunk=16)
+    with pytest.raises(ValueError, match="hd in"):      # hd 48: not built
+        ops.ssd_fwd_op(torch.zeros((1, 16, 2, 48), device=gpu),
+                       torch.zeros((1, 16, 2), device=gpu),
+                       torch.zeros((1, 16, 16), device=gpu),
+                       torch.zeros((1, 16, 16), device=gpu), chunk=16)
+
+
+def _scatter_case(case: str, dtype, dev):
+    """(out, idx, vals) of one scatter-add case, from numpy."""
+    rng = np.random.default_rng(len(case))
+    M, d, C = 3000, 896, 6000
+    if case == "repeat4096":      # one target repeated 4096 times
+        idx = rng.integers(0, M, C)
+        idx[rng.choice(C, 4096, replace=False)] = 7
+    elif case == "distinct":      # every row a distinct target: T = C
+        C = M
+        idx = rng.permutation(M)
+    else:                         # duplicates, EMPTY, negative, >= M
+        idx = rng.integers(0, M, C)
+        junk = rng.random(C) < 0.1
+        idx[junk] = rng.choice([EMPTY, -1, -7, M, M + 5], junk.sum())
+        d = {"junk": 896, "d=1": 1, "d=100": 100}[case]
+    out = rng.standard_normal((M, d)) * (rng.random((M, 1)) < 0.5)
+    vals = rng.standard_normal((C, d))
+    return (torch.as_tensor(out, device=dev).to(dtype),
+            torch.as_tensor(idx, dtype=torch.int32, device=dev),
+            torch.as_tensor(vals, device=dev).to(dtype))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _plain_scatter(out, idx, vals):
+    """The plain version on the CPU.  On the card its bf16 ``index_add_``
+    adds through 32-bit words, so at d = 1 it also adds +0.0 to the row
+    beside each target, turning an untouched -0.0 into +0.0; the kernel
+    leaves untouched rows alone, as the function says."""
+    return ref.coo_scatter_add_ref(out.cpu(), idx.cpu(), vals.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_add_kernel_is_bitwise_plain(gpu, dtype, case):
+    out, idx, vals = _scatter_case(case, dtype, gpu)
+    want = _plain_scatter(out, idx, vals)
+    n0 = ops.LAUNCHES["coo_scatter_add"]
+    got = ops.coo_scatter_add_op(out.clone(), idx, vals)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["coo_scatter_add"] == n0 + 1
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_leaves_its_scratch_clean(gpu, dtype):
+    """Calls in a row share the kept scratch: each is still bitwise, with
+    the scratch grown between them and reused at a smaller size."""
+    for case in ("junk", "repeat4096", "junk", "distinct", "d=1", "junk"):
+        out, idx, vals = _scatter_case(case, dtype, gpu)
+        if case == "distinct":          # more rows than any call before
+            out = torch.cat([out, out, out]).contiguous()
+        want = _plain_scatter(out, idx, vals)
+        got = ops.coo_scatter_add_op(out.clone(), idx, vals)
+        assert torch.equal(_bits(got.cpu()), _bits(want)), case
