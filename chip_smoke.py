@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the scatter-add also a non-zero ``out`` with EMPTY, negative and
      out-of-range indices, one target repeated 64 and 4096 times, and
      every row a distinct target, each case twice in a row (the kernel
-     keeps its scratch across calls).  Each fused kernel is also held
-     against its unfused chain.  Every output must be bitwise equal.
+     keeps its scratch across calls); for the encode also a skew stream
+     whose partition 0 holds 12000 candidates (its list in the global
+     scratch).  Each fused kernel is also held against its unfused chain.
+     Every output must be bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -32,7 +34,10 @@ Phases (any failure exits non-zero; nothing is caught):
      S 512, 14 q heads on 2 KV heads, hd 64, causal) in bf16 (one bf16 ulp;
      the tensor-core kernel) and f32 (2e-5; the FMA kernel), then S 500,
      KV = H, window 64, non-causal, a decode-style q_offset, KV = 1 and
-     hd 32 with window 64; ``ssd_fwd`` at the mamba2-370m prefill (B 8,
+     hd 32 with window 64, then the wide head dims: the qwen2.5-3b prefill
+     (16 q heads on 2 KV heads, hd 128), the pixtral-12b prefill (32 on 8,
+     hd 160), S 500 at both and window 64 at hd 128; ``ssd_fwd`` at the
+     mamba2-370m prefill (B 8,
      S 512, 32 heads, hd 64, N 128, Q 64; 2e-4), at S 500 through
      ``_ssd_chunked``'s padding (with D != 0) and at Q 16.
   7. serve: ``launch/serve.py`` for qwen2-0.5b and mamba2-370m at full
@@ -52,8 +57,9 @@ Phases (any failure exits non-zero; nothing is caught):
      that the host has queued the whole call before the device reaches
      it: the events then bound device work only.  ``ssd_fwd``'s row also
      gives its bound at a third of the TF32 tensor-core rate (its split
-     products), and the scatter-add is timed once more, beside the table,
-     at phase 2's dense stream.
+     products); beside the table, the scatter-add and the encode are timed
+     once more at phase 2's dense stream, and ``flash_fwd`` at the
+     qwen2.5-3b and pixtral-12b prefill shapes against SDPA.
 
 The third line from the end is the kernel table as JSON, the second the
 card's name and power limit (``nvidia-smi``), the last
@@ -85,6 +91,9 @@ SLICE = dict(M=151936, d=896, n=8, density_budget=0.25, tokens=512)
 SERVE = dict(batch=8, prompt=512, gen=16)
 FLASH = dict(B=8, S=512, H=14, KV=2, hd=64)       # qwen2-0.5b prefill
 SSD = dict(B=8, S=512, H=32, hd=64, N=128, Q=64)   # mamba2-370m prefill
+# qwen2.5-3b (16 q / 2 KV heads) and pixtral-12b (32 / 8) prefills
+FLASH_WIDE = {"qwen2.5-3b": dict(B=8, S=512, H=16, KV=2, hd=128),
+              "pixtral-12b": dict(B=8, S=512, H=32, KV=8, hd=160)}
 FLASH_F32_TOL = 2e-5       # the reference's own flash test
 SSD_TOL = 2e-4             # the reference's own SSD test (atol and rtol)
 # f32 prefill logits, kernels vs plain route.  Random-init Mamba2 carries a
@@ -407,9 +416,41 @@ def phase_kernels(dev) -> dict:
         if name == "realistic":
             shapes = dict(inp, lo=lay)
         elif name == "dense":
-            dense = dict(lp=lp, vals=vals, lo=lay)
+            dense = dict(idx=idx, lp=lp, vals=vals, lo=lay)
+    # skew: partition 0 holds far more than C / n candidates, more than a
+    # shared-memory list takes, so its list goes to the global scratch
+    idx, seeds = encode_skew_stream(lo, rng, dev), lo.static_seeds()
+    for nm, r2 in (("", lo.r2), ("/r2=4", 4)):
+        a = K.zen_encode_fused_op(idx, seeds, n, lo.r1, r2)
+        b = R.zen_encode_ref(idx, seeds, n, lo.r1, r2)
+        check("zen_encode", a, b, f"skew{nm}")
+        check("zen_encode", a, K.zen_encode_unfused(idx, seeds, n, lo.r1, r2),
+              f"skew{nm} vs unfused chain")
+        log(f"[kernels] zen_encode skew{nm}: equal, and to the unfused chain "
+            f"(nnz={int((idx != 2**31 - 1).sum())}, ovf={int(b[2])})")
     torch.cuda.synchronize()
     return {"err": err, "inputs": shapes, "dense": dense}
+
+
+def encode_skew_stream(lo, rng, dev) -> torch.Tensor:
+    """An index vector of C = cap_index entries in which partition 0 takes
+    12000 ids (3x the dense stream's share, past the kernel's 4096-entry
+    shared-memory list) and the others 2000 each, with EMPTY entries
+    scattered through it: ascending ids, as the compaction gives them."""
+    from repro_torch.core.hashing import EMPTY, hash_u32
+
+    ids = torch.arange(SLICE["M"], dtype=torch.int32)
+    part = hash_u32(ids, lo.static_seeds()[0]) % lo.n
+    picks = [ids[part == p][torch.as_tensor(rng.permutation(
+        int((part == p).sum()))[:12000 if p == 0 else 2000])]
+        for p in range(lo.n)]
+    live = torch.sort(torch.cat(picks)).values
+    C = lo.cap_index
+    slots = torch.as_tensor(np.sort(rng.choice(C, live.numel(),
+                                               replace=False)))
+    idx = torch.full((C,), EMPTY, dtype=torch.int32)
+    idx[slots] = live
+    return idx.to(dev)
 
 
 def phase_zen_sync(dev) -> None:
@@ -680,6 +721,13 @@ def phase_serve_kernels() -> dict:
              ("KV=1", dict(S=f["S"], KV=1), {}),
              ("hd=32 window=64", dict(S=f["S"], KV=f["KV"], hd=32),
               dict(window=64))]
+    # the wide head dims: the qwen2.5-3b and pixtral-12b prefills, ragged
+    # S at both widths, a window at hd 128
+    for arch, shp in FLASH_WIDE.items():
+        cases += [(f"{arch} hd={shp['hd']}", shp, {}),
+                  (f"S=500 hd={shp['hd']}", {**shp, "S": 500}, {})]
+    cases.append(("window=64 hd=128", FLASH_WIDE["qwen2.5-3b"],
+                  dict(window=64)))
     for dtype in (torch.bfloat16, torch.float32):
         for name, shp, kw in cases:
             q, k, v = flash_inputs(dtype, **{"B": f["B"], "H": f["H"],
@@ -909,6 +957,32 @@ def bound(nbytes: int, nops: int = 0,
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def flash_wide_times(smi: str) -> list:
+    """Informational, beside the table: ``flash_fwd`` in bf16 at the
+    qwen2.5-3b (hd 128) and pixtral-12b (hd 160) prefills against SDPA
+    (``is_causal``, ``enable_gqa``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K, ref as R
+
+    res = []
+    for arch, shp in FLASH_WIDE.items():
+        q, k, v = flash_inputs(torch.bfloat16, **shp)
+        B, S, H, hd = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = B * H * S * (S + 1) // 2
+        res.append(time_row(
+            f"flash_fwd ({arch}, hd {hd})",
+            lambda: K.flash_fwd_op(q, k, v),
+            lambda: R.flash_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * pairs * hd, BF16_OPS_PER_S, smi))
+        del q, k, v, qt, kt, vt
+    return res
+
+
 def scatter_dense_times(dense: dict, smi: str) -> dict:
     """Informational, beside the table: the scatter-add at phase 2's dense
     stream near capacity (server 0), against ``index_add_`` on its live
@@ -930,6 +1004,24 @@ def scatter_dense_times(dense: dict, smi: str) -> dict:
         lambda: out.index_add_(0, lib_idx, lib_vals),
         lp.numel() * 4 + live * d * el + 2 * touched * d * el, live * d,
         OPS_PER_S, smi)
+
+
+def encode_dense_times(dense: dict, smi: str) -> dict:
+    """Informational, beside the table: the encode at phase 2's dense
+    stream (row density 0.2, worker 0)."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    idx, lo = dense["idx"], dense["lo"]
+    n, L, seeds = lo.n, lo.cap_pull, lo.static_seeds()
+    W = -(-L // 32)
+    log(f"[times] zen_encode dense stream: C={idx.numel()} live="
+        f"{int((idx != 2**31 - 1).sum())}")
+    return time_row(
+        "zen_encode (dense stream)",
+        lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
+        lambda: R.zen_encode_ref(idx, seeds, n, lo.r1, lo.r2),
+        None, idx.numel() * 4 + (n * (L + W) + 1) * 4, 0, OPS_PER_S,
+        smi)
 
 
 def phase_times(inp: dict, smi: str) -> list:
@@ -959,7 +1051,7 @@ def phase_times(inp: dict, smi: str) -> list:
         "zen_encode": (
             lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
             lambda: R.zen_encode_ref(idx, seeds, n, lo.r1, lo.r2),
-            C * 4 + n * (L + W + 1) * 4, 0, None),
+            C * 4 + (n * (L + W) + 1) * 4, 0, None),
         "zen_commit_push": (
             lambda: K.zen_commit_push_fused_op(
                 lp, vals, cap_server=lo.cap_server, cap_pull=L),
@@ -1038,6 +1130,8 @@ def main(argv=None) -> None:
         times = phase_times(kern["inputs"], dev_info["smi"]) \
             + phase_serve_times(skern, dev_info["smi"])
         scatter_dense_times(kern["dense"], dev_info["smi"])
+        encode_dense_times(kern["dense"], dev_info["smi"])
+        flash_wide_times(dev_info["smi"])
     launches = dict(trainer["launches"]) if trainer else {}
     if served:
         launches.update({k: served[a]["launches"]

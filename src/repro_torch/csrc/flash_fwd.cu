@@ -45,12 +45,21 @@
 //   emulation in tests/test_torch_flash.py, run as a script).  l sums the
 //   f32 P.
 //
-// f32: one thread per query row on the FMA units.  One block per (batch,
-// KV head, 128 / g query positions) holds the g q heads of a KV head, so
-// each K/V tile (f32 in shared memory) is read once for all of them; q and
-// o rows live in registers and (m, l, o) are updated every 16 keys.  It
-// stays off the tensor cores: TF32 keeps about 3 decimal digits, too few
-// for the f32 gate of 2e-5.
+// The K/V ring is dynamic shared memory at every width (86,016 B at hd
+// 160), and V is read one 16-column tile at a time inside the P.V loop,
+// so only 4 of its registers are live.  hd 128 and 160 (qwen2.5-3b,
+// phi4-mini, the MoE configs; pixtral-12b) run one block an SM: Q's
+// fragments and O's accumulators take HD / 4 + HD / 2 registers a thread.
+//
+// f32: the FMA units.  One block per (batch, KV head, 128 / g query
+// positions) holds the g q heads of a KV head, so each K/V tile (f32 in
+// shared memory) is read once for all of them; q and o rows live in
+// registers and (m, l, o) are updated every 16 keys.  It stays off the
+// tensor cores: TF32 keeps about 3 decimal digits, too few for the f32
+// gate of 2e-5.  A query row is one thread at hd 32 / 64; at hd 128 / 160
+// four adjacent lanes share it, each holding a quarter of q and o, and the
+// dot products are summed across the four by __shfl_xor, an order the
+// 2e-5 gate allows.
 //
 // Both skip tiles wholly above the causal diagonal or before the window.
 //
@@ -67,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -154,8 +165,18 @@ __device__ __forceinline__ void split3_bf16(float x, float y,
   p[2] = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
 }
 
+// The K/V ring (2 stages of K and V) in dynamic shared memory: 20,480 /
+// 36,864 / 69,632 / 86,016 B at hd 32 / 64 / 128 / 160, past the 48 KB a
+// static array may take at the last two.
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+constexpr int bf16_smem_bytes() {
+  return 2 * 2 * kBN * (HD + kPad) * (int)sizeof(__nv_bfloat16);
+}
+
+// One block an SM at hd 128 / 160: Q's fragments and O's accumulators take
+// HD / 4 + HD / 2 registers a thread, too many for two blocks of 8 warps.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, HD > 64 ? 1 : 2)
 flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -167,8 +188,10 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int ND = HD / 8;     // 8-column tiles of O
   constexpr int NK = kBN / 16;   // 16-key groups of a tile
   constexpr int CPR = HD / 8;    // 16-byte chunks per key row
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kBN * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kBN * LD];
+  constexpr int STAGE = kBN * LD;  // elements of one ring stage
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* vs = ks + 2 * STAGE;  // each [2][kBN * LD]
 
   // block -> (row tile, heaviest first; KV head; batch).  The rows of a
   // (batch, KV head) are its Sq x g (query, q head) pairs, query-major, so
@@ -243,8 +266,8 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const bool ok = key < Sk;
       const size_t off =
           (((size_t)b * Sk + (ok ? key : 0)) * KV + kvh) * HD + 8 * part;
-      cp_async16(&ks[stage][j * LD + 8 * part], k + off, ok);
-      cp_async16(&vs[stage][j * LD + 8 * part], v + off, ok);
+      cp_async16(ks + stage * STAGE + j * LD + 8 * part, k + off, ok);
+      cp_async16(vs + stage * STAGE + j * LD + 8 * part, v + off, ok);
     }
     cp_async_commit();
   };
@@ -269,8 +292,8 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile it is in shared memory for every warp
     if (warp_live && t0 <= any_hi && t0 + kBN - 1 >= any_lo) {
       const bool edge = !(t0 + kBN - 1 <= all_hi && t0 >= all_lo);
-      const __nv_bfloat16* kt = ks[st];
-      const __nv_bfloat16* vt = vs[st];
+      const __nv_bfloat16* kt = ks + st * STAGE;
+      const __nv_bfloat16* vt = vs + st * STAGE;
       // 16-key groups that hold a key some row of the warp keeps
       bool live[NK];
 #pragma unroll
@@ -361,19 +384,21 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
           split3_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3], p);
           a[0][3] = p[0], a[1][3] = p[1], a[2][3] = p[2];
         }
-        uint32_t r[ND / 2][4];
+        // one 16-column V tile at a time (4 registers, not HD / 2); each
+        // accumulator takes P_hi, P_mid, P_lo in that order
+        const __nv_bfloat16* vrow =
+            vt + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            (lane >> 4) * 8;
 #pragma unroll
-        for (int dp = 0; dp < ND / 2; ++dp)
-          ldsm_x4_trans(r[dp], vt + (16 * j + ((lane >> 3) & 1) * 8 +
-                                     (lane & 7)) * LD +
-                                   16 * dp + (lane >> 4) * 8);
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, vrow + 16 * dp);
 #pragma unroll
-        for (int part = 0; part < 3; ++part)
-#pragma unroll
-          for (int dp = 0; dp < ND / 2; ++dp) {
-            mma_bf16(acc[2 * dp], a[part], r[dp][0], r[dp][1]);
-            mma_bf16(acc[2 * dp + 1], a[part], r[dp][2], r[dp][3]);
+          for (int part = 0; part < 3; ++part) {
+            mma_bf16(acc[2 * dp], a[part], r[0], r[1]);
+            mma_bf16(acc[2 * dp + 1], a[part], r[2], r[3]);
           }
+        }
       }
     }
     __syncthreads();  // every warp is done with stage st before it refills
@@ -401,7 +426,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const long long blocks = (rows + kBM - 1) / kBM * KV * B;
   if (rows > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  flash_fwd_bf16_mma_kernel<HD><<<(unsigned)blocks, kMmaThreads, 0, stream>>>(
+  constexpr int smem = bf16_smem_bytes<HD>();
+  static int smem_set[kMaxDevices];
+  const cudaError_t err =
+      allow_smem(flash_fwd_bf16_mma_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_bf16_mma_kernel<HD><<<(unsigned)blocks, kMmaThreads, smem,
+                                  stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -411,33 +442,57 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // ---------------------------------------------------------------------------
-// f32: one thread per query row, FMA units
+// f32: SPLIT threads per query row, FMA units
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;   // one query row per thread
+constexpr int kRows = 128;      // query rows per block
 constexpr int kSub = 16;        // keys per online-softmax update
 constexpr int kKeys = 64;       // keys per shared-memory tile
 
+// Lanes a query row is split over: at hd 128 / 160 a row's q and o (HD
+// floats each) do not fit one thread's registers.  With one lane (hd 32 /
+// 64) the shuffle loop is empty and the row's sums run in column order.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kSplit = HD > 64 ? 4 : 1;
+
+// The K/V tile (64 keys of K and V, f32) in dynamic shared memory: 16 / 32
+// / 64 / 80 KB at hd 32 / 64 / 128 / 160.
+template <int HD>
+constexpr int f32_smem_bytes() {
+  return 2 * kKeys * HD * (int)sizeof(float);
+}
+
+// SPLIT adjacent lanes share a row, each owning the float4 chunks
+// c = sub + SPLIT u of it; the q.k dot product is summed over the lanes by
+// __shfl_xor (the row's lanes only), after which every lane holds the same
+// scores and runs the same online softmax on its own columns.
+template <int HD, int SPLIT = kSplit<HD>>
+__global__ void __launch_bounds__(kRows * SPLIT, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int Sq, int Sk, int H, int KV, int causal, int window,
                      int q_offset, float scale) {
-  constexpr int C4 = HD / 4;
-  __shared__ float4 ks[kKeys][C4];
-  __shared__ float4 vs[kKeys][C4];
+  constexpr int C4 = HD / 4;        // float4 chunks of a row
+  constexpr int CT = C4 / SPLIT;    // chunks a lane owns
+  static_assert(C4 % SPLIT == 0, "HD / 4 must split over the lanes");
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  float4* ks = reinterpret_cast<float4*>(flash_smem);   // [kKeys][C4]
+  float4* vs = ks + kKeys * C4;
 
   const int g = H / KV;
-  const int bq = kThreads / g;  // query positions per block
+  const int bq = kRows / g;  // query positions per block
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int q0 = blockIdx.x * bq;
-  const int pi = threadIdx.x / g, hh = threadIdx.x - pi * g;
+  const int rr = threadIdx.x / SPLIT, sub = threadIdx.x % SPLIT;
+  const int pi = rr / g, hh = rr - pi * g;
   const int i = q0 + pi;
   const bool active = pi < bq && i < Sq;
   const int pos = q_offset + i;
   const int hi = causal ? min(pos, Sk - 1) : Sk - 1;
   const int lo = window > 0 ? pos - window + 1 : 0;
+  // the lanes of this row (all active or all not)
+  const unsigned rmask = ((1u << SPLIT) - 1u)
+                         << ((threadIdx.x & 31) & ~(SPLIT - 1));
 
   // the keys any row of this block needs
   const int q_last = q_offset + min(q0 + bq, Sq) - 1;
@@ -445,24 +500,25 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_begin =
       window > 0 ? max(0, q_offset + q0 - window + 1) / kKeys * kKeys : 0;
 
-  float qr[HD], acc[HD];
+  float qr[4 * CT], acc[4 * CT];
   float m = kNeg, l = 0.f;
   const size_t row = ((size_t)b * Sq + i) * H + (size_t)kvh * g + hh;
 #pragma unroll
-  for (int c = 0; c < C4; ++c) {
+  for (int u = 0; u < CT; ++u) {
+    const int c = sub + SPLIT * u;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (active) x = *reinterpret_cast<const float4*>(q + row * HD + 4 * c);
-    qr[4 * c] = x.x * scale;
-    qr[4 * c + 1] = x.y * scale;
-    qr[4 * c + 2] = x.z * scale;
-    qr[4 * c + 3] = x.w * scale;
+    qr[4 * u] = x.x * scale;
+    qr[4 * u + 1] = x.y * scale;
+    qr[4 * u + 2] = x.z * scale;
+    qr[4 * u + 3] = x.w * scale;
   }
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < 4 * CT; ++d) acc[d] = 0.f;
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += kKeys) {
     __syncthreads();  // every row is done with the previous tile
-    for (int e = threadIdx.x; e < kKeys * C4; e += kThreads) {
+    for (int e = threadIdx.x; e < kKeys * C4; e += kRows * SPLIT) {
       const int j = e / C4, c = e - j * C4;
       const int key = t0 + j;
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
@@ -471,8 +527,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         kk = *reinterpret_cast<const float4*>(k + off);
         vv = *reinterpret_cast<const float4*>(v + off);
       }
-      ks[j][c] = kk;
-      vs[j][c] = vv;
+      ks[e] = kk;
+      vs[e] = vv;
     }
     __syncthreads();
     if (!active) continue;
@@ -484,15 +540,19 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = kNeg;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
+        const float4* kr = ks + (s0 + jj) * C4 + sub;
         float dot = 0.f;
 #pragma unroll
-        for (int c = 0; c < C4; ++c) {
-          const float4 kk = ks[s0 + jj][c];
-          dot = fmaf(qr[4 * c], kk.x, dot);
-          dot = fmaf(qr[4 * c + 1], kk.y, dot);
-          dot = fmaf(qr[4 * c + 2], kk.z, dot);
-          dot = fmaf(qr[4 * c + 3], kk.w, dot);
+        for (int u = 0; u < CT; ++u) {
+          const float4 kk = kr[SPLIT * u];
+          dot = fmaf(qr[4 * u], kk.x, dot);
+          dot = fmaf(qr[4 * u + 1], kk.y, dot);
+          dot = fmaf(qr[4 * u + 2], kk.z, dot);
+          dot = fmaf(qr[4 * u + 3], kk.w, dot);
         }
+#pragma unroll
+        for (int w = 1; w < SPLIT; w <<= 1)
+          dot += __shfl_xor_sync(rmask, dot, w);
         const int j = j0 + jj;
         p[jj] = (j >= lo && j <= hi) ? dot : kNeg;
         mx = fmaxf(mx, p[jj]);
@@ -507,21 +567,21 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l = l * corr + ps;
 #pragma unroll
-      for (int c = 0; c < C4; ++c) {
-        float a0 = acc[4 * c] * corr, a1 = acc[4 * c + 1] * corr;
-        float a2 = acc[4 * c + 2] * corr, a3 = acc[4 * c + 3] * corr;
+      for (int u = 0; u < CT; ++u) {
+        float a0 = acc[4 * u] * corr, a1 = acc[4 * u + 1] * corr;
+        float a2 = acc[4 * u + 2] * corr, a3 = acc[4 * u + 3] * corr;
 #pragma unroll
         for (int jj = 0; jj < kSub; ++jj) {
-          const float4 vv = vs[s0 + jj][c];
+          const float4 vv = vs[(s0 + jj) * C4 + sub + SPLIT * u];
           a0 = fmaf(p[jj], vv.x, a0);
           a1 = fmaf(p[jj], vv.y, a1);
           a2 = fmaf(p[jj], vv.z, a2);
           a3 = fmaf(p[jj], vv.w, a3);
         }
-        acc[4 * c] = a0;
-        acc[4 * c + 1] = a1;
-        acc[4 * c + 2] = a2;
-        acc[4 * c + 3] = a3;
+        acc[4 * u] = a0;
+        acc[4 * u + 1] = a1;
+        acc[4 * u + 2] = a2;
+        acc[4 * u + 3] = a3;
       }
       m = m_new;
     }
@@ -529,7 +589,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (active) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[row * HD + d] = acc[d] / den;
+    for (int u = 0; u < CT; ++u)
+      *reinterpret_cast<float4*>(o + row * HD + 4 * (sub + SPLIT * u)) =
+          make_float4(acc[4 * u] / den, acc[4 * u + 1] / den,
+                      acc[4 * u + 2] / den, acc[4 * u + 3] / den);
   }
 }
 
@@ -538,9 +601,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KV, int causal, int window,
                int q_offset, cudaStream_t stream) {
   const int g = H / KV;
-  const int bq = kThreads / g;
+  const int bq = kRows / g;
   const dim3 grid((Sq + bq - 1) / bq, KV, B);
-  flash_fwd_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = f32_smem_bytes<HD>();
+  static int smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_f32_kernel<HD><<<grid, kRows * kSplit<HD>, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
       causal, window, q_offset, 1.0f / sqrtf((float)HD));
@@ -553,13 +620,14 @@ extern "C" {
 
 // q [B, Sq, H, hd], k/v [B, Sk, KV, hd] -> o [B, Sq, H, hd], all of one
 // dtype (0 = float32: the FMA kernel; 1 = bfloat16: the tensor-core
-// kernel), contiguous, 16-byte aligned.  hd in {32, 64}; H % KV == 0 with
-// H / KV <= 128.  Returns the cudaError_t of the launch (0 = success).
+// kernel), contiguous, 16-byte aligned.  hd in {32, 64, 128, 160};
+// H % KV == 0 with H / KV <= 128.  Returns the cudaError_t of the launch
+// (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      int B, int Sq, int Sk, int H, int KV, int hd, int dtype,
                      int causal, int window, int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > kThreads || B > 65535 || KV > 65535)
+      H / KV > kRows || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && hd == 64)
@@ -574,6 +642,18 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1 && hd == 32)
     return launch_bf16<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
                            q_offset, s);
+  if (dtype == 0 && hd == 128)
+    return launch_f32<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, s);
+  if (dtype == 0 && hd == 160)
+    return launch_f32<160>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, s);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                            q_offset, s);
+  if (dtype == 1 && hd == 160)
+    return launch_bf16<160>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                            q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -58,10 +58,11 @@
 // product).  Operations bound it.
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kMaxQ = 64;            // largest chunk the kernels take
-constexpr int kMaxDevices = 64;
 constexpr int kMaxQT = kMaxQ / 16;   // query tiles of 16 rows
 constexpr int kCbtThreads = 256;  // 16 rows x 64 key columns
 
@@ -525,22 +526,6 @@ int scan_smem_bytes(int Qp) {
   using K = Cfg<HD, N>;
   return (2 * Qp * K::XS + Qp * K::BS + K::region(Qp) + 5 * Qp) *
          (int)sizeof(float);
-}
-
-// Raises kernel's dynamic shared memory limit to `bytes` on the current
-// device, once: `done` keeps the largest limit set per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done[dev] = bytes;
-  return err;
 }
 
 template <int HD, int N>

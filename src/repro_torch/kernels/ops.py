@@ -21,6 +21,7 @@ kernels' outputs bit for bit.  Two more carry the models' prefill:
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Sequence
 
@@ -43,8 +44,10 @@ PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "zen_encode": {
-        "zen_encode_launch": ([_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+        "zen_encode_launch": (
+            [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
         "zen_encode_smem_bytes": ([_I, _I, _I], _I),
+        "zen_encode_gscratch": ([_I, _I, _I, _I], _LL),
         "zen_encode_error_string": ([_I], ctypes.c_char_p),
     },
     "zen_commit": {
@@ -144,6 +147,36 @@ def _aligned(*ts: torch.Tensor) -> None:
                              "with a storage offset?); pass .clone()")
 
 
+def _kept_scratch(table: dict, dev: torch.device, stream: int, nz: int,
+                  ns: int, *extra) -> list:
+    """A kernel's scratch for ``stream``, kept across calls so no call
+    zeroes memory: ``[zeroed, plain, *extra]``, a part of ``nz`` int32 that
+    the kernel leaves zero and one of ``ns`` int32 that it overwrites, each
+    grown when needed; ``extra`` seeds the entry's further state.  Hold the
+    table's lock."""
+    st = table.setdefault((dev.index, stream), [None, None, *extra])
+    if st[0] is None or st[0].numel() < nz:
+        st[0] = torch.zeros((nz,), dtype=torch.int32, device=dev)
+    if st[1] is None or st[1].numel() < ns:
+        st[1] = torch.empty((ns,), dtype=torch.int32, device=dev)
+    return st
+
+
+# The encode's scratch, per (device, stream): its 64-bit tally of finished
+# blocks and their overflows (2 ints, left zero) and the candidate lists
+# that do not fit in shared memory.  The lock covers a call's use of it.
+_ENCODE_SCRATCH: dict[tuple[int, int], list] = {}
+_ENCODE_LOCK = threading.Lock()
+
+
+@functools.cache
+def _encode_sizes(C: int, n: int, r1: int, r2: int) -> tuple[int, int]:
+    """The encode's shared-memory bytes and its list scratch (ints)."""
+    lib = _lib("zen_encode")
+    return (lib.zen_encode_smem_bytes(C, r1, r2),
+            max(1, lib.zen_encode_gscratch(C, r1, r2, n)))
+
+
 def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
                         r1: int, r2: int):
     """Zen encode: indices int32 [C] (unique, EMPTY-padded) -> (pidx int32
@@ -155,21 +188,25 @@ def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
     seeds = [int(s) & 0xFFFFFFFF for s in seeds]
     lib = _lib("zen_encode")
     C, L = indices.shape[0], r1 + r2
-    smem = lib.zen_encode_smem_bytes(C, r1, r2)
+    smem, ng = _encode_sizes(C, n, r1, r2)
     if smem > _MAX_SMEM:
         raise ValueError(f"zen_encode: row r1+r2={L} with C={C} needs "
                          f"{smem} B of shared memory (> {_MAX_SMEM})")
     dev = indices.device
     pidx = torch.empty((n, L), dtype=torch.int32, device=dev)
     occ = torch.empty((n, -(-L // BITS)), dtype=torch.int32, device=dev)
-    ovf = torch.empty((n,), dtype=torch.int32, device=dev)
+    ovf = torch.empty((), dtype=torch.int32, device=dev)
     sd = (ctypes.c_uint * len(seeds))(*seeds)
-    rc = lib.zen_encode_launch(
-        indices.data_ptr(), C, ctypes.cast(sd, _P), len(seeds), n, r1, r2,
-        pidx.data_ptr(), occ.data_ptr(), ovf.data_ptr(), _stream(indices))
-    _check(lib, "zen_encode", rc, "zen_encode launch")
+    stream = _stream(indices)
+    with _ENCODE_LOCK:
+        st = _kept_scratch(_ENCODE_SCRATCH, dev, stream, 2, ng)
+        rc = lib.zen_encode_launch(
+            indices.data_ptr(), C, ctypes.cast(sd, _P), len(seeds), n, r1,
+            r2, pidx.data_ptr(), occ.data_ptr(), ovf.data_ptr(),
+            st[0].data_ptr(), st[1].data_ptr(), stream)
+        _check(lib, "zen_encode", rc, "zen_encode launch")
     LAUNCHES["zen_encode"] += 1
-    return pidx, occ, ovf.sum(dtype=torch.int32)
+    return pidx, occ, ovf
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -321,18 +358,6 @@ _SCATTER_SCRATCH: dict[tuple[int, int], list] = {}
 _SCATTER_LOCK = threading.Lock()
 
 
-def _scatter_scratch(lib, dev: torch.device, stream: int, C: int, M: int):
-    """The scatter-add's [zeroed, plain, calls] state for ``stream``, kept
-    across calls, so no call zeroes memory.  Hold ``_SCATTER_LOCK``."""
-    st = _SCATTER_SCRATCH.setdefault((dev.index, stream), [None, None, 0])
-    nz, ns = lib.scatter_add_zscratch(M), lib.scatter_add_iscratch(C, M)
-    if st[0] is None or st[0].numel() < nz:
-        st[0] = torch.zeros((nz,), dtype=torch.int32, device=dev)
-    if st[1] is None or st[1].numel() < ns:
-        st[1] = torch.empty((ns,), dtype=torch.int32, device=dev)
-    return st
-
-
 def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
                        vals: torch.Tensor) -> torch.Tensor:
     """``out[idx[i]] += vals[i]`` IN PLACE, and returns ``out`` [M, d].
@@ -362,7 +387,9 @@ def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
     lib = _lib("scatter_add")
     stream = _stream(out)
     with _SCATTER_LOCK:
-        st = _scatter_scratch(lib, out.device, stream, C, M)
+        st = _kept_scratch(_SCATTER_SCRATCH, out.device, stream,
+                           lib.scatter_add_zscratch(M),
+                           lib.scatter_add_iscratch(C, M), 0)
         rc = lib.scatter_add_launch(idx.data_ptr(), vals.data_ptr(), C, d,
                                     _DTYPE_CODE[out.dtype], M, out.data_ptr(),
                                     st[0].data_ptr(), st[1].data_ptr(),
@@ -445,7 +472,7 @@ def zen_commit_pull_unfused(words: torch.Tensor, cap_server: int,
 # The models' prefill kernels
 # ---------------------------------------------------------------------------
 
-FLASH_HEAD_DIMS = (32, 64)
+FLASH_HEAD_DIMS = (32, 64, 128, 160)
 
 
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -59,7 +59,11 @@ def coo_scatter_add_ref(out: int | torch.Tensor, idx: torch.Tensor,
     Stream order per target is kept by adding occurrence by occurrence: pass
     ``j`` adds every row that is the ``j``-th occurrence of its target, so
     targets are unique within a pass and ``index_add_`` is exact whatever
-    its internal order."""
+    its internal order.  Each pass adds with ``index_put_`` of
+    ``out[t] + v``: one rounding per add, as ``index_add_`` would, but it
+    writes the targets only (CUDA's bf16 ``index_add_`` at odd d adds
+    through 32-bit words, adding +0.0 to the row beside a target and so
+    turning an untouched -0.0 into +0.0)."""
     if isinstance(out, int):
         out = torch.zeros((out, vals.shape[-1]), dtype=vals.dtype,
                           device=vals.device)
@@ -79,7 +83,8 @@ def coo_scatter_add_ref(out: int | torch.Tensor, idx: torch.Tensor,
     occ = torch.where(live, occ, -1)
     for j in range(int(occ.max().item()) + 1 if C else 0):
         sel = occ == j
-        out.index_add_(0, tgt[sel], vals[sel])
+        t = tgt[sel]
+        out.index_put_((t,), out[t] + vals[sel])
     return out
 
 

@@ -66,9 +66,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _check_ported(args) -> None:
     if get_config(args.arch).kind != "dense":
         raise NotImplementedError(
-            f"training {args.arch} needs a gradient through the SSD kernel "
-            f"(ROADMAP queue 1, item 8); serve it with repro_torch.launch."
-            f"serve")
+            f"training {args.arch} is not ported yet: the reference trains "
+            f"it by autodiff through the plain chunked scan, and the port's "
+            f"trainer on that scan is ROADMAP queue 1, item 8; serve it "
+            f"with repro_torch.launch.serve")
     todo = {
         "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
         "--replan-every": (args.replan_every > 0, "ROADMAP queue 1, item 5"),

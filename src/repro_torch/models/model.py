@@ -10,8 +10,9 @@ carries a reference parameter pytree over.
 Serving: :meth:`Model.prefill` runs the prompt (prefill attention on the
 ``flash_fwd`` kernel, the Mamba2 scan on ``ssd_fwd``) and returns the
 decode cache; :meth:`Model.decode` takes one greedy step.  The train loss
-runs dense models only: training Mamba2 needs a gradient through the SSD
-kernel (ROADMAP queue 1, item 8).
+runs dense models only: the Mamba2 trainer, autodiff through the plain
+chunked scan as the reference trains it, is not ported yet (ROADMAP queue
+1, item 8).
 """
 from __future__ import annotations
 
@@ -121,9 +122,10 @@ class Model(nn.Module):
         """Mean next-token loss of tokens/labels [B, S] (labels -1 masked)."""
         if self.cfg.kind != "dense":
             raise NotImplementedError(
-                f"training a {self.cfg.kind!r} model needs a gradient "
-                f"through the SSD kernel (ROADMAP queue 1, item 8); the "
-                f"port serves it only")
+                f"training a {self.cfg.kind!r} model is not ported yet: "
+                f"the reference trains it by autodiff through the plain "
+                f"chunked scan, and the port's trainer on that scan is "
+                f"ROADMAP queue 1, item 8; the port serves it only")
         x = self.embed(tokens)
         for layer in self.layers:
             x = layer(x)

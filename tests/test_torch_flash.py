@@ -6,7 +6,8 @@ The reference's Pallas ``flash_fwd`` does not run under this JAX
 reference's ``layers.flash_attention``, the function that kernel computes,
 on the same numpy inputs: the four shapes of
 ``tests/test_perf_opts.py::test_flash_kernel_matches_reference`` (window
-64, KV = H, KV = 1), a ragged Sq, and a decode-style q_offset.
+64, KV = H, KV = 1), a ragged Sq, a decode-style q_offset, and the wide
+head dims (160 with GQA, 128 with g = 3 and a window).
 Tolerances: f32 to the reference test's 2e-5; bf16 to one bf16 ulp of the
 reference's output (plus 1e-6 for values near zero), since both round the
 same f32 result once.  The kernel itself is held against the plain version
@@ -39,6 +40,8 @@ SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (1, 512, 512, 2, 2, 64, True, 0, 0),
     (2, 100, 100, 14, 2, 64, True, 0, 0),       # Sq not a multiple of 64
     (1, 37, 600, 4, 2, 32, True, 0, 563),       # queries after a cache
+    (1, 96, 96, 4, 2, 160, True, 0, 0),         # hd 160 GQA (pixtral)
+    (1, 80, 80, 6, 2, 128, True, 32, 0),        # hd 128, g = 3, window
 ]
 IDS = [f"B{s[0]}-Sq{s[1]}-Sk{s[2]}-H{s[3]}-KV{s[4]}-hd{s[5]}-"
        f"{'causal' if s[6] else 'full'}-w{s[7]}-off{s[8]}" for s in SHAPES]
@@ -77,7 +80,8 @@ def test_flash_attention_matches_reference_f32(B, Sq, Sk, H, KV, hd, causal,
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,win,off", SHAPES[:2] +
-                         SHAPES[4:5], ids=IDS[:2] + IDS[4:5])
+                         SHAPES[4:5] + SHAPES[6:], ids=IDS[:2] + IDS[4:5] +
+                         IDS[6:])
 def test_flash_attention_matches_reference_bf16(B, Sq, Sk, H, KV, hd, causal,
                                                 win, off):
     q, k, v = _inputs(B, Sq, Sk, H, KV, hd, seed=1)

@@ -87,6 +87,22 @@ def test_unported_meshes_and_flags_raise():
         get_config("olmoe-1b-7b")
 
 
+def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
+    """Training Mamba2 is not ported: the reference trains it by autodiff
+    through its plain chunked scan, so the raise names that trainer (queue
+    1, item 8), not a gradient through the SSD kernel."""
+    why = "plain chunked scan.*ROADMAP queue 1, item 8"
+    with pytest.raises(NotImplementedError, match=why):
+        train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
+                    "--device", "cpu"])
+    cfg = get_config("mamba2-370m").reduced()
+    model = Model(cfg, device="cpu")
+    tok = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=why) as exc:
+        model(tok, tok)
+    assert "SSD kernel" not in str(exc.value)
+
+
 def test_cuda_sources_name_the_kernel_they_replace():
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()

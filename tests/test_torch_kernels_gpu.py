@@ -1,5 +1,6 @@
-"""The models' prefill kernels and the COO scatter-add against their plain
-versions, on the card.
+"""The models' prefill kernels, the COO scatter-add and the Zen encode
+against their plain versions, on the card, and the plain scatter-add on
+the card against its own CPU run.
 
 Imports neither JAX nor the reference, so it runs where only PyTorch is
 installed:
@@ -12,12 +13,13 @@ have no CPU mode; their plain versions are held against the reference by
 Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
 1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
 another order than their plain versions; ``coo_scatter_add`` bitwise (it
-keeps the stream order of every target's adds).
+keeps the stream order of every target's adds); ``zen_encode`` bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.hashing import hash_u32
 from repro_torch.kernels import ops, ref
 
 FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
@@ -34,6 +36,15 @@ FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (1, 200, 200, 4, 2, 32, False, 64, 0),     # hd 32, window, non-causal
     (1, 512, 512, 14, 2, 64, True, 0, 0),      # the serve shape at B 1
     (1, 256, 256, 8, 1, 64, True, 0, 0),       # KV = 1
+    # the wide head dims (dynamic shared memory; the f32 rows split over
+    # four lanes)
+    (1, 256, 256, 16, 2, 128, True, 0, 0),     # g = 8, as qwen2.5-3b
+    (2, 130, 130, 8, 8, 128, True, 0, 0),      # KV = H, ragged Sq
+    (1, 200, 200, 16, 2, 128, True, 64, 0),    # window
+    (1, 65, 127, 4, 2, 128, True, 0, 62),      # q_offset
+    (1, 256, 256, 32, 8, 160, True, 0, 0),     # g = 4, as pixtral-12b
+    (2, 100, 100, 8, 2, 160, True, 0, 0),      # ragged Sq
+    (1, 150, 150, 6, 2, 160, False, 32, 0),    # window, non-causal
 ]
 SSD_SHAPES = [  # B, S, H, hd, N, chunk
     (2, 128, 4, 32, 16, 64), (1, 96, 3, 64, 128, 32), (2, 64, 2, 64, 128, 16),
@@ -45,6 +56,11 @@ SSD_SHAPES = [  # B, S, H, hd, N, chunk
 EMPTY = 2**31 - 1
 # the scatter-add's cases: M rows of out, d columns, the index stream
 SCATTER_CASES = ["repeat4096", "distinct", "junk", "d=1", "d=100"]
+# the encode's cases: one partition far over C / n that overflows r2, r2 = 4,
+# EMPTY entries inside the stream, no candidate at all, lists too long for
+# shared memory, and indices that start off a 16-byte boundary
+ENCODE_CASES = ["skew", "r2=4", "empty-middle", "all-empty", "scratch",
+                "unaligned"]
 
 
 @pytest.fixture
@@ -100,6 +116,56 @@ def test_ssd_kernel_matches_plain(gpu, B, S, H, hd, N, chunk):
     torch.testing.assert_close(st, st_p, atol=2e-4, rtol=2e-4)
 
 
+def _encode_case(case: str):
+    """(indices int32 [C], seeds, n, r1, r2) of one encode case, from
+    numpy: unique indices, EMPTY-padded."""
+    rng = np.random.default_rng(len(case) + 3)
+    seeds = [int(x) for x in rng.integers(0, 2**32, size=4, dtype=np.uint64)]
+    n, r1, r2 = 4, 256, 64
+    if case == "scratch":        # ~12000 candidates a partition: global list
+        n, r1, r2 = 2, 4096, 256
+        idx = rng.choice(1 << 20, 24000, replace=False)
+    else:
+        idx = rng.choice(1 << 16, 3000, replace=False)
+        if case == "skew":       # partition 0 takes 2/3 of the stream
+            part = (hash_u32(torch.as_tensor(idx), seeds[0]) % n).numpy()
+            keep = (part == 0) | (rng.random(idx.size) < 0.2)
+            idx = idx[keep]
+            r2 = 16
+        elif case in ("r2=4", "unaligned"):
+            r2 = 4
+        elif case == "empty-middle":   # EMPTY entries inside the stream
+            idx = idx.astype(np.int64)
+            idx[rng.random(idx.size) < 0.3] = EMPTY
+        elif case == "all-empty":
+            idx = np.full(512, EMPTY)
+    idx = np.concatenate([idx, np.full(37, EMPTY)])   # EMPTY-padded tail
+    return torch.as_tensor(idx, dtype=torch.int32), seeds, n, r1, r2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_encode_kernel_is_bitwise_plain(gpu, case):
+    """Each case twice in a row (the kernel keeps a finish counter between
+    calls), bitwise against the plain version run on the CPU."""
+    idx, seeds, n, r1, r2 = _encode_case(case)
+    want = ref.zen_encode_ref(idx, seeds, n, r1, r2)
+    if case in ("skew", "r2=4", "scratch"):
+        assert int(want[2]) > 0, "case no longer overflows"
+    dev_idx = idx.to(gpu)
+    if case == "unaligned":      # a view 4 bytes into its storage
+        dev_idx = torch.cat([idx[:1], idx]).to(gpu)[1:]
+        assert dev_idx.data_ptr() % 16
+    for _ in range(2):
+        n0 = ops.LAUNCHES["zen_encode"]
+        got = ops.zen_encode_fused_op(dev_idx, seeds, n, r1, r2)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["zen_encode"] == n0 + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(gpu):
     q = torch.zeros((1, 8, 4, 48), device=gpu)          # hd 48: not built
@@ -131,7 +197,7 @@ def _scatter_case(case: str, dtype, dev):
         idx = rng.integers(0, M, C)
         junk = rng.random(C) < 0.1
         idx[junk] = rng.choice([EMPTY, -1, -7, M, M + 5], junk.sum())
-        d = {"junk": 896, "d=1": 1, "d=100": 100}[case]
+        d = {"junk": 896, "d=1": 1, "d=3": 3, "d=100": 100}[case]
     out = rng.standard_normal((M, d)) * (rng.random((M, 1)) < 0.5)
     vals = rng.standard_normal((C, d))
     return (torch.as_tensor(out, device=dev).to(dtype),
@@ -144,11 +210,32 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _plain_scatter(out, idx, vals):
-    """The plain version on the CPU.  On the card its bf16 ``index_add_``
-    adds through 32-bit words, so at d = 1 it also adds +0.0 to the row
-    beside each target, turning an untouched -0.0 into +0.0; the kernel
-    leaves untouched rows alone, as the function says."""
+    """The plain version run on the CPU, which
+    ``test_plain_scatter_add_on_the_card_is_its_cpu_run`` holds the card's
+    run of it to."""
     return ref.coo_scatter_add_ref(out.cpu(), idx.cpu(), vals.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SCATTER_CASES + ["d=3"])
+def test_plain_scatter_add_on_the_card_is_its_cpu_run(gpu, dtype, case):
+    """The plain version writes only its targets on the card too: bitwise
+    its CPU run, and the untouched -0.0 rows stay -0.0 (CUDA's bf16
+    ``index_add_`` at odd d adds +0.0 to the row beside a target)."""
+    out, idx, vals = _scatter_case(case, dtype, gpu)
+    out[1::3] = -0.0
+    want = _plain_scatter(out, idx, vals)
+    got = ref.coo_scatter_add_ref(out, idx, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    live = idx[(idx >= 0) & (idx < out.shape[0])].long().cpu()
+    untouched = torch.ones(out.shape[0], dtype=torch.bool)
+    untouched[live] = False
+    neg0 = _bits(torch.full((1,), -0.0, dtype=dtype))
+    rows = untouched & (torch.arange(out.shape[0]) % 3 == 1)
+    assert rows.any() or case == "distinct"     # distinct touches every row
+    assert bool((_bits(got.cpu()[rows]) == neg0).all())
 
 
 @pytest.mark.cuda

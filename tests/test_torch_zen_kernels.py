@@ -163,6 +163,30 @@ def test_coo_scatter_add_keeps_stream_order():
         np.testing.assert_array_equal(_port(got), _np(ref))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_coo_scatter_add_writes_only_its_targets(dtype):
+    """At d = 1 with -0.0 in every row of ``out``: the touched rows equal
+    the reference's scatter-add bitwise (non-zero values, so starting from
+    -0.0 or +0.0 gives the same sums) and the untouched rows stay -0.0."""
+    rng = np.random.default_rng(11)
+    rows = 64
+    idx = rng.integers(0, rows, size=300).astype(np.int32)
+    idx[rng.random(300) < 0.1] = EMPTY
+    vals = (rng.standard_normal((300, 1)) * 50).astype(np.float32)
+    jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
+              else (jnp.bfloat16, torch.bfloat16))
+    want = _np(kref.coo_scatter_add_ref(rows, jnp.asarray(idx),
+                                        jnp.asarray(vals).astype(jd)))
+    out = torch.full((rows, 1), -0.0, dtype=td)
+    got = _port(tref.coo_scatter_add_ref(out, _t(idx), _t(vals).to(td)))
+    touched = np.zeros(rows, dtype=bool)
+    touched[idx[idx != EMPTY]] = True
+    assert 0 < touched.sum() < rows
+    np.testing.assert_array_equal(got[touched], want[touched])
+    assert (got[~touched].view(np.int32) == np.float32(-0.0).view(np.int32)
+            ).all(), "an untouched -0.0 row was written"
+
+
 def test_cpu_tensors_take_the_plain_route_and_count_it():
     """The wrappers count plain calls for CPU tensors and never count a
     launch there."""
