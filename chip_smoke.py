@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught):
      every row a distinct target, each case twice in a row (the kernel
      keeps its scratch across calls); for the encode also a skew stream
      whose partition 0 holds 12000 candidates (its list in the global
-     scratch).  Each fused kernel is also held against its unfused chain.
+     scratch); for the push also a cancellation stream (occupied slots
+     whose rows sum to zero, one slot of -0.0 rows, which the mask drops).
+     Each fused kernel is also held against its unfused chain.
      Every output must be bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
@@ -57,9 +59,11 @@ Phases (any failure exits non-zero; nothing is caught):
      that the host has queued the whole call before the device reaches
      it: the events then bound device work only.  ``ssd_fwd``'s row also
      gives its bound at a third of the TF32 tensor-core rate (its split
-     products); beside the table, the scatter-add and the encode are timed
-     once more at phase 2's dense stream, and ``flash_fwd`` at the
-     qwen2.5-3b and pixtral-12b prefill shapes against SDPA.
+     products); beside the table, the scatter-add, the encode and the
+     commit push are timed once more at phase 2's dense stream, and
+     ``flash_fwd`` at the qwen2.5-3b and pixtral-12b prefill shapes against
+     SDPA.  The push's and the pull's device time by launch
+     (torch.profiler), the push's grid and its kept scratch are logged.
 
 The third line from the end is the kernel table as JSON, the second the
 card's name and power limit (``nvidia-smi``), the last
@@ -417,6 +421,30 @@ def phase_kernels(dev) -> dict:
             shapes = dict(inp, lo=lay)
         elif name == "dense":
             dense = dict(idx=idx, lp=lp, vals=vals, lo=lay)
+    # cancellation: occupied slots whose rows sum to exactly zero, and one
+    # whose row is -0.0; the mask (and so the push's output) drops them
+    lp = shapes["lp"]
+    v, gone = cancel_values(lp, shapes["vals"], lo.cap_server)
+    for dtype in (torch.float32, torch.bfloat16):
+        for cap_pull in (lo.cap_pull, 97):
+            a = K.zen_commit_push_fused_op(lp, v.to(dtype),
+                                           cap_server=lo.cap_server,
+                                           cap_pull=cap_pull)
+            b = R.zen_commit_push_ref(lp, v.to(dtype),
+                                      cap_server=lo.cap_server,
+                                      cap_pull=cap_pull)
+            what = f"cancel {dtype} cap_pull={cap_pull}"
+            check("zen_commit_push", a, b, what)
+            check("zen_commit_push", a, K.zen_commit_push_unfused(
+                lp, v.to(dtype), cap_server=lo.cap_server, cap_pull=cap_pull),
+                what + " vs unfused chain")
+            kept = R.bitmap_unpack_ref(a[2])[gone]
+            if kept.any():
+                raise AssertionError(f"zen_commit_push {what}: a slot whose "
+                                     f"rows cancel is kept")
+    occupied = int(torch.unique(lp[lp < lo.cap_server]).numel())
+    log(f"[kernels] zen_commit_push cancel: equal, and to the unfused chain "
+        f"({occupied} occupied slots, {len(gone)} of them cancel to zero)")
     # skew: partition 0 holds far more than C / n candidates, more than a
     # shared-memory list takes, so its list goes to the global scratch
     idx, seeds = encode_skew_stream(lo, rng, dev), lo.static_seeds()
@@ -430,6 +458,29 @@ def phase_kernels(dev) -> dict:
             f"(nnz={int((idx != 2**31 - 1).sum())}, ovf={int(b[2])})")
     torch.cuda.synchronize()
     return {"err": err, "inputs": shapes, "dense": dense}
+
+
+def cancel_values(lp: torch.Tensor, vals: torch.Tensor, cap_server: int):
+    """Integer values (exact in bf16) for server 0's stream ``lp`` in which
+    every other slot that gets two or more rows has its second row the
+    negative of its first and any later rows zero, so its sum is exactly
+    +0.0, and one slot's rows are -0.0.  Returns (vals f32, the slots whose
+    sum is zero)."""
+    lpn = lp.cpu().numpy()
+    v = torch.round(vals.float().cpu() * 8)
+    live = np.flatnonzero(lpn < cap_server)
+    rows = {}
+    for r in live:                         # stream order within a slot
+        rows.setdefault(int(lpn[r]), []).append(int(r))
+    multi = [s for s, rs in sorted(rows.items()) if len(rs) >= 2]
+    gone = multi[::2]
+    for s in gone:
+        first, second, *rest = rows[s]
+        v[second] = -v[first]
+        v[rest] = 0.0
+    neg0 = next(s for s, rs in sorted(rows.items()) if s not in gone)
+    v[rows[neg0]] = -0.0
+    return v.to(vals.device), torch.as_tensor(gone + [neg0], device=lp.device)
 
 
 def encode_skew_stream(lo, rng, dev) -> torch.Tensor:
@@ -1006,6 +1057,51 @@ def scatter_dense_times(dense: dict, smi: str) -> dict:
         OPS_PER_S, smi)
 
 
+def push_dense_times(dense: dict, smi: str) -> dict:
+    """Informational, beside the table: the commit push at phase 2's dense
+    stream (row density 0.2, server 0; more slots survive than cap_pull
+    takes), its bound counted as in the table's row."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    lp, vals, lo = dense["lp"], dense["vals"], dense["lo"]
+    L, d, el = lo.cap_pull, vals.shape[1], vals.element_size()
+    live = int((lp < lo.cap_server).sum())
+    log(f"[times] zen_commit_push dense stream: C={lp.numel()} live rows="
+        f"{live} touched slots="
+        f"{int(torch.unique(lp[lp < lo.cap_server]).numel())}")
+    return time_row(
+        "zen_commit_push (dense stream)",
+        lambda: K.zen_commit_push_fused_op(
+            lp, vals, cap_server=lo.cap_server, cap_pull=L),
+        lambda: R.zen_commit_push_ref(
+            lp, vals, cap_server=lo.cap_server, cap_pull=L),
+        None, lp.numel() * 4 + live * d * el + L * (4 + d * el)
+        + lo.cap_bitmap_words * 4 + 4, live * d, OPS_PER_S, smi)
+
+
+def launch_split(fn, tag: str, reps: int = 20) -> dict:
+    """Device time of one call of ``fn`` by kernel (and memset) name, from
+    torch.profiler over ``reps`` calls: where a multi-launch call's time
+    goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    log(f"[times] {tag} by launch, device us a call (torch.profiler, "
+        f"{reps} calls): total {sum(us.values()):.3f}")
+    for name, t in sorted(us.items(), key=lambda kv: -kv[1]):
+        log(f"[times]   {t:9.3f} us  {name[:100]}")
+    return us
+
+
 def encode_dense_times(dense: dict, smi: str) -> dict:
     """Informational, beside the table: the encode at phase 2's dense
     stream (row density 0.2, worker 0)."""
@@ -1089,6 +1185,17 @@ def phase_times(inp: dict, smi: str) -> list:
     for name, (kern, plain, nbytes, nops, lib) in rows.items():
         res.append(time_row(name, kern, plain, lib, nbytes, nops, OPS_PER_S,
                             smi))
+    log(f"[times] zen_commit_push stream: C={lp.numel()} live rows={live} "
+        f"touched slots={touched}")
+    launch_split(lambda: K.zen_commit_push_fused_op(
+        lp, vals, cap_server=lo.cap_server, cap_pull=L), "zen_commit_push")
+    launch_split(lambda: K.zen_commit_pull_fused_op(bms, lo.cap_server, L),
+                 "zen_commit_pull")
+    grid, kept = K.zen_commit_push_grid(lp, vals, cap_server=lo.cap_server,
+                                        cap_pull=L)
+    log(f"[times] zen_commit_push: cooperative grid of {grid} blocks of 256 "
+        f"threads ({vals.dtype}, d {d}), kept scratch {kept} B for the "
+        f"stream")
     sa = K._lib("scatter_add")
     fit = sa.scatter_add_resident_blocks(K._DTYPE_CODE[vals.dtype], d,
                                          vals.data_ptr(), out.data_ptr())
@@ -1131,6 +1238,7 @@ def main(argv=None) -> None:
             + phase_serve_times(skern, dev_info["smi"])
         scatter_dense_times(kern["dense"], dev_info["smi"])
         encode_dense_times(kern["dense"], dev_info["smi"])
+        push_dense_times(kern["dense"], dev_info["smi"])
         flash_wide_times(dev_info["smi"])
     launches = dict(trainer["launches"]) if trainer else {}
     if served:

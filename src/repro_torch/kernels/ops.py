@@ -52,8 +52,12 @@ _SIGNATURES = {
     },
     "zen_commit": {
         "zen_commit_push_launch": (
-            [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+            [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+            _I),
+        "zen_commit_push_zscratch": ([_I], _LL),
         "zen_commit_push_iscratch": ([_I, _I], _LL),
+        "zen_commit_push_max_server": ([], _I),
+        "zen_commit_push_grid": ([_I, _I, _I, _I, _I, _P, _P, _P], _I),
         "zen_commit_pull_launch": ([_P, _I, _I, _I, _I, _P, _P], _I),
         "zen_commit_error_string": ([_I], ctypes.c_char_p),
     },
@@ -212,6 +216,46 @@ def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# The push's scratch, per (device, stream): the zeroed part and the slot
+# tables as the scatter-add keeps them, the number of calls so far (its
+# parity picks the touched-count word) and the staging rows, bytes of
+# min(C, cap_server) x d values.  The lock covers a call's use of it.
+_PUSH_SCRATCH: dict[tuple[int, int], list] = {}
+_PUSH_LOCK = threading.Lock()
+
+
+def _push_scratch(lib, dev: torch.device, stream: int, C: int, d: int,
+                  el: int, cap_server: int) -> list:
+    """The push's kept scratch for ``stream``, grown to this call's need.
+    Hold ``_PUSH_LOCK``."""
+    st = _kept_scratch(_PUSH_SCRATCH, dev, stream,
+                       lib.zen_commit_push_zscratch(cap_server),
+                       lib.zen_commit_push_iscratch(C, cap_server), 0, None)
+    nstage = max(1, min(C, cap_server) * d * el)
+    if st[3] is None or st[3].numel() < nstage:
+        st[3] = torch.empty((nstage,), dtype=torch.uint8, device=dev)
+    return st
+
+
+def zen_commit_push_grid(lp: torch.Tensor, vals: torch.Tensor, *,
+                         cap_server: int, cap_pull: int) -> tuple[int, int]:
+    """(blocks of 256 threads, kept scratch bytes) of the push on a CUDA
+    ``lp``/``vals``: its cooperative grid and the scratch it keeps for the
+    current stream after a call of these sizes."""
+    lib = _lib("zen_commit")
+    v2 = vals[:, None] if vals.ndim == 1 else vals
+    (C, d), dev = v2.shape, lp.device
+    with _PUSH_LOCK:
+        st = _push_scratch(lib, dev, _stream(lp), C, d, v2.element_size(),
+                           cap_server)
+        # out, a fresh allocation, is 16-byte aligned: vals stands in for it
+        grid = lib.zen_commit_push_grid(
+            _DTYPE_CODE[v2.dtype], C, d, cap_server, cap_pull, v2.data_ptr(),
+            v2.data_ptr(), st[3].data_ptr())
+        kept = sum(t.numel() * t.element_size() for t in (st[0], st[1], st[3]))
+    return grid, kept
+
+
 def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
                              cap_server: int, cap_pull: int):
     """Zen commit push: lp int32 [C] server-local positions (EMPTY and
@@ -231,20 +275,27 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError("zen_commit_push: lp and vals must share device "
                          "and row count")
     lib = _lib("zen_commit")
+    if cap_server > lib.zen_commit_push_max_server():
+        raise ValueError(f"zen_commit_push: cap_server={cap_server} exceeds "
+                         f"{lib.zen_commit_push_max_server()} (the bitmap's "
+                         f"prefix lives in shared memory)")
     C, d = v2.shape
     dev = lp.device
     lpos = torch.empty((cap_pull,), dtype=torch.int32, device=dev)
     out = torch.empty((cap_pull, d), dtype=v2.dtype, device=dev)
     bm = torch.empty((-(-cap_server // BITS),), dtype=torch.int32, device=dev)
     ovf = torch.empty((1,), dtype=torch.int32, device=dev)
-    iscr = torch.empty((lib.zen_commit_push_iscratch(C, cap_server),),
-                       dtype=torch.int32, device=dev)
-    buf = torch.empty((cap_server, d), dtype=v2.dtype, device=dev)
-    rc = lib.zen_commit_push_launch(
-        lp.data_ptr(), v2.data_ptr(), C, d, _DTYPE_CODE[v2.dtype], cap_server,
-        cap_pull, lpos.data_ptr(), out.data_ptr(), bm.data_ptr(),
-        ovf.data_ptr(), iscr.data_ptr(), buf.data_ptr(), _stream(lp))
-    _check(lib, "zen_commit", rc, "zen_commit_push launch")
+    stream = _stream(lp)
+    with _PUSH_LOCK:
+        st = _push_scratch(lib, dev, stream, C, d, v2.element_size(),
+                           cap_server)
+        rc = lib.zen_commit_push_launch(
+            lp.data_ptr(), v2.data_ptr(), C, d, _DTYPE_CODE[v2.dtype],
+            cap_server, cap_pull, lpos.data_ptr(), out.data_ptr(),
+            bm.data_ptr(), ovf.data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
+            st[3].data_ptr(), st[2] & 1, stream)
+        _check(lib, "zen_commit", rc, "zen_commit_push launch")
+        st[2] += 1
     LAUNCHES["zen_commit_push"] += 1
     return lpos, (out[:, 0] if squeeze else out), bm, ovf[0]
 

@@ -1,6 +1,6 @@
-"""The models' prefill kernels, the COO scatter-add and the Zen encode
-against their plain versions, on the card, and the plain scatter-add on
-the card against its own CPU run.
+"""The models' prefill kernels, the COO scatter-add and the Zen encode,
+commit push and pull decode against their plain versions, on the card, and
+the plain scatter-add on the card against its own CPU run.
 
 Imports neither JAX nor the reference, so it runs where only PyTorch is
 installed:
@@ -12,8 +12,9 @@ have no CPU mode; their plain versions are held against the reference by
 ``tests/test_torch_flash.py`` and ``tests/test_torch_ssd.py``).
 Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
 1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
-another order than their plain versions; ``coo_scatter_add`` bitwise (it
-keeps the stream order of every target's adds); ``zen_encode`` bitwise.
+another order than their plain versions; ``coo_scatter_add`` and the
+push bitwise (they keep the stream order of every target's adds);
+``zen_encode`` and the pull bitwise.
 """
 import numpy as np
 import pytest
@@ -61,6 +62,14 @@ SCATTER_CASES = ["repeat4096", "distinct", "junk", "d=1", "d=100"]
 # shared memory, and indices that start off a 16-byte boundary
 ENCODE_CASES = ["skew", "r2=4", "empty-middle", "all-empty", "scratch",
                 "unaligned"]
+# the push's cases: 1-D values (d = 1), a d that 16 bytes does not divide,
+# the slice's d, cap_pull below the kept slots, EMPTY / negative /
+# out-of-range positions, and slots whose rows cancel to +0.0 or are -0.0
+PUSH_CASES = ["d=1", "d=3", "d=896", "overflow", "junk", "cancel"]
+# the pull's cases: random rows at the slice's cap_server (not a multiple
+# of 32), all-ones and all-zero rows, cap_pull below a row's popcount, and
+# more words than a block's threads
+PULL_CASES = ["random", "ones-zeros", "small-cap", "wide"]
 
 
 @pytest.fixture
@@ -181,6 +190,10 @@ def test_kernels_reject_what_they_do_not_take(gpu):
                        torch.zeros((1, 16, 2), device=gpu),
                        torch.zeros((1, 16, 16), device=gpu),
                        torch.zeros((1, 16, 16), device=gpu), chunk=16)
+    lp = torch.zeros((4,), dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="cap_server"):  # prefix past 48 KB
+        ops.zen_commit_push_fused_op(lp, torch.zeros((4, 8), device=gpu),
+                                     cap_server=400_000, cap_pull=8)
 
 
 def _scatter_case(case: str, dtype, dev):
@@ -263,3 +276,100 @@ def test_scatter_add_kernel_leaves_its_scratch_clean(gpu, dtype):
         want = _plain_scatter(out, idx, vals)
         got = ops.coo_scatter_add_op(out.clone(), idx, vals)
         assert torch.equal(_bits(got.cpu()), _bits(want)), case
+
+
+def _push_case(case: str, dtype, dev):
+    """(lp, vals, cap_server, cap_pull) of one push case, from numpy;
+    vals is 1-D at d = 1."""
+    rng = np.random.default_rng(len(case) + 5)
+    M, L, C, d = 3000, 2500, 6000, 896
+    d = {"d=1": 1, "d=3": 3}.get(case, d)
+    if case == "overflow":
+        L = 97
+    lp = rng.integers(0, M, C)
+    lp[rng.random(C) < 0.5] = M                 # dead rows, as the trainer's
+    if case == "junk":
+        junk = rng.random(C) < 0.1
+        lp[junk] = rng.choice([EMPTY, -1, -7, M, M + 5], junk.sum())
+    vals = rng.standard_normal((C, d))
+    if case == "cancel":      # integers: v + (-v) is exactly +0.0
+        vals = np.round(vals * 8)
+        rows = {}
+        for r in np.flatnonzero(lp < M):
+            rows.setdefault(int(lp[r]), []).append(int(r))
+        multi = [t for t, rs in sorted(rows.items()) if len(rs) >= 2]
+        for t in multi[::2]:
+            first, second, *rest = rows[t]
+            vals[second] = -vals[first]
+            vals[rest] = 0.0
+        vals[rows[multi[1]]] = -0.0
+    v = torch.as_tensor(vals[:, 0] if d == 1 else vals, device=dev).to(dtype)
+    return torch.as_tensor(lp, dtype=torch.int32, device=dev), v, M, L
+
+
+def _same_bits(got, want) -> bool:
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and torch.equal(_bits(g.cpu()) if g.is_floating_point()
+                               else g.cpu(),
+                               _bits(w) if w.is_floating_point() else w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PUSH_CASES)
+def test_push_kernel_is_bitwise_plain(gpu, dtype, case):
+    lp, vals, M, L = _push_case(case, dtype, gpu)
+    want = ref.zen_commit_push_ref(lp.cpu(), vals.cpu(), M, L)
+    if case == "overflow":
+        assert int(want[3]) > 0, "case no longer overflows"
+    n0 = ops.LAUNCHES["zen_commit_push"]
+    got = ops.zen_commit_push_fused_op(lp, vals, cap_server=M, cap_pull=L)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["zen_commit_push"] == n0 + 1
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_push_kernel_leaves_its_scratch_clean(gpu, dtype):
+    """Calls in a row share the kept scratch: each is still bitwise, the
+    same stream twice, then smaller streams and other widths."""
+    for case in ("d=896", "d=896", "junk", "d=1", "cancel", "overflow"):
+        lp, vals, M, L = _push_case(case, dtype, gpu)
+        if case == "d=1":                       # a smaller stream and server
+            lp = torch.where(lp[:700] < 500, lp[:700], 500).contiguous()
+            vals, M, L = vals[:700].contiguous(), 500, 200
+        want = ref.zen_commit_push_ref(lp.cpu(), vals.cpu(), M, L)
+        got = ops.zen_commit_push_fused_op(lp, vals, cap_server=M, cap_pull=L)
+        assert _same_bits(got, want), case
+
+
+def _pull_case(case: str):
+    """(words int32 [n, W], cap_server, cap_pull) of one pull case."""
+    rng = np.random.default_rng(len(case) + 7)
+    n, cap_server, cap_pull = 8, 19107, 10446
+    if case == "wide":                          # W = 1563 > 1024 threads
+        cap_server, cap_pull = 50000, 15000
+    W = -(-cap_server // 32)
+    words = rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
+    words &= rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
+    if case == "ones-zeros":
+        words[0] = words[3] = (1 << 32) - 1      # popcount > cap_pull
+        words[1] = words[5] = 0
+    elif case == "small-cap":
+        cap_pull = 50
+    return (torch.as_tensor(words.astype(np.uint32).view(np.int32)),
+            cap_server, cap_pull)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PULL_CASES)
+def test_pull_kernel_is_bitwise_plain(gpu, case):
+    words, cap_server, cap_pull = _pull_case(case)
+    want = ref.zen_commit_pull_ref(words, cap_server, cap_pull)
+    n0 = ops.LAUNCHES["zen_commit_pull"]
+    got = ops.zen_commit_pull_fused_op(words.to(gpu), cap_server, cap_pull)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["zen_commit_pull"] == n0 + 1
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)

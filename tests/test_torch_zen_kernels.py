@@ -96,16 +96,44 @@ def _push_inputs(cap_server, C, density, d, seed=0):
     return lp, vals
 
 
+CANCEL = "cancel"   # the density of the cancellation stream's case
+
+
+def _cancel_inputs(cap_server, C, d):
+    """``_push_inputs`` at density 0.5, then every other slot that gets two
+    or more rows has its second row the negative of its first and any
+    later rows zero (an exact +0.0 sum: the values are integers), and one
+    slot's rows are -0.0.  Returns (lp, vals, the slots whose sum is
+    zero): occupied slots that the mask must drop."""
+    lp, vals = _push_inputs(cap_server, C, 0.5, d)
+    live = np.flatnonzero((lp >= 0) & (lp < cap_server))
+    rows = {}
+    for r in live:                              # stream order within a slot
+        rows.setdefault(int(lp[r]), []).append(int(r))
+    gone = [s for s, rs in sorted(rows.items()) if len(rs) >= 2][::2]
+    for s in gone:
+        first, second, *rest = rows[s]
+        vals[second] = -vals[first]
+        vals[rest] = 0.0
+    neg0 = next(s for s in sorted(rows) if s not in gone)
+    vals[rows[neg0]] = -0.0
+    return lp, vals, gone + [neg0]
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [None, 4], ids=["flat", "rows"])
 @pytest.mark.parametrize("cap_server,cap_pull,C,density", [
     (200, 96, 600, 0.05),
     (512, 192, 1024, 0.3),
     (256, 16, 512, 0.5),            # aggregated nnz >> pull capacity
+    (256, 96, 512, CANCEL),         # occupied slots whose rows cancel
 ])
 def test_push_plain_matches_reference_routes(cap_server, cap_pull, C,
                                              density, d, dtype):
-    lp, vals = _push_inputs(cap_server, C, density, d)
+    if density == CANCEL:
+        lp, vals, gone = _cancel_inputs(cap_server, C, d)
+    else:
+        lp, vals = _push_inputs(cap_server, C, density, d)
     jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
               else (jnp.bfloat16, torch.bfloat16))
     jv = jnp.asarray(vals).astype(jd)
@@ -122,6 +150,11 @@ def test_push_plain_matches_reference_routes(cap_server, cap_pull, C,
     _assert_equal(got, kern, "plain vs reference interpret-mode kernel")
     if cap_pull == 16:
         assert int(got[3]) > 0, "edge case no longer overflows"
+    if density == CANCEL:   # occupancy and mask differ: those slots drop
+        bits = tref.bitmap_unpack_ref(got[2])
+        assert len(gone) > 1 and not bits[gone].any()
+        occupied = np.unique(lp[(lp >= 0) & (lp < cap_server)]).size
+        assert int(bits.sum()) <= occupied - len(gone)
 
 
 # ---------------------------------------------------------------------------
