@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught):
      keeps its scratch across calls); for the encode also a skew stream
      whose partition 0 holds 12000 candidates (its list in the global
      scratch); for the push also a cancellation stream (occupied slots
-     whose rows sum to zero, one slot of -0.0 rows, which the mask drops).
+     whose rows sum to zero, one slot of -0.0 rows, which the mask drops);
+     for the row compaction and the hash stage also their edge shapes
+     (short, long, all-EMPTY, all-live and unaligned rows; index vectors
+     of 0 to C + 3 entries, k = 1 and 15, n = r1 = 1, top-bit seeds).
      Each fused kernel is also held against its unfused chain.
      Every output must be bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
@@ -59,10 +62,11 @@ Phases (any failure exits non-zero; nothing is caught):
      that the host has queued the whole call before the device reaches
      it: the events then bound device work only.  ``ssd_fwd``'s row also
      gives its bound at a third of the TF32 tensor-core rate (its split
-     products); beside the table, the scatter-add, the encode and the
-     commit push are timed once more at phase 2's dense stream, and
-     ``flash_fwd`` at the qwen2.5-3b and pixtral-12b prefill shapes against
-     SDPA.  The push's and the pull's device time by launch
+     products); beside the table, the scatter-add, the encode, the
+     commit push, the hash stage and the row compaction are timed once
+     more at phase 2's dense stream, and ``flash_fwd`` at the qwen2.5-3b
+     and pixtral-12b prefill shapes against SDPA.  The hash stage's, the
+     row compaction's, the push's and the pull's device time by launch
      (torch.profiler), the push's grid and its kept scratch are logged.
 
 The third line from the end is the kernel table as JSON, the second the
@@ -420,7 +424,7 @@ def phase_kernels(dev) -> dict:
         if name == "realistic":
             shapes = dict(inp, lo=lay)
         elif name == "dense":
-            dense = dict(idx=idx, lp=lp, vals=vals, lo=lay)
+            dense = dict(idx=idx, mem=inp["mem"], lp=lp, vals=vals, lo=lay)
     # cancellation: occupied slots whose rows sum to exactly zero, and one
     # whose row is -0.0; the mask (and so the push's output) drops them
     lp = shapes["lp"]
@@ -456,8 +460,66 @@ def phase_kernels(dev) -> dict:
               f"skew{nm} vs unfused chain")
         log(f"[kernels] zen_encode skew{nm}: equal, and to the unfused chain "
             f"(nnz={int((idx != 2**31 - 1).sum())}, ovf={int(b[2])})")
+    compact_hash_edges(lo, rng, dev, check)
     torch.cuda.synchronize()
     return {"err": err, "inputs": shapes, "dense": dense}
+
+
+def compact_hash_edges(lo, rng, dev, check) -> None:
+    """``row_compact`` and ``hash_stage`` at their kernels' edges, bitwise
+    against their plain versions: rows of 1, 3 and 129 slots, rows past
+    one tile a block (8 x 1536 slots), one row, all-EMPTY / all-live /
+    live-only-at-the-end rows and an input 4 bytes off a 16-byte boundary
+    (rows of the slice's r1 + r2); index vectors of 0-37 entries and of the
+    slice's C + 3 (not a multiple of four), k = 1 and 15, n = r1 = 1, all
+    EMPTY, seeds with the top bit set and unaligned indices."""
+    from repro_torch.core.hashing import EMPTY
+    from repro_torch.kernels import ops as K, ref as R
+
+    def ids(shape, density):
+        """Unique ids, EMPTY where a draw is >= ``density``."""
+        x = rng.choice(1 << 30, int(np.prod(shape)), replace=False)
+        x[rng.random(x.size) >= density] = EMPTY
+        return torch.as_tensor(x.reshape(shape), dtype=torch.int32,
+                               device=dev)
+
+    def off16(t):
+        """The same values in a view 4 bytes into its storage."""
+        flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
+        return flat[1:].view(t.shape)
+
+    L = lo.cap_pull
+    mems = {f"L={w}": ids((r, w), dn) for w, r, dn in (
+        (1, 8, 0.5), (3, 8, 0.5), (129, 8, 0.5), (16385, 3, 0.3),
+        (40000, 3, 0.3))}
+    mems["R=1"] = ids((1, L), 0.003)
+    rows = ids((4, L), 0.5)
+    rows[0] = EMPTY                                   # all EMPTY
+    rows[1] = ids((L,), 1.0)                          # all live
+    rows[2, :-9] = EMPTY                              # live only at the end
+    rows[2, -9:] = ids((9,), 1.0)
+    mems["empty/live/end rows"] = rows
+    mems["unaligned"] = off16(ids((8, L), 0.36))
+    for name, mem in mems.items():
+        check("row_compact", [K.row_compact_op(mem)],
+              [R.row_compact_ref(mem)], f"edge {name}")
+    C, n, r1 = lo.cap_index + 3, lo.n, lo.r1
+    top = [int(x) for x in rng.integers(2**31, 2**32, 4, dtype=np.uint64)]
+    seeds = {k: [int(x) for x in rng.integers(0, 2**32, k + 1,
+                                              dtype=np.uint64)]
+             for k in (1, 3, 15)}
+    cases = [(f"C={c}", ids((c,), 0.7), seeds[3], n, r1)
+             for c in (0, 1, 3, 37, C)]
+    cases += [(f"k={k}", ids((C,), 0.7), seeds[k], n, r1) for k in (1, 15)]
+    cases += [("n=r1=1", ids((C,), 0.7), seeds[3], 1, 1),
+              ("all EMPTY", ids((C,), 0.0), seeds[3], n, r1),
+              ("top-bit seeds", ids((C,), 0.7), top, n, r1),
+              ("unaligned", off16(ids((C,), 0.7)), seeds[3], n, r1)]
+    for name, idx, sd, nn, rr in cases:
+        check("hash_stage", K.hash_stage_op(idx, sd, nn, rr),
+              R.hash_stage_ref(idx, sd, nn, rr), f"edge {name}")
+    log(f"[kernels] row_compact edges equal ({', '.join(mems)}); hash_stage "
+        f"edges equal ({', '.join(c[0] for c in cases)})")
 
 
 def cancel_values(lp: torch.Tensor, vals: torch.Tensor, cap_server: int):
@@ -1120,6 +1182,41 @@ def encode_dense_times(dense: dict, smi: str) -> dict:
         smi)
 
 
+def hash_ops(idx: torch.Tensor, k: int) -> int:
+    """The hash stage's integer operations on this index vector: per live
+    index k+1 hashes of 2 fmix32 rounds (8 ops each), 2 xors and a modulo;
+    an EMPTY index needs none (it maps to the sentinels)."""
+    return int((idx != 2**31 - 1).sum()) * (k + 1) * 19
+
+
+def unfused_dense_times(dense: dict, smi: str) -> list:
+    """Informational, beside the table: the hash stage and the row
+    compaction at phase 2's dense stream (worker 0's index vector and its
+    Alg. 1 memory), their bounds counted as in the table's rows, and each
+    kernel's device time under torch.profiler."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    idx, mem, lo = dense["idx"], dense["mem"], dense["lo"]
+    seeds = lo.static_seeds()
+    k = len(seeds) - 1
+    log(f"[times] hash_stage / row_compact dense stream: C={idx.numel()} "
+        f"live={int((idx != 2**31 - 1).sum())}, mem {tuple(mem.shape)} live="
+        f"{int((mem != 2**31 - 1).sum())}")
+    rows = [time_row(
+        "hash_stage (dense stream)",
+        lambda: K.hash_stage_op(idx, seeds, lo.n, lo.r1),
+        lambda: R.hash_stage_ref(idx, seeds, lo.n, lo.r1),
+        None, idx.numel() * 4 * (2 + k), hash_ops(idx, k), OPS_PER_S, smi),
+        time_row(
+        "row_compact (dense stream)",
+        lambda: K.row_compact_op(mem), lambda: R.row_compact_ref(mem),
+        None, 2 * mem.numel() * 4, 0, OPS_PER_S, smi)]
+    launch_split(lambda: K.hash_stage_op(idx, seeds, lo.n, lo.r1),
+                 "hash_stage (dense stream)")
+    launch_split(lambda: K.row_compact_op(mem), "row_compact (dense stream)")
+    return rows
+
+
 def phase_times(inp: dict, smi: str) -> list:
     from repro_torch.kernels import ops as K, ref as R
 
@@ -1140,9 +1237,6 @@ def phase_times(inp: dict, smi: str) -> list:
                       device=vals.device)
     keep = lp < lo.cap_server
     lib_idx, lib_vals = lp[keep].long(), vals[keep]
-    # per index: k+1 hashes of 2 fmix32 rounds (8 ops each), 2 xors and a
-    # modulo
-    hash_ops = C * (k + 1) * 19
     rows = {
         "zen_encode": (
             lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
@@ -1162,7 +1256,7 @@ def phase_times(inp: dict, smi: str) -> list:
         "hash_stage": (
             lambda: K.hash_stage_op(idx, seeds, n, lo.r1),
             lambda: R.hash_stage_ref(idx, seeds, n, lo.r1),
-            C * 4 * (2 + k), hash_ops, None),
+            C * 4 * (2 + k), hash_ops(idx, k), None),
         "row_compact": (
             lambda: K.row_compact_op(mem),
             lambda: R.row_compact_ref(mem),
@@ -1187,6 +1281,8 @@ def phase_times(inp: dict, smi: str) -> list:
                             smi))
     log(f"[times] zen_commit_push stream: C={lp.numel()} live rows={live} "
         f"touched slots={touched}")
+    launch_split(lambda: K.hash_stage_op(idx, seeds, n, lo.r1), "hash_stage")
+    launch_split(lambda: K.row_compact_op(mem), "row_compact")
     launch_split(lambda: K.zen_commit_push_fused_op(
         lp, vals, cap_server=lo.cap_server, cap_pull=L), "zen_commit_push")
     launch_split(lambda: K.zen_commit_pull_fused_op(bms, lo.cap_server, L),
@@ -1239,6 +1335,7 @@ def main(argv=None) -> None:
         scatter_dense_times(kern["dense"], dev_info["smi"])
         encode_dense_times(kern["dense"], dev_info["smi"])
         push_dense_times(kern["dense"], dev_info["smi"])
+        unfused_dense_times(kern["dense"], dev_info["smi"])
         flash_wide_times(dev_info["smi"])
     launches = dict(trainer["launches"]) if trainer else {}
     if served:

@@ -1,6 +1,7 @@
-// Block-wide helpers shared by the Zen kernels (csrc/zen_encode.cu,
-// csrc/zen_commit.cu).  Every thread of the block must call them: they
-// synchronise the block.
+// Helpers shared by the Zen kernels (csrc/zen_encode.cu, csrc/zen_commit.cu,
+// csrc/hash_stage.cu, csrc/row_compact.cu): EMPTY, the block scan, which
+// every thread of the block must call (it synchronises the block), the
+// seeded hash and the multiply-only modulo.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +58,20 @@ __device__ __forceinline__ unsigned fmix32(unsigned h) {
 __device__ __forceinline__ unsigned hash_u32(unsigned x, unsigned seed) {
   unsigned h = fmix32(x ^ seed);
   return fmix32(h ^ (seed * 0x9E3779B9u) ^ 0x5BD1E995u);
+}
+
+// x mod d for a 32-bit x by multiplies (Lemire's fastmod), with
+// m = floor((2^64 - 1) / d) + 1 computed on the host; exact for every x and
+// 0 < d < 2^32
+struct FastMod {
+  unsigned long long m;
+  unsigned d;
+};
+
+inline FastMod fast_mod(unsigned d) { return {~0ull / d + 1, d}; }
+
+__device__ __forceinline__ unsigned mod(const FastMod& f, unsigned x) {
+  return (unsigned)__umul64hi(f.m * x, f.d);
 }
 
 }  // namespace zen

@@ -6,17 +6,28 @@
 // repro_torch/kernels/ref.py :: hash_stage_ref.
 //
 // indices int32 [C] -> p int32 [C], q int32 [k, C] (the reference's
-// layout).  One thread per index evaluates the k+1 seeded hashes with the
-// device functions of block_scan.cuh, the ones csrc/zen_encode.cu uses, so
-// the two kernels cannot drift apart.  The TPU kernel baked the seeds in
-// as compile-time constants; here they are a kernel argument.
+// layout).  The hash and the modulo are the device functions of
+// block_scan.cuh that csrc/zen_encode.cu uses, so the two kernels cannot
+// drift apart.  The TPU kernel baked the seeds in as compile-time
+// constants; here they are a kernel argument.
 //
-// Bound on the H100: bytes, barely.  Each index is read once and k+1 ints
-// are written (760 KB at C = 37984, k = 3: 0.23 us at 3.35 TB/s); the
-// 2(k+1) fmix32 rounds and k+1 modulos are ~160 integer operations per
-// index, about as long again at the card's integer rate.  At this size
-// the launch itself dominates; the design does nothing more than keep the
-// loads and stores coalesced (neighbouring threads, neighbouring indices).
+// Bound on the H100: bytes.  Each index is read once and k+1 ints are
+// written (760 KB at C = 37984, k = 3: 0.23 us at 3.35 TB/s), but at that
+// size the time is how fast the (k+1) C stores drain, and that grows with
+// the stores each warp must send one after another, not with the bytes:
+// on an H100, four indices a thread with one 16-byte load and k+1 16-byte
+// stores ran about 1 us longer than one index a thread with k+1 4-byte
+// stores.  So:
+//   * one thread a (row, index) pair of the output: block (x, i) writes
+//     row i (p for i = 0, q's row i - 1 after it) at indices
+//     x * 256 + [0, 256), one load and one coalesced 4-byte store a
+//     thread, (k+1) x as many warps in flight as indices need;
+//   * an EMPTY index (nearly all of them at the realistic stream: the
+//     index vector is compacted, its live entries at the front) takes its
+//     sentinel without hashing;
+//   * x mod n and x mod r1 take the multiply-only FastMod, its constant
+//     computed once per divisor on the host, where a 32-bit `%` by a
+//     runtime divisor is a ~20-instruction sequence.
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
@@ -31,19 +42,18 @@ struct Seeds {
 };
 
 __global__ void __launch_bounds__(kThreads)
-hash_stage_kernel(const int* __restrict__ idx, int C, Seeds seeds, int k,
-                  int n, int r1, int* __restrict__ p, int* __restrict__ q) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int x = idx[c];
-  const bool valid = x != ZEN_EMPTY;
-  p[c] = valid ? (int)(zen::hash_u32((unsigned)x, seeds.s[0]) % (unsigned)n)
-               : n;
-  for (int i = 0; i < k; ++i)
-    q[(size_t)i * C + c] =
-        valid ? (int)(zen::hash_u32((unsigned)x, seeds.s[i + 1]) %
-                      (unsigned)r1)
-              : r1;
+hash_stage_kernel(const int* __restrict__ idx, int C, Seeds seeds, int n,
+                  int r1, zen::FastMod mod_n, zen::FastMod mod_r1,
+                  int* __restrict__ p, int* __restrict__ q) {
+  const unsigned c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= (unsigned)C) return;
+  const int i = blockIdx.y;
+  const int x = __ldg(idx + c);
+  int o = i == 0 ? n : r1;
+  if (x != ZEN_EMPTY)
+    o = (int)zen::mod(i == 0 ? mod_n : mod_r1,
+                      zen::hash_u32((unsigned)x, seeds.s[i]));
+  (i == 0 ? p : q + (size_t)(i - 1) * C)[c] = o;
 }
 
 }  // namespace
@@ -60,9 +70,10 @@ int hash_stage_launch(const int* idx, int C, const unsigned* seeds,
   if (C <= 0) return 0;
   Seeds sd{};
   for (int i = 0; i < n_seeds; ++i) sd.s[i] = seeds[i];
-  hash_stage_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0,
-                      (cudaStream_t)stream>>>(idx, C, sd, n_seeds - 1, n, r1,
-                                              p, q);
+  const dim3 grid((unsigned)((C - 1) / kThreads + 1), (unsigned)n_seeds);
+  hash_stage_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      idx, C, sd, n, r1, zen::fast_mod((unsigned)n),
+      zen::fast_mod((unsigned)r1), p, q);
   return (int)cudaGetLastError();
 }
 

@@ -54,6 +54,10 @@
 
 namespace {
 
+using zen::FastMod;
+using zen::fast_mod;
+using zen::mod;
+
 constexpr int kMaxSeeds = 16;
 constexpr int kThreads = 1024;
 constexpr int kListCap = 4096;        // candidates a shared-memory list holds
@@ -81,20 +85,6 @@ __device__ __forceinline__ int4 load4(const int* __restrict__ idx, int C,
   v.z = c + 2 < C ? __ldg(idx + c + 2) : ZEN_EMPTY;
   v.w = c + 3 < C ? __ldg(idx + c + 3) : ZEN_EMPTY;
   return v;
-}
-
-// x mod d for a 32-bit x by multiplies (Lemire's fastmod), with
-// m = floor((2^64 - 1) / d) + 1 computed on the host; exact for every x and
-// 0 < d < 2^32
-struct FastMod {
-  unsigned long long m;
-  unsigned d;
-};
-
-inline FastMod fast_mod(unsigned d) { return {~0ull / d + 1, d}; }
-
-__device__ __forceinline__ unsigned mod(const FastMod& f, unsigned x) {
-  return (unsigned)__umul64hi(f.m * x, f.d);
 }
 
 __device__ __forceinline__ bool live4(int4 v) {

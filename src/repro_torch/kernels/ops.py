@@ -335,6 +335,8 @@ def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
     C, k = indices.shape[0], len(seeds) - 1
     p = torch.empty((C,), dtype=torch.int32, device=indices.device)
     q = torch.empty((k, C), dtype=torch.int32, device=indices.device)
+    if C == 0:
+        return p, q
     sd = (ctypes.c_uint * len(seeds))(*seeds)
     rc = lib.hash_stage_launch(indices.data_ptr(), C, ctypes.cast(sd, _P),
                                len(seeds), n, r1, p.data_ptr(), q.data_ptr(),
@@ -354,6 +356,8 @@ def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
     lib = _lib("row_compact")
     R, L = mem.shape
     out = torch.empty_like(mem)
+    if out.numel() == 0:
+        return out
     rc = lib.row_compact_launch(mem.data_ptr(), R, L, out.data_ptr(),
                                 _stream(mem))
     _check(lib, "row_compact", rc, "row_compact launch")

@@ -1,6 +1,7 @@
-"""The models' prefill kernels, the COO scatter-add and the Zen encode,
-commit push and pull decode against their plain versions, on the card, and
-the plain scatter-add on the card against its own CPU run.
+"""The models' prefill kernels, the COO scatter-add, the Zen encode,
+commit push and pull decode, the hash stage and the row compaction against
+their plain versions, on the card, and the plain scatter-add on the card
+against its own CPU run.
 
 Imports neither JAX nor the reference, so it runs where only PyTorch is
 installed:
@@ -14,7 +15,7 @@ Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
 1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
 another order than their plain versions; ``coo_scatter_add`` and the
 push bitwise (they keep the stream order of every target's adds);
-``zen_encode`` and the pull bitwise.
+``zen_encode``, the pull, the hash stage and the row compaction bitwise.
 """
 import numpy as np
 import pytest
@@ -70,6 +71,19 @@ PUSH_CASES = ["d=1", "d=3", "d=896", "overflow", "junk", "cancel"]
 # of 32), all-ones and all-zero rows, cap_pull below a row's popcount, and
 # more words than a block's threads
 PULL_CASES = ["random", "ones-zeros", "small-cap", "wide"]
+# the row compaction's cases: the slice's [n, r1 + r2] = [8, 10446], whose
+# odd rows start 8 bytes into a 16-byte group, at the realistic and the
+# dense stream's row densities; short rows; rows past one tile a block
+# (8 x 1536 slots); one row; all-EMPTY, all-live and live-only-at-the-end
+# rows; an input that starts off a 16-byte boundary
+COMPACT_CASES = ["slice", "slice-dense", "L=1", "L=3", "L=129", "L=16385",
+                 "L=40000", "R=1", "empty-live-end", "unaligned"]
+# the hash stage's cases: C from 0 to the slice's 37984 and one past a
+# multiple of four (scalar stores, a ragged last group); k = 1 and the most
+# seeds the kernel takes (k = 15); n = r1 = 1; all EMPTY; seeds with the
+# top bit set; indices that start off a 16-byte boundary
+HASH_CASES = ["C=0", "C=1", "C=3", "C=37", "slice", "C=37987", "k=1", "k=15",
+              "n=r1=1", "all-empty", "top-bit-seeds", "unaligned"]
 
 
 @pytest.fixture
@@ -373,3 +387,94 @@ def test_pull_kernel_is_bitwise_plain(gpu, case):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["zen_commit_pull"] == n0 + 1
     assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def _compact_case(case: str):
+    """(mem int32 [R, L] on the CPU, whether to pass it 4 bytes off a
+    16-byte boundary) of one row-compaction case, from numpy: unique live
+    entries, EMPTY elsewhere."""
+    rng = np.random.default_rng(len(case) + 11)
+    R, L = 8, 10446
+    density = {"slice-dense": 0.36, "L=16385": 0.3, "L=40000": 0.3}.get(
+        case, 0.5)
+    if case in ("slice", "R=1"):
+        density = 0.003                     # ~28 live entries a row
+    if case.startswith("L="):
+        L = int(case[2:])
+    if case == "R=1":
+        R = 1
+    mem = rng.choice(1 << 30, R * L, replace=False).reshape(R, L)
+    mem[rng.random((R, L)) >= density] = EMPTY
+    if case == "empty-live-end":
+        R = 4
+        mem = mem[:R]
+        mem[0] = EMPTY                      # all EMPTY
+        mem[1] = rng.choice(1 << 30, L, replace=False)   # all live
+        mem[2] = EMPTY                      # live only at the end
+        mem[2, -9:] = rng.choice(1 << 30, 9, replace=False)
+    return torch.as_tensor(mem, dtype=torch.int32), case == "unaligned"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_row_compact_kernel_is_bitwise_plain(gpu, case):
+    mem, unaligned = _compact_case(case)
+    want = ref.row_compact_ref(mem)
+    dev_mem = mem.to(gpu)
+    if unaligned:                # a view 4 bytes into its storage
+        flat = torch.cat([mem.new_zeros(1), mem.reshape(-1)]).to(gpu)
+        dev_mem = flat[1:].view(mem.shape)
+        assert dev_mem.data_ptr() % 16
+    n0 = ops.LAUNCHES["row_compact"]
+    got = ops.row_compact_op(dev_mem)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["row_compact"] == n0 + 1
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def _hash_case(case: str):
+    """(indices int32 [C] on the CPU, seeds, n, r1, whether to pass the
+    indices 4 bytes off a 16-byte boundary) of one hash-stage case: unique
+    ids with EMPTY among them; the slice's stream has its 227 live ids at
+    the front, as the compaction leaves them."""
+    rng = np.random.default_rng(len(case) + 5)
+    C, k, n, r1 = 37987, 3, 8, 9496
+    if case.startswith("C="):
+        C = int(case[2:])
+    elif case == "slice":
+        C = 37984
+    elif case.startswith("k="):
+        k = int(case[2:])
+    elif case == "n=r1=1":
+        n = r1 = 1
+    lo = 2**31 if case == "top-bit-seeds" else 0
+    seeds = [int(x) for x in rng.integers(lo, 2**32, size=k + 1,
+                                          dtype=np.uint64)]
+    idx = rng.choice(1 << 28, C, replace=False)
+    if case == "slice":
+        idx[227:] = EMPTY
+    elif case == "all-empty":
+        idx[:] = EMPTY
+    else:
+        idx[rng.random(C) < 0.3] = EMPTY
+    return (torch.as_tensor(idx, dtype=torch.int32), seeds, n, r1,
+            case == "unaligned")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_hash_stage_kernel_is_bitwise_plain(gpu, case):
+    idx, seeds, n, r1, unaligned = _hash_case(case)
+    want = ref.hash_stage_ref(idx, seeds, n, r1)
+    dev_idx = idx.to(gpu)
+    if unaligned:                # a view 4 bytes into its storage
+        dev_idx = torch.cat([idx[:1], idx]).to(gpu)[1:]
+        assert dev_idx.data_ptr() % 16
+    n0 = ops.LAUNCHES["hash_stage"]
+    got = ops.hash_stage_op(dev_idx, seeds, n, r1)
+    torch.cuda.synchronize()
+    # an empty index vector launches nothing
+    assert ops.LAUNCHES["hash_stage"] == n0 + (idx.numel() > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)

@@ -60,8 +60,8 @@ def _assert_equal(got, want, what):
                                       err_msg=f"{what}: output {i}")
 
 
-def _seeds() -> list[int]:
-    lo = S.make_zen_layout(1024, 4, density_budget=0.1, key=0)
+def _seeds(k: int = 3) -> list[int]:
+    lo = S.make_zen_layout(1024, 4, density_budget=0.1, key=0, k=k)
     return [int(s) for s in lo.seeds]
 
 
@@ -77,14 +77,23 @@ def _indices(C, live, M, seed):
 # the five kernels' plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C,live,n,r1", [
-    (1000, 700, 4, 300),       # C not a multiple of the reference's tiles
-    (37, 37, 8, 11),
-    (1 << 12, 100, 8, 97),     # mostly EMPTY
-])
-def test_hash_stage_plain_matches_reference(C, live, n, r1):
+HASH_CASES = [  # C, live, n, r1, k
+    (1000, 700, 4, 300, 3),    # C not a multiple of the reference's tiles
+    (37, 37, 8, 11, 3),
+    (1 << 12, 100, 8, 97, 3),  # mostly EMPTY
+    # the card kernel's edges: C % 4 != 0 (scalar stores, a ragged last
+    # group of four), a group of one live index and three EMPTY ones, the
+    # most seeds it takes (k = 15)
+    (37987, 20001, 8, 9496, 15),
+]
+
+
+@pytest.mark.parametrize("C,live,n,r1,k", HASH_CASES, ids=[
+    f"{C}-{live}-{n}-{r1}" + (f"-k{k}" if k != 3 else "")
+    for C, live, n, r1, k in HASH_CASES])
+def test_hash_stage_plain_matches_reference(C, live, n, r1, k):
     idx = _indices(C, live, 1 << 20, C)
-    seeds = _seeds()
+    seeds = _seeds(k)
     want_kern = kops.hash_stage_op(jnp.asarray(idx), seeds, n, r1)
     want_ref = kref.hash_stage_ref(jnp.asarray(idx),
                                    jnp.asarray(seeds, dtype=jnp.uint32), n, r1)
@@ -97,8 +106,12 @@ def test_hash_stage_plain_matches_reference(C, live, n, r1):
                   "ops wrapper on a CPU tensor")
 
 
-@pytest.mark.parametrize("R,L,density", [(4, 300, 0.5), (8, 129, 0.05),
-                                         (3, 1000, 0.95)])
+@pytest.mark.parametrize("R,L,density", [
+    (4, 300, 0.5), (8, 129, 0.05), (3, 1000, 0.95),
+    # the card kernel's edges: the slice's [n, r1 + r2] (odd rows start 8
+    # bytes into a 16-byte group) at the realistic stream's ~28 live
+    # entries a row, and rows past one tile a block (8 x 1536 slots)
+    (8, 10446, 0.003), (2, 16385, 0.3)])
 def test_row_compact_plain_matches_reference(R, L, density):
     rng = np.random.default_rng(L)
     mem = rng.integers(0, 1 << 30, size=(R, L)).astype(np.int32)
