@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught):
      whose rows sum to zero, one slot of -0.0 rows, which the mask drops);
      for the row compaction and the hash stage also their edge shapes
      (short, long, all-EMPTY, all-live and unaligned rows; index vectors
-     of 0 to C + 3 entries, k = 1 and 15, n = r1 = 1, top-bit seeds).
+     of 0 to C + 3 entries, k = 1 and 15, n = r1 = 1, top-bit seeds); for
+     the bitmap pair its row and 1-D forms at the call shapes (all n
+     server masks [n, cap_server], the encode's occupancy [n, r1 + r2],
+     the pull's unpack into [n, cap_server]), rows cut to 1-33 bits and
+     all-zero / all-one rows.
      Each fused kernel is also held against its unfused chain.
      Every output must be bitwise equal.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
@@ -29,8 +33,10 @@ Phases (any failure exits non-zero; nothing is caught):
      finite, falling loss, no overflow, every fused-route kernel launched
      8 x steps times, no call on the plain route.  Then the same trainer
      with ``SyncConfig(fused_encode=False, fused_commit=False)``: the same
-     checks on the unfused chain's five kernels, the fused kernels not
-     launched, the fused run's wire words, losses within 5e-3 of it.
+     checks on the unfused chain's five kernels (``bitmap_pack`` once a
+     step: all 8 server masks in one launch; the others 8 x steps), the
+     fused kernels not launched, the fused run's wire words, losses within
+     5e-3 of it.
   5. breakdown: one profiled trainer step (torch.profiler): device time by
      kernel category and the device's idle share.
   6. serve_kernels: the models' prefill kernels against their plain
@@ -68,6 +74,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and pixtral-12b prefill shapes against SDPA.  The hash stage's, the
      row compaction's, the push's and the pull's device time by launch
      (torch.profiler), the push's grid and its kept scratch are logged.
+     Then the bitmap pair at its call sites on the realistic and dense
+     streams (``bitmap_times``; ``--only bitmap_times`` runs it alone):
+     device time, device time by launch, and a ``zero_()`` of each call's
+     output bytes beside it.
 
 The third line from the end is the kernel table as JSON, the second the
 card's name and power limit (``nvidia-smi``), the last
@@ -195,9 +205,10 @@ def dense_rows(rng, n: int, vocab: int, density: float, d: int, dtype, dev):
 
 def kernel_inputs(g: torch.Tensor, lo):
     """The kernels' inputs on the zen_sync path for worker/server 0: the
-    compacted index vector, its Alg. 1 memory, the server's pushed stream
-    and aggregated mask, the gathered server bitmaps (built with the plain
-    route)."""
+    compacted index vector, its Alg. 1 memory, the server's pushed stream,
+    every server's aggregated mask [n, cap_server] (what the unfused
+    commit packs in one call), worker 0's encode occupancy [n, r1 + r2]
+    and the gathered server bitmaps (built with the plain route)."""
     from repro_torch.core import schemes as S
     from repro_torch.core.hashing import EMPTY, compact_rows, hierarchical_hash
     from repro_torch.kernels import ref as R
@@ -217,10 +228,12 @@ def kernel_inputs(g: torch.Tensor, lo):
         for s in range(lo.n)])
     mem = hierarchical_hash(idx, n=lo.n, r1=lo.r1, r2=lo.r2, k=lo.k,
                             seeds=lo.static_seeds()).memory
-    mask = (R.coo_scatter_add_ref(lo.cap_server, lp[0], got_val[0]) != 0) \
-        .any(dim=-1)
+    masks = torch.stack([
+        (R.coo_scatter_add_ref(lo.cap_server, lp[s], got_val[s]) != 0)
+        .any(dim=-1) for s in range(lo.n)])
     return dict(idx=idx, mem=mem, lp=lp[0].contiguous(),
-                vals=got_val[0].contiguous(), mask=mask, bms=bms)
+                vals=got_val[0].contiguous(), masks=masks,
+                occ=enc.pidx[0] != EMPTY, bms=bms)
 
 
 def scatter_cases(lp: torch.Tensor, vals: torch.Tensor, rows: int, rng):
@@ -370,21 +383,10 @@ def phase_kernels(dev) -> dict:
               R.hash_stage_ref(idx, seeds, n, lay.r1), name)
         check("row_compact", [K.row_compact_op(inp["mem"])],
               [R.row_compact_ref(inp["mem"])], name)
-        mask = inp["mask"]
-        for m_len in (mask.numel(), mask.numel() - 5, 64):   # ragged tails
-            m = mask[:m_len].contiguous()
-            W = -(-m_len // 32)
-            bits = torch.zeros(W * 32, dtype=torch.int32, device=dev)
-            bits[:m_len] = m.to(torch.int32)
-            check("bitmap_pack", [K.bitmap_pack_op(m)],
-                  [R.bitmap_pack_ref(bits)], f"{name} M={m_len}")
-        words = bms.reshape(-1)
-        for length in (words.numel() * 32, lay.cap_server):
-            check("bitmap_unpack", [K.bitmap_unpack_op(words, length)],
-                  [R.bitmap_unpack_ref(words)[:length] != 0],
-                  f"{name} length={length}")
+        bitmap_checks(name, inp, lay, check)
         log(f"[kernels] hash_stage, row_compact, bitmap_pack, bitmap_unpack "
-            f"{name}: equal (live slots={int(mask.sum())})")
+            f"{name}: equal (live slots={int(inp['masks'][0].sum())}, all "
+            f"servers {int(inp['masks'].sum())})")
         caps = [lay.cap_pull] + ([97] if name != "realistic" else [])
         for dtype in (torch.float32, torch.bfloat16):
             v = vals.to(dtype)
@@ -463,6 +465,42 @@ def phase_kernels(dev) -> dict:
     compact_hash_edges(lo, rng, dev, check)
     torch.cuda.synchronize()
     return {"err": err, "inputs": shapes, "dense": dense}
+
+
+def bitmap_checks(name: str, inp: dict, lo, check) -> None:
+    """The bitmap pair in its row and 1-D forms against the plain versions,
+    bitwise: every server's mask [n, cap_server] (the unfused commit's one
+    pack a sync), worker 0's encode occupancy [n, r1 + r2], the gathered
+    bitmaps unpacked into [n, cap_server] (the pull) and whole, rows cut
+    to ragged lengths of 1-33 bits and cap_server - 5, and all-zero /
+    all-one masks and words."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    masks, occ, bms = inp["masks"], inp["occ"], inp["bms"]
+    cases = [(f"occ {tuple(occ.shape)}", occ)]
+    for L in (lo.cap_server, lo.cap_server - 5, 33, 32, 31, 1):
+        cases.append((f"masks [n, {L}]", masks[:, :L].contiguous()))
+    cases += [("zeros", torch.zeros_like(masks)),
+              ("ones", torch.ones_like(masks))]
+    for what, m in cases:
+        want = R.bitmap_pack_rows_ref(m)
+        check("bitmap_pack", [K.bitmap_pack_rows_op(m)], [want],
+              f"{name} {what}")
+        check("bitmap_pack", [K.bitmap_pack_op(m[1])], [want[1]],
+              f"{name} {what} row 1 alone")
+    Wb = bms.shape[1]
+    words = [("bms", bms), ("zeros", torch.zeros_like(bms)),
+             ("ones", torch.full_like(bms, -1))]
+    for what, w in words:
+        for length in (lo.cap_server, 32 * Wb, 32 * Wb - 33, 33, 1):
+            want = R.bitmap_unpack_rows_ref(w, length)
+            check("bitmap_unpack", [K.bitmap_unpack_rows_op(w, length)],
+                  [want], f"{name} {what} length={length}")
+            check("bitmap_unpack", [K.bitmap_unpack_op(w[1], length)],
+                  [want[1]], f"{name} {what} row 1 alone length={length}")
+    flat = bms.reshape(-1)
+    check("bitmap_unpack", [K.bitmap_unpack_op(flat, flat.numel() * 32)],
+          [R.bitmap_unpack_ref(flat) != 0], f"{name} all words as one row")
 
 
 def compact_hash_edges(lo, rng, dev, check) -> None:
@@ -617,9 +655,9 @@ def phase_trainer(steps: int = 4) -> dict:
         raise AssertionError(f"trainer loss not finite and falling: {losses}")
     if res["overflow"] != 0:
         raise AssertionError(f"trainer overflow {res['overflow']}")
-    on_path = K.path_kernels()
+    on_path = K.path_launches(8)
     for k in K.KERNELS:
-        want = 8 * steps if k in on_path else 0
+        want = steps * on_path.get(k, 0)
         if launches[k] != want:
             raise AssertionError(f"{k} launched {launches[k]} times, "
                                  f"expected {want}")
@@ -656,9 +694,9 @@ def phase_trainer(steps: int = 4) -> dict:
                              f"fused {res['sparse_words']}")
     if udiff > 5e-3:
         raise AssertionError(f"unfused and fused routes diverge: {udiff}")
-    on_path = K.path_kernels(**UNFUSED)
+    on_path = K.path_launches(8, **UNFUSED)   # bitmap_pack once a sync
     for k in K.KERNELS:
-        want = 8 * steps if k in on_path else 0
+        want = steps * on_path.get(k, 0)
         if unf["launches"][k] != want:
             raise AssertionError(f"unfused run: {k} launched "
                                  f"{unf['launches'][k]} times, expected "
@@ -1220,8 +1258,8 @@ def unfused_dense_times(dense: dict, smi: str) -> list:
 def phase_times(inp: dict, smi: str) -> list:
     from repro_torch.kernels import ops as K, ref as R
 
-    lo, idx, lp, vals, bms, mem, mask = (inp[k] for k in (
-        "lo", "idx", "lp", "vals", "bms", "mem", "mask"))
+    lo, idx, lp, vals, bms, mem = (inp[k] for k in (
+        "lo", "idx", "lp", "vals", "bms", "mem"))
     n, L, d = lo.n, lo.cap_pull, vals.shape[1]
     W = -(-L // 32)
     live = int((lp < lo.cap_server).sum())
@@ -1229,10 +1267,7 @@ def phase_times(inp: dict, smi: str) -> list:
     el = vals.element_size()
     seeds = lo.static_seeds()
     C, k = idx.numel(), len(seeds) - 1
-    Ws = -(-lo.cap_server // 32)
-    bits = torch.zeros(Ws * 32, dtype=torch.int32, device=mask.device)
-    bits[:mask.numel()] = mask.to(torch.int32)
-    words = bms.reshape(-1)
+    masks = inp["masks"]
     out = torch.zeros((lo.cap_server, d), dtype=vals.dtype,
                       device=vals.device)
     keep = lp < lo.cap_server
@@ -1266,14 +1301,14 @@ def phase_times(inp: dict, smi: str) -> list:
             lambda: R.coo_scatter_add_ref(out, lp, vals),
             lp.numel() * 4 + live * d * el + 2 * touched * d * el, live * d,
             lambda: out.index_add_(0, lib_idx, lib_vals)),
-        "bitmap_pack": (
-            lambda: K.bitmap_pack_op(mask),
-            lambda: R.bitmap_pack_ref(bits),
-            mask.numel() + Ws * 4, 0, None),
-        "bitmap_unpack": (
-            lambda: K.bitmap_unpack_op(words, words.numel() * 32),
-            lambda: R.bitmap_unpack_ref(words) != 0,
-            words.numel() * 4 + words.numel() * 32, 0, None),
+        "bitmap_pack": (     # every server's mask, one pack a sync
+            lambda: K.bitmap_pack_rows_op(masks),
+            lambda: R.bitmap_pack_rows_ref(masks),
+            masks.numel() + bms.numel() * 4, 0, None),
+        "bitmap_unpack": (   # one worker's pull: [n, W] -> [n, cap_server]
+            lambda: K.bitmap_unpack_rows_op(bms, lo.cap_server),
+            lambda: R.bitmap_unpack_rows_ref(bms, lo.cap_server),
+            bms.numel() * 4 + n * lo.cap_server, 0, None),
     }
     res = []
     for name, (kern, plain, nbytes, nops, lib) in rows.items():
@@ -1301,12 +1336,77 @@ def phase_times(inp: dict, smi: str) -> list:
     return res
 
 
+def bitmap_inputs(dev) -> dict:
+    """Phase 2's realistic and dense streams (the same seed and draws) as
+    ``kernel_inputs`` gives them, for the bitmap call sites."""
+    from repro_torch.core import schemes as S
+
+    M, d, n = SLICE["M"], SLICE["d"], SLICE["n"]
+    lo = S.make_zen_layout(M, n, density_budget=SLICE["density_budget"])
+    rng = np.random.default_rng(0)
+    g = zipf_rows(rng, n, M, SLICE["tokens"], d, torch.bfloat16, dev)
+    out = {"realistic": dict(kernel_inputs(g, lo), lo=lo)}
+    del g
+    g = dense_rows(rng, n, M, 0.2, d, torch.bfloat16, dev)
+    out["dense"] = dict(kernel_inputs(g, lo), lo=lo)
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def bitmap_times(streams: dict, smi: str) -> dict:
+    """The bitmap pair at its call sites, each timed by ``cuda_device_ms``
+    and under torch.profiler (``launch_split``), beside a ``zero_()`` of
+    the call's own output bytes (the floor of one launch that writes
+    them): the unfused commit's server masks [n, cap_server] packed as n
+    1-D calls and a stack, and as one row call; the unfused encode's
+    occupancy [n, r1 + r2]; the pull's unpack of the gathered [n, W] words
+    into [n, cap_server] (``formats.bitmap_decode_batch``) and as one row
+    of all n W words.  Only the 1-D and row wrappers are called, so an
+    older checkout of the port is timed the same way."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops as K
+
+    res = {}
+
+    def timed(tag, fn):
+        dev_ms = cuda_device_ms(fn)
+        us = launch_split(fn, tag)
+        res[tag] = {"device_ms": dev_ms, "us": us,
+                    "total_us": sum(us.values())}
+        log(f"[bitmap_times] {tag}: device_ms {dev_ms} | {smi}")
+
+    for sname, inp in streams.items():
+        masks, occ, bms = (inp[k] for k in ("masks", "occ", "bms"))
+        n, cap = masks.shape
+        flat = bms.reshape(-1)
+        calls = {
+            "server pack, n 1-D calls + stack": lambda: torch.stack(
+                [K.bitmap_pack_op(masks[s]) for s in range(n)]),
+            "server pack, rows": lambda: K.bitmap_pack_rows_op(masks),
+            "encode pack, rows": lambda: K.bitmap_pack_rows_op(occ),
+            "pull unpack, rows": lambda: F.bitmap_decode_batch(
+                bms, cap, backend="cuda"),
+            "pull unpack, all words as one row": lambda: K.bitmap_unpack_op(
+                flat, flat.numel() * 32),
+        }
+        for cname, fn in calls.items():
+            timed(f"{sname} {cname}", fn)
+        for cname, fn in calls.items():
+            z = torch.empty_like(fn())
+            timed(f"{sname} zero_() of {cname}'s output "
+                  f"({z.numel() * z.element_size()} B)", z.zero_)
+    log(f"[bitmap_times] json {json.dumps(res)}")
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
                          "all: kernels,zen_sync,trainer,breakdown,"
-                         "serve_kernels,serve,times")
+                         "serve_kernels,serve,times (bitmap_times: the "
+                         "bitmap call sites alone)")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     want = (lambda p: not only or p in only)
@@ -1337,6 +1437,8 @@ def main(argv=None) -> None:
         push_dense_times(kern["dense"], dev_info["smi"])
         unfused_dense_times(kern["dense"], dev_info["smi"])
         flash_wide_times(dev_info["smi"])
+    if want("times") or want("bitmap_times"):
+        bitmap_times(bitmap_inputs(dev), dev_info["smi"])
     launches = dict(trainer["launches"]) if trainer else {}
     if served:
         launches.update({k: served[a]["launches"]

@@ -32,15 +32,20 @@ def pack_rows(bits: torch.Tensor) -> torch.Tensor:
 
 
 def bitmap_encode(mask: torch.Tensor, *, backend: str = "torch") -> torch.Tensor:
-    """bool [M] -> int32 [ceil(M/32)] packed words.  ``backend="cuda"``
-    routes through the pack kernel (``kernels/ops.py::bitmap_pack_op``;
-    its plain version for a CPU tensor), with the same words."""
+    """bool [M] -> int32 [ceil(M/32)] packed words, or [n, M] -> [n,
+    ceil(M/32)], each row packed alone.  ``backend="cuda"`` routes through
+    the pack kernel, one launch for all rows
+    (``kernels/ops.py::bitmap_pack_rows_op``; its plain version for a CPU
+    tensor), with the same words."""
     check_backend(backend)
+    rows = mask if mask.ndim == 2 else mask[None]
     if backend == "cuda":
         from repro_torch.kernels import ops  # deferred: kernels import core
 
-        return ops.bitmap_pack_op(mask)
-    return pack_rows(mask[None])[0]
+        words = ops.bitmap_pack_rows_op(rows)
+    else:
+        words = pack_rows(rows)
+    return words if mask.ndim == 2 else words[0]
 
 
 def bitmap_decode(words: torch.Tensor, length: int, *,
@@ -52,14 +57,13 @@ def bitmap_decode(words: torch.Tensor, length: int, *,
 def bitmap_decode_batch(words: torch.Tensor, length: int, *,
                         backend: str = "torch") -> torch.Tensor:
     """int32 [n, W] words -> bool [n, length]: every server bitmap at once
-    (``backend="cuda"``: one unpack launch over all n*W words)."""
+    (``backend="cuda"``: one unpack launch straight into [n, length])."""
     check_backend(backend)
-    n, W = words.shape
     if backend == "cuda":
         from repro_torch.kernels import ops  # deferred: kernels import core
 
-        bits = ops.bitmap_unpack_op(words.reshape(-1), n * W * BITS)
-        return bits.reshape(n, W * BITS)[:, :length]
+        return ops.bitmap_unpack_rows_op(words, length)
+    n, W = words.shape
     w = words.to(torch.int64) & 0xFFFFFFFF
     bits = (w[:, :, None] & _weights(words.device)) != 0
     return bits.reshape(n, W * BITS)[:, :length]

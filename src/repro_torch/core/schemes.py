@@ -281,8 +281,9 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     """Zen stages 2-4: push all_to_all, server aggregation, bitmap pull and
     the collision-free apply.  ``fused`` runs one push launch per server and
     one pull-decode launch per worker; the unfused chain runs a scatter-add
-    and a pack per server and an unpack per worker, with the compactions in
-    plain torch.  ``dense`` gives only shapes and dtype."""
+    per server, one pack of all n server masks and an unpack per worker
+    (straight into [n, cap_server]), with the compactions in plain torch.
+    ``dense`` gives only shapes and dtype."""
     check_backend(backend)
     lo, n = layout, group.n
     M = dense.shape[1]
@@ -317,10 +318,8 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     else:
         lpos, vals, srv_mask, ov_p = _push_unfused(lp, got_val, dense, lo,
                                                    backend)
-        if use_hash_bitmap:
-            bms = torch.stack([formats.bitmap_encode(srv_mask[s],
-                                                     backend=backend)
-                               for s in range(n)])
+        if use_hash_bitmap:   # all n server masks in one pack
+            bms = formats.bitmap_encode(srv_mask, backend=backend)
 
     # --- 4. Pull --------------------------------------------------------------
     all_val = group.all_gather(vals).reshape(-1, *vshape)     # [n*cap_pull,..]

@@ -70,8 +70,8 @@ _SIGNATURES = {
         "row_compact_error_string": ([_I], ctypes.c_char_p),
     },
     "bitmap": {
-        "bitmap_pack_launch": ([_P, _I, _P, _P], _I),
-        "bitmap_unpack_launch": ([_P, _I, _P, _P], _I),
+        "bitmap_pack_launch": ([_P, _I, _I, _P, _P], _I),
+        "bitmap_unpack_launch": ([_P, _I, _I, _I, _P, _P], _I),
         "bitmap_error_string": ([_I], ctypes.c_char_p),
     },
     "scatter_add": {
@@ -104,8 +104,8 @@ def reset_counts() -> None:
 
 def path_kernels(fused_encode: bool = True, fused_commit: bool = True,
                  use_hash_bitmap: bool = True) -> tuple[str, ...]:
-    """The kernels one Zen sync launches on a route, each once per worker
-    (encode, pull decode) or server (commit push) of the group."""
+    """The kernels one Zen sync launches on a route (``path_launches``
+    says how often)."""
     enc = ("zen_encode",) if fused_encode else ("hash_stage", "row_compact")
     if fused_commit:
         com = ("zen_commit_push",) + (
@@ -114,6 +114,16 @@ def path_kernels(fused_encode: bool = True, fused_commit: bool = True,
         com = ("coo_scatter_add",) + (
             ("bitmap_pack", "bitmap_unpack") if use_hash_bitmap else ())
     return enc + com
+
+
+def path_launches(n: int, fused_encode: bool = True, fused_commit: bool = True,
+                  use_hash_bitmap: bool = True) -> dict[str, int]:
+    """Launches of each kernel in one Zen sync of ``n`` ranks on a route:
+    one per worker (encode, pull decode) or server (commit push,
+    scatter-add), except ``bitmap_pack``, which packs all n server masks
+    in one launch."""
+    return {k: 1 if k == "bitmap_pack" else n
+            for k in path_kernels(fused_encode, fused_commit, use_hash_bitmap)}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -365,43 +375,65 @@ def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bitmap_pack_op(mask: torch.Tensor) -> torch.Tensor:
-    """bool [M] -> int32 words [ceil(M/32)], LSB first (the reference's
-    uint32 bits)."""
-    M = mask.shape[0]
-    W = -(-M // BITS)
+def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
+    """bool [n, L] -> int32 words [n, ceil(L/32)]: each row packed LSB
+    first (the reference's uint32 bits), bits past L zero; one launch."""
     if not mask.is_cuda:
         PLAIN_CALLS["bitmap_pack"] += 1
-        bits = torch.zeros(W * BITS, dtype=torch.int32, device=mask.device)
-        bits[:M] = mask.to(torch.int32)
-        return ref.bitmap_pack_ref(bits)
-    _need(mask, torch.bool, 1, "bitmap_pack mask")
+        return ref.bitmap_pack_rows_ref(mask)
+    _need(mask, torch.bool, 2, "bitmap_pack mask")
+    n, L = mask.shape
+    words = torch.empty((n, -(-L // BITS)), dtype=torch.int32,
+                        device=mask.device)
+    if words.numel() == 0:
+        return words
     lib = _lib("bitmap")
-    words = torch.empty((W,), dtype=torch.int32, device=mask.device)
-    rc = lib.bitmap_pack_launch(mask.data_ptr(), M, words.data_ptr(),
+    rc = lib.bitmap_pack_launch(mask.data_ptr(), n, L, words.data_ptr(),
                                 _stream(mask))
     _check(lib, "bitmap", rc, "bitmap_pack launch")
     LAUNCHES["bitmap_pack"] += 1
     return words
 
 
-def bitmap_unpack_op(words: torch.Tensor, length: int) -> torch.Tensor:
-    """int32 words [W] -> bool [length], length <= 32 W: bit i is bit
-    (i mod 32) of word i // 32."""
-    if length > words.shape[0] * BITS:
-        raise ValueError(f"bitmap_unpack: length {length} exceeds the "
-                         f"{words.shape[0] * BITS} bits of the words")
+def bitmap_pack_op(mask: torch.Tensor) -> torch.Tensor:
+    """bool [M] -> int32 words [ceil(M/32)]: ``bitmap_pack_rows_op`` of one
+    row."""
+    if mask.ndim != 1:
+        raise ValueError(f"bitmap_pack: need a 1-D mask, got shape "
+                         f"{tuple(mask.shape)}")
+    return bitmap_pack_rows_op(mask[None])[0]
+
+
+def bitmap_unpack_rows_op(words: torch.Tensor, length: int) -> torch.Tensor:
+    """int32 words [n, W] -> bool [n, length], length <= 32 W: bit j of row
+    r is bit (j mod 32) of ``words[r, j // 32]``; one launch."""
+    if words.ndim != 2 or not 0 <= length <= words.shape[1] * BITS:
+        raise ValueError(f"bitmap_unpack: need words [n, W] and 0 <= length "
+                         f"<= 32 W, got shape {tuple(words.shape)} and "
+                         f"length {length}")
     if not words.is_cuda:
         PLAIN_CALLS["bitmap_unpack"] += 1
-        return ref.bitmap_unpack_ref(words)[:length] != 0
-    _need(words, torch.int32, 1, "bitmap_unpack words")
+        return ref.bitmap_unpack_rows_ref(words, length)
+    _need(words, torch.int32, 2, "bitmap_unpack words")
+    n, W = words.shape
+    bits = torch.empty((n, length), dtype=torch.bool, device=words.device)
+    if bits.numel() == 0:
+        return bits
     lib = _lib("bitmap")
-    bits = torch.empty((length,), dtype=torch.bool, device=words.device)
-    rc = lib.bitmap_unpack_launch(words.data_ptr(), length, bits.data_ptr(),
-                                  _stream(words))
+    rc = lib.bitmap_unpack_launch(words.data_ptr(), n, W, length,
+                                  bits.data_ptr(), _stream(words))
     _check(lib, "bitmap", rc, "bitmap_unpack launch")
     LAUNCHES["bitmap_unpack"] += 1
     return bits
+
+
+def bitmap_unpack_op(words: torch.Tensor, length: int) -> torch.Tensor:
+    """int32 words [W] -> bool [length]: ``bitmap_unpack_rows_op`` of one
+    row."""
+    if words.ndim != 1:
+        raise ValueError(f"bitmap_unpack: need 1-D words, got shape "
+                         f"{tuple(words.shape)}")
+    return bitmap_unpack_rows_op(words[None], length)[0]
 
 
 # The scatter-add's scratch, per (device, stream): a zeroed part that the
@@ -475,16 +507,6 @@ def batched_coo_reduce_op(out: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
-    """bool [n, L] -> int32 words [n, ceil(L/32)]: rows are padded to a
-    word boundary and packed in one launch."""
-    n, L = mask.shape
-    W = -(-L // BITS)
-    m = torch.zeros((n, W * BITS), dtype=torch.bool, device=mask.device)
-    m[:, :L] = mask
-    return bitmap_pack_op(m.reshape(-1)).reshape(n, W)
-
-
 def zen_encode_unfused(indices: torch.Tensor, seeds: Sequence[int], n: int,
                        r1: int, r2: int):
     """The pre-fusion encode chain: hash-stage kernel + plain insertion
@@ -516,11 +538,10 @@ def zen_commit_push_unfused(lp: torch.Tensor, vals: torch.Tensor, *,
 
 def zen_commit_pull_unfused(words: torch.Tensor, cap_server: int,
                             cap_pull: int) -> torch.Tensor:
-    """The pre-fusion pull decode: unpack kernel over all n*W words + plain
-    row compaction; the same output as ``zen_commit_pull_fused_op``."""
-    n, W = words.shape
-    bits = bitmap_unpack_op(words.reshape(-1), n * W * BITS)
-    return compact_rows(bits.reshape(n, W * BITS)[:, :cap_server], cap_pull)[0]
+    """The pre-fusion pull decode: unpack kernel straight into [n,
+    cap_server] + plain row compaction; the same output as
+    ``zen_commit_pull_fused_op``."""
+    return compact_rows(bitmap_unpack_rows_op(words, cap_server), cap_pull)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.formats import (BITS, bitmap_decode_compact,
-                                      bitmap_encode, pack_rows)
+from repro_torch.core.formats import (BITS, bitmap_decode_batch,
+                                      bitmap_decode_compact, bitmap_encode,
+                                      pack_rows)
 from repro_torch.core.hashing import (EMPTY, compact_indices, hash_u32,
                                       hierarchical_hash)
 # the cumsum + scatter compaction IS the plain route's extraction, so the
@@ -45,6 +46,18 @@ def bitmap_unpack_ref(words: torch.Tensor) -> torch.Tensor:
     w = words.to(torch.int64)[:, None] & 0xFFFFFFFF
     shift = torch.arange(BITS, dtype=torch.int64, device=words.device)
     return ((w >> shift) & 1).reshape(-1).to(torch.int32)
+
+
+def bitmap_pack_rows_ref(mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pack kernel: bool/0-1 [n, L] -> int32 words
+    [n, ceil(L/32)], each row LSB first, bits past L zero."""
+    return pack_rows(mask != 0)
+
+
+def bitmap_unpack_rows_ref(words: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain version of the unpack kernel: int32 words [n, W] -> bool
+    [n, length] (length <= 32 W), contiguous."""
+    return bitmap_decode_batch(words, length).contiguous()
 
 
 def coo_scatter_add_ref(out: int | torch.Tensor, idx: torch.Tensor,

@@ -1,7 +1,7 @@
 """The models' prefill kernels, the COO scatter-add, the Zen encode,
-commit push and pull decode, the hash stage and the row compaction against
-their plain versions, on the card, and the plain scatter-add on the card
-against its own CPU run.
+commit push and pull decode, the hash stage, the row compaction and the
+bitmap pack and unpack against their plain versions, on the card, and the
+plain scatter-add on the card against its own CPU run.
 
 Imports neither JAX nor the reference, so it runs where only PyTorch is
 installed:
@@ -15,7 +15,8 @@ Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
 1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
 another order than their plain versions; ``coo_scatter_add`` and the
 push bitwise (they keep the stream order of every target's adds);
-``zen_encode``, the pull, the hash stage and the row compaction bitwise.
+``zen_encode``, the pull, the hash stage, the row compaction and the
+bitmap pair bitwise.
 """
 import numpy as np
 import pytest
@@ -84,6 +85,12 @@ COMPACT_CASES = ["slice", "slice-dense", "L=1", "L=3", "L=129", "L=16385",
 # top bit set; indices that start off a 16-byte boundary
 HASH_CASES = ["C=0", "C=1", "C=3", "C=37", "slice", "C=37987", "k=1", "k=15",
               "n=r1=1", "all-empty", "top-bit-seeds", "unaligned"]
+# the bitmap pair's cases: one row (the 1-D forms) and the slice's n = 8;
+# rows of 0 to 33 bits and the slice's cap_pull and cap_server (neither a
+# multiple of 4, so rows start off a 4-byte boundary); all-zero, all-one
+# and random masks and words
+BITMAP_L = [0, 1, 31, 32, 33, 10446, 19107]
+BITMAP_FILLS = ["zeros", "ones", "random"]
 
 
 @pytest.fixture
@@ -208,6 +215,19 @@ def test_kernels_reject_what_they_do_not_take(gpu):
     with pytest.raises(ValueError, match="cap_server"):  # prefix past 48 KB
         ops.zen_commit_push_fused_op(lp, torch.zeros((4, 8), device=gpu),
                                      cap_server=400_000, cap_pull=8)
+    with pytest.raises(ValueError, match="torch.bool"):  # an int mask
+        ops.bitmap_pack_rows_op(torch.ones((2, 40), dtype=torch.int32,
+                                           device=gpu))
+    with pytest.raises(ValueError, match="2-D"):
+        ops.bitmap_pack_rows_op(torch.ones((40,), dtype=torch.bool,
+                                           device=gpu))
+    words = torch.zeros((2, 4), dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="torch.int32"):
+        ops.bitmap_unpack_rows_op(words.long(), 40)
+    with pytest.raises(ValueError, match="length"):      # past 32 W bits
+        ops.bitmap_unpack_rows_op(words, 129)
+    with pytest.raises(ValueError, match="words"):
+        ops.bitmap_unpack_rows_op(words[0], 40)
 
 
 def _scatter_case(case: str, dtype, dev):
@@ -478,3 +498,59 @@ def test_hash_stage_kernel_is_bitwise_plain(gpu, case):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.cpu(), w)
+
+
+def _bitmap_fill(rng, shape, fill: str, dtype):
+    """zeros, ones (every bit set) or random bits of ``shape``: bool for a
+    mask, int32 for words."""
+    if dtype == torch.bool:
+        x = {"zeros": np.zeros(shape, bool), "ones": np.ones(shape, bool),
+             "random": rng.random(shape) < 0.4}[fill]
+        return torch.as_tensor(x)
+    x = {"zeros": np.zeros(shape, np.uint32),
+         "ones": np.full(shape, 0xFFFFFFFF, np.uint32),
+         "random": rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+         .astype(np.uint32)}[fill]
+    return torch.as_tensor(x.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", BITMAP_FILLS)
+@pytest.mark.parametrize("L", BITMAP_L)
+@pytest.mark.parametrize("n", [1, 8])
+def test_bitmap_pack_kernel_is_bitwise_plain(gpu, n, L, fill):
+    mask = _bitmap_fill(np.random.default_rng(L + n), (n, L), fill,
+                        torch.bool)
+    want = ref.bitmap_pack_rows_ref(mask)
+    n0 = ops.LAUNCHES["bitmap_pack"]
+    got = ops.bitmap_pack_rows_op(mask.to(gpu))
+    torch.cuda.synchronize()
+    # empty rows launch nothing
+    assert ops.LAUNCHES["bitmap_pack"] == n0 + (L > 0)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    # the same rows one byte into their storage
+    off = torch.cat([mask.new_zeros(1), mask.reshape(-1)]).to(gpu)[1:]
+    assert torch.equal(ops.bitmap_pack_rows_op(off.view(n, L)).cpu(), want)
+    if n == 1:
+        assert torch.equal(ops.bitmap_pack_op(mask[0].to(gpu)).cpu(), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", BITMAP_FILLS)
+@pytest.mark.parametrize("L", BITMAP_L)
+@pytest.mark.parametrize("n", [1, 8])
+def test_bitmap_unpack_kernel_is_bitwise_plain(gpu, n, L, fill):
+    W = -(-L // 32) + 1                     # L below 32 W
+    words = _bitmap_fill(np.random.default_rng(L + n), (n, W), fill,
+                         torch.int32)
+    for length in (L, 32 * W):
+        want = ref.bitmap_unpack_rows_ref(words, length)
+        n0 = ops.LAUNCHES["bitmap_unpack"]
+        got = ops.bitmap_unpack_rows_op(words.to(gpu), length)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["bitmap_unpack"] == n0 + (length > 0)
+        assert got.dtype == want.dtype and got.is_contiguous()
+        assert torch.equal(got.cpu(), want)
+        if n == 1:
+            assert torch.equal(
+                ops.bitmap_unpack_op(words[0].to(gpu), length).cpu(), want[0])

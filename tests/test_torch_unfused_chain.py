@@ -1,6 +1,7 @@
 """Port parity for Zen's unfused dispatch chain (``fused_encode=False``,
 ``fused_commit=False``): the plain versions of its five kernels (hash
-stage, row compaction, bitmap pack / unpack, COO scatter-add), the three
+stage, row compaction, bitmap pack / unpack in their 1-D and row forms,
+COO scatter-add), the three
 pre-fusion compositions, the hashing routes and the trainer's
 ``--no-fused-commit``, each on the same numpy inputs as the JAX reference.
 ``zen_sync`` and ``GradSync`` on the unfused routes are in
@@ -20,6 +21,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.core import formats as F
 from repro.core import schemes as S
 from repro.core.hashing import EMPTY, compact_indices
 from repro.kernels import ops as kops
@@ -149,6 +151,46 @@ def test_bitmap_pack_unpack_plain_match_reference(M):
         enc = tformats.bitmap_encode(_t(mask), backend=backend)
         np.testing.assert_array_equal(
             tformats.bitmap_decode(enc, M, backend=backend).numpy(), mask)
+
+
+BITMAP_ROWS = [  # n, L: ragged L, the slice's cap_pull and cap_server
+    (1, 1), (3, 31), (2, 32), (8, 33), (4, 1000), (8, 10446), (8, 19107)]
+
+
+@pytest.mark.parametrize("n,L", BITMAP_ROWS)
+def test_bitmap_rows_plain_match_reference(n, L):
+    """The row forms' plain versions (and the wrappers and formats routes
+    on a CPU tensor) against the reference's interpret-mode
+    ``bitmap_pack_rows_op`` and its ``bitmap_decode_batch`` on both of its
+    routes; an all-zero and an all-one row among random ones."""
+    rng = np.random.default_rng(n * L)
+    mask = rng.random((n, L)) < 0.4
+    mask[0] = False
+    mask[-1] |= n > 1
+    want = kops.bitmap_pack_rows_op(jnp.asarray(mask))
+    _assert_equal([tref.bitmap_pack_rows_ref(_t(mask))], [want],
+                  "pack rows plain vs interpret-mode kernel")
+    _assert_equal([tops.bitmap_pack_rows_op(_t(mask))], [want],
+                  "pack rows wrapper on a CPU tensor")
+    for backend in ("torch", "cuda"):
+        _assert_equal([tformats.bitmap_encode(_t(mask), backend=backend)],
+                      [want], f"bitmap_encode [n, L] {backend}")
+    W = -(-L // 32) + 1                     # L below 32 W
+    words = rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[0] = 0
+    words[-1] = 0xFFFFFFFF if n > 1 else words[-1]
+    tw = _t(words.view(np.int32))
+    for backend in ("xla", "pallas"):
+        want = F.bitmap_decode_batch(jnp.asarray(words), L, backend=backend)
+        got = tref.bitmap_unpack_rows_ref(tw, L)
+        assert got.is_contiguous()
+        _assert_equal([got], [want], f"unpack rows plain vs {backend}")
+        _assert_equal([tops.bitmap_unpack_rows_op(tw, L)], [want],
+                      f"unpack rows wrapper on a CPU tensor vs {backend}")
+        for tb in ("torch", "cuda"):
+            _assert_equal([tformats.bitmap_decode_batch(tw, L, backend=tb)],
+                          [want], f"bitmap_decode_batch {tb} vs {backend}")
 
 
 def _scatter_inputs(rows, C, d, seed, runs):
@@ -303,6 +345,13 @@ def test_unfused_wrappers_take_the_plain_route_on_cpu():
     assert tops.LAUNCHES == dict.fromkeys(tops.KERNELS, 0)
     with pytest.raises(ValueError, match="length"):
         tops.bitmap_unpack_op(torch.zeros(1, dtype=torch.int32), 33)
+    with pytest.raises(ValueError, match="1-D"):
+        tops.bitmap_pack_op(torch.ones((2, 40), dtype=torch.bool))
+    # empty rows: [n, 0] words and bits
+    assert tops.bitmap_pack_rows_op(
+        torch.zeros((3, 0), dtype=torch.bool)).shape == (3, 0)
+    assert tops.bitmap_unpack_rows_op(
+        torch.zeros((3, 0), dtype=torch.int32), 0).shape == (3, 0)
 
 
 def test_trainer_no_fused_commit_on_cpu():
@@ -317,6 +366,7 @@ def test_trainer_no_fused_commit_on_cpu():
     assert unf["losses"] == fused["losses"]
     assert unf["sparse_words"] == fused["sparse_words"] > 0
     assert unf["overflow"] == 0
-    assert tops.PLAIN_CALLS == {
-        k: 4 * 2 * (k in tops.path_kernels(fused_commit=False))
-        for k in tops.KERNELS}
+    per_sync = tops.path_launches(4, fused_commit=False)
+    assert per_sync["bitmap_pack"] == 1   # the 4 server masks in one pack
+    assert tops.PLAIN_CALLS == {k: 2 * per_sync.get(k, 0)
+                                for k in tops.KERNELS}

@@ -186,8 +186,7 @@ def test_zen_sync_unfused_bitwise_vs_reference(density, dtype, mode, fused,
         _assert_sync_equal(got, ref)
         want = dict.fromkeys(tops.KERNELS, 0)
         if backend == "cuda":
-            want.update(dict.fromkeys(tops.path_kernels(fused, fused_commit),
-                                      N))
+            want.update(tops.path_launches(N, fused, fused_commit))
         assert tops.PLAIN_CALLS == want
 
 
