@@ -59,7 +59,26 @@ Phases (any failure exits non-zero; nothing is caught):
      (qwen2) / 1e-2 (mamba2, beside the logit shift that merely reordering
      the plain scan gives) and the same greedy tokens.  One profiled bf16
      prefill per model.
-  8. times: median of 20 CUDA-event timings of each kernel and its plain
+  8. dist: data parallelism over a real ``torch.distributed`` gloo group,
+     one process per rank, every rank on this one card (NCCL refuses two
+     ranks on one device), started by ``torchrun`` after the parent built
+     the kernels: ``zen_sync`` at the slice shapes on 8 ranks, each rank's
+     output and stats bitwise row w of the in-process ``simulate`` on the
+     card (sha256 digests) on all four (fused, fused_commit) routes, each
+     route's kernels launched once per rank, no plain call; then
+     ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
+     width and depth (4 steps; 4 ranks, as a rank takes about 12 GB)
+     against the in-process 4x1 trainer on the same flags: losses finite,
+     falling and within 5e-3 of it, the same wire words, no overflow,
+     ``zen_encode``, ``zen_commit_push`` and ``zen_commit_pull`` launched
+     once a step on every rank, no plain call; both runs' step times and
+     tok/s are logged.  Not in the default run: ``--only dist_parts`` logs
+     where each one's step goes on the host's clock (``step_parts``:
+     forward and backward, Zen's sync and the whole GradSync, the last two
+     on zero gradients; rank 0 of 4 gloo ranks, and the in-process run),
+     and ``--only dist_nccl``, on four cards, runs the same trainer check
+     with ``--dist nccl``, a rank a card.
+  9. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
      that call's time.  ``ms`` has the events around one call, the
@@ -88,9 +107,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -823,6 +847,320 @@ def phase_breakdown(steps: int = 2) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# data parallelism over a torch.distributed group: one process per rank
+# ---------------------------------------------------------------------------
+
+ROUTES = ((True, True), (False, True), (True, False), (False, False))
+DIST_ZEN_RANKS = 8         # zen_sync at the slice's n, every rank on cuda:0
+DIST_TRAIN_RANKS = 4       # about 12 GB a full-width trainer rank
+DIST_TIMEOUT_S = 600
+
+
+def sync_digest(out: torch.Tensor, sent: torch.Tensor,
+                ovf: torch.Tensor) -> str:
+    """sha256 of one worker's synced [M, d] rows (the indices of the rows
+    whose bits are not all zero, then their bits) and its stats' bits."""
+    b = bits(out)
+    live = (b != 0).any(dim=-1).nonzero().squeeze(1).to(torch.int32)
+    h = hashlib.sha256()
+    for t in (live, b[live], bits(sent.float()), ovf.to(torch.int32)):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_ranks(n: int, args: list[str], tag: str) -> str:
+    """``torchrun --standalone --nproc-per-node n`` on ``args`` with
+    ``src`` on the path, in its own session so that a timeout stops every
+    rank; returns its stdout, raises on a non-zero exit."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), *args]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"[{tag}] {n} ranks did not finish in "
+                             f"{DIST_TIMEOUT_S} s")
+    log(f"[{tag}] {n} ranks exited {proc.returncode} in "
+        f"{time.time() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] torchrun exited {proc.returncode}:\n"
+                             f"{out[-4000:]}\n{err[-8000:]}")
+    return out
+
+
+def dist_zen_sync_rank(group, dev, work: Path) -> None:
+    """One rank of the gloo zen_sync check: its worker's gradient from
+    ``work/in<w>.pt``, zen_sync on every route on the card, the digests,
+    launches and host seconds to ``work/out<w>.json``."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import ops as K
+
+    w = group.ranks[0]
+    inp = torch.load(work / f"in{w}.pt")
+    M, d = SLICE["M"], SLICE["d"]
+    lo = S.make_zen_layout(M, group.n,
+                           density_budget=SLICE["density_budget"])
+    g = torch.zeros((1, M, d), dtype=torch.bfloat16, device=dev)
+    g[0, inp["ids"].to(dev)] = inp["vals"].to(dev)
+    res = {}
+    for fe, fc in ROUTES:
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, st = S.zen_sync(g, group=group, layout=lo, backend="cuda",
+                             fused=fe, fused_commit=fc)
+        torch.cuda.synchronize()
+        res[f"{fe},{fc}"] = {
+            "s": time.time() - t0, "shape": list(out.shape),
+            "digest": sync_digest(out[0], st.sent_words[0],
+                                  st.overflow[0]),
+            "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
+        del out
+    (work / f"out{w}.json").write_text(json.dumps(res))
+
+
+def step_parts(prog, batch: dict, barrier=None, reps: int = 3) -> dict:
+    """Median host seconds (a device sync at both ends; ``barrier`` first,
+    so a process group starts each part together) of the trainer's step
+    and its parts after one warm step: every local rank's forward and
+    backward, zen_sync of ``embed/table`` and the whole GradSync (Zen
+    plus the dense psums) on zero gradients of the step's shapes, whose
+    wire buffers are the capacity-sized ones of any step."""
+    from repro_torch.core import schemes as S
+    from repro_torch.train.steps import split_batch
+
+    model, ranks = prog.model, tuple(prog.group.ranks)
+    per_rank = split_batch(batch, prog.n_data)
+    stacks = {nm: torch.zeros((len(ranks), *p.shape), dtype=p.dtype,
+                              device=p.device)
+              for nm, p in model.named_leaves()}
+    lo = prog.gradsync._layouts["embed/table"]
+
+    def fwd_bwd():
+        for r in ranks:
+            model.zero_grad(set_to_none=True)
+            model(per_rank[r]["tokens"], per_rank[r]["labels"]).backward()
+
+    parts = {"step": lambda: prog.train_step(batch),
+             "forward+backward": fwd_bwd,
+             "zen_sync embed/table": lambda: S.zen_sync(
+                 stacks["embed/table"], group=prog.group, layout=lo,
+                 backend="cuda"),
+             "GradSync": lambda: prog.gradsync(stacks)}
+    prog.train_step(batch)
+    out = {}
+    for name, fn in parts.items():
+        ts = []
+        for _ in range(reps):
+            if barrier is not None:
+                barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        out[name] = float(np.median(ts))
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def smoke_trainer(n: int, group=None, dev="cuda"):
+    """The dist phase's trainer (``launch/train.py``'s flags: qwen2-0.5b,
+    Zen, global batch 8 x 512 tokens, seed 0) on ``n`` ranks and its
+    first batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import attach_train, build_program
+
+    cfg = get_config("qwen2-0.5b")
+    prog = build_program(cfg, f"{n}x1", device=dev, group=group)
+    attach_train(prog)
+    b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8))))
+    return prog, {k: torch.as_tensor(v, device=dev).long()
+                  for k, v in b.items()}
+
+
+def dist_breakdown_rank(group, dev, work: Path) -> None:
+    """One rank of the gloo trainer's step breakdown; rank 0 writes it to
+    ``work/parts.json``."""
+    import torch.distributed as dist
+
+    prog, batch = smoke_trainer(group.n, group, dev)
+    parts = step_parts(prog, batch, barrier=dist.barrier)
+    if group.ranks[0] == 0:
+        (work / "parts.json").write_text(json.dumps(parts))
+
+
+def dist_rank(job: str, work: Path) -> None:
+    """One rank of a dist-phase job, run under torchrun."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_group
+
+    group, dev = make_data_group("gloo")
+    try:
+        {"zen_sync": dist_zen_sync_rank,
+         "breakdown": dist_breakdown_rank}[job](group, dev, work)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_zen_sync(dev) -> None:
+    """zen_sync at the slice shapes over an 8-rank gloo group, every rank
+    on this card, against the in-process simulate on the card: each rank's
+    output and stats bitwise row w of it (sha256 digests), on all four
+    routes, with each route's kernels launched once per rank."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import ops as K
+
+    M, d, n = SLICE["M"], SLICE["d"], DIST_ZEN_RANKS
+    lo = S.make_zen_layout(M, n, density_budget=SLICE["density_budget"])
+    g = zipf_rows(np.random.default_rng(1), n, M, SLICE["tokens"], d,
+                  torch.bfloat16, dev)
+    want = {}
+    for fe, fc in ROUTES:
+        out, st = S.simulate(S.zen_sync, g, layout=lo, backend="cuda",
+                             fused=fe, fused_commit=fc)
+        want[f"{fe},{fc}"] = [sync_digest(out[w], st.sent_words[w],
+                                          st.overflow[w]) for w in range(n)]
+        del out
+    work = Path(tempfile.mkdtemp(prefix="dist_zen_sync_"))
+    try:
+        for w in range(n):
+            ids = (bits(g[w]) != 0).any(dim=-1).nonzero().squeeze(1)
+            torch.save({"ids": ids.cpu(), "vals": g[w, ids].cpu()},
+                       work / f"in{w}.pt")
+        del g
+        torch.cuda.empty_cache()
+        run_ranks(n, [str(Path(__file__).resolve()), "--dist-rank",
+                      "zen_sync", str(work)], "dist zen_sync")
+        got = [json.loads((work / f"out{w}.json").read_text())
+               for w in range(n)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for route, digests in want.items():
+        fe, fc = (r == "True" for r in route.split(","))
+        path = K.path_launches(1, fe, fc)
+        for w in range(n):
+            r = got[w][route]
+            if r["digest"] != digests[w]:
+                raise AssertionError(f"dist zen_sync (fused, fused_commit) = "
+                                     f"({route}) rank {w}: output or stats "
+                                     f"differ from the in-process row {w}")
+            if r["shape"] != [1, M, d]:
+                raise AssertionError(f"dist zen_sync rank {w} shape "
+                                     f"{r['shape']}")
+            for k in K.KERNELS:
+                if r["launches"][k] != path.get(k, 0) or r["plain"][k]:
+                    raise AssertionError(
+                        f"dist zen_sync ({route}) rank {w}: {k} launched "
+                        f"{r['launches'][k]} (expected {path.get(k, 0)}), "
+                        f"plain {r['plain'][k]}")
+        secs = [got[w][route]["s"] for w in range(n)]
+        log(f"[dist] zen_sync (fused, fused_commit) = ({route}): {n} gloo "
+            f"ranks bitwise the in-process rows, launches {path} per rank; "
+            f"host s per rank {secs}")
+
+
+def phase_dist(dev, smi: str) -> None:
+    """The per-rank data-parallel path over a gloo group on this one card:
+    zen_sync at the slice shapes on 8 ranks, then the full-width trainer on
+    4 ranks against the in-process 4x1 trainer."""
+    torch.cuda.empty_cache()
+    dist_zen_sync(dev)
+    dist_trainer("gloo", smi)
+
+
+def dist_trainer(backend: str, smi: str, steps: int = 4) -> None:
+    """``torchrun ... launch.train --mesh 4x1 --dist <backend>`` at full
+    width against the in-process 4x1 trainer on the same flags (on this
+    process's card).  ``nccl`` needs a card a rank (``--only dist_nccl``
+    on four cards); gloo runs every rank on one card."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+
+    n = DIST_TRAIN_RANKS
+    if backend == "nccl" and torch.cuda.device_count() < n:
+        raise AssertionError(f"dist_nccl needs {n} cards, a rank a card; "
+                             f"{torch.cuda.device_count()} here")
+    argv = ["--arch", "qwen2-0.5b", "--mesh", f"{n}x1", "--sync", "zen",
+            "--global-batch", "8", "--seq-len", "512", "--steps", str(steps),
+            "--log-every", "1"]
+    torch.cuda.empty_cache()
+    out = run_ranks(n, ["-m", "repro_torch.launch.train", *argv, "--dist",
+                        backend], f"dist trainer {backend}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("dist result ")]
+    if len(lines) != 1:
+        raise AssertionError(f"dist trainer printed {len(lines)} result "
+                             f"lines:\n{out[-4000:]}")
+    dres = json.loads(lines[0][len("dist result "):])
+    K.reset_counts()
+    local = train.main(argv)
+    torch.cuda.empty_cache()
+    losses = dres["losses"]
+    diff = max(abs(a - b) for a, b in zip(losses, local["losses"]))
+    med = {backend: float(np.median(dres["step_s"][1:])),
+           "in-process": float(np.median(local["step_s"][1:]))}
+    log(f"[dist] trainer {n}x1 {backend}: losses={losses} max |diff| vs "
+        f"in-process={diff} sparse_words={dres['sparse_words']} overflow="
+        f"{dres['overflow']} launches by rank={dres['launches_by_rank']} "
+        f"plain={dres['plain_calls']} step_s={dres['step_s']} | {smi}")
+    log(f"[dist] trainer {n}x1 in-process: losses={local['losses']} "
+        f"sparse_words={local['sparse_words']} step_s={local['step_s']}")
+    log(f"[dist] median step s after the first: {backend} {n} processes "
+        f"{med[backend]}, in-process {med['in-process']}; tok/s {backend} "
+        f"{dres['tok_per_s']}, in-process {local['tok_per_s']} | {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dist trainer loss not finite and falling: "
+                             f"{losses}")
+    if diff > 5e-3:
+        raise AssertionError(f"dist and in-process trainers diverge: {diff}")
+    if dres["sparse_words"] != local["sparse_words"]:
+        raise AssertionError(f"dist sparse words {dres['sparse_words']} != "
+                             f"in-process {local['sparse_words']}")
+    if dres["overflow"] != 0:
+        raise AssertionError(f"dist trainer overflow {dres['overflow']}")
+    path = K.path_launches(1)
+    for k in K.KERNELS:
+        if dres["launches_by_rank"][k] != [steps * path.get(k, 0)] * n \
+                or dres["plain_calls"][k]:
+            raise AssertionError(
+                f"dist trainer: {k} launched {dres['launches_by_rank'][k]} "
+                f"by rank (expected {steps * path.get(k, 0)} each), plain "
+                f"{dres['plain_calls'][k]}")
+        if local["launches"][k] != steps * n * path.get(k, 0):
+            raise AssertionError(f"in-process {n}x1 trainer: {k} launched "
+                                 f"{local['launches'][k]} times")
+
+
+def dist_step_parts(n: int, smi: str) -> None:
+    """Where the step's host time goes: ``step_parts`` on rank 0 of the
+    gloo trainer (n processes) and on the in-process n-rank trainer
+    (``--only dist_parts``; no check rides on it)."""
+    work = Path(tempfile.mkdtemp(prefix="dist_parts_"))
+    try:
+        run_ranks(n, [str(Path(__file__).resolve()), "--dist-rank",
+                      "breakdown", str(work)], "dist breakdown")
+        parts = {"gloo": json.loads((work / "parts.json").read_text())}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    prog, batch = smoke_trainer(n)
+    parts["in-process"] = step_parts(prog, batch)
+    del prog
+    torch.cuda.empty_cache()
+    for mode, pt in parts.items():
+        log(f"[dist] {n}x1 {mode} step parts, median host s of 3: {pt} | "
+            f"{smi}")
+
+
+# ---------------------------------------------------------------------------
 # the serving slice: prefill kernels and the server
 # ---------------------------------------------------------------------------
 
@@ -1405,9 +1743,18 @@ def main(argv=None) -> None:
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
                          "all: kernels,zen_sync,trainer,breakdown,"
-                         "serve_kernels,serve,times (bitmap_times: the "
-                         "bitmap call sites alone)")
+                         "serve_kernels,serve,dist,times (bitmap_times: the "
+                         "bitmap call sites alone; dist_parts: the dist "
+                         "trainers' step parts; dist_nccl: the dist trainer "
+                         "over nccl on four cards; neither in the default "
+                         "run)")
+    ap.add_argument("--dist-rank", nargs=2, default=None,
+                    metavar=("JOB", "DIR"),
+                    help=argparse.SUPPRESS)   # one rank of phase 8 (torchrun)
     args = ap.parse_args(argv)
+    if args.dist_rank:
+        dist_rank(args.dist_rank[0], Path(args.dist_rank[1]))
+        return
     only = set(filter(None, args.only.split(",")))
     want = (lambda p: not only or p in only)
     t_start = time.time()
@@ -1428,6 +1775,12 @@ def main(argv=None) -> None:
     skern = phase_serve_kernels() if want("serve_kernels") or want("times") \
         else None
     served = phase_serve() if want("serve") else None
+    if want("dist"):
+        phase_dist(dev, dev_info["smi"])
+    if "dist_parts" in only:
+        dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
+    if "dist_nccl" in only:
+        dist_trainer("nccl", dev_info["smi"])
     times = []
     if want("times"):
         times = phase_times(kern["inputs"], dev_info["smi"]) \

@@ -2,19 +2,27 @@
 
 Port of the dense and Zen parts of ``repro.core.schemes``.  The reference
 writes each scheme as an SPMD function of one worker's gradient with named
-``jax.lax`` collectives and runs it under ``vmap``; here a scheme takes ALL
-workers' gradients stacked on a leading worker dimension ``[n, M(, d)]``
-and runs the collectives through a :class:`SimGroup`, the in-process
-simulated group:
+``jax.lax`` collectives and runs it under ``vmap`` (simulated) or
+``shard_map`` (one program per device).  Here a scheme takes the gradients
+of the workers this process holds, stacked on a leading dimension
+``[local, M(, d)]``, and runs the collectives through a group that says
+which global ranks those are (``group.ranks``):
 
-* ``all_to_all`` is a transpose of the (source, destination) dimensions;
-* ``all_gather`` hands every worker the same stacked tensor;
-* ``psum`` is a sum in worker order 0..n-1.
+* :class:`SimGroup`, the in-process simulated group (the ``vmap``
+  counterpart): the process holds all ``n`` workers; ``all_to_all`` is a
+  transpose of the (source, destination) dimensions, ``all_gather`` hands
+  every worker the same stacked tensor, ``psum`` sums in worker order
+  0..n-1;
+* :class:`DistGroup`, one rank of a ``torch.distributed`` process group
+  (the ``shard_map`` counterpart): the process holds one worker
+  (``local = 1``) and each collective is the group's own.
 
 Worker ``w`` is also server ``w``: it owns the hash partition ``I_w``.
-Outputs keep the leading worker dimension (one synced copy per worker) and
+Outputs keep the leading local dimension (one synced copy per worker) and
 :class:`SyncStats` fields are per-worker vectors, like the reference's
-``simulate``.
+``simulate``.  Zen's outputs are the same bits on both groups: the push
+delivers the sources in rank order, so every server sums its stream in
+the same order.
 
 ``backend`` selects the route of the three kernel stages (encode, commit
 push, pull decode): ``"cuda"`` goes through ``kernels/ops.py`` (the CUDA
@@ -32,6 +40,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import formats
 from repro_torch.core.hashing import (EMPTY, check_backend, compact_rows,
@@ -53,6 +62,7 @@ class SimGroup:
 
     def __init__(self, n: int):
         self.n = n
+        self.ranks = range(n)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """[n_src, n_dst, ...] -> [n_dst, n_src, ...]: destination ``j``
@@ -71,6 +81,80 @@ class SimGroup:
         for w in range(1, x.shape[0]):
             acc += x[w]
         return acc.expand_as(x)
+
+    def mean(self, vals: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """``{name: [n] per-worker values}`` -> f32 means over the group."""
+        return {k: v.float().mean() for k, v in vals.items()}
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Every worker already shares the one copy: nothing to send."""
+
+
+# all_gather into one tensor; older torch names it all_gather_into_tensor
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
+
+
+class DistGroup:
+    """This process's rank of the default ``torch.distributed`` process
+    group (``launch/mesh.py`` joins it): the leading dimension of every
+    stack is 1 (``local``), and the group's collectives run on the
+    tensors' own device (gloo stages CUDA tensors through host memory
+    itself; the kernels stay on the card)."""
+
+    def __init__(self):
+        self.n = dist.get_world_size()
+        self.ranks = (dist.get_rank(),)
+
+    @staticmethod
+    def _one(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] != 1:
+            raise ValueError(f"DistGroup holds one rank: need a [1, ...] "
+                             f"stack, got {tuple(x.shape)}")
+        return x.contiguous()
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, n_dst, ...] -> [1, n_src, ...]: block ``j`` goes to rank
+        ``j``; the blocks arrive in source-rank order."""
+        src = self._one(x)[0]
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+        return out[None]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] -> [n, ...], rank order."""
+        x = self._one(x)
+        out = x.new_empty((self.n, *x.shape[1:]))
+        _all_gather_single(out, x)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] -> [1, ...]: the group's sum (``all_reduce``, DDP's
+        idiom).  The order of the adds is the backend's: bitwise the
+        simulated group's at two ranks, within the summation bound
+        ``(n - 1) u sum|x|`` beyond."""
+        out = self._one(x).clone()
+        dist.all_reduce(out)
+        return out
+
+    def mean(self, vals: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """``{name: [1] values}`` -> f32 means over the group: one
+        ``all_reduce`` of the sums, so every rank returns the same."""
+        sums = torch.stack([v.float().sum() for v in vals.values()])
+        dist.all_reduce(sums)
+        return dict(zip(vals, (sums / self.n).unbind()))
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite ``tensors`` with rank 0's, one flat buffer per dtype
+        (DDP's start-up broadcast)."""
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = torch.cat([t.detach().reshape(-1) for t in ts])
+            dist.broadcast(flat, src=0)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.detach().copy_(part.view_as(t))
 
 
 def _nnz(idx: torch.Tensor) -> torch.Tensor:
@@ -122,14 +206,15 @@ def _coo_reduce(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 # Dense baseline
 # ---------------------------------------------------------------------------
 
-def dense_sync(dense: torch.Tensor, *, group: SimGroup):
-    """Ring allreduce: every worker gets the sum of [n, ...] gradients."""
-    n = group.n
+def dense_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup):
+    """Ring allreduce: every worker gets the sum of [local, ...]
+    gradients."""
+    n, local = group.n, dense.shape[0]
     out = group.psum(dense)
     words = (torch.tensor(2 * (n - 1) / n, dtype=torch.float32)
              * dense[0].numel()).to(dense.device)
-    stats = SyncStats(sent_words=words.expand(n),
-                      overflow=torch.zeros(n, dtype=torch.int32,
+    stats = SyncStats(sent_words=words.expand(local),
+                      overflow=torch.zeros(local, dtype=torch.int32,
                                            device=dense.device))
     return out, stats
 
@@ -222,16 +307,17 @@ def make_zen_layout(length: int, n: int, *, density_budget: float,
 
 
 class ZenEncoded(NamedTuple):
-    """Output of ``zen_encode`` for all workers: what the push needs."""
+    """Output of ``zen_encode`` for the local workers: what the push
+    needs."""
 
-    pidx: torch.Tensor      # int32 [n_workers, n_servers, r1+r2]
-    pval: torch.Tensor      # [n_workers, n_servers, r1+r2(, d)]
-    overflow: torch.Tensor  # int32 [n_workers]
+    pidx: torch.Tensor      # int32 [local, n_servers, r1+r2]
+    pval: torch.Tensor      # [local, n_servers, r1+r2(, d)]
+    overflow: torch.Tensor  # int32 [local]
 
 
 def zen_encode(dense: torch.Tensor, *, layout: ZenLayout,
                backend: str = "torch", fused: bool = True) -> ZenEncoded:
-    """Zen stage 1 on every worker: compact the local non-zero rows,
+    """Zen stage 1 on every local worker: compact its non-zero rows,
     hierarchically hash them into n partitions and gather their values.
     Collective-free.  ``fused`` runs one encode launch per worker; the
     unfused chain runs the hash stage, the insertion rounds and the
@@ -259,38 +345,45 @@ def zen_encode(dense: torch.Tensor, *, layout: ZenLayout,
 
 def _push_unfused(lp: torch.Tensor, got_val: torch.Tensor, dense, lo,
                   backend: str):
-    """The pre-fusion server aggregation of every server: scatter-add into
-    a zero [cap_server(, d)] buffer, mask any(row != 0), ascending
-    compaction to cap_pull, value gather, and the server bitmap.  Returns
-    (lpos [n, cap_pull], vals [n, cap_pull(, d)], mask [n, cap_server],
-    overflow [n])."""
-    n = lp.shape[0]
-    bufs = torch.zeros((n, lo.cap_server, *dense.shape[2:]),
+    """The pre-fusion server aggregation of every local server:
+    scatter-add into a zero [cap_server(, d)] buffer, mask any(row != 0),
+    ascending compaction to cap_pull, value gather, and the server bitmap.
+    Returns (lpos [local, cap_pull], vals [local, cap_pull(, d)], mask
+    [local, cap_server], overflow [local])."""
+    local = lp.shape[0]
+    bufs = torch.zeros((local, lo.cap_server, *dense.shape[2:]),
                        dtype=dense.dtype, device=dense.device)
-    for s in range(n):
+    for s in range(local):
         _coo_reduce(bufs[s], lp[s], got_val[s], backend=backend)
     mask = _worker_mask(bufs)
     lpos, ov_p = compact_rows(mask, lo.cap_pull)
-    vals = torch.stack([_gather_rows(bufs[s], lpos[s]) for s in range(n)])
+    vals = torch.stack([_gather_rows(bufs[s], lpos[s])
+                        for s in range(local)])
     return lpos, vals, mask, ov_p
 
 
-def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
-               layout: ZenLayout, use_hash_bitmap: bool = True,
-               backend: str = "torch", fused: bool = True):
+def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *,
+               group: SimGroup | DistGroup, layout: ZenLayout,
+               use_hash_bitmap: bool = True, backend: str = "torch",
+               fused: bool = True):
     """Zen stages 2-4: push all_to_all, server aggregation, bitmap pull and
-    the collision-free apply.  ``fused`` runs one push launch per server and
-    one pull-decode launch per worker; the unfused chain runs a scatter-add
-    per server, one pack of all n server masks and an unpack per worker
-    (straight into [n, cap_server]), with the compactions in plain torch.
-    ``dense`` gives only shapes and dtype."""
+    the collision-free apply, for the local workers (each also the server
+    of its rank).  ``fused`` runs one push launch per local server and one
+    pull-decode launch per local worker; the unfused chain runs a
+    scatter-add per local server, one pack of all local server masks and an
+    unpack per local worker (straight into [n, cap_server]), with the
+    compactions in plain torch.  ``dense`` gives only shapes and dtype."""
     check_backend(backend)
     lo, n = layout, group.n
-    M = dense.shape[1]
+    local, M = dense.shape[:2]
     vshape = tuple(dense.shape[2:])
     vw = _vwidth(dense[0])
     dev = dense.device
     tabs = lo.tables(dev)
+    # the local ranks are contiguous (range(n), or this process's one):
+    # built on the device, so nothing crosses from the host
+    r0 = group.ranks[0]
+    ranks = torch.arange(r0, r0 + local, device=dev)
     push = (kops.zen_commit_push_fused_op if backend == "cuda"
             else kref.zen_commit_push_ref)
     pull = (kops.zen_commit_pull_fused_op if backend == "cuda"
@@ -298,8 +391,8 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     cap_pull = lo.cap_pull
 
     # --- 2. Push (balanced all_to_all) ---------------------------------------
-    got_idx = group.all_to_all(enc.pidx).reshape(n, -1)       # [srv, n*L]
-    got_val = group.all_to_all(enc.pval).reshape(n, -1, *vshape)
+    got_idx = group.all_to_all(enc.pidx).reshape(local, -1)   # [srv, n*L]
+    got_val = group.all_to_all(enc.pval).reshape(local, -1, *vshape)
     live = got_idx != EMPTY
     lp = torch.where(live, tabs["local_pos"][torch.where(live, got_idx, 0)
                                              .to(torch.int64)],
@@ -308,7 +401,7 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     # --- 3. server aggregation + pull payload --------------------------------
     if fused:
         lpos, vals, bms, ov_p = [], [], [], []
-        for s in range(n):
+        for s in range(local):
             res = push(lp[s], got_val[s], cap_server=lo.cap_server,
                        cap_pull=cap_pull)
             for acc, x in zip((lpos, vals, bms, ov_p), res):
@@ -318,7 +411,7 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     else:
         lpos, vals, srv_mask, ov_p = _push_unfused(lp, got_val, dense, lo,
                                                    backend)
-        if use_hash_bitmap:   # all n server masks in one pack
+        if use_hash_bitmap:   # all local server masks in one pack
             bms = formats.bitmap_encode(srv_mask, backend=backend)
 
     # --- 4. Pull --------------------------------------------------------------
@@ -326,7 +419,7 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
     if use_hash_bitmap:
         all_bm = group.all_gather(bms)                        # [n, W]
         globs = []
-        for _w in range(n):   # every worker decodes the gathered bitmaps
+        for _w in range(local):   # every worker decodes all n bitmaps
             if fused:
                 lpos_all = pull(all_bm, lo.cap_server, cap_pull)
             else:
@@ -337,28 +430,29 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *, group: SimGroup,
                                      tabs["perm"][gidx]))
         pull_words = (n - 1) * (_nnz(lpos) * vw + lo.cap_bitmap_words)
     else:  # COO pull (the Fig. 18 ablation)
-        gidx = (tabs["offsets"][:n, None] + lpos).clamp(0, M - 1)
+        gidx = (tabs["offsets"][ranks, None] + lpos).clamp(0, M - 1)
         glob = group.all_gather(
             torch.where(lpos == EMPTY, EMPTY, tabs["perm"][gidx]))
-        globs = [glob] * n
+        globs = [glob] * local
         pull_words = (n - 1) * _nnz(lpos) * (vw + 1)
     out = torch.stack([
         _scatter_unique(torch.zeros_like(dense[w]), globs[w].reshape(-1),
-                        all_val) for w in range(n)])
+                        all_val) for w in range(local)])
 
     nnz = _nnz(enc.pidx)                                      # [worker, srv]
-    own = nnz[torch.arange(n, device=dev), torch.arange(n, device=dev)]
+    own = nnz[torch.arange(local, device=dev), ranks]
     push_sent = (nnz.sum(-1) - own) * (1 + vw)
     stats = SyncStats(sent_words=push_sent + pull_words,
                       overflow=enc.overflow + ov_p)
     return out, stats
 
 
-def zen_sync(dense: torch.Tensor, *, group: SimGroup, layout: ZenLayout,
-             use_hash_bitmap: bool = True, backend: str = "torch",
-             fused: bool = True, fused_commit: bool = True):
-    """Zen synchronization of [n, M(, d)] worker gradients: Alg. 1 push +
-    Alg. 2 (hash bitmap) pull; ``use_hash_bitmap=False`` pulls COO.
+def zen_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
+             layout: ZenLayout, use_hash_bitmap: bool = True,
+             backend: str = "torch", fused: bool = True,
+             fused_commit: bool = True):
+    """Zen synchronization of [local, M(, d)] worker gradients: Alg. 1
+    push + Alg. 2 (hash bitmap) pull; ``use_hash_bitmap=False`` pulls COO.
     ``fused`` / ``fused_commit`` pick the encode / commit kernel route."""
     enc = zen_encode(dense, layout=layout, backend=backend, fused=fused)
     return zen_commit(enc, dense, group=group, layout=layout,

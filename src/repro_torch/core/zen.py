@@ -1,9 +1,11 @@
 """Gradient-synchronization API (port of ``repro.core.zen``).
 
-``GradSync`` maps the per-worker gradients of a model (one ``[n, ...]``
-stack per leaf) to their mean over the data-parallel group.  Leaves named
-in ``sparse_paths`` (the row-sparse input embedding ``embed/table``) go
-through the configured sparse scheme; every other leaf is a psum.  The
+``GradSync`` maps the per-worker gradients of a model (one ``[local, ...]``
+stack per leaf: all ``n`` workers on the in-process ``SimGroup``, this
+process's one rank on a ``DistGroup``) to their mean over the data-parallel
+group.  Leaves named in ``sparse_paths`` (the row-sparse input embedding
+``embed/table``) go through the configured sparse scheme; every other leaf
+is a psum.  The
 port covers the flat topology with ``scheme`` in {``zen``, ``dense``} and
 no compression; any other setting raises ``NotImplementedError`` naming
 the ROADMAP item that brings it.
@@ -18,7 +20,8 @@ import torch
 from repro_torch.core import buckets as bk
 from repro_torch.core import schemes
 from repro_torch.core.hashing import check_backend
-from repro_torch.core.schemes import SimGroup, SyncStats, make_zen_layout
+from repro_torch.core.schemes import (DistGroup, SimGroup, SyncStats,
+                                      make_zen_layout)
 from repro_torch.train import schedule
 
 
@@ -75,17 +78,24 @@ class GradSync:
       leaves: ``[(name, per-worker shape), ...]`` in gradient order; the
           Zen layouts and the bucket plan are built from them offline.
       n_data: size of the data-parallel group.
+      group: the collectives' group: by default ``SimGroup(n_data)`` (all
+          workers in this process); a ``DistGroup`` of size ``n_data``
+          runs this process's rank over ``torch.distributed``.
     """
 
     def __init__(self, cfg: SyncConfig, sparse_paths: Sequence[str],
-                 leaves: Sequence[tuple[str, tuple]], n_data: int):
+                 leaves: Sequence[tuple[str, tuple]], n_data: int,
+                 group: SimGroup | DistGroup | None = None):
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(f"GradSync: {why}")
         check_backend(cfg.backend)
+        if group is not None and group.n != n_data:
+            raise ValueError(f"GradSync: n_data {n_data} != the group's "
+                             f"size {group.n}")
         self.cfg = cfg
         self.n_data = n_data
-        self.group = SimGroup(n_data)
+        self.group = group or SimGroup(n_data)
         self.sparse_paths = tuple(sparse_paths)
 
         def resolve_scheme(name: str, shape: tuple) -> str:
@@ -128,9 +138,10 @@ class GradSync:
     def _commit_bucket(self, bucket: bk.Bucket,
                        enc) -> tuple[torch.Tensor, SyncStats]:
         """Collectives + decode-apply, then the mean (every scheme sums)."""
-        g, n = enc[0], self.n_data
+        g, n = enc[0], self.group.n
         if n <= 1:
-            zero = torch.zeros(n, dtype=torch.float32, device=g.device)
+            zero = torch.zeros(g.shape[0], dtype=torch.float32,
+                               device=g.device)
             return g, SyncStats(sent_words=zero,
                                 overflow=zero.to(torch.int32))
         if len(enc) > 1:
@@ -141,13 +152,13 @@ class GradSync:
                 backend=self.cfg.backend, fused=self.cfg.fused_commit)
         else:
             out, st = schemes.dense_sync(g, group=self.group)
-        if out.stride(0) == 0:   # one psum result seen by every worker
+        if out.stride(0) == 0:   # SimGroup: one psum seen by every worker
             return (out[0] / n).expand_as(out), st
         return out / n, st
 
     def __call__(self, grads: dict[str, torch.Tensor]):
-        """``{leaf name: [n, ...] per-worker grads}`` -> (the same dict of
-        [n, ...] synced means, metric dict of per-worker vectors)."""
+        """``{leaf name: [local, ...] per-worker grads}`` -> (the same dict
+        of [local, ...] synced means, metric dict of per-worker vectors)."""
         names = [b.name for b in self.plan.buckets]
         flat = [grads[name] for name in names]
         payloads = [bk.gather_bucket(b, flat) for b in self.plan.buckets]

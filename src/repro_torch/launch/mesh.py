@@ -1,0 +1,73 @@
+"""The data-parallel process group (counterpart of ``repro.launch.mesh``).
+
+The reference runs its train step as one SPMD program per device of a JAX
+mesh.  The port's counterpart is one process per data-parallel rank,
+started by ``torchrun``, on a ``torch.distributed`` group:
+
+    torchrun --standalone --nproc-per-node D -m repro_torch.launch.train \\
+        --mesh Dx1 --dist gloo ...
+
+``gloo`` runs on the CPU and on CUDA tensors (staged through host memory
+by gloo itself), and it lets several ranks share one card, so a machine
+with one GPU runs the D ranks side by side on it.  ``nccl`` places one
+rank on each card and refuses two ranks on one; asking for it where the
+ranks outnumber the cards raises rather than quietly switching to gloo.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import resolve_device
+from repro_torch.core.schemes import DistGroup
+
+BACKENDS = ("gloo", "nccl")
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+# bounds every collective, so that a rank that died fails the others in
+# minutes instead of leaving them waiting (the slowest collective of the
+# full-width trainer, its start-up broadcast, takes seconds)
+TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def make_data_group(backend: str, device: str | None = None
+                    ) -> tuple[DistGroup, torch.device]:
+    """Join the data-parallel group that ``torchrun`` set up for this
+    process: ``(DistGroup, this rank's device)``.
+
+    The device is ``cuda:(LOCAL_RANK mod device_count)`` by default, or the
+    CPU when ``device="cpu"``.  Call ``dist.destroy_process_group()``
+    when done."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    dev = resolve_device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"nccl runs on CUDA devices only, not {dev}; use "
+                         f"--dist gloo with --device cpu")
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"--dist {backend} runs one process per rank under torchrun, "
+            f"but {', '.join(missing)} is not set: start it with `torchrun "
+            f"--standalone --nproc-per-node D -m repro_torch.launch.train "
+            f"--mesh Dx1 --dist {backend} ...`, or drop --dist to hold the "
+            f"D ranks in one process")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if backend == "nccl" and local_world > count:
+            raise ValueError(
+                f"nccl places one rank on each GPU, and {local_world} ranks "
+                f"share {count} GPU(s) here; use --dist gloo to run several "
+                f"ranks on one GPU")
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % count)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method="env://", rank=rank, world_size=world,
+        timeout=TIMEOUT)
+    return DistGroup(), dev

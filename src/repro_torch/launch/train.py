@@ -4,7 +4,20 @@
         --mesh 8x1 --sync zen --global-batch 8 --seq-len 512 --steps 4
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
-The D ranks of a ``Dx1`` mesh are held in one process (train/steps.py).
+The D ranks of a ``Dx1`` mesh run in one of two modes (train/steps.py):
+
+* without ``--dist``, all D ranks are held in this one process;
+* with ``--dist {gloo,nccl}``, each process started by ``torchrun`` runs
+  one rank over a ``torch.distributed`` group (launch/mesh.py), e.g.
+
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+          -m repro_torch.launch.train --arch qwen2-0.5b --mesh 4x1 \\
+          --dist gloo --sync zen --global-batch 8 --seq-len 512 --steps 4
+
+  gloo lets several ranks share one GPU (or run on the CPU with
+  ``--device cpu``); nccl needs a GPU per rank.  Only rank 0 prints, and
+  ``main`` returns the same dict on every rank.
+
 Flags the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.  ``--no-zero1`` is accepted: the port always
 runs the full update, which gives the same numbers as ZeRO-1.
@@ -15,14 +28,18 @@ megakernels, with the same results.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.zen import SyncConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import BACKENDS, make_data_group
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.train.build import attach_train, build_program
 from repro_torch.train.steps import TrainerConfig
@@ -60,6 +77,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
                     help="Zen kernel route: the CUDA kernels, or their "
                          "plain PyTorch versions")
+    ap.add_argument("--dist", default=None, choices=BACKENDS,
+                    help="one rank per process under torchrun, over this "
+                         "torch.distributed backend (default: all ranks "
+                         "in this process)")
     return ap.parse_args(argv)
 
 
@@ -82,9 +103,26 @@ def _check_ported(args) -> None:
 
 def main(argv=None) -> dict:
     """Train; returns losses, final tok/s, sparse words, overflow, step
-    times (host clock after a device sync, seconds)."""
+    times (host clock after a device sync, seconds) and the kernels'
+    launches and plain calls in the run, summed over the group."""
     args = parse_args(argv)
     _check_ported(args)
+    if args.dist is None:
+        return _train(args, None, args.device)
+    group, dev = make_data_group(args.dist, args.device)
+    try:
+        return _train(args, group, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _counts() -> torch.Tensor:
+    """int64 [2, kernels]: this process's launch and plain-call counters."""
+    return torch.tensor([[c[k] for k in kops.KERNELS]
+                         for c in (kops.LAUNCHES, kops.PLAIN_CALLS)])
+
+
+def _train(args, group, device) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -95,17 +133,18 @@ def main(argv=None) -> dict:
                         alpha_beta=args.alpha_beta, calib_file=args.calib_file,
                         fused_commit=not args.no_fused_commit,
                         backend=args.backend, seed=args.seed))
-    prog = build_program(cfg, args.mesh, tcfg, device=args.device,
-                         seed=args.seed)
+    prog = build_program(cfg, args.mesh, tcfg, device=device,
+                         seed=args.seed, group=group)
     attach_train(prog)
     dev = prog.device
+    log = print if prog.group.ranks[0] == 0 else _quiet   # rank 0 prints
     n_params = sum(p.numel() for p in prog.model.parameters())
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
+    log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
           f"sync={args.sync} backend={args.backend} device={dev} "
           f"dtype={str(cfg.dtype).replace('torch.', '')}", flush=True)
     for line in prog.gradsync.describe():
         if "sparse" in line or line.startswith("topology"):
-            print(f"  {line}")
+            log(f"  {line}")
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -115,6 +154,7 @@ def main(argv=None) -> dict:
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
     losses, step_s, words, ovf = [], [], [], []
     tokens_done = 0
+    counts0 = _counts()
     sync()
     t0 = time.time()
     for step in range(args.steps):
@@ -131,17 +171,35 @@ def main(argv=None) -> dict:
             losses.append(float(m["loss"]))
             words.append(float(m["sync/sparse_sent_words"]))
             ovf.append(int(float(m["sync/overflow"])))
-            print(f"step {step:5d} loss={losses[-1]:.4f} "
+            log(f"step {step:5d} loss={losses[-1]:.4f} "
                   f"tok/s={tokens_done / dt:,.0f} "
                   f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
                   flush=True)
     sync()
     dt = time.time() - t0
-    print("done")
-    return {"losses": losses, "tok_per_s": tokens_done / dt,
-            "sparse_words": words[-1] if words else 0.0,
-            "overflow": max(ovf) if ovf else 0, "step_s": step_s,
-            "median_step_s": float(np.median(step_s)) if step_s else 0.0}
+    log("done")
+    counts = (_counts() - counts0)[None].to(dev)   # [1 process, 2, kernels]
+    if group is not None:
+        # every rank returns rank 0's clock
+        clock = torch.tensor([[dt, *step_s]], dtype=torch.float64, device=dev)
+        dt, *step_s = group.all_gather(clock)[0].tolist()
+        counts = group.all_gather(counts)            # [ranks, 2, kernels]
+    total = counts.sum(0).tolist()
+    out = {"losses": losses, "tok_per_s": tokens_done / dt,
+           "sparse_words": words[-1] if words else 0.0,
+           "overflow": max(ovf) if ovf else 0, "step_s": step_s,
+           "median_step_s": float(np.median(step_s)) if step_s else 0.0,
+           "launches": dict(zip(kops.KERNELS, total[0])),
+           "plain_calls": dict(zip(kops.KERNELS, total[1]))}
+    if group is not None:
+        by_rank = {k: counts[:, 0, i].tolist()
+                   for i, k in enumerate(kops.KERNELS)}
+        log(f"dist result {json.dumps({**out, 'launches_by_rank': by_rank})}")
+    return out
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    """``log`` of a rank other than 0."""
 
 
 if __name__ == "__main__":

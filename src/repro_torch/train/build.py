@@ -9,6 +9,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.schemes import DistGroup, SimGroup
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.train import steps as st
@@ -35,14 +36,17 @@ def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int]:
 
 @dataclasses.dataclass
 class Program:
-    """A model and its trainer or server on one device; the D
-    data-parallel ranks of the mesh are held in this one process."""
+    """A model and its trainer or server on one device.  ``group`` holds
+    the mesh's D data-parallel ranks: all of them in this process
+    (``SimGroup``), or this process's one rank of a ``torch.distributed``
+    group (``DistGroup``)."""
 
     cfg: ArchConfig
     model: Model
     tcfg: TrainerConfig
     n_data: int
     device: torch.device
+    group: SimGroup | DistGroup
     train_step: Any = None
     gradsync: Any = None
     prefill_step: Any = None
@@ -61,21 +65,30 @@ class Program:
 
 
 def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
-                  *, device=None, seed: int = 0,
-                  backend: str = "cuda") -> Program:
+                  *, device=None, seed: int = 0, backend: str = "cuda",
+                  group: SimGroup | DistGroup | None = None) -> Program:
     """Model (initialised from ``seed`` with a torch.Generator) on
     ``device`` (default ``cuda``; ``"cpu"`` must be asked for), its
-    prefill kernels on the ``backend`` route (``Model``)."""
+    prefill kernels on the ``backend`` route (``Model``).  ``group``
+    (default ``SimGroup(D)``) must have the mesh's D ranks; on a
+    ``DistGroup`` every rank then takes rank 0's parameters, as DDP does."""
     dp, _ = parse_mesh(mesh)
+    if group is not None and group.n != dp:
+        raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks but "
+                         f"the process group has {group.n}")
     dev = resolve_device(device)
     model = Model(cfg, device=dev, seed=seed, backend=backend)
+    group = group or SimGroup(dp)
+    group.broadcast_(list(model.parameters()))
     return Program(cfg=cfg, model=model, tcfg=tcfg or TrainerConfig(),
-                   n_data=dp, device=dev)
+                   n_data=dp, device=dev, group=group)
 
 
 def attach_train(prog: Program) -> None:
-    """Build ``prog.train_step(batch) -> metrics`` and its GradSync."""
-    prog.gradsync = st.make_gradsync(prog.model, prog.tcfg, prog.n_data)
+    """Build ``prog.train_step(batch) -> metrics`` and its GradSync over
+    ``prog.group``."""
+    prog.gradsync = st.make_gradsync(prog.model, prog.tcfg, prog.n_data,
+                                     prog.group)
     prog.train_step = st.make_train_step(prog.model, prog.tcfg, prog.n_data,
                                          gradsync=prog.gradsync)
 

@@ -1,15 +1,27 @@
 """The data-parallel train step (port of ``repro.train.steps.make_train_step``).
 
-Data parallelism runs as ``--mesh Dx1`` with the D ranks held in one
-process on one device, the way the reference's tests hold 8 host devices
-in one process.  One step:
+Data parallelism runs as ``--mesh Dx1`` in one of two modes, chosen by the
+group the step is given:
+
+* ``SimGroup(D)`` (the default): all D ranks in one process on one device,
+  the way the reference's tests hold 8 host devices in one process (its
+  ``vmap`` simulation);
+* ``DistGroup``: one rank per process over a ``torch.distributed`` group
+  (the counterpart of the reference's per-device ``shard_map`` program);
+  each process computes only its own rank's loss and gradients.
+
+One step, for each rank ``w`` this process holds:
 
   1. rank ``w`` takes contiguous rows ``w`` of the global batch (every rank
      takes the whole batch when D does not divide it, as the reference
      replicates it) and computes its local loss and gradients;
-  2. ``GradSync`` syncs the stacked per-rank gradients over the simulated
+  2. ``GradSync`` syncs the stacked ``[local, ...]`` gradients over the
      group: Zen on ``embed/table``, a psum on the rest, then ``/D``;
-  3. global-norm clip and the AdamW update of the (replicated) parameters.
+  3. global-norm clip and the AdamW update of the (replicated) parameters,
+     on every process alike.
+
+``loss`` and the ``sync/*`` metrics are means over the whole group, the
+same on every rank.
 
 Tensor parallelism and ZeRO-1 raise ``NotImplementedError``; ZeRO-1 is a
 layout of the same elementwise update, so the full update here gives the
@@ -21,6 +33,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.schemes import DistGroup, SimGroup
 from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import OptConfig, adamw_init, adamw_update
@@ -33,11 +46,13 @@ class TrainerConfig:
     zero1: bool = False
 
 
-def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int) -> GradSync:
-    """The trainer's GradSync, built offline from the per-rank grad shapes
-    (the parameter shapes: parameters are replicated)."""
+def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int,
+                  group: SimGroup | DistGroup) -> GradSync:
+    """The trainer's GradSync over ``group``, built offline from the
+    per-rank grad shapes (the parameter shapes: parameters are
+    replicated)."""
     leaves = [(n, tuple(p.shape)) for n, p in model.named_leaves()]
-    return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data)
+    return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data, group)
 
 
 def split_batch(batch: dict, n: int) -> list[dict]:
@@ -55,9 +70,11 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
                     gradsync: GradSync | None = None):
     """Returns ``step_fn(batch) -> metrics`` that updates ``model`` in place.
 
-    ``batch`` holds int tensors tokens/labels [B, S] on the model's device;
-    metrics are f32 scalars averaged over ranks (``loss``, ``grad_norm``
-    and the ``sync/*`` counters)."""
+    ``batch`` holds int tensors tokens/labels [B, S] of the GLOBAL batch on
+    the model's device; the group of ``gradsync`` (by default one over
+    ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
+    are f32 scalars averaged over the group's ranks (``loss``,
+    ``grad_norm`` and the ``sync/*`` counters)."""
     if tcfg.zero1:
         raise NotImplementedError(
             "ZeRO-1 sharded optimizer state is not ported (ROADMAP queue 1, "
@@ -66,17 +83,22 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         raise NotImplementedError(f"optimizer {tcfg.opt.kind!r}: only adamw "
                                   f"is ported")
     if gradsync is None:
-        gradsync = make_gradsync(model, tcfg, n_data)
+        gradsync = make_gradsync(model, tcfg, n_data, SimGroup(n_data))
+    group = gradsync.group
+    ranks = tuple(group.ranks)
     leaves = model.named_leaves()
     state = {name: adamw_init(p) for name, p in leaves}
-    # per-rank gradients, stacked: [n, ...] per leaf, reused every step
-    stacks = {name: torch.empty((n_data, *p.shape), dtype=p.dtype,
+    # this process's per-rank gradients, stacked: [local, ...] per leaf,
+    # reused every step
+    stacks = {name: torch.empty((len(ranks), *p.shape), dtype=p.dtype,
                                 device=p.device) for name, p in leaves}
     step_no = [0]
 
     def step_fn(batch: dict) -> dict:
         losses = []
-        for w, b in enumerate(split_batch(batch, n_data)):
+        per_rank = split_batch(batch, n_data)
+        for w, rank in enumerate(ranks):
+            b = per_rank[rank]
             model.zero_grad(set_to_none=True)
             loss = model(b["tokens"], b["labels"])
             loss.backward()
@@ -102,9 +124,8 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         for name, p in leaves:
             adamw_update(tcfg.opt, p, grads[name], state[name], step_no[0])
         step_no[0] += 1
-        metrics["loss"] = torch.stack(losses).mean()
-        for k, v in sync_stats.items():
-            metrics[k] = v.float().mean()
+        metrics.update(group.mean({"loss": torch.stack(losses),
+                                   **sync_stats}))
         return metrics
 
     step_fn.gradsync = gradsync

@@ -1,0 +1,164 @@
+"""One rank of a ``tests/test_torch_dist.py`` process group (CPU, gloo).
+
+    python tests/torch_dist_rank.py DIR JOB [JOB ...]
+
+The test starts one such process per rank with torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``).  Each rank reads ``DIR/inputs.npz``, joins the group
+through ``launch.mesh.make_data_group("gloo", "cpu")``, runs the JOBs on
+its own worker's slice of the inputs and writes ``DIR/rank<r>.npz``.  It
+imports only torch, numpy and ``repro_torch``: the JAX reference runs in
+the test's own process.
+
+Jobs:
+  zen       ``zen_sync`` of every ``zen/<case>/vals`` on every route and
+            the COO pull;
+  dense     ``dense_sync`` of every ``dense/<dtype>`` stack;
+  gradsync  a whole ``GradSync`` over the ``gs/<leaf>`` stacks;
+  broadcast ``build_program`` from seed ``w`` on rank ``w``: every rank
+            must then hold rank 0's parameters;
+  trainer   the reduced qwen2 trainer on ``<n>x1`` from the reference's
+            parameters; on a 2-rank group rank 0 then runs the in-process
+            ``SimGroup`` 2x1 trainer on the same inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_config
+from repro_torch.core import schemes as S
+from repro_torch.core.zen import GradSync, SyncConfig
+from repro_torch.kernels import ops as K
+from repro_torch.launch.mesh import make_data_group
+from repro_torch.train.build import attach_train, build_program
+from repro_torch.train.steps import TrainerConfig
+
+# (fused, fused_commit, use_hash_bitmap) of each zen_sync variant
+VARIANTS = {"fused": (True, True, True), "encode-unfused": (False, True, True),
+            "commit-unfused": (True, False, True),
+            "both-unfused": (False, False, True),
+            "coo-pull": (True, True, False)}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+STEPS = 4
+
+
+def _zen(inp, w: int, group, out: dict) -> None:
+    cases = sorted({k.split("/")[1] for k in inp if k.startswith("zen/")})
+    for case in cases:
+        vals = torch.from_numpy(inp[f"zen/{case}/vals"][w:w + 1])
+        vals = vals.to(DTYPES[str(inp[f"zen/{case}/dtype"])])
+        lo = S.make_zen_layout(vals.shape[1], group.n,
+                               seeds=inp[f"zen/{case}/seeds"],
+                               **{k: float(inp[f"zen/{case}/{k}"]) for k in
+                                  ("density_budget", "r1_factor")})
+        for name, (fe, fc, hb) in VARIANTS.items():
+            K.reset_counts()
+            res, st = S.zen_sync(vals, group=group, layout=lo, backend="cuda",
+                                 fused=fe, fused_commit=fc,
+                                 use_hash_bitmap=hb)
+            key = f"zen/{case}/{name}"
+            out[f"{key}/dtype"] = str(res.dtype)
+            out[f"{key}/out"] = res.float().numpy()
+            out[f"{key}/sent"] = st.sent_words.numpy()
+            out[f"{key}/overflow"] = st.overflow.numpy()
+            out[f"{key}/plain"] = np.array([K.PLAIN_CALLS[k]
+                                            for k in K.KERNELS])
+
+
+def _dense(inp, w: int, group, out: dict) -> None:
+    for name, td in DTYPES.items():
+        x = torch.from_numpy(inp[f"dense/{name}"][w:w + 1]).to(td)
+        res, st = S.dense_sync(x, group=group)
+        out[f"dense/{name}/out"] = res.float().numpy()
+        out[f"dense/{name}/sent"] = st.sent_words.numpy()
+
+
+def _gradsync(inp, w: int, group, out: dict) -> None:
+    names = [str(x) for x in inp["gs_names"]]
+    grads = {nm: torch.from_numpy(inp[f"gs/{nm}"][w:w + 1]) for nm in names}
+    gs = GradSync(SyncConfig(), ["embed/table"],
+                  [(nm, tuple(g.shape[1:])) for nm, g in grads.items()],
+                  group.n, group)
+    rows = grads["embed/table"].shape[1]
+    gs._layouts["embed/table"] = S.make_zen_layout(
+        rows, group.n, density_budget=0.25, seeds=inp["gs_seeds"])
+    synced, stats = gs(grads)
+    for nm in names:
+        out[f"gs/{nm}"] = synced[nm].numpy()
+    for k, v in stats.items():
+        out[f"gs_stats/{k}"] = v.float().numpy()
+
+
+def _broadcast(inp, w: int, group, out: dict) -> None:
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype=torch.float32)
+    prog = build_program(cfg, f"{group.n}x1", device="cpu", seed=w,
+                         group=group)
+    out["broadcast"] = torch.cat([p.detach().reshape(-1) for p in
+                                  prog.model.parameters()]).numpy()
+
+
+def _reference_tree(inp) -> dict:
+    """The reference's parameter pytree from its '/'-joined npz keys."""
+    tree: dict = {}
+    for key in inp:
+        if key.startswith("params/"):
+            *path, leaf = key.split("/")[1:]
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = inp[key]
+    return tree
+
+
+def _train(inp, group, out: dict, prefix: str) -> None:
+    """STEPS steps of the reduced f32 qwen2 trainer on ``group`` (None:
+    the in-process SimGroup) from the reference's parameters."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype=torch.float32)
+    n = int(inp["n"])
+    prog = build_program(cfg, f"{n}x1",
+                         TrainerConfig(sync=SyncConfig(scheme="zen")),
+                         device="cpu", group=group)
+    prog.model.load_reference_params(_reference_tree(inp))
+    attach_train(prog)
+    batch = {k: torch.from_numpy(inp[f"batch/{k}"]).long()
+             for k in ("tokens", "labels")}
+    K.reset_counts()
+    metrics = [prog.train_step(batch) for _ in range(STEPS)]
+    for k in ("loss", "sync/overflow", "sync/sparse_sent_words"):
+        out[f"{prefix}/{k}"] = np.array([float(m[k]) for m in metrics])
+    out[f"{prefix}/plain"] = np.array([K.PLAIN_CALLS[k] for k in K.KERNELS])
+    out[f"{prefix}/launches"] = np.array([K.LAUNCHES[k] for k in K.KERNELS])
+    out[f"{prefix}/embed"] = prog.model.embed.table.detach().numpy()
+
+
+def main(work: Path, jobs: list[str]) -> None:
+    torch.set_num_threads(1)
+    inp = dict(np.load(work / "inputs.npz"))
+    out: dict = {}
+    group, _ = make_data_group("gloo", "cpu")
+    try:
+        w = group.ranks[0]
+        for job, fn in (("zen", _zen), ("dense", _dense),
+                        ("gradsync", _gradsync), ("broadcast", _broadcast)):
+            if job in jobs:
+                fn(inp, w, group, out)
+        if "trainer" in jobs:
+            _train(inp, group, out, "trainer")
+    finally:
+        dist.destroy_process_group()
+    if "trainer" in jobs and group.n == 2 and w == 0:
+        _train(inp, None, out, "simgroup")
+    np.savez(work / f"rank{os.environ['RANK']}.npz", **out)
+
+
+if __name__ == "__main__":
+    main(Path(sys.argv[1]), sys.argv[2:])
