@@ -39,6 +39,17 @@ Phases (any failure exits non-zero; nothing is caught):
      5e-3 of it.
   5. breakdown: one profiled trainer step (torch.profiler): device time by
      kernel category and the device's idle share.
+  5b. buckets: the phase-4 trainer with ``--bucket-bytes 26214400`` (25
+     MiB, PyTorch DDP's default bucket cap) beside the per-leaf run:
+     losses, grad norm, wire words and overflow bitwise equal, Zen's
+     kernels 8 x steps times each, nothing plain; the plans and the step
+     times are logged.
+  5c. overlap: GradSync with 25 MiB buckets at the qwen2 slice shapes (the
+     [M, d] table between two fused dense buckets, 8 ranks) on its two
+     streams against ``schedule.run_in_order`` on one, bitwise, 5 repeats,
+     on the fused route and the unfused chain; then one profiled bucketed
+     trainer step: the share of the encodes' device time (GradSync's side
+     stream) inside other streams' kernels, and the idle share.
   6. serve_kernels: the models' prefill kernels against their plain
      versions at the serve shapes, within stated tolerances (the sums run
      in another order): ``flash_fwd`` at the qwen2-0.5b prefill (B 8,
@@ -59,21 +70,36 @@ Phases (any failure exits non-zero; nothing is caught):
      (qwen2) / 1e-2 (mamba2, beside the logit shift that merely reordering
      the plain scan gives) and the same greedy tokens.  One profiled bf16
      prefill per model.
-  8. dist: data parallelism over a real ``torch.distributed`` gloo group,
-     one process per rank, every rank on this one card (NCCL refuses two
-     ranks on one device), started by ``torchrun`` after the parent built
-     the kernels: ``zen_sync`` at the slice shapes on 8 ranks, each rank's
+  7b. mamba2_train: ``launch/train.py --arch mamba2-370m --mesh 8x1``
+     at full width and depth (global batch 8 x 512, Zen on ``embed/table``,
+     4 steps): finite loss, 0 overflow, ``ssd_fwd`` launched
+     48 x 8 x steps times under ``SSDScan`` with as many plain recomputes
+     in its backward, Zen's kernels 8 x steps times, nothing plain; the
+     plain route (``--backend torch``): step-0 loss within 5e-3, the same
+     wire words; ``SSDScan``'s gradients at a rank's shape bitwise those
+     of autograd through the plain scan; ten finite steps (loss and
+     grad norm) on one repeated batch at 1x1, logged (at this depth the
+     loss moves by noise over a few steps, the reference's too at 12
+     layers, so no check asks it to fall); step time, tok/s, peak memory
+     and one profiled step (``ssd_fwd``'s device ms, idle share).
+  8. dist (run right after the build, while this process holds no card
+     memory: four full-width ranks need most of it): data parallelism over
+     a real ``torch.distributed`` gloo group, one process per rank, every
+     rank on this one card (NCCL refuses two ranks on one device), started
+     by ``torchrun`` after the parent built the kernels: ``zen_sync`` at the slice shapes on 8 ranks, each rank's
      output and stats bitwise row w of the in-process ``simulate`` on the
      card (sha256 digests) on all four (fused, fused_commit) routes, each
      route's kernels launched once per rank, no plain call; then
      ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
-     width and depth (4 steps; 4 ranks, as a rank takes about 12 GB)
-     against the in-process 4x1 trainer on the same flags: losses finite,
+     width and depth (4 steps; 4 ranks, as a rank takes about 12 GB), per
+     leaf and with 25 MiB buckets, against the in-process 4x1 trainer on
+     the same flags: losses finite,
      falling and within 5e-3 of it, the same wire words, no overflow,
      ``zen_encode``, ``zen_commit_push`` and ``zen_commit_pull`` launched
      once a step on every rank, no plain call; both runs' step times and
      tok/s are logged.  Not in the default run: ``--only dist_parts`` logs
-     where each one's step goes on the host's clock (``step_parts``:
+     where each one's step goes on the host's clock, per leaf and with 25
+     MiB buckets (``step_parts``:
      forward and backward, Zen's sync and the whole GradSync, the last two
      on zero gradients; rank 0 of 4 gloo ranks, and the in-process run),
      and ``--only dist_nccl``, on four cards, runs the same trainer check
@@ -665,9 +691,7 @@ def phase_trainer(steps: int = 4) -> dict:
     from repro_torch.kernels import ops as K
     from repro_torch.launch import train
 
-    argv = ["--arch", "qwen2-0.5b", "--mesh", "8x1", "--sync", "zen",
-            "--global-batch", "8", "--seq-len", "512", "--steps", str(steps),
-            "--log-every", "1"]
+    argv = qwen_argv(8, steps)
     K.reset_counts()
     res = train.main(argv)
     launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
@@ -679,14 +703,8 @@ def phase_trainer(steps: int = 4) -> dict:
         raise AssertionError(f"trainer loss not finite and falling: {losses}")
     if res["overflow"] != 0:
         raise AssertionError(f"trainer overflow {res['overflow']}")
-    on_path = K.path_launches(8)
-    for k in K.KERNELS:
-        want = steps * on_path.get(k, 0)
-        if launches[k] != want:
-            raise AssertionError(f"{k} launched {launches[k]} times, "
-                                 f"expected {want}")
-        if plain[k]:
-            raise AssertionError(f"{k} took the plain route {plain[k]} times")
+    check_launches("trainer", launches, plain,
+                   {k: steps * v for k, v in K.path_launches(8).items()})
     # the same run through the plain versions: the sync is bitwise equal,
     # so the losses may differ only by run-to-run noise of the model's own
     # CUDA ops
@@ -719,19 +737,12 @@ def phase_trainer(steps: int = 4) -> dict:
     if udiff > 5e-3:
         raise AssertionError(f"unfused and fused routes diverge: {udiff}")
     on_path = K.path_launches(8, **UNFUSED)   # bitmap_pack once a sync
-    for k in K.KERNELS:
-        want = steps * on_path.get(k, 0)
-        if unf["launches"][k] != want:
-            raise AssertionError(f"unfused run: {k} launched "
-                                 f"{unf['launches'][k]} times, expected "
-                                 f"{want}")
-        if unf["plain"][k]:
-            raise AssertionError(f"unfused run: {k} took the plain route "
-                                 f"{unf['plain'][k]} times")
+    check_launches("unfused run", unf["launches"], unf["plain"],
+                   {k: steps * v for k, v in on_path.items()})
     for k in on_path:
         launches[k] = unf["launches"][k]
-    return {"launches": launches, "plain_route": plain_res, "unfused": unf,
-            **res}
+    return {**res, "launches": launches, "plain_route": plain_res,
+            "unfused": unf}
 
 
 def train_unfused(steps: int) -> dict:
@@ -781,7 +792,7 @@ def _kernel_category(name: str) -> str:
     if "zen_" in name:        # the Zen kernels in csrc/ are named zen_*_kernel
         return "zen kernels"
     if "flash_fwd" in name or "ssd_fwd" in name:
-        return "prefill kernels"
+        return "model kernels"
     if any(g in name.lower() for g in ("gemm", "xmma", "cutlass", "cublas",
                                        "nvjet")):
         return "matmul"
@@ -811,7 +822,8 @@ def device_breakdown(run, tag: str) -> dict:
             names[e.name] = names.get(e.name, 0.0) + ms
     busy = sum(cats.values())
     out = {"wall_ms": wall_ms, "device_ms": cats, "busy_ms": busy,
-           "idle_share": (1 - busy / wall_ms) if busy else None}
+           "idle_share": (1 - busy / wall_ms) if busy else None,
+           "by_name": names}
     log(f"[{tag}] wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {out['idle_share']}), by category "
         f"{ {k: round(v, 3) for k, v in cats.items()} }")
@@ -844,6 +856,246 @@ def phase_breakdown(steps: int = 2) -> dict:
     del prog
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bucketed, overlapped GradSync
+# ---------------------------------------------------------------------------
+
+BUCKET_BYTES = 26_214_400   # 25 MiB: PyTorch DDP's default bucket_cap_mb
+OVERLAP_REPEATS = 5
+
+
+def qwen_argv(n: int, steps: int, *extra: str) -> list[str]:
+    """``launch/train.py``'s flags for the qwen2-0.5b smoke trainer on an
+    ``n`` x 1 mesh: Zen, global batch 8 x 512 tokens."""
+    return ["--arch", "qwen2-0.5b", "--mesh", f"{n}x1", "--sync", "zen",
+            "--global-batch", "8", "--seq-len", "512", "--steps", str(steps),
+            "--log-every", "1", *extra]
+
+
+def check_launches(tag: str, launches: dict, plain: dict,
+                   want: dict) -> None:
+    """Every kernel launched ``want[k]`` times (0 if absent), none plain."""
+    from repro_torch.kernels import ops as K
+
+    for k in K.KERNELS:
+        if launches[k] != want.get(k, 0) or plain[k]:
+            raise AssertionError(f"{tag}: {k} launched {launches[k]} times "
+                                 f"(expected {want.get(k, 0)}), plain "
+                                 f"{plain[k]}")
+
+
+def plan_summary(buckets: list[dict]) -> str:
+    """The launcher's bucket plan by (kind, dtype): count, bytes, leaves."""
+    groups: dict[tuple, list] = {}
+    for b in buckets:
+        groups.setdefault((b["kind"], b["dtype"]), []).append(b)
+    return "; ".join(
+        f"{len(bs)} {kind} {dt} ({min(b['nbytes'] for b in bs)}-"
+        f"{max(b['nbytes'] for b in bs)} B, "
+        f"{sum(b['leaves'] for b in bs)} leaves)"
+        for (kind, dt), bs in sorted(groups.items()))
+
+
+def phase_buckets(smi: str, steps: int = 4) -> dict:
+    """The in-process 8x1 trainer with 25 MiB dense buckets beside the
+    one-bucket-a-leaf trainer: losses, grad norm, wire words and overflow
+    bitwise equal, Zen's kernels 8 x steps times each, nothing plain."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+
+    runs, launches = {}, {}
+    for tag, extra in (("per-leaf", ()),
+                       ("bucketed", ("--bucket-bytes", str(BUCKET_BYTES)))):
+        torch.cuda.empty_cache()
+        K.reset_counts()
+        res = train.main(qwen_argv(8, steps, *extra))
+        launches = dict(K.LAUNCHES)
+        check_launches(f"buckets {tag}", launches, K.PLAIN_CALLS,
+                       {k: steps * v for k, v in K.path_launches(8).items()})
+        runs[tag] = res
+        log(f"[buckets] {tag}: {len(res['buckets'])} buckets: "
+            f"{plan_summary(res['buckets'])}")
+        log(f"[buckets] {tag}: losses={res['losses']} grad_norm="
+            f"{res['grad_norm']} sparse_words={res['sparse_words_by_step']} "
+            f"dense_words={res['dense_words']} overflow={res['overflow']} "
+            f"step_s={res['step_s']} tok/s={res['tok_per_s']}")
+    a, b = runs["per-leaf"], runs["bucketed"]
+    for key in ("losses", "grad_norm", "sparse_words_by_step",
+                "dense_words", "overflow"):
+        if a[key] != b[key]:
+            raise AssertionError(f"bucketed trainer's {key} {b[key]} != "
+                                 f"per-leaf {a[key]}")
+    if a["overflow"] != 0:
+        raise AssertionError(f"trainer overflow {a['overflow']}")
+    log(f"[buckets] 8x1 in-process, per-leaf vs 25 MiB buckets: losses, "
+        f"grad norm, wire words and overflow bitwise equal; median step s "
+        f"after the first {np.median(a['step_s'][1:])} vs "
+        f"{np.median(b['step_s'][1:])}; tok/s {a['tok_per_s']} vs "
+        f"{b['tok_per_s']} | {smi}")
+    return {"launches": launches}
+
+
+def overlap_case(dev, **route):
+    """A GradSync on ``SimGroup(8)`` with 25 MiB buckets over the qwen2
+    slice's ``embed/table`` [M, d] bf16 between two runs of three
+    [d, 4864] bf16 leaves (one fused bucket each) and an f32 [d] leaf, and
+    its seeded gradients: Zipf rows for the table, normal values for the
+    rest.  The pipeline then encodes the table beside the first dense
+    bucket's psum, and gathers the second beside the table's commit."""
+    from repro_torch.core.zen import GradSync, SyncConfig
+
+    M, d, n = SLICE["M"], SLICE["d"], SLICE["n"]
+    bf = torch.bfloat16
+    leaves = ([(f"pre/{i}", (d, 4864), bf) for i in range(3)]
+              + [("embed/table", (M, d), bf)]
+              + [(f"post/{i}", (4864, d), bf) for i in range(3)]
+              + [("norm", (d,), torch.float32)])
+    gs = GradSync(SyncConfig(density_budget=SLICE["density_budget"],
+                             bucket_bytes=BUCKET_BYTES, **route),
+                  ["embed/table"], leaves, n)
+    g = torch.Generator(device=dev).manual_seed(2)
+    grads = {nm: torch.randn((n, *shape), generator=g, device=dev).to(dt)
+             for nm, shape, dt in leaves if nm != "embed/table"}
+    grads["embed/table"] = zipf_rows(np.random.default_rng(1), n, M,
+                                     SLICE["tokens"], d, bf, dev)
+    return gs, grads
+
+
+def stream_overlap(trace_path: Path) -> dict:
+    """From a torch.profiler chrome trace: the device time of the kernels
+    on the stream that runs ``zen_encode`` (GradSync's side stream, every
+    encode), how much of it lies inside kernels of other streams, and the
+    union of all device activity (µs)."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    by_stream: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            by_stream.setdefault(e.get("args", {}).get("stream"), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 e["name"]))
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    side = [s for s, evs in by_stream.items()
+            if any("zen_encode" in nm for _, _, nm in evs)]
+    if len(side) != 1:
+        raise AssertionError(f"zen_encode ran on streams {side}, expected "
+                             f"one side stream")
+    side_iv = [(a, b) for a, b, _ in by_stream[side[0]]]
+    other = union([(a, b) for s, evs in by_stream.items() if s != side[0]
+                   for a, b, _ in evs])
+    hidden = sum(max(0.0, min(b, y) - max(a, x))
+                 for a, b in side_iv for x, y in other)
+    every = union([(a, b) for evs in by_stream.values() for a, b, _ in evs])
+    return {"side_stream": side[0], "streams": sorted(map(str, by_stream)),
+            "encode_us": sum(b - a for a, b in side_iv),
+            "hidden_us": hidden,
+            "busy_us": sum(b - a for a, b in every),
+            "span_us": (every[-1][1] - every[0][0]) if every else 0.0}
+
+
+def profiled_bucketed_step(smi: str) -> dict:
+    """One torch.profiler step of the 8x1 smoke trainer with 25 MiB
+    buckets (after a warm-up step): the share of the encodes' device time
+    hidden under other streams' kernels, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.zen import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
+
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-0.5b")
+    prog = build_program(cfg, "8x1", TrainerConfig(
+        sync=SyncConfig(bucket_bytes=BUCKET_BYTES)), device="cuda")
+    attach_train(prog)
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8)))
+    batches = [{k: torch.as_tensor(v, device="cuda").long()
+                for k, v in next(data).items()} for _ in range(2)]
+    prog.train_step(batches[0])
+    torch.cuda.synchronize()
+    work = Path(tempfile.mkdtemp(prefix="overlap_trace_"))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prog.train_step(batches[1])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        prof.export_chrome_trace(str(work / "trace.json"))
+        ov = stream_overlap(work / "trace.json")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del prog
+    torch.cuda.empty_cache()
+    ov["wall_us"] = wall_us
+    ov["hidden_share"] = ov["hidden_us"] / ov["encode_us"]
+    ov["idle_share"] = 1 - ov["busy_us"] / wall_us
+    log(f"[overlap] profiled bucketed 8x1 step: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy (union of streams) {ov['busy_us'] / 1e3:.3f} ms, idle "
+        f"share {ov['idle_share']:.4f}; encodes on stream "
+        f"{ov['side_stream']} (streams {ov['streams']}): "
+        f"{ov['encode_us'] / 1e3:.4f} ms of device time, "
+        f"{ov['hidden_us'] / 1e3:.4f} ms of it inside other streams' "
+        f"kernels (share {ov['hidden_share']:.4f}) | {smi}")
+    return ov
+
+
+def phase_overlap(dev, smi: str) -> dict:
+    """GradSync's pipeline (encodes on its side stream) against
+    ``schedule.run_in_order`` on the current stream, bitwise, repeated, on
+    the fused route and the unfused chain at the qwen2 slice shapes; then
+    one profiled bucketed trainer step."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.train import schedule
+
+    for route, kw in (("fused", {}), ("unfused", UNFUSED)):
+        torch.cuda.empty_cache()
+        gs, grads = overlap_case(dev, **kw)
+        flat, payloads = gs._payloads(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_st = gs._unbucket(flat, *schedule.run_in_order(
+            gs.plan.buckets, payloads, gs._encode_bucket, gs._commit_bucket))
+        torch.cuda.synchronize()
+        in_order_s = time.perf_counter() - t0
+        secs = []
+        for rep in range(OVERLAP_REPEATS):
+            K.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, st = gs(grads)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check_launches(f"overlap {route} repeat {rep}", K.LAUNCHES,
+                           K.PLAIN_CALLS,
+                           K.path_launches(SLICE["n"], **kw))
+            for name, a in [*got.items(), *st.items()]:
+                b = want[name] if name in want else want_st[name]
+                if a.dtype != b.dtype or a.shape != b.shape \
+                        or not torch.equal(bits(a), bits(b)):
+                    raise AssertionError(f"overlap {route} repeat {rep}: "
+                                         f"{name} differs from run_in_order")
+            del got, st
+        log(f"[overlap] {route}: {len(gs.plan.buckets)} buckets "
+            f"({', '.join(b.kind for b in gs.plan.buckets)}); GradSync on "
+            f"two streams == run_in_order bitwise, {OVERLAP_REPEATS} "
+            f"repeats; host s a call: in order {in_order_s:.4f} (first "
+            f"call), pipelined {[round(x, 4) for x in secs]}")
+        del gs, grads, flat, payloads, want, want_st
+    return profiled_bucketed_step(smi)
 
 
 # ---------------------------------------------------------------------------
@@ -971,20 +1223,38 @@ def step_parts(prog, batch: dict, barrier=None, reps: int = 3) -> dict:
     return out
 
 
-def smoke_trainer(n: int, group=None, dev="cuda"):
+def smoke_trainer(n: int, group=None, dev="cuda", bucket_bytes=None):
     """The dist phase's trainer (``launch/train.py``'s flags: qwen2-0.5b,
-    Zen, global batch 8 x 512 tokens, seed 0) on ``n`` ranks and its
-    first batch."""
+    Zen, global batch 8 x 512 tokens, seed 0; dense buckets of
+    ``bucket_bytes``) on ``n`` ranks and its first batch."""
     from repro_torch.configs import get_config
+    from repro_torch.core.zen import SyncConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
 
     cfg = get_config("qwen2-0.5b")
-    prog = build_program(cfg, f"{n}x1", device=dev, group=group)
+    prog = build_program(cfg, f"{n}x1", TrainerConfig(
+        sync=SyncConfig(bucket_bytes=bucket_bytes)), device=dev, group=group)
     attach_train(prog)
     b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8))))
     return prog, {k: torch.as_tensor(v, device=dev).long()
                   for k, v in b.items()}
+
+
+PART_VARIANTS = {"per-leaf": None, "25 MiB buckets": BUCKET_BYTES}
+
+
+def trainer_parts(n: int, group=None, dev="cuda", barrier=None) -> dict:
+    """``step_parts`` of the n-rank smoke trainer, per leaf and with 25 MiB
+    buckets, one program at a time."""
+    parts = {}
+    for tag, bb in PART_VARIANTS.items():
+        prog, batch = smoke_trainer(n, group, dev, bb)
+        parts[tag] = step_parts(prog, batch, barrier=barrier)
+        del prog
+        torch.cuda.empty_cache()
+    return parts
 
 
 def dist_breakdown_rank(group, dev, work: Path) -> None:
@@ -992,8 +1262,7 @@ def dist_breakdown_rank(group, dev, work: Path) -> None:
     ``work/parts.json``."""
     import torch.distributed as dist
 
-    prog, batch = smoke_trainer(group.n, group, dev)
-    parts = step_parts(prog, batch, barrier=dist.barrier)
+    parts = trainer_parts(group.n, group, dev, barrier=dist.barrier)
     if group.ranks[0] == 0:
         (work / "parts.json").write_text(json.dumps(parts))
 
@@ -1072,15 +1341,20 @@ def dist_zen_sync(dev) -> None:
 def phase_dist(dev, smi: str) -> None:
     """The per-rank data-parallel path over a gloo group on this one card:
     zen_sync at the slice shapes on 8 ranks, then the full-width trainer on
-    4 ranks against the in-process 4x1 trainer."""
+    4 ranks, per leaf and with 25 MiB buckets, against the in-process 4x1
+    trainer."""
     torch.cuda.empty_cache()
+    log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
+        f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
     dist_zen_sync(dev)
-    dist_trainer("gloo", smi)
+    dist_trainer("gloo", smi, bucket_bytes=(None, BUCKET_BYTES))
 
 
-def dist_trainer(backend: str, smi: str, steps: int = 4) -> None:
+def dist_trainer(backend: str, smi: str, steps: int = 4,
+                 bucket_bytes=(None,)) -> None:
     """``torchrun ... launch.train --mesh 4x1 --dist <backend>`` at full
-    width against the in-process 4x1 trainer on the same flags (on this
+    width, once for each of ``bucket_bytes`` (None: a bucket a leaf),
+    against the in-process 4x1 trainer on the same flags (on this
     process's card).  ``nccl`` needs a card a rank (``--only dist_nccl``
     on four cards); gloo runs every rank on one card."""
     from repro_torch.kernels import ops as K
@@ -1090,60 +1364,74 @@ def dist_trainer(backend: str, smi: str, steps: int = 4) -> None:
     if backend == "nccl" and torch.cuda.device_count() < n:
         raise AssertionError(f"dist_nccl needs {n} cards, a rank a card; "
                              f"{torch.cuda.device_count()} here")
-    argv = ["--arch", "qwen2-0.5b", "--mesh", f"{n}x1", "--sync", "zen",
-            "--global-batch", "8", "--seq-len", "512", "--steps", str(steps),
-            "--log-every", "1"]
-    torch.cuda.empty_cache()
-    out = run_ranks(n, ["-m", "repro_torch.launch.train", *argv, "--dist",
-                        backend], f"dist trainer {backend}")
-    lines = [ln for ln in out.splitlines() if ln.startswith("dist result ")]
-    if len(lines) != 1:
-        raise AssertionError(f"dist trainer printed {len(lines)} result "
-                             f"lines:\n{out[-4000:]}")
-    dres = json.loads(lines[0][len("dist result "):])
+    runs = {}
+    for bb in bucket_bytes:
+        tag = f"{backend} {'per-leaf' if bb is None else f'{bb} B buckets'}"
+        extra = [] if bb is None else ["--bucket-bytes", str(bb)]
+        torch.cuda.empty_cache()
+        out = run_ranks(n, ["-m", "repro_torch.launch.train",
+                            *qwen_argv(n, steps, *extra), "--dist", backend],
+                        f"dist trainer {tag}")
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("dist result ")]
+        if len(lines) != 1:
+            raise AssertionError(f"dist trainer printed {len(lines)} result "
+                                 f"lines:\n{out[-4000:]}")
+        runs[tag] = json.loads(lines[0][len("dist result "):])
     K.reset_counts()
-    local = train.main(argv)
+    local = train.main(qwen_argv(n, steps))
     torch.cuda.empty_cache()
-    losses = dres["losses"]
-    diff = max(abs(a - b) for a, b in zip(losses, local["losses"]))
-    med = {backend: float(np.median(dres["step_s"][1:])),
-           "in-process": float(np.median(local["step_s"][1:]))}
-    log(f"[dist] trainer {n}x1 {backend}: losses={losses} max |diff| vs "
-        f"in-process={diff} sparse_words={dres['sparse_words']} overflow="
-        f"{dres['overflow']} launches by rank={dres['launches_by_rank']} "
-        f"plain={dres['plain_calls']} step_s={dres['step_s']} | {smi}")
+    if local["overflow"] != 0:
+        raise AssertionError(f"in-process trainer overflow "
+                             f"{local['overflow']}")
+    check_launches(f"in-process {n}x1 trainer", local["launches"],
+                   local["plain_calls"],
+                   {k: steps * v for k, v in K.path_launches(n).items()})
     log(f"[dist] trainer {n}x1 in-process: losses={local['losses']} "
-        f"sparse_words={local['sparse_words']} step_s={local['step_s']}")
-    log(f"[dist] median step s after the first: {backend} {n} processes "
-        f"{med[backend]}, in-process {med['in-process']}; tok/s {backend} "
-        f"{dres['tok_per_s']}, in-process {local['tok_per_s']} | {smi}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"dist trainer loss not finite and falling: "
-                             f"{losses}")
-    if diff > 5e-3:
-        raise AssertionError(f"dist and in-process trainers diverge: {diff}")
-    if dres["sparse_words"] != local["sparse_words"]:
-        raise AssertionError(f"dist sparse words {dres['sparse_words']} != "
-                             f"in-process {local['sparse_words']}")
-    if dres["overflow"] != 0:
-        raise AssertionError(f"dist trainer overflow {dres['overflow']}")
+        f"sparse_words={local['sparse_words']} step_s={local['step_s']} "
+        f"tok/s={local['tok_per_s']}")
     path = K.path_launches(1)
-    for k in K.KERNELS:
-        if dres["launches_by_rank"][k] != [steps * path.get(k, 0)] * n \
-                or dres["plain_calls"][k]:
-            raise AssertionError(
-                f"dist trainer: {k} launched {dres['launches_by_rank'][k]} "
-                f"by rank (expected {steps * path.get(k, 0)} each), plain "
-                f"{dres['plain_calls'][k]}")
-        if local["launches"][k] != steps * n * path.get(k, 0):
-            raise AssertionError(f"in-process {n}x1 trainer: {k} launched "
-                                 f"{local['launches'][k]} times")
+    med = {"in-process": float(np.median(local["step_s"][1:]))}
+    for tag, dres in runs.items():
+        losses = dres["losses"]
+        diff = max(abs(a - b) for a, b in zip(losses, local["losses"]))
+        med[tag] = float(np.median(dres["step_s"][1:]))
+        log(f"[dist] trainer {n}x1 {tag}: {len(dres['buckets'])} buckets; "
+            f"losses={losses} max |diff| vs in-process={diff} sparse_words="
+            f"{dres['sparse_words']} overflow={dres['overflow']} launches by "
+            f"rank={dres['launches_by_rank']} plain={dres['plain_calls']} "
+            f"step_s={dres['step_s']} tok/s={dres['tok_per_s']} | {smi}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"dist trainer {tag} loss not finite and "
+                                 f"falling: {losses}")
+        if diff > 5e-3:
+            raise AssertionError(f"dist trainer {tag} and the in-process "
+                                 f"trainer diverge: {diff}")
+        if dres["sparse_words"] != local["sparse_words"]:
+            raise AssertionError(f"dist {tag} sparse words "
+                                 f"{dres['sparse_words']} != in-process "
+                                 f"{local['sparse_words']}")
+        if dres["overflow"] != 0:
+            raise AssertionError(f"dist trainer {tag} overflow "
+                                 f"{dres['overflow']}")
+        for k in K.KERNELS:
+            if dres["launches_by_rank"][k] != [steps * path.get(k, 0)] * n \
+                    or dres["plain_calls"][k]:
+                raise AssertionError(
+                    f"dist trainer {tag}: {k} launched "
+                    f"{dres['launches_by_rank'][k]} by rank (expected "
+                    f"{steps * path.get(k, 0)} each), plain "
+                    f"{dres['plain_calls'][k]}")
+    log(f"[dist] median step s after the first, {n} ranks: {med}; tok/s "
+        f"{ {t: r['tok_per_s'] for t, r in runs.items()} }, in-process "
+        f"{local['tok_per_s']} | {smi}")
 
 
 def dist_step_parts(n: int, smi: str) -> None:
-    """Where the step's host time goes: ``step_parts`` on rank 0 of the
-    gloo trainer (n processes) and on the in-process n-rank trainer
-    (``--only dist_parts``; no check rides on it)."""
+    """Where the step's host time goes, per leaf and with 25 MiB buckets:
+    ``step_parts`` on rank 0 of the gloo trainer (n processes) and on the
+    in-process n-rank trainer (``--only dist_parts``; no check rides on
+    it)."""
     work = Path(tempfile.mkdtemp(prefix="dist_parts_"))
     try:
         run_ranks(n, [str(Path(__file__).resolve()), "--dist-rank",
@@ -1151,13 +1439,11 @@ def dist_step_parts(n: int, smi: str) -> None:
         parts = {"gloo": json.loads((work / "parts.json").read_text())}
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    prog, batch = smoke_trainer(n)
-    parts["in-process"] = step_parts(prog, batch)
-    del prog
-    torch.cuda.empty_cache()
-    for mode, pt in parts.items():
-        log(f"[dist] {n}x1 {mode} step parts, median host s of 3: {pt} | "
-            f"{smi}")
+    parts["in-process"] = trainer_parts(n)
+    for mode, by_plan in parts.items():
+        for plan, pt in by_plan.items():
+            log(f"[dist] {n}x1 {mode} {plan} step parts, median host s of 3: "
+                f"{pt} | {smi}")
 
 
 # ---------------------------------------------------------------------------
@@ -1369,6 +1655,177 @@ def phase_serve() -> dict:
                      "breakdown": serve_breakdown(arch)}
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 trainer: ssd_fwd under autograd
+# ---------------------------------------------------------------------------
+
+MAMBA_TRAIN = dict(n=8, batch=8, seq=512)   # mamba2-370m, 8 x 512 tokens
+
+
+def mamba_argv(steps: int, *extra: str) -> list[str]:
+    """``launch/train.py``'s flags for the mamba2-370m trainer: 8x1 mesh,
+    Zen on ``embed/table``, global batch 8 x 512 tokens, full size."""
+    m = MAMBA_TRAIN
+    return ["--arch", "mamba2-370m", "--mesh", f"{m['n']}x1", "--sync", "zen",
+            "--global-batch", str(m["batch"]), "--seq-len", str(m["seq"]),
+            "--steps", str(steps), "--log-every", "1", *extra]
+
+
+def ssd_scan_grads_check() -> None:
+    """``SSDScan`` at one rank's training shape (Bt 1, S 512, 32 heads of
+    64, N 128, Q 64): its gradients of x, dA, Bm and Cm bitwise those of
+    autograd through ``ref.ssd_fwd_ref`` on the same inputs and upstream
+    gradient (the same computation); its y within SSD_TOL of the plain
+    one."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    c = SSD
+    raw = ssd_inputs(1, c["S"], c["H"], c["hd"], c["N"])
+    scan = ssd_scan_inputs(*raw[:5])
+    gy = torch.randn((1, c["S"], c["H"], c["hd"]), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    K.reset_counts()
+    ins = [t.detach().clone().requires_grad_() for t in scan]
+    y, _ = K.SSDScan.apply(*ins, c["Q"])
+    got = torch.autograd.grad([y], ins, [gy])
+    ref_ins = [t.detach().clone().requires_grad_() for t in scan]
+    ry, _ = R.ssd_fwd_ref(*ref_ins, chunk=c["Q"])
+    want = torch.autograd.grad([ry], ref_ins, [gy])
+    torch.cuda.synchronize()
+    if (K.LAUNCHES["ssd_fwd"], K.RECOMPUTE_CALLS["ssd_fwd"],
+            K.PLAIN_CALLS["ssd_fwd"]) != (1, 1, 0):
+        raise AssertionError(f"SSDScan: launches {K.LAUNCHES['ssd_fwd']}, "
+                             f"recomputes {K.RECOMPUTE_CALLS['ssd_fwd']}, "
+                             f"plain {K.PLAIN_CALLS['ssd_fwd']}")
+    for name, a, b in zip(("x", "dA", "Bm", "Cm"), got, want):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"SSDScan's gradient of {name} differs from "
+                                 f"autograd through ssd_fwd_ref (max abs "
+                                 f"{float((a - b).abs().max())})")
+    torch.testing.assert_close(y, ry, atol=SSD_TOL, rtol=SSD_TOL)
+    log(f"[mamba2_train] SSDScan at (1, {c['S']}, {c['H']}, {c['hd']}, "
+        f"N {c['N']}): grads of x, dA, Bm, Cm bitwise autograd through "
+        f"ssd_fwd_ref; y max abs vs plain {float((y - ry).abs().max())}")
+
+
+def mamba2_repeated_batch(smi: str, steps: int = 10) -> list[float]:
+    """The Mamba2 trainer (1x1, the launcher's lr) for ``steps`` steps on
+    one repeated batch of 8 x 512 tokens, its scan under ``SSDScan``: every
+    loss finite (the plain scan's gradient once went NaN here, at step 4,
+    when a chunk's decay span passed exp's range).  The losses are logged,
+    not required to fall: at full depth this init's loss moves by noise
+    over ten steps, fresh batches or one (the reference's trainer shows
+    the same at 12 layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import attach_train, build_program
+
+    cfg = get_config("mamba2-370m")
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in next(iter(SyntheticLM(cfg, DataConfig(
+                 seq_len=MAMBA_TRAIN["seq"],
+                 batch=MAMBA_TRAIN["batch"])))).items()}
+    prog = build_program(cfg, "1x1", device="cuda")
+    attach_train(prog)
+    metrics = [prog.train_step(batch) for _ in range(steps)]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    del prog, metrics
+    torch.cuda.empty_cache()
+    log(f"[mamba2_train] one batch repeated, 1x1: losses={losses} "
+        f"grad_norm={gnorm} | {smi}")
+    if not all(np.isfinite(losses + gnorm)):
+        raise AssertionError(f"mamba2 trainer on one repeated batch: "
+                             f"losses {losses}, grad norms {gnorm}")
+    return losses
+
+
+def mamba2_breakdown() -> dict:
+    """One profiled step (after a warm-up step) of the mamba2 trainer:
+    device ms by category, ``ssd_fwd``'s kernels' ms, idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import attach_train, build_program
+
+    m = MAMBA_TRAIN
+    cfg = get_config("mamba2-370m")
+    prog = build_program(cfg, f"{m['n']}x1", device="cuda")
+    attach_train(prog)
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=m["seq"],
+                                            batch=m["batch"])))
+    batches = [{k: torch.as_tensor(v, device="cuda").long()
+                for k, v in next(data).items()} for _ in range(2)]
+    prog.train_step(batches[0])
+    out = device_breakdown(lambda: prog.train_step(batches[1]),
+                           "mamba2_train")
+    out["ssd_fwd_ms"] = sum(ms for nm, ms in out["by_name"].items()
+                            if "ssd_fwd" in nm)
+    del prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mamba2_train(smi: str, steps: int = 4) -> dict:
+    """``launch/train.py --arch mamba2-370m --mesh 8x1`` at full width and
+    depth: finite loss, no overflow, ``ssd_fwd`` launched 48 x 8 x steps
+    times (the forward of every layer of every rank) and its plain
+    recompute as often (``SSDScan``'s backward), Zen's kernels 8 x steps
+    times, nothing plain; held to the plain route (``--backend torch``);
+    ``SSDScan``'s gradients bitwise the plain scan's; ten finite steps on
+    one repeated batch; step time, peak memory, a profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+
+    m = MAMBA_TRAIN
+    n_layers = get_config("mamba2-370m").n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    res = train.main(mamba_argv(steps))
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(K.LAUNCHES)
+    recompute = K.RECOMPUTE_CALLS["ssd_fwd"]
+    want = {k: steps * v for k, v in K.path_launches(m["n"]).items()}
+    want["ssd_fwd"] = n_layers * m["n"] * steps
+    check_launches("mamba2_train", launches, K.PLAIN_CALLS, want)
+    if recompute != want["ssd_fwd"]:
+        raise AssertionError(f"mamba2_train: {recompute} plain recomputes, "
+                             f"expected {want['ssd_fwd']}")
+    losses = res["losses"]
+    log(f"[mamba2_train] kernels: losses={losses} sparse_words="
+        f"{res['sparse_words_by_step']} overflow={res['overflow']} "
+        f"step_s={res['step_s']} tok/s={res['tok_per_s']} peak memory "
+        f"{peak} B; launches {launches}, recomputes {recompute} | {smi}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"mamba2 trainer loss not finite: {losses}")
+    if res["overflow"] != 0:
+        raise AssertionError(f"mamba2 trainer overflow {res['overflow']}")
+    torch.cuda.empty_cache()
+    plain = train.main(mamba_argv(steps, "--backend", "torch"))
+    log(f"[mamba2_train] losses, kernels vs plain route: "
+        f"{list(zip(losses, plain['losses']))}; plain step_s="
+        f"{plain['step_s']} tok/s={plain['tok_per_s']}")
+    if abs(losses[0] - plain["losses"][0]) > 5e-3:
+        raise AssertionError(f"mamba2 step-0 loss {losses[0]} vs plain "
+                             f"route {plain['losses'][0]}")
+    if res["sparse_words_by_step"] != plain["sparse_words_by_step"]:
+        raise AssertionError(f"mamba2 wire words differ from the plain "
+                             f"route: {res['sparse_words_by_step']} vs "
+                             f"{plain['sparse_words_by_step']}")
+    torch.cuda.empty_cache()
+    ssd_scan_grads_check()
+    mamba2_repeated_batch(smi)
+    bd = mamba2_breakdown()
+    log(f"[mamba2_train] median step s after the first "
+        f"{np.median(res['step_s'][1:])} (plain route "
+        f"{np.median(plain['step_s'][1:])}); tok/s {res['tok_per_s']}; "
+        f"peak memory {peak / 2**30:.2f} GiB; profiled step: ssd_fwd "
+        f"{bd['ssd_fwd_ms']:.3f} device ms, idle share {bd['idle_share']} "
+        f"| {smi}")
+    return {"launches": launches, "recompute": recompute, **res}
 
 
 def phase_serve_times(inp: dict, smi: str) -> list:
@@ -1742,8 +2199,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
-                         "all: kernels,zen_sync,trainer,breakdown,"
-                         "serve_kernels,serve,dist,times (bitmap_times: the "
+                         "all: kernels,zen_sync,trainer,breakdown,buckets,"
+                         "overlap,serve_kernels,serve,mamba2_train,dist,times "
+                         "(bitmap_times: the "
                          "bitmap call sites alone; dist_parts: the dist "
                          "trainers' step parts; dist_nccl: the dist trainer "
                          "over nccl on four cards; neither in the default "
@@ -1766,17 +2224,22 @@ def main(argv=None) -> None:
     t0 = time.time()
     _build.build(verbose=True)   # every kernel, one nvcc per source at once
     log(f"[build] {len(_build.SOURCES)} libraries in {time.time() - t0:.1f}s")
+    if want("dist"):   # first: four full-width ranks share this card
+        phase_dist(dev, dev_info["smi"])
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     if want("zen_sync"):
         phase_zen_sync(dev)
     trainer = phase_trainer() if want("trainer") else None
     if want("breakdown"):
         phase_breakdown()
+    bucketed = phase_buckets(dev_info["smi"]) if want("buckets") else None
+    if want("overlap"):
+        phase_overlap(dev, dev_info["smi"])
     skern = phase_serve_kernels() if want("serve_kernels") or want("times") \
         else None
     served = phase_serve() if want("serve") else None
-    if want("dist"):
-        phase_dist(dev, dev_info["smi"])
+    mamba = phase_mamba2_train(dev_info["smi"]) if want("mamba2_train") \
+        else None
     if "dist_parts" in only:
         dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
     if "dist_nccl" in only:
@@ -1796,6 +2259,13 @@ def main(argv=None) -> None:
     if served:
         launches.update({k: served[a]["launches"]
                          for a, k in SERVE_KERNEL.items()})
+    # each main path's launches, counted from 0 around its run
+    by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba}
+    path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
+                         if r and r["launches"][k]} for k in SOURCES}
+    if served:
+        for a, k in SERVE_KERNEL.items():
+            path_launches[k][f"serve {a}"] = served[a]["launches"]
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
     table = []
     for row in times:
@@ -1803,6 +2273,7 @@ def main(argv=None) -> None:
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name),
+            "launches_by_path": path_launches[name],
             "max_abs_err": errs[name],
             "ms": row["ms"], "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

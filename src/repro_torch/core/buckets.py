@@ -1,9 +1,25 @@
-"""Gradient buckets (port of the monolithic plan of ``repro.core.buckets``).
+"""Gradient buckets (port of the flat-topology part of ``repro.core.buckets``).
 
-Only ``bucket_bytes=None`` is ported: one bucket per leaf, leaves never
-fused (ROADMAP queue 1, item 5 keeps the fused dense buckets).  A row-sparse
-leaf is a SPARSE bucket synced with its sparse scheme; every other leaf is
-a DENSE bucket synced with a psum.
+A ``BucketPlan`` partitions the gradient leaves into fixed-byte
+**buckets**, the unit at which GradSync emits sync ops
+(``repro_torch.train.schedule``):
+
+* **Dense leaves** are flattened and fused: consecutive leaves of one dtype
+  are packed into one bucket while the bucket stays at or under
+  ``bucket_bytes`` (a single leaf larger than the budget is its own
+  oversized bucket; leaves are never split).  One psum per bucket replaces
+  one psum per leaf; a psum is elementwise, so fusion changes no bit on the
+  in-process group.
+* **Row-sparse leaves** (Zen's subject) are never fused or split: each is
+  its own bucket, since the Zen layout is a function of the whole table.
+* ``bucket_bytes=None`` is the **monolithic fallback**: one bucket per leaf.
+
+The plan is built offline from ``(name, shape, dtype)`` leaves; a step's
+work is only ``gather_bucket`` / ``scatter_bucket`` (a concatenation and
+slices) around each bucket's sync.  Payloads keep the port's leading
+worker dimension: a dense bucket is ``[local, sum of sizes]``.  The
+reference's EF-compressed buckets (``compress``) and two-level plan tags
+(``hier(...)``) are ROADMAP queue 1, items 5 and 9.
 """
 from __future__ import annotations
 
@@ -18,50 +34,161 @@ DENSE = "dense_fused"
 SPARSE = "sparse"
 
 
+def _all_dense(tag: str) -> bool:
+    """Whether a flat plan tag moves only psum traffic."""
+    return tag == "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSlot:
+    """One gradient leaf's home inside a bucket payload."""
+
+    name: str            # '/'-joined leaf path
+    index: int           # position in the leaf list
+    shape: tuple         # per-worker leaf shape
+    dtype: torch.dtype
+    offset: int          # element offset inside the fused payload
+    size: int            # element count
+
+
 @dataclasses.dataclass(frozen=True)
 class Bucket:
-    """One leaf and how it is synchronized."""
+    """A unit of synchronization: one sync op per bucket."""
 
     bid: int
-    kind: str          # DENSE | SPARSE
-    scheme: str        # 'zen' | 'dense'
-    name: str          # '/'-joined leaf path
-    index: int         # position in the leaf list
-    shape: tuple
+    kind: str                     # DENSE | SPARSE
+    scheme: str                   # 'zen' | 'dense'
+    slots: tuple[LeafSlot, ...]   # exactly 1 slot when kind == SPARSE
+    nbytes: int
+
+    @property
+    def size(self) -> int:
+        return sum(s.size for s in self.slots)
 
     @property
     def key(self) -> str:
-        return self.name
+        """Stable identity for per-bucket state (Zen layouts): the first
+        slot's leaf path."""
+        return self.slots[0].name
 
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
+    """Offline partition of the gradient leaves into sync buckets."""
+
     buckets: tuple[Bucket, ...]
+    n_leaves: int
+    bucket_bytes: int | None
+
+    @property
+    def schemes(self) -> tuple[str, ...]:
+        return tuple(b.scheme for b in self.buckets)
+
+    def validate(self) -> None:
+        """Every leaf in exactly one bucket; sparse buckets are singletons;
+        fused dense buckets respect the byte budget (oversized leaves may
+        stand alone)."""
+        seen: set[int] = set()
+        for b in self.buckets:
+            for s in b.slots:
+                if s.index in seen:
+                    raise ValueError(f"leaf {s.name} assigned twice")
+                seen.add(s.index)
+            if b.kind == SPARSE and len(b.slots) != 1:
+                raise ValueError(f"sparse bucket {b.bid} fuses leaves")
+            if (self.bucket_bytes is not None and b.kind == DENSE
+                    and len(b.slots) > 1 and b.nbytes > self.bucket_bytes):
+                raise ValueError(f"fused bucket {b.bid} exceeds bucket_bytes")
+        if len(seen) != self.n_leaves:
+            raise ValueError(
+                f"plan covers {len(seen)} of {self.n_leaves} leaves")
 
 
-def make_bucket_plan(leaves: Sequence[tuple[str, tuple]],
-                     is_sparse: Callable[[str], bool],
-                     sparse_scheme: Callable[[str, tuple], str],
-                     dense_scheme: str = "dense") -> BucketPlan:
-    """One bucket per ``(name, shape)`` leaf, in leaf order."""
-    buckets = []
-    for i, (name, shape) in enumerate(leaves):
-        sparse = is_sparse(name)
-        buckets.append(Bucket(
-            bid=i, kind=SPARSE if sparse else DENSE,
-            scheme=sparse_scheme(name, shape) if sparse else dense_scheme,
-            name=name, index=i, shape=tuple(shape)))
-    return BucketPlan(buckets=tuple(buckets))
+def make_bucket_plan(
+    leaves: Sequence[tuple[str, tuple, torch.dtype]],
+    is_sparse: Callable[[str], bool],
+    bucket_bytes: int | None,
+    sparse_scheme: Callable[[str, tuple], str],
+    dense_scheme: str = "dense",
+) -> BucketPlan:
+    """Build the plan from ``(name, per-worker shape, dtype)`` leaves in
+    gradient order; ``sparse_scheme(name, shape)`` resolves a row-sparse
+    leaf's scheme, dense buckets use ``dense_scheme``."""
+    if bucket_bytes is not None and bucket_bytes <= 0:
+        raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
+    buckets: list[Bucket] = []
+    pend: list[LeafSlot] = []   # dense leaves awaiting fusion
+    pend_bytes = 0
 
+    def flush():
+        nonlocal pend, pend_bytes
+        if pend:
+            buckets.append(Bucket(bid=len(buckets), kind=DENSE,
+                                  scheme=dense_scheme, slots=tuple(pend),
+                                  nbytes=pend_bytes))
+            pend, pend_bytes = [], 0
+
+    for i, (name, shape, dtype) in enumerate(leaves):
+        shape = tuple(shape)
+        size = 1
+        for s in shape:
+            size *= s
+        nbytes = size * dtype.itemsize
+        if is_sparse(name):
+            flush()
+            buckets.append(Bucket(
+                bid=len(buckets), kind=SPARSE,
+                scheme=sparse_scheme(name, shape),
+                slots=(LeafSlot(name, i, shape, dtype, 0, size),),
+                nbytes=nbytes))
+            continue
+        fits = (bucket_bytes is not None and pend
+                and pend[0].dtype == dtype
+                and pend_bytes + nbytes <= bucket_bytes)
+        if not fits:
+            flush()
+        pend.append(LeafSlot(name, i, shape, dtype,
+                             offset=sum(s.size for s in pend), size=size))
+        pend_bytes += nbytes
+        if bucket_bytes is None or pend_bytes >= bucket_bytes:
+            flush()
+    flush()
+    plan = BucketPlan(buckets=tuple(buckets), n_leaves=len(leaves),
+                      bucket_bytes=bucket_bytes)
+    plan.validate()
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# payload assembly / disassembly
+# ---------------------------------------------------------------------------
 
 def gather_bucket(bucket: Bucket, flat_leaves: list) -> torch.Tensor:
-    """A bucket's payload: its leaf (stacked over workers)."""
-    return flat_leaves[bucket.index]
+    """A bucket's payload from the ``[local, ...]`` leaf stacks: a sparse
+    bucket's leaf as it is (the scheme needs its [rows, d] structure), a
+    dense bucket's leaves as ``[local, -1]`` concatenated on dim 1."""
+    if bucket.kind == SPARSE:
+        return flat_leaves[bucket.slots[0].index]
+    parts = [flat_leaves[s.index] for s in bucket.slots]
+    parts = [p.reshape(p.shape[0], -1) for p in parts]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def scatter_bucket(bucket: Bucket, payload: torch.Tensor, out: list) -> None:
-    out[bucket.index] = payload
+    """Write a synced payload back into the leaf list ``out``: each slot's
+    columns as ``[local, *shape]``."""
+    if bucket.kind == SPARSE:
+        out[bucket.slots[0].index] = payload
+        return
+    local = payload.shape[0]
+    for s in bucket.slots:
+        out[s.index] = payload[:, s.offset:s.offset + s.size].reshape(
+            local, *s.shape)
 
+
+# ---------------------------------------------------------------------------
+# SyncStats reduction across buckets
+# ---------------------------------------------------------------------------
 
 def reduce_stats(plan: BucketPlan,
                  per_bucket: list[SyncStats]) -> dict[str, torch.Tensor]:
@@ -69,22 +196,22 @@ def reduce_stats(plan: BucketPlan,
     ``sync/sparse_sent_words`` (sparse-scheme buckets), ``sync/overflow``,
     ``sync/dense_words`` (psum buckets), ``sync/n_buckets`` and per-scheme
     bucket counts ``sync/buckets[<scheme>]``."""
-    sent = dense_words = overflow = None
+    like = per_bucket[0].sent_words
+    zero = torch.zeros_like(like)
+    sent, dense_words = zero, zero
+    overflow = torch.zeros_like(per_bucket[0].overflow)
     tags: dict[str, int] = {}
     for b, st in zip(plan.buckets, per_bucket):
-        overflow = st.overflow if overflow is None else overflow + st.overflow
-        if b.kind == SPARSE or b.scheme != "dense":
-            sent = st.sent_words if sent is None else sent + st.sent_words
+        overflow = overflow + st.overflow
+        if b.kind == SPARSE or not _all_dense(b.scheme):
+            sent = sent + st.sent_words
         else:
-            dense_words = (st.sent_words if dense_words is None
-                           else dense_words + st.sent_words)
+            dense_words = dense_words + st.sent_words
         tags[b.scheme] = tags.get(b.scheme, 0) + 1
-    like = next(iter(per_bucket)).sent_words
-    zero = torch.zeros_like(like)
     stats = {
-        "sync/sparse_sent_words": zero if sent is None else sent,
+        "sync/sparse_sent_words": sent,
         "sync/overflow": overflow,
-        "sync/dense_words": zero if dense_words is None else dense_words,
+        "sync/dense_words": dense_words,
         "sync/n_buckets": torch.full_like(like, float(len(plan.buckets))),
     }
     for scheme, count in sorted(tags.items()):

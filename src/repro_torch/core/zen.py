@@ -5,13 +5,18 @@ stack per leaf: all ``n`` workers on the in-process ``SimGroup``, this
 process's one rank on a ``DistGroup``) to their mean over the data-parallel
 group.  Leaves named in ``sparse_paths`` (the row-sparse input embedding
 ``embed/table``) go through the configured sparse scheme; every other leaf
-is a psum.  The
-port covers the flat topology with ``scheme`` in {``zen``, ``dense``} and
-no compression; any other setting raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+is a psum.  The leaves are partitioned into buckets (``core/buckets.py``:
+dense leaves fused up to ``bucket_bytes``, one bucket per leaf without it)
+and synced in the reference's double-buffered pipeline
+(``train/schedule.py``): on CUDA every bucket's encode runs on a side
+stream GradSync keeps, beside the previous bucket's commit.  The port
+covers the flat topology with ``scheme`` in {``zen``, ``dense``} and no
+compression; any other setting raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 from typing import Sequence
 
@@ -59,9 +64,6 @@ def _unsupported(cfg: SyncConfig) -> str | None:
                 f"the other schemes and 'auto' are ROADMAP queue 1, item 6")
     if cfg.compress != "none":
         return "EF compression: ROADMAP queue 1, item 5 (core/sparsify.py)"
-    if cfg.bucket_bytes is not None:
-        return ("fused dense buckets (bucket_bytes): ROADMAP queue 1, "
-                "item 5 (core/buckets.py)")
     if cfg.calib_file is not None:
         return "measured-cost calibration: ROADMAP queue 1, item 7"
     if cfg.alpha_beta is not None:
@@ -75,8 +77,9 @@ class GradSync:
     Args:
       cfg: SyncConfig.
       sparse_paths: path substrings marking row-sparse 2-D leaves.
-      leaves: ``[(name, per-worker shape), ...]`` in gradient order; the
-          Zen layouts and the bucket plan are built from them offline.
+      leaves: ``[(name, per-worker shape, dtype), ...]`` in gradient
+          order; the Zen layouts and the bucket plan are built from them
+          offline.
       n_data: size of the data-parallel group.
       group: the collectives' group: by default ``SimGroup(n_data)`` (all
           workers in this process); a ``DistGroup`` of size ``n_data``
@@ -84,7 +87,8 @@ class GradSync:
     """
 
     def __init__(self, cfg: SyncConfig, sparse_paths: Sequence[str],
-                 leaves: Sequence[tuple[str, tuple]], n_data: int,
+                 leaves: Sequence[tuple[str, tuple, torch.dtype]],
+                 n_data: int,
                  group: SimGroup | DistGroup | None = None):
         why = _unsupported(cfg)
         if why:
@@ -97,19 +101,22 @@ class GradSync:
         self.n_data = n_data
         self.group = group or SimGroup(n_data)
         self.sparse_paths = tuple(sparse_paths)
+        # the encodes' side stream, one per CUDA device (train/schedule.py)
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
 
         def resolve_scheme(name: str, shape: tuple) -> str:
             if len(shape) > 2:
                 raise ValueError(f"sparse leaf {name} must be 2-D, got {shape}")
             return cfg.scheme
 
+        self.names = [name for name, _, _ in leaves]
         self.plan = bk.make_bucket_plan(leaves, self._is_sparse,
-                                        resolve_scheme)
+                                        cfg.bucket_bytes, resolve_scheme)
         self._layouts = {
             b.key: make_zen_layout(
-                b.shape[0], n_data, density_budget=cfg.density_budget,
-                key=cfg.seed, k=cfg.k, r1_factor=cfg.r1_factor,
-                r2_ratio=cfg.r2_ratio)
+                b.slots[0].shape[0], n_data,
+                density_budget=cfg.density_budget, key=cfg.seed, k=cfg.k,
+                r1_factor=cfg.r1_factor, r2_ratio=cfg.r2_ratio)
             for b in self.plan.buckets
             if b.kind == bk.SPARSE and b.scheme == "zen" and n_data > 1}
 
@@ -117,11 +124,10 @@ class GradSync:
         return any(s in name for s in self.sparse_paths)
 
     def describe(self) -> list[str]:
-        """One line per bucket: scheme, kind, per-worker shape, leaf."""
-        lines = [f"topology: flat data[{self.n_data}]"]
+        """One line per bucket, the reference's: kind, bytes, plan, key."""
+        lines = [f"topology: data[{self.n_data}] α=0µs β=1µs/w"]
         for b in self.plan.buckets:
-            lines.append(f"bucket {b.bid:3d} {b.kind:11s} "
-                         f"{'x'.join(map(str, b.shape)):>12s} "
+            lines.append(f"bucket {b.bid:3d} {b.kind:11s} {b.nbytes:>10d}B "
                          f"plan=[{b.scheme}@data[{self.n_data}]]  {b.key}")
         return lines
 
@@ -156,17 +162,48 @@ class GradSync:
             return (out[0] / n).expand_as(out), st
         return out / n, st
 
+    def _side_stream(self, dev: torch.device) -> torch.cuda.Stream | None:
+        """The encodes' side stream on a CUDA ``dev`` (made on first use),
+        None on the CPU."""
+        if dev.type != "cuda":
+            return None
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        return self._streams[dev]
+
+    def _payloads(self, grads: dict[str, torch.Tensor]):
+        """(leaf stacks in leaf order, bucket payloads): each payload is
+        assembled when the schedule reads it, in its encode's slot."""
+        flat = [grads[nm] for nm in self.names]
+        return flat, _Payloads(self.plan.buckets, flat)
+
     def __call__(self, grads: dict[str, torch.Tensor]):
         """``{leaf name: [local, ...] per-worker grads}`` -> (the same dict
         of [local, ...] synced means, metric dict of per-worker vectors)."""
-        names = [b.name for b in self.plan.buckets]
-        flat = [grads[name] for name in names]
-        payloads = [bk.gather_bucket(b, flat) for b in self.plan.buckets]
+        flat, payloads = self._payloads(grads)
         outs, per_bucket = schedule.run_schedule(
             self.plan.buckets, payloads, self._encode_bucket,
-            self._commit_bucket)
+            self._commit_bucket, stream=self._side_stream(flat[0].device))
+        return self._unbucket(flat, outs, per_bucket)
+
+    def _unbucket(self, flat: list, outs: list, per_bucket: list):
+        """The synced leaf dict and metrics from the buckets' outputs."""
         synced = list(flat)
         for b, out in zip(self.plan.buckets, outs):
             bk.scatter_bucket(b, out, synced)
-        return dict(zip(names, synced)), bk.reduce_stats(self.plan,
-                                                         per_bucket)
+        return dict(zip(self.names, synced)), bk.reduce_stats(self.plan,
+                                                              per_bucket)
+
+
+class _Payloads(collections.abc.Sequence):
+    """The buckets' payloads as a sequence that gathers bucket ``i``'s
+    leaves when it is read (``core/buckets.gather_bucket``)."""
+
+    def __init__(self, buckets: Sequence[bk.Bucket], flat: list):
+        self.buckets, self.flat = buckets, flat
+
+    def __len__(self) -> int:
+        return len(self.buckets)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return bk.gather_bucket(self.buckets[i], self.flat)

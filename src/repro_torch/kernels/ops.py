@@ -6,9 +6,11 @@ device from its tensors: a CUDA tensor launches the hand-written kernel
 ``kernels/ref.py``.  There is no fallback from a failed launch.
 
 ``LAUNCHES[name]`` counts kernel launches and ``PLAIN_CALLS[name]`` counts
-calls that took the plain version; ``reset_counts()`` zeroes both.  The
-counters are plain integers so a run can show which route its path took;
-``path_kernels`` names the kernels a Zen sync route launches.
+calls that took the plain version; ``RECOMPUTE_CALLS["ssd_fwd"]`` counts
+the plain scans that ``SSDScan``'s backward runs to differentiate;
+``reset_counts()`` zeroes all three.  The counters are plain integers so a
+run can show which route its path took; ``path_kernels`` names the kernels
+a Zen sync route launches.
 
 Two kernel sets carry the Zen sync.  The fused route (the default) runs the
 three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
@@ -16,7 +18,8 @@ and/or ``fused_commit=False``) runs the pre-fusion chain of five smaller
 kernels, whose compositions ``zen_encode_unfused``,
 ``zen_commit_push_unfused`` and ``zen_commit_pull_unfused`` give the fused
 kernels' outputs bit for bit.  Two more carry the models' prefill:
-``flash_fwd`` (attention) and ``ssd_fwd`` (the Mamba2 scan).
+``flash_fwd`` (attention) and ``ssd_fwd`` (the Mamba2 scan), which
+``SSDScan`` also puts under autograd for the Mamba2 trainer.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ MODEL_KERNELS = ("flash_fwd", "ssd_fwd")
 KERNELS = FUSED_KERNELS + UNFUSED_KERNELS + MODEL_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+RECOMPUTE_CALLS = {"ssd_fwd": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -100,6 +104,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in RECOMPUTE_CALLS:
+        RECOMPUTE_CALLS[k] = 0
 
 
 def path_kernels(fused_encode: bool = True, fused_commit: bool = True,
@@ -643,3 +649,34 @@ def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     _check(lib, "ssd_fwd", rc, "ssd_fwd launch")
     LAUNCHES["ssd_fwd"] += 1
     return y, state
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_fwd_op`` under autograd: (x, dA, Bm, Cm) -> (y, state).
+
+    The forward is ``ssd_fwd_op`` (the kernel for CUDA tensors, the plain
+    version for CPU ones) and keeps its four inputs.  The backward
+    recomputes the plain scan ``ref.ssd_fwd_ref`` on them and returns its
+    autograd gradients, exactly the plain version's: the reference trains
+    Mamba2 by autodiff through its plain chunked scan and has no backward
+    kernel.  Each backward adds one to ``RECOMPUTE_CALLS["ssd_fwd"]``."""
+
+    @staticmethod
+    def forward(ctx, x, dA, Bm, Cm, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dA, Bm, Cm)
+        ctx.chunk = chunk
+        return ssd_fwd_op(x, dA, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        RECOMPUTE_CALLS["ssd_fwd"] += 1
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ref.ssd_fwd_ref(*ins, chunk=ctx.chunk)
+        outs = [(o, g) for o, g in ((y, gy), (state, gstate))
+                if g is not None]   # None: that output took no gradient
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    ins, [g for _, g in outs],
+                                    allow_unused=True)   # state skips Cm
+        return (*grads, None)

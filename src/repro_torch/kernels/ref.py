@@ -205,7 +205,11 @@ def ssd_fwd_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
 
     Returns (y [Bt, S, H, hd] f32, final state [Bt, H, hd, N] f32).  The
     reference kernel's head-major [B*H, S, hd] layout is a transpose of
-    this one; B and C are not broadcast per head."""
+    this one; B and C are not broadcast per head.  Under autograd L's
+    exponent is masked before the exp, so the gradient stays finite when a
+    chunk's decay span passes exp's range (the reference's jnp scan, which
+    masks after it, gives NaN there); elsewhere the values and gradients
+    are those of masking after."""
     Bt, S, H, hd = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -218,9 +222,11 @@ def ssd_fwd_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
         xq, bq, cq = x[:, c0:c0 + Q], Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
         cs = torch.cumsum(dA[:, c0:c0 + Q], dim=1)               # [Bt,Q,H]
         total = cs[:, -1]                                         # [Bt,H]
-        decay = torch.where(tri[None, :, :, None],
-                            torch.exp(cs[:, :, None, :] - cs[:, None, :, :]),
-                            0.0)                                  # [Bt,Qi,Qj,H]
+        # masked before the exp: above the diagonal cs_i - cs_j >= 0 may
+        # overflow exp, and where() would then pass 0 * inf = NaN back
+        decay = torch.exp(torch.where(tri[None, :, :, None],
+                                      cs[:, :, None, :] - cs[:, None, :, :],
+                                      float("-inf")))             # [Bt,Qi,Qj,H]
         sbc = torch.einsum("bin,bjn->bij", cq, bq)                # [Bt,Qi,Qj]
         y_in = torch.einsum("bijh,bjhd->bihd", sbc[..., None] * decay, xq)
         y_st = torch.einsum("bin,bhdn->bihd", cq, state) \

@@ -23,7 +23,11 @@ ROADMAP item that brings them.  ``--no-zero1`` is accepted: the port always
 runs the full update, which gives the same numbers as ZeRO-1.
 ``--no-fused-commit`` runs Zen's commit through the pre-fusion chain of
 kernels (scatter-add, bitmap pack and unpack) instead of the push and pull
-megakernels, with the same results.
+megakernels, with the same results.  ``--bucket-bytes N`` fuses
+consecutive dense leaves of one dtype into psum buckets of at most N bytes
+(core/buckets.py); the synced values do not change.  ``--arch
+mamba2-370m`` trains the Mamba2 LM, its scan on the ``ssd_fwd`` kernel
+under autograd.  The plan GradSync runs is printed at start.
 """
 from __future__ import annotations
 
@@ -75,8 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
-                    help="Zen kernel route: the CUDA kernels, or their "
-                         "plain PyTorch versions")
+                    help="kernel route (Zen's, and the Mamba2 scan's): the "
+                         "CUDA kernels, or their plain PyTorch versions")
     ap.add_argument("--dist", default=None, choices=BACKENDS,
                     help="one rank per process under torchrun, over this "
                          "torch.distributed backend (default: all ranks "
@@ -85,12 +89,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    if get_config(args.arch).kind != "dense":
-        raise NotImplementedError(
-            f"training {args.arch} is not ported yet: the reference trains "
-            f"it by autodiff through the plain chunked scan, and the port's "
-            f"trainer on that scan is ROADMAP queue 1, item 8; serve it "
-            f"with repro_torch.launch.serve")
     todo = {
         "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
         "--replan-every": (args.replan_every > 0, "ROADMAP queue 1, item 5"),
@@ -103,8 +101,10 @@ def _check_ported(args) -> None:
 
 def main(argv=None) -> dict:
     """Train; returns losses, final tok/s, sparse words, overflow, step
-    times (host clock after a device sync, seconds) and the kernels'
-    launches and plain calls in the run, summed over the group."""
+    times (host clock after a device sync, seconds), each logged step's
+    sparse words, grad norm and dense words, the bucket plan (kind, dtype,
+    bytes and leaves of each bucket) and the kernels' launches and plain
+    calls in the run, summed over the group."""
     args = parse_args(argv)
     _check_ported(args)
     if args.dist is None:
@@ -134,7 +134,7 @@ def _train(args, group, device) -> dict:
                         fused_commit=not args.no_fused_commit,
                         backend=args.backend, seed=args.seed))
     prog = build_program(cfg, args.mesh, tcfg, device=device,
-                         seed=args.seed, group=group)
+                         seed=args.seed, backend=args.backend, group=group)
     attach_train(prog)
     dev = prog.device
     log = print if prog.group.ranks[0] == 0 else _quiet   # rank 0 prints
@@ -142,9 +142,8 @@ def _train(args, group, device) -> dict:
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
           f"sync={args.sync} backend={args.backend} device={dev} "
           f"dtype={str(cfg.dtype).replace('torch.', '')}", flush=True)
-    for line in prog.gradsync.describe():
-        if "sparse" in line or line.startswith("topology"):
-            log(f"  {line}")
+    for line in prog.gradsync.describe():   # the plan the run executes
+        log(f"  {line}")
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -152,7 +151,7 @@ def _train(args, group, device) -> dict:
 
     data = iter(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
-    losses, step_s, words, ovf = [], [], [], []
+    losses, step_s, words, ovf, gnorm, dwords = [], [], [], [], [], []
     tokens_done = 0
     counts0 = _counts()
     sync()
@@ -171,6 +170,8 @@ def _train(args, group, device) -> dict:
             losses.append(float(m["loss"]))
             words.append(float(m["sync/sparse_sent_words"]))
             ovf.append(int(float(m["sync/overflow"])))
+            gnorm.append(float(m["grad_norm"]))
+            dwords.append(float(m["sync/dense_words"]))
             log(f"step {step:5d} loss={losses[-1]:.4f} "
                   f"tok/s={tokens_done / dt:,.0f} "
                   f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
@@ -189,6 +190,12 @@ def _train(args, group, device) -> dict:
            "sparse_words": words[-1] if words else 0.0,
            "overflow": max(ovf) if ovf else 0, "step_s": step_s,
            "median_step_s": float(np.median(step_s)) if step_s else 0.0,
+           "sparse_words_by_step": words, "grad_norm": gnorm,
+           "dense_words": dwords,
+           "buckets": [{"kind": b.kind, "nbytes": b.nbytes,
+                        "leaves": len(b.slots),
+                        "dtype": str(b.slots[0].dtype).replace("torch.", "")}
+                       for b in prog.gradsync.plan.buckets],
            "launches": dict(zip(kops.KERNELS, total[0])),
            "plain_calls": dict(zip(kops.KERNELS, total[1]))}
     if group is not None:

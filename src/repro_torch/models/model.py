@@ -10,9 +10,9 @@ carries a reference parameter pytree over.
 Serving: :meth:`Model.prefill` runs the prompt (prefill attention on the
 ``flash_fwd`` kernel, the Mamba2 scan on ``ssd_fwd``) and returns the
 decode cache; :meth:`Model.decode` takes one greedy step.  The train loss
-runs dense models only: the Mamba2 trainer, autodiff through the plain
-chunked scan as the reference trains it, is not ported yet (ROADMAP queue
-1, item 8).
+runs both kinds; a Mamba2 layer's scan is ``ssd_fwd`` under autograd
+(``ops.SSDScan``), whose gradient is the plain chunked scan's, as the
+reference trains by autodiff through that scan.
 """
 from __future__ import annotations
 
@@ -69,8 +69,9 @@ class SSMLayer(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.mixer = Mamba2(cfg, device=device, gen=gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.mixer(self.ln1(x))
+    def forward(self, x: torch.Tensor, *,
+                backend: str = "cuda") -> torch.Tensor:
+        return x + self.mixer(self.ln1(x), backend=backend)
 
     def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
         y, cache = self.mixer(self.ln1(x), return_cache=True, backend=backend)
@@ -88,9 +89,10 @@ class Model(nn.Module):
 
     Built on ``cuda`` unless ``device="cpu"`` is passed; parameters are
     drawn from a ``torch.Generator`` seeded with ``seed``.  ``backend``
-    picks the prefill kernels' route: ``"cuda"`` (the hand-written kernels
-    for CUDA tensors, their plain versions for CPU ones) or ``"torch"``
-    (the plain versions)."""
+    picks the model kernels' route (prefill, and the Mamba2 scan in the
+    train loss): ``"cuda"`` (the hand-written kernels for CUDA tensors,
+    their plain versions for CPU ones) or ``"torch"`` (the plain
+    versions)."""
 
     sparse_paths = ("embed/table",)
 
@@ -119,16 +121,12 @@ class Model(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
-        """Mean next-token loss of tokens/labels [B, S] (labels -1 masked)."""
-        if self.cfg.kind != "dense":
-            raise NotImplementedError(
-                f"training a {self.cfg.kind!r} model is not ported yet: "
-                f"the reference trains it by autodiff through the plain "
-                f"chunked scan, and the port's trainer on that scan is "
-                f"ROADMAP queue 1, item 8; the port serves it only")
+        """Mean next-token loss of tokens/labels [B, S] (labels -1 masked):
+        embed, the layers, ``ln_f``, the untied head, cross-entropy."""
         x = self.embed(tokens)
+        kw = {"backend": self.backend} if self.cfg.kind == "ssm" else {}
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, **kw)
         logits = self.lm_head(self.ln_f(x))
         return cross_entropy(logits, labels, self.cfg.vocab)
 

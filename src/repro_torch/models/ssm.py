@@ -1,10 +1,13 @@
 """Mamba2 (SSD, state-space duality, arXiv:2405.21060) block (port of
 ``repro.models.ssm`` at tp = 1).
 
-Prefill runs the chunked block decomposition (:func:`_ssd_chunked`) on the
-``ssd_fwd`` kernel; decode is the O(1) recurrence on the [B, H, hd, N]
-state and stays plain PyTorch (the reference has no kernel there).  B and
-C are shared by all heads (ngroups = 1).
+Prefill and training run the chunked block decomposition
+(:func:`_ssd_chunked`) on the ``ssd_fwd`` kernel; training takes it under
+autograd (``ops.SSDScan``: the kernel forward, the plain scan's gradient
+backward, as the reference trains by autodiff through its plain scan).
+Decode is the O(1) recurrence on the [B, H, hd, N] state and stays plain
+PyTorch (the reference has no kernel there).  B and C are shared by all
+heads (ngroups = 1).
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     decay 1 and input 0).  Returns y [Bt, S, H, hd] and the final state
     [Bt, H, hd, N], f32.  ``backend="cuda"`` scans through
     ``ops.ssd_fwd_op`` (the kernel for CUDA tensors, the plain version for
-    CPU ones), ``"torch"`` through the plain version."""
+    CPU ones), under autograd as ``ops.SSDScan`` whenever grad is enabled;
+    ``"torch"`` scans through the plain version (autograd through it)."""
     check_backend(backend)
     S = xh.shape[1]
     Q = min(chunk, S)
@@ -53,8 +57,13 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     A = -torch.exp(a_log)
     dA = (dtp * A).contiguous()                       # log-decay
     xdt = (xp * dtp[..., None]).contiguous()          # input scaled by dt
-    scan = ops.ssd_fwd_op if backend == "cuda" else ssd_fwd_ref
-    y, state = scan(xdt, dA, bp.contiguous(), cp.contiguous(), chunk=Q)
+    args = (xdt, dA, bp.contiguous(), cp.contiguous())
+    if backend != "cuda":
+        y, state = ssd_fwd_ref(*args, chunk=Q)
+    elif torch.is_grad_enabled():
+        y, state = ops.SSDScan.apply(*args, Q)
+    else:
+        y, state = ops.ssd_fwd_op(*args, chunk=Q)
     return y[:, :S] + xh * D[:, None], state
 
 

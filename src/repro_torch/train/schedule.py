@@ -1,16 +1,49 @@
-"""Per-bucket sync pipeline (port of ``repro.train.schedule.run_schedule``).
+"""Double-buffered emission of per-bucket sync ops (port of
+``repro.train.schedule``, flat topology, no compression).
 
-Encode, then commit, bucket by bucket, in order.  The reference fences
-bucket i+1's encode against bucket i's commit so XLA can overlap them; the
-port's overlap (encode on a compute stream while the commit's collective
-runs on a comm stream) is ROADMAP queue 1, item 5.
+GradSync syncs bucket by bucket in a software pipeline, in the reference's
+issue order:
+
+    enc[0] = encode(bucket 0)
+    for i in buckets:
+        enc[i+1] = encode(bucket i+1)        # local compute
+        out[i]   = commit(bucket i, enc[i])  # collective + decode-apply
+
+``encode`` is a bucket's local, collective-free stage (Zen's compaction,
+hash and extract; the payload's assembly for a dense bucket) and
+``commit`` everything from the first collective on.  The reference fences
+``(enc[i], enc[i+1])`` with an ``optimization_barrier`` so XLA overlaps
+bucket i's collective with bucket i+1's encode.  Here that fence is
+stream order: on CUDA every encode runs on a side stream, which first
+waits for the current stream's work, and records an event; ``commit(i)``
+runs on the current stream after waiting for encode i's event.  So the
+card runs encode(i+1) while commit(i)'s kernels and collectives run, and
+the collectives stay on the stream that ``torch.distributed`` syncs with.
+Tensors an encode makes on the side stream are marked as used by the
+current stream, so the caching allocator reuses their memory only after
+the commit that reads them.  On the CPU the same order runs without
+streams.  Neither changes a bit: :func:`run_in_order` is the plain loop
+the pipeline must equal.  The reference's compress and intra-node hooks
+come with EF compression and two-level topologies (ROADMAP queue 1, items
+5 and 9).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Sequence
 
+import torch
+
 from repro_torch.core.buckets import Bucket
 from repro_torch.core.schemes import SyncStats
+
+
+def _tensors(tree: Any):
+    """The tensors of a nest of tuples / lists (NamedTuples included)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _tensors(t)
 
 
 def run_schedule(
@@ -18,11 +51,67 @@ def run_schedule(
     payloads: Sequence[Any],
     encode: Callable[[Bucket, Any], Any],
     commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
+    stream: torch.cuda.Stream | None = None,
 ) -> tuple[list[Any], list[SyncStats]]:
-    """(synced payloads, per-bucket SyncStats), both in bucket order."""
+    """Emit the double-buffered per-bucket sync pipeline; ``payloads[i]``
+    is read in encode i's pipeline slot (on ``stream`` when given).
+
+    ``stream``: the CUDA side stream for the encodes, or None (the CPU)
+    to issue them in the same order on the current stream.  Returns
+    (synced payloads, per-bucket SyncStats), both in bucket order."""
+    nb = len(buckets)
+    outs: list[Any] = [None] * nb
+    stats: list[SyncStats] = [None] * nb
+    if nb == 0:
+        return outs, stats
+    main = None
+    if stream is not None:
+        main = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(main)
+
+    def prefetch(i: int):
+        if stream is None:
+            return encode(buckets[i], payloads[i]), None
+        with torch.cuda.stream(stream):
+            enc = encode(buckets[i], payloads[i])
+            done = torch.cuda.Event()
+            done.record(stream)
+        return enc, done
+
+    enc, done = prefetch(0)
+    for i, b in enumerate(buckets):
+        nxt = prefetch(i + 1) if i + 1 < nb else None
+        if done is not None:
+            main.wait_event(done)
+            for t in _tensors(enc):
+                t.record_stream(main)
+        outs[i], stats[i] = commit(b, enc)
+        if nxt is not None:
+            enc, done = nxt
+    return outs, stats
+
+
+def run_in_order(
+    buckets: Sequence[Bucket],
+    payloads: Sequence[Any],
+    encode: Callable[[Bucket, Any], Any],
+    commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
+) -> tuple[list[Any], list[SyncStats]]:
+    """Encode, then commit, bucket by bucket on the current stream: the
+    oracle :func:`run_schedule` must equal bit for bit."""
     outs, stats = [], []
     for b, p in zip(buckets, payloads):
         out, st = commit(b, encode(b, p))
         outs.append(out)
         stats.append(st)
     return outs, stats
+
+
+def encode_all(
+    buckets: Sequence[Bucket],
+    payloads: Sequence[Any],
+    encode: Callable[[Bucket, Any], Any],
+) -> list[Any]:
+    """The pipeline's local prefix in isolation: every bucket's encode, no
+    collectives, in order."""
+    return [encode(b, p) for b, p in zip(buckets, payloads)]

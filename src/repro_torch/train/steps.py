@@ -49,9 +49,9 @@ class TrainerConfig:
 def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int,
                   group: SimGroup | DistGroup) -> GradSync:
     """The trainer's GradSync over ``group``, built offline from the
-    per-rank grad shapes (the parameter shapes: parameters are
+    per-rank grad shapes and dtypes (the parameters': parameters are
     replicated)."""
-    leaves = [(n, tuple(p.shape)) for n, p in model.named_leaves()]
+    leaves = [(n, tuple(p.shape), p.dtype) for n, p in model.named_leaves()]
     return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data, group)
 
 

@@ -13,9 +13,11 @@ outputs back the same way.  The JAX reference runs here, while they run.
   layout that overflows; each rank calls each route's kernel wrappers
   once (plain versions on the CPU);
 * ``dense_sync`` and a whole ``GradSync`` over the reduced qwen2 gradient
-  leaves: bitwise the reference's psum at 2 ranks; within the summation
+  leaves, one bucket per leaf and with the dense leaves fused into 1 MiB
+  buckets: bitwise the reference's psum at 2 ranks; within the summation
   bound ``(n - 1) u sum_w |x_w|`` of the exact sum at 4 (gloo adds in its
-  own order); the Zen bucket bitwise at both;
+  own order); the Zen bucket bitwise at both; the metrics the reference
+  GradSync's at the same bucket size;
 * the reduced f32 qwen2 trainer with the reference's parameters: at 4x1
   within 1e-3 of the reference's (1,1) run with no overflow, each rank
   calling the fused route's wrappers once a step; at 2x1 the in-process
@@ -60,6 +62,7 @@ ROOT = Path(__file__).resolve().parents[1]
 RANK_MAIN = Path(__file__).resolve().parent / "torch_dist_rank.py"
 TIMEOUT_S = 240
 MLEN, D = 1 << 11, 8
+BUCKET_BYTES = 1 << 20
 JD = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TD = {"f32": torch.float32, "bf16": torch.bfloat16}
 U = {"f32": 2.0 ** -24, "bf16": 2.0 ** -8}      # unit roundoff
@@ -189,7 +192,7 @@ def _grad_inputs(n: int, seed: int) -> dict:
     return inp
 
 
-def _ref_gradsync(inp: dict, n: int):
+def _ref_gradsync(inp: dict, n: int, bucket_bytes: int | None = None):
     """The reference GradSync (vmap over n workers) on the same leaves,
     nested by their '/'-joined names."""
     def nest(get):
@@ -204,7 +207,8 @@ def _ref_gradsync(inp: dict, n: int):
 
     shapes = nest(lambda nm: jax.ShapeDtypeStruct(inp[f"gs/{nm}"].shape[1:],
                                                   jnp.float32))
-    gs = RefGradSync(RefSyncConfig(), ["embed/table"], shapes, n)
+    gs = RefGradSync(RefSyncConfig(bucket_bytes=bucket_bytes),
+                     ["embed/table"], shapes, n)
     return gs, nest(lambda nm: jnp.asarray(inp[f"gs/{nm}"]))
 
 
@@ -224,7 +228,8 @@ def groups(tmp_path_factory):
                          "trainer"]),
                     (2, ["dense", "gradsync", "trainer"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
-        inp = {**common, **_grad_inputs(n, seed=n), "n": n}
+        inp = {**common, **_grad_inputs(n, seed=n), "n": n,
+               "gs_bucket_bytes": BUCKET_BYTES}
         if "zen" in jobs:
             zinp, out["layouts"] = _zen_inputs(n)
             inp.update(zinp)
@@ -322,15 +327,11 @@ def test_dense_sync_vs_reference_psum(groups, n, dtype):
             _assert_within_sum_bound(got, stack, U[dtype], f"rank {w}")
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_gradsync_reduced_qwen2_leaves_vs_reference(groups, n):
-    """A whole GradSync (Zen on embed/table, psum elsewhere, mean over n)
-    on every rank: the Zen bucket and the sync metrics bitwise the
-    reference's at both sizes; the psum leaves bitwise at 2 ranks and
-    within the summation bound at 4."""
-    g = groups[n]
-    gs, tree = g["ref_gs"]
-    ref_out, ref_st = jax.jit(jax.vmap(gs, axis_name="data"))(tree)
+def _check_gradsync(g: dict, n: int, key: str, ref_out, ref_st,
+                    stat_keys) -> None:
+    """Every rank's GradSync outputs ``<key>/<leaf>`` against the
+    reference's: the Zen bucket bitwise, the psum leaves bitwise at 2
+    ranks and within the summation bound at 4; the metrics bitwise."""
     ranks = g["ranks"].results()
     for nm in g["inp"]["gs_names"]:
         nm = str(nm)
@@ -340,7 +341,7 @@ def test_gradsync_reduced_qwen2_leaves_vs_reference(groups, n):
         ref = np.asarray(ref)
         stack = g["inp"][f"gs/{nm}"]
         for w, r in enumerate(ranks):
-            got = r[f"gs/{nm}"]
+            got = r[f"{key}/{nm}"]
             assert got.shape == (1, *stack.shape[1:]), nm
             if n == 2 or nm == "embed/table":
                 np.testing.assert_array_equal(got[0], ref[w],
@@ -348,12 +349,40 @@ def test_gradsync_reduced_qwen2_leaves_vs_reference(groups, n):
             else:
                 _assert_within_sum_bound(got[0], stack, U["f32"],
                                          f"{nm} rank {w}", div=n)
-    for k in ("sync/sparse_sent_words", "sync/overflow", "sync/dense_words",
-              "sync/n_buckets"):
+    for k in stat_keys:
         for w, r in enumerate(ranks):
-            np.testing.assert_array_equal(r[f"gs_stats/{k}"],
+            np.testing.assert_array_equal(r[f"{key}_stats/{k}"],
                                           np.asarray(ref_st[k])[w:w + 1],
                                           err_msg=f"{k} rank {w}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gradsync_reduced_qwen2_leaves_vs_reference(groups, n):
+    """A whole GradSync (Zen on embed/table, psum elsewhere, mean over n)
+    on every rank: the Zen bucket and the sync metrics bitwise the
+    reference's at both sizes; the psum leaves bitwise at 2 ranks and
+    within the summation bound at 4."""
+    g = groups[n]
+    gs, tree = g["ref_gs"]
+    ref_out, ref_st = jax.jit(jax.vmap(gs, axis_name="data"))(tree)
+    _check_gradsync(g, n, "gs", ref_out, ref_st,
+                    ("sync/sparse_sent_words", "sync/overflow",
+                     "sync/dense_words", "sync/n_buckets"))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gradsync_bucketed_reduced_qwen2_leaves_vs_reference(groups, n):
+    """The same GradSync with the dense leaves fused into BUCKET_BYTES
+    buckets: the values held as above (the reference's do not move with
+    buckets), every metric bitwise the reference GradSync's at that
+    bucket size."""
+    g = groups[n]
+    gs, tree = g["ref_gs"]
+    ref_out = jax.jit(jax.vmap(gs, axis_name="data"))(tree)[0]
+    bgs, _ = _ref_gradsync(g["inp"], n, BUCKET_BYTES)
+    ref_st = jax.jit(jax.vmap(bgs, axis_name="data"))(tree)[1]
+    assert float(ref_st["sync/n_buckets"][0]) < len(g["inp"]["gs_names"])
+    _check_gradsync(g, n, "gsb", ref_out, ref_st, list(ref_st))
 
 
 # ---------------------------------------------------------------------------

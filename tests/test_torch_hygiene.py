@@ -7,6 +7,7 @@
 * every CUDA source names the TPU kernel it replaces.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.launch import train
 from repro_torch.models.model import Model
 from repro_torch.train.build import build_program, parse_mesh
@@ -88,19 +89,21 @@ def test_unported_meshes_and_flags_raise():
 
 
 def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
-    """Training Mamba2 is not ported: the reference trains it by autodiff
-    through its plain chunked scan, so the raise names that trainer (queue
-    1, item 8), not a gradient through the SSD kernel."""
-    why = "plain chunked scan.*ROADMAP queue 1, item 8"
-    with pytest.raises(NotImplementedError, match=why):
-        train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
-                    "--device", "cpu"])
+    """The Mamba2 trainer is the plain-scan trainer the reference runs: a
+    train loss raises nothing, its backward is the plain chunked scan's
+    gradient (one recompute a layer, never a gradient through the SSD
+    kernel), and a model kind the port lacks still raises naming its
+    ROADMAP item."""
     cfg = get_config("mamba2-370m").reduced()
     model = Model(cfg, device="cpu")
-    tok = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=why) as exc:
-        model(tok, tok)
-    assert "SSD kernel" not in str(exc.value)
+    tok = torch.zeros((1, 16), dtype=torch.long)
+    ops.reset_counts()
+    model(tok, tok).backward()
+    assert ops.PLAIN_CALLS["ssd_fwd"] == cfg.n_layers
+    assert ops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
+    assert model.embed.table.grad is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        Model(dataclasses.replace(cfg, kind="hybrid"), device="cpu")
 
 
 def test_cuda_sources_name_the_kernel_they_replace():

@@ -14,7 +14,8 @@ through both:
 * the port's prefill then equals the port's decode of the whole prompt
   (the reference's ``test_prefill_matches_decode``);
 * ``launch.serve --device cpu --reduced`` runs for both architectures on
-  the kernels' plain versions, and without ``--device`` it raises here.
+  the kernels' plain versions, and without ``--device`` it raises here;
+  ``launch.train`` trains the reduced Mamba2 LM on the CPU.
 """
 import dataclasses
 
@@ -185,10 +186,17 @@ def test_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_mamba2_trains_nowhere_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
-                    "--device", "cpu"])
-    model = Model(get_config("mamba2-370m").reduced(), device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(tok, tok)
+    """The launcher trains the reduced Mamba2 LM on the CPU: a finite,
+    falling loss, the scan's plain version in every layer's forward and its
+    plain recompute in every backward, no overflow."""
+    steps, n_layers = 4, get_config("mamba2-370m").reduced().n_layers
+    res = train.main(["--arch", "mamba2-370m", "--reduced", "--steps",
+                      str(steps), "--log-every", "1", "--mesh", "2x1",
+                      "--seq-len", "32", "--global-batch", "4",
+                      "--device", "cpu"])
+    losses = res["losses"]
+    assert len(losses) == steps and np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], losses
+    assert res["overflow"] == 0 and res["sparse_words"] > 0
+    assert res["plain_calls"]["ssd_fwd"] == 2 * steps * n_layers
+    assert not any(res["launches"].values())

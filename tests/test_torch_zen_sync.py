@@ -117,7 +117,8 @@ def test_gradsync_matches_reference(scheme):
                          shapes, n)
     ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
         {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
-    leaves = [("embed/table", (512, 8)), ("w", (6, 5))]
+    leaves = [("embed/table", (512, 8), torch.float32),
+              ("w", (6, 5), torch.float32)]
     gs = GradSync(SyncConfig(scheme=scheme), ["embed/table"], leaves, n)
     if scheme == "zen":    # the reference's layout seeds
         lo = ref_gs._layouts["embed/table", 0]
@@ -135,9 +136,9 @@ def test_gradsync_matches_reference(scheme):
 
 
 def test_gradsync_rejects_unported_settings():
-    leaves = [("embed/table", (64, 4))]
+    leaves = [("embed/table", (64, 4), torch.float32)]
     for cfg in (SyncConfig(scheme="agsparse"), SyncConfig(scheme="auto"),
-                SyncConfig(compress="topk:0.01"), SyncConfig(bucket_bytes=1024)):
+                SyncConfig(compress="topk:0.01")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GradSync(cfg, ["embed/table"], leaves, 4)
     # the unfused chains run (tests/test_torch_unfused_chain.py holds them
@@ -239,7 +240,8 @@ def test_gradsync_unfused_matches_reference(fused_encode, fused_commit):
         {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
     cfg = SyncConfig(fused_encode=fused_encode, fused_commit=fused_commit)
     gs = GradSync(cfg, ["embed/table"],
-                  [("embed/table", (512, 8)), ("w", (6, 5))], n)
+                  [("embed/table", (512, 8), torch.float32),
+                   ("w", (6, 5), torch.float32)], n)
     lo = ref_gs._layouts["embed/table", 0]
     gs._layouts["embed/table"] = TS.make_zen_layout(
         512, n, density_budget=0.25, seeds=lo.seeds)

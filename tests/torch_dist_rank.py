@@ -14,7 +14,9 @@ Jobs:
   zen       ``zen_sync`` of every ``zen/<case>/vals`` on every route and
             the COO pull;
   dense     ``dense_sync`` of every ``dense/<dtype>`` stack;
-  gradsync  a whole ``GradSync`` over the ``gs/<leaf>`` stacks;
+  gradsync  a whole ``GradSync`` over the ``gs/<leaf>`` stacks, one bucket
+            per leaf and with dense leaves fused into ``gs_bucket_bytes``
+            buckets;
   broadcast ``build_program`` from seed ``w`` on rank ``w``: every rank
             must then hold rank 0's parameters;
   trainer   the reduced qwen2 trainer on ``<n>x1`` from the reference's
@@ -83,17 +85,20 @@ def _dense(inp, w: int, group, out: dict) -> None:
 def _gradsync(inp, w: int, group, out: dict) -> None:
     names = [str(x) for x in inp["gs_names"]]
     grads = {nm: torch.from_numpy(inp[f"gs/{nm}"][w:w + 1]) for nm in names}
-    gs = GradSync(SyncConfig(), ["embed/table"],
-                  [(nm, tuple(g.shape[1:])) for nm, g in grads.items()],
-                  group.n, group)
-    rows = grads["embed/table"].shape[1]
-    gs._layouts["embed/table"] = S.make_zen_layout(
-        rows, group.n, density_budget=0.25, seeds=inp["gs_seeds"])
-    synced, stats = gs(grads)
-    for nm in names:
-        out[f"gs/{nm}"] = synced[nm].numpy()
-    for k, v in stats.items():
-        out[f"gs_stats/{k}"] = v.float().numpy()
+    for key, bucket_bytes in (("gs", None),
+                              ("gsb", int(inp["gs_bucket_bytes"]))):
+        gs = GradSync(SyncConfig(bucket_bytes=bucket_bytes), ["embed/table"],
+                      [(nm, tuple(g.shape[1:]), g.dtype)
+                       for nm, g in grads.items()],
+                      group.n, group)
+        rows = grads["embed/table"].shape[1]
+        gs._layouts["embed/table"] = S.make_zen_layout(
+            rows, group.n, density_budget=0.25, seeds=inp["gs_seeds"])
+        synced, stats = gs(grads)
+        for nm in names:
+            out[f"{key}/{nm}"] = synced[nm].numpy()
+        for k, v in stats.items():
+            out[f"{key}_stats/{k}"] = v.float().numpy()
 
 
 def _broadcast(inp, w: int, group, out: dict) -> None:
