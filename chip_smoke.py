@@ -25,6 +25,14 @@ Phases (any failure exits non-zero; nothing is caught):
      all-zero / all-one rows.
      Each fused kernel is also held against its unfused chain.
      Every output must be bitwise equal.
+  2b. kernels_wide: the three fused Zen kernels at the EF-compressed
+     path's widest shapes, n = 8, topk:0.01 (a 25 MiB bucket of 13,074,432
+     elements; ``lm_head/w``, 136,134,656), on their wide paths (the
+     encode's row and ballots, the push's bitmap prefix and the pull's row
+     scan out of shared memory) while the slice shapes stay on the
+     shared-memory paths: bitwise against their plain versions, twice in a
+     row, the push in bf16 and f32; at the 25 MiB bucket also the unfused
+     chain's five kernels.  Timed with the times phase.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -82,6 +90,19 @@ Phases (any failure exits non-zero; nothing is caught):
      loss moves by noise over a few steps, the reference's too at 12
      layers, so no check asks it to fall); step time, tok/s, peak memory
      and one profiled step (``ssd_fwd``'s device ms, idle share).
+  7c. compress: EF compression on the qwen2-0.5b 8x1 trainer at full
+     width and depth, 25 MiB buckets, ``--sync zen --compress topk:0.01``
+     (98 compressed dense buckets and the embedding, all on Zen's fused
+     kernels), 4 steps: finite losses, every fused kernel launched 8 x 99
+     times a step, nothing plain, words under 10 % of the dense buckets'
+     uncompressed words; at step 0 the EF invariant bitwise for every
+     bucket, and Zen on each bucket's sent payload against its psum
+     (within the summation bound, or zero where Zen's capacity dropped a
+     slot, which only the 896-element norm-scale buckets may do); the
+     plain route (``--backend torch``, 1 step, about a minute): losses,
+     words, overflow and residual digests bitwise; ``--sync dense --compress topk:0.01``:
+     the same step-0 loss and residual digest; step time, tok/s, peak
+     memory and one profiled step.
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -517,6 +538,172 @@ def phase_kernels(dev) -> dict:
     return {"err": err, "inputs": shapes, "dense": dense}
 
 
+COMPRESS = "topk:0.01"
+# the compressed path's widest buckets at n = 8: a 25 MiB bf16 bucket of
+# qwen2-0.5b's ffn leaves (three [896, 4864] leaves) and its lm_head/w
+WIDE = {"c": ("25 MiB ffn bucket", 13_074_432),
+        "d": ("lm_head/w", 136_134_656)}
+
+
+def compressed_inputs(S: int, dev, seed: int = 3) -> dict:
+    """The fused kernels' inputs on the compressed path at an ``S``-element
+    bucket, n = 8, ``COMPRESS`` (layout budget 4 x its density): each
+    worker's seeded normal bf16 gradient EF-compressed at step 0, worker
+    0's compacted index vector and its Alg. 1 memory, server 0's pushed
+    stream (positions and bf16 values), every server's mask and bitmap
+    (built with the plain route)."""
+    from repro_torch.core import schemes as S_, sparsify as SP
+    from repro_torch.core.hashing import EMPTY, compact_rows, hierarchical_hash
+    from repro_torch.kernels import ref as R
+
+    n = SLICE["n"]
+    cfg = SP.parse_compress(COMPRESS)
+    lo = S_.make_zen_layout(S, n, density_budget=min(1.0, 4 * cfg.density))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sent = torch.empty((n, S), dtype=torch.bfloat16, device=dev)
+    for w in range(n):
+        g = torch.randn(S, generator=gen, device=dev).to(torch.bfloat16)
+        sent[w] = SP.compress_bucket(cfg, g, None)[0]
+        del g
+    enc = S_.zen_encode(sent, layout=lo, backend="torch")
+    idx = compact_rows(sent[:1] != 0, lo.cap_index)[0][0].contiguous()
+    del sent
+    grp = S_.SimGroup(n)
+    got_idx = grp.all_to_all(enc.pidx).reshape(n, -1)
+    got_val = grp.all_to_all(enc.pval).reshape(n, -1)
+    del enc
+    tab = lo.tables(dev)["local_pos"]
+    live = got_idx != EMPTY
+    lp = torch.where(live, tab[torch.where(live, got_idx, 0).long()],
+                     lo.cap_server).to(torch.int32)
+    del got_idx, live
+    bms, masks = [], []
+    for s_ in range(n):
+        bm = R.zen_commit_push_ref(lp[s_], got_val[s_],
+                                   cap_server=lo.cap_server,
+                                   cap_pull=lo.cap_pull)[2]
+        bms.append(bm)
+        masks.append(R.bitmap_unpack_rows_ref(bm[None], lo.cap_server)[0])
+    mem = hierarchical_hash(idx, n=n, r1=lo.r1, r2=lo.r2, k=lo.k,
+                            seeds=lo.static_seeds()).memory
+    out = dict(lo=lo, idx=idx, mem=mem, lp=lp[0].contiguous(),
+               vals=got_val[0].contiguous(), bms=torch.stack(bms),
+               masks=torch.stack(masks))
+    del lp, got_val
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_rows(inp: dict) -> dict:
+    """(kernel call, plain call, bytes, operations) of the three fused
+    kernels at a compressed bucket's inputs (``compressed_inputs``)."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    lo, idx, lp, vals, bms = (inp[k] for k in ("lo", "idx", "lp", "vals",
+                                                "bms"))
+    n, L, seeds = lo.n, lo.cap_pull, lo.static_seeds()
+    live = int((lp < lo.cap_server).sum())
+    W = -(-L // 32)
+    return {
+        "zen_encode": (
+            lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
+            lambda: R.zen_encode_ref(idx, seeds, n, lo.r1, lo.r2),
+            idx.numel() * 4 + (n * (L + W) + 1) * 4, 0),
+        "zen_commit_push": (
+            lambda: K.zen_commit_push_fused_op(
+                lp, vals, cap_server=lo.cap_server, cap_pull=L),
+            lambda: R.zen_commit_push_ref(
+                lp, vals, cap_server=lo.cap_server, cap_pull=L),
+            lp.numel() * 4 + live * 2 + L * (4 + 2)
+            + lo.cap_bitmap_words * 4 + 4, live),
+        "zen_commit_pull": (
+            lambda: K.zen_commit_pull_fused_op(bms, lo.cap_server, L),
+            lambda: R.zen_commit_pull_ref(bms, lo.cap_server, L),
+            bms.numel() * 4 + n * L * 4, 0)}
+
+
+def phase_kernels_wide(dev, smi: str, timed: bool) -> dict:
+    """The three fused Zen kernels at the compressed path's widest shapes
+    (rows 1c-3c: a 25 MiB bucket; 1d-3d: lm_head/w), bitwise against their
+    plain versions (the push in f32 and bf16, twice in a row), on their
+    wide paths, while the slice shapes stay on the shared-memory paths; at
+    the 25 MiB bucket also the unfused chain's five kernels.  With
+    ``timed``, each fused kernel's time, device time and bound."""
+    from repro_torch.core import schemes as S_
+    from repro_torch.kernels import ops as K, ref as R
+
+    err = {k: 0.0 for k in K.KERNELS}
+
+    def check(name, a, b, what):
+        err[name] = max(err[name], same(a, b, f"{name} {what}"))
+
+    slice_lo = S_.make_zen_layout(SLICE["M"], SLICE["n"],
+                                  density_budget=SLICE["density_budget"])
+    narrow = K.zen_fused_wide(slice_lo.n, slice_lo.cap_index, slice_lo.r1,
+                              slice_lo.r2, slice_lo.cap_server)
+    if any(narrow.values()):
+        raise AssertionError(f"a slice-shape kernel left shared memory: "
+                             f"{narrow}")
+    rows = []
+    for tag, (what, S) in WIDE.items():
+        t0 = time.time()
+        inp = compressed_inputs(S, dev)
+        lo = inp["lo"]
+        wide = K.zen_fused_wide(lo.n, lo.cap_index, lo.r1, lo.r2,
+                                lo.cap_server)
+        log(f"[kernels_wide] {tag} {what} S={S}: C={lo.cap_index} "
+            f"r1+r2={lo.cap_pull} cap_server={lo.cap_server} push stream "
+            f"{inp['lp'].numel()} rows, {int((inp['lp'] < lo.cap_server).sum())}"
+            f" live; wide paths {wide} (inputs {time.time() - t0:.1f}s)")
+        if not all(wide.values()):
+            raise AssertionError(f"{what}: a fused kernel stayed on its "
+                                 f"shared-memory path: {wide}")
+        calls = wide_rows(inp)
+        for name, (kern, plain, _, _) in calls.items():
+            want = plain()
+            for call in (1, 2):   # the kept scratch is left clean
+                check(name, kern(), want, f"{tag} {what} call {call}")
+        lp, vals = inp["lp"], inp["vals"]
+        v32 = vals.float()
+        check("zen_commit_push",
+              K.zen_commit_push_fused_op(lp, v32, cap_server=lo.cap_server,
+                                         cap_pull=lo.cap_pull),
+              R.zen_commit_push_ref(lp, v32, cap_server=lo.cap_server,
+                                    cap_pull=lo.cap_pull), f"{tag} f32")
+        log(f"[kernels_wide] {tag}: zen_encode, zen_commit_push (bf16, f32) "
+            f"and zen_commit_pull equal their plain versions")
+        if tag == "c":   # the unfused chain's kernels at the 25 MiB bucket
+            seeds, idx = lo.static_seeds(), inp["idx"]
+            check("hash_stage", K.hash_stage_op(idx, seeds, lo.n, lo.r1),
+                  R.hash_stage_ref(idx, seeds, lo.n, lo.r1), tag)
+            check("row_compact", [K.row_compact_op(inp["mem"])],
+                  [R.row_compact_ref(inp["mem"])], tag)
+            zeros = torch.zeros((lo.cap_server, 1), dtype=vals.dtype,
+                                device=dev)
+            check("coo_scatter_add",
+                  [K.coo_scatter_add_op(zeros.clone(), lp, vals[:, None])],
+                  [R.coo_scatter_add_ref(zeros, lp, vals[:, None])], tag)
+            check("bitmap_pack", [K.bitmap_pack_rows_op(inp["masks"])],
+                  [R.bitmap_pack_rows_ref(inp["masks"])], tag)
+            check("bitmap_unpack",
+                  [K.bitmap_unpack_rows_op(inp["bms"], lo.cap_server)],
+                  [R.bitmap_unpack_rows_ref(inp["bms"], lo.cap_server)], tag)
+            log(f"[kernels_wide] {tag}: hash_stage, row_compact, "
+                f"coo_scatter_add, bitmap_pack, bitmap_unpack equal their "
+                f"plain versions")
+        if timed:
+            for name, (kern, plain, nbytes, nops) in calls.items():
+                row = time_row(f"{name} ({what})", kern, plain, None, nbytes,
+                               nops, OPS_PER_S, smi, plain_iters=3)
+                rows.append({**row, "kernel": name, "row": tag})
+            launch_split(calls["zen_commit_pull"][0],
+                         f"zen_commit_pull ({what})")
+        del inp, calls
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"err": err, "rows": rows}
+
+
 def bitmap_checks(name: str, inp: dict, lo, check) -> None:
     """The bitmap pair in its row and 1-D forms against the plain versions,
     bitwise: every server's mask [n, cap_server] (the unfused commit's one
@@ -935,6 +1122,236 @@ def phase_buckets(smi: str, steps: int = 4) -> dict:
         f"{np.median(b['step_s'][1:])}; tok/s {a['tok_per_s']} vs "
         f"{b['tok_per_s']} | {smi}")
     return {"launches": launches}
+
+
+def compress_program(scheme: str = "zen", backend: str = "cuda"):
+    """The qwen2-0.5b 8x1 trainer at full width and depth with 25 MiB
+    buckets and ``--compress COMPRESS``, built through ``build_program`` +
+    ``attach_train`` (as ``launch/train.py --sync SCHEME --compress
+    COMPRESS --bucket-bytes 26214400`` builds it), so the EF residuals in
+    its optimizer state can be read."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.zen import SyncConfig
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
+
+    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4), sync=SyncConfig(
+        scheme=scheme, density_budget=0.25, bucket_bytes=BUCKET_BYTES,
+        compress=COMPRESS, backend=backend))
+    prog = build_program(get_config("qwen2-0.5b"), "8x1", tcfg,
+                         device="cuda", seed=0, backend=backend)
+    attach_train(prog)
+    return prog
+
+
+def residual_digest(res: dict) -> str:
+    """A digest of the EF residuals' bits, taken on the card: per rank row,
+    the wrapping int64 sums of the f32 words and of the words times a
+    position hash, then sha256 of those sums."""
+    sums = []
+    for k in sorted(res):
+        r = res[k]
+        for w in range(r.shape[0]):
+            x = r[w].view(torch.int32)
+            for a in range(0, x.numel(), 1 << 24):
+                c = x[a:a + (1 << 24)].long()
+                pos = torch.arange(a, a + c.numel(), device=c.device)
+                sums += [c.sum(), (c * (pos * 2654435761 % 4294967291
+                                        + 1)).sum()]
+    return hashlib.sha256(json.dumps(torch.stack(sums).tolist())
+                          .encode()).hexdigest()
+
+
+SMALL_BUCKET = 4096   # elements: the f32 norm-scale buckets (896 each)
+
+
+def step0_checks(prog, batch: dict) -> dict:
+    """On the step-0 gradients of every rank, for every compressed bucket:
+    the EF invariant bitwise (``sent + r' == payload + r`` in f32 from a
+    zero residual) and Zen on the sent payload (the fused kernels) against
+    its psum: every element within the summation bound ``(n - 1) u sum_w
+    |sent_w|``, or zero where Zen's capacity dropped a slot (no more such
+    elements than the bucket's overflow count).  Overflow is allowed only
+    in buckets of at most SMALL_BUCKET elements, whose r1 + r2 of 13 slots
+    a server the union of 8 ranks' top-9 sets can pass (the reference's
+    provisioning, which the port keeps)."""
+    from repro_torch.core import buckets as bk
+    from repro_torch.core import schemes as S_
+    from repro_torch.train.steps import split_batch
+
+    gs, model, n = prog.gradsync, prog.model, prog.n_data
+    leaves = model.named_leaves()
+    stacks = {nm: torch.empty((n, *p.shape), dtype=p.dtype, device=p.device)
+              for nm, p in leaves}
+    for w, b in enumerate(split_batch(batch, n)):
+        model.zero_grad(set_to_none=True)
+        model(b["tokens"], b["labels"]).backward()
+        for nm, p in leaves:
+            if p.grad is None:
+                stacks[nm][w].zero_()
+            else:
+                stacks[nm][w].copy_(p.grad)
+    model.zero_grad(set_to_none=True)
+    flat = [stacks[nm] for nm in gs.names]
+    worst, checked, over = 0.0, 0, {}
+    for b in gs.plan.buckets:
+        if b.compress == "none":
+            continue
+        payload = bk.gather_bucket(b, flat)
+        zero = torch.zeros(payload.shape, dtype=torch.float32,
+                           device=payload.device)
+        sent, r, _ = gs.compress_payload(b, payload, zero, step=0)
+        if not torch.equal(bits(sent.float() + r), bits(payload.float()
+                                                        + zero)):
+            raise AssertionError(f"EF invariant broken in bucket {b.bid} "
+                                 f"({b.key})")
+        z, st = S_.simulate(S_.zen_sync, sent, layout=gs._layouts[b.key],
+                            backend="cuda")
+        d, _ = S_.simulate(S_.dense_sync, sent)
+        u = 2.0 ** (-8 if sent.dtype == torch.bfloat16 else -24)
+        lim = (n - 1) * u * sent.float().abs().sum(0)
+        diff = (z[0].float() - d[0].float()).abs()
+        lost = (z[0] == 0) & (d[0] != 0)
+        ovf = int(st.overflow.sum())
+        if bool((~lost & (diff > lim)).any()) or int(lost.sum()) > ovf:
+            raise AssertionError(f"compressed zen vs dense in bucket {b.bid} "
+                                 f"({b.key}): over the sum bound, or "
+                                 f"{int(lost.sum())} elements lost for "
+                                 f"overflow {ovf}")
+        if ovf:
+            over[b.key] = (b.size, ovf, int(lost.sum()))
+        worst = max(worst, float((diff * ~lost).max()))
+        checked += 1
+        del payload, zero, sent, r, z, d, diff, lim, lost
+    del stacks, flat
+    torch.cuda.empty_cache()
+    big = {k: v for k, v in over.items() if v[0] > SMALL_BUCKET}
+    log(f"[compress] step 0, {checked} compressed buckets: EF invariant "
+        f"bitwise; zen on the sent payloads vs their psum max |diff| "
+        f"{worst} where kept (bound (n - 1) u sum|x|); overflow in "
+        f"{len(over)} buckets (key: size, overflow, elements lost): {over}")
+    if big:
+        raise AssertionError(f"compressed zen overflows in buckets past "
+                             f"{SMALL_BUCKET} elements: {big}")
+    return {"buckets": checked, "zen_vs_dense_max_diff": worst,
+            "overflow_buckets": over}
+
+
+def compress_steps(prog, batches: list, tag: str) -> dict:
+    """Train ``prog`` on ``batches`` (one step each), timed as
+    ``launch/train.py`` times a logged step: losses, words, overflow, grad
+    norms, step times and the residual digest after each step."""
+    out = {k: [] for k in ("losses", "words", "dense_words", "overflow",
+                           "grad_norm", "step_s", "digest")}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for b in batches:
+        t = time.time()
+        m = prog.train_step(b)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.time() - t)
+        out["losses"].append(float(m["loss"]))
+        out["words"].append(float(m["sync/sparse_sent_words"]))
+        out["dense_words"].append(float(m["sync/dense_words"]))
+        out["overflow"].append(int(float(m["sync/overflow"])))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["digest"].append(residual_digest(prog.opt_state()["residual"]))
+    out["tok_per_s"] = len(batches) * 8 * 512 / (time.time() - t0)
+    log(f"[compress] {tag}: losses={out['losses']} words={out['words']} "
+        f"dense_words={out['dense_words']} overflow={out['overflow']} "
+        f"grad_norm={out['grad_norm']} step_s={out['step_s']} "
+        f"tok/s={out['tok_per_s']} digests={[d[:12] for d in out['digest']]}")
+    return out
+
+
+def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
+    """EF compression on the full-width qwen2-0.5b 8x1 trainer with 25 MiB
+    buckets: ``--sync zen --compress topk:0.01`` on the kernels (98
+    compressed dense buckets and the embedding, all on Zen's fused kernels,
+    ``steps`` steps, counts from 0 around them), against its plain route
+    (``--backend torch``, ``plain_steps`` steps: losses, words and residual
+    digests bitwise) and ``--sync dense --compress topk:0.01`` (1 step: the
+    same residual digest); the step-0 EF invariant and Zen-vs-psum of each
+    bucket; step time, tok/s, peak memory, one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as K
+
+    torch.cuda.empty_cache()
+    data = iter(SyntheticLM(get_config("qwen2-0.5b"),
+                            DataConfig(seq_len=512, batch=8, seed=0)))
+    batches = [{k: torch.as_tensor(v, device="cuda").long()
+                for k, v in next(data).items()} for _ in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    prog = compress_program()
+    gs = prog.gradsync
+    plan = gs.plan.buckets
+    comp = [b for b in plan if b.compress != "none"]
+    log(f"[compress] plan: {len(plan)} buckets, {len(comp)} compressed "
+        f"({COMPRESS}), schemes {sorted({b.scheme for b in plan})}, "
+        f"{len(gs._layouts)} zen layouts; compressed elements "
+        f"{sum(b.size for b in comp)}, largest {max(b.size for b in comp)}; "
+        f"built in {time.time() - t0:.1f}s")
+    if len(plan) != 99 or len(comp) != 98 or len(gs._layouts) != 99 \
+            or any(b.scheme != "zen" for b in plan):
+        raise AssertionError("compressed plan is not 98 compressed zen "
+                             "buckets and the zen embedding")
+    checks = step0_checks(prog, batches[0])
+    K.reset_counts()
+    run = compress_steps(prog, batches, "zen, kernels")
+    launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("compress", launches, plain,
+                   {k: steps * 8 * len(gs._layouts)
+                    for k in K.path_kernels()})
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"compressed trainer: losses {run['losses']}")
+    dense_total = sum(b.size for b in comp)
+    dense_words = 2 * 7 / 8 * dense_total
+    share = max(run["words"]) / dense_words
+    if share >= 0.10 or max(run["dense_words"]):
+        raise AssertionError(f"compressed zen words {run['words']} are "
+                             f"{share:.3f} of the dense {dense_words}")
+    prof = device_breakdown(lambda: prog.train_step(batches[0]), "compress")
+    zen_ms = {k: v for k, v in prof["by_name"].items() if "zen_" in k}
+    log(f"[compress] profiled step: zen kernels {zen_ms}")
+    del prog, gs
+    torch.cuda.empty_cache()
+    prog = compress_program(backend="torch")
+    plain_run = compress_steps(prog, batches[:plain_steps], "zen, plain")
+    del prog
+    torch.cuda.empty_cache()
+    for k in ("losses", "words", "overflow", "digest"):
+        if plain_run[k] != run[k][:plain_steps]:
+            raise AssertionError(f"compressed trainer: plain route {k} "
+                                 f"{plain_run[k]} != kernels "
+                                 f"{run[k][:plain_steps]}")
+    prog = compress_program(scheme="dense")
+    dense_run = compress_steps(prog, batches[:1], "dense, kernels")
+    del prog
+    torch.cuda.empty_cache()
+    if dense_run["digest"][0] != run["digest"][0] \
+            or dense_run["losses"][0] != run["losses"][0]:
+        raise AssertionError("compressed dense's step-0 residuals or loss "
+                             "differ from compressed zen's")
+    res = {"launches": launches, "losses": run["losses"],
+           "words": run["words"], "dense_words_uncompressed": dense_words,
+           "word_share": share, "step_s": run["step_s"],
+           "median_step_s": float(np.median(run["step_s"][1:])),
+           "tok_per_s": run["tok_per_s"], "peak_gib": peak,
+           "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"],
+           "wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+           "zen_ms": zen_ms, "plain_step_s": plain_run["step_s"],
+           "dense_step_s": dense_run["step_s"], **checks}
+    log(f"[compress] 8x1 {COMPRESS} 25 MiB buckets: cuda == torch route "
+        f"bitwise ({plain_steps} steps: losses, words, residual digests); "
+        f"dense step-0 residual digest == zen's; words {share:.4f} of "
+        f"dense; median step s after the first {res['median_step_s']}, "
+        f"tok/s {run['tok_per_s']}, peak {peak:.2f} GiB | {smi}")
+    log(f"[compress] json {json.dumps(res)}")
+    return res
 
 
 def overlap_case(dev, **route):
@@ -1876,12 +2293,14 @@ def phase_serve_times(inp: dict, smi: str) -> list:
     return res
 
 
-def time_row(name, kern, plain, lib, nbytes, nops, rate, smi) -> dict:
+def time_row(name, kern, plain, lib, nbytes, nops, rate, smi,
+             plain_iters: int = 20) -> dict:
     """One row of the kernel table: the kernel's, its plain version's and
-    the library call's times (``cuda_time_ms``), the kernel's and the
-    library call's device times (``cuda_device_ms``), and the bound."""
+    the library call's times (``cuda_time_ms``; the plain version over
+    ``plain_iters`` calls), the kernel's and the library call's device
+    times (``cuda_device_ms``), and the bound."""
     bound_ms, bound_by = bound(nbytes, nops, rate)
-    ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+    ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain, plain_iters)
     lib_ms = cuda_time_ms(lib) if lib is not None else None
     dev_ms = cuda_device_ms(kern)
     lib_dev_ms = cuda_device_ms(lib) if lib is not None else None
@@ -2199,8 +2618,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
-                         "all: kernels,zen_sync,trainer,breakdown,buckets,"
-                         "overlap,serve_kernels,serve,mamba2_train,dist,times "
+                         "all: kernels (with kernels_wide),zen_sync,trainer,"
+                         "breakdown,buckets,overlap,serve_kernels,serve,"
+                         "mamba2_train,compress,dist,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_parts: the dist "
                          "trainers' step parts; dist_nccl: the dist trainer "
@@ -2227,6 +2647,9 @@ def main(argv=None) -> None:
     if want("dist"):   # first: four full-width ranks share this card
         phase_dist(dev, dev_info["smi"])
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
+    wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
+            if want("kernels") or want("times") or "kernels_wide" in only
+            else None)
     if want("zen_sync"):
         phase_zen_sync(dev)
     trainer = phase_trainer() if want("trainer") else None
@@ -2239,6 +2662,8 @@ def main(argv=None) -> None:
         else None
     served = phase_serve() if want("serve") else None
     mamba = phase_mamba2_train(dev_info["smi"]) if want("mamba2_train") \
+        else None
+    compressed = phase_compress(dev_info["smi"]) if want("compress") \
         else None
     if "dist_parts" in only:
         dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
@@ -2260,13 +2685,16 @@ def main(argv=None) -> None:
         launches.update({k: served[a]["launches"]
                          for a, k in SERVE_KERNEL.items()})
     # each main path's launches, counted from 0 around its run
-    by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba}
+    by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba,
+               "compress": compressed}
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
         for a, k in SERVE_KERNEL.items():
             path_launches[k][f"serve {a}"] = served[a]["launches"]
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
+    for k, e in (wide["err"] if wide else {}).items():
+        errs[k] = max(errs.get(k, 0.0), e)
     table = []
     for row in times:
         name = row["name"]
@@ -2280,7 +2708,13 @@ def main(argv=None) -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
             **({"bound_split_ms": row["bound_split_ms"]}
-               if "bound_split_ms" in row else {})})
+               if "bound_split_ms" in row else {}),
+            # the same kernel at the compressed path's widest shapes
+            **({"wide": [{k: r[k] for k in (
+                "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by")} for r in wide["rows"] if r["kernel"] == name]}
+               if wide and any(r["kernel"] == name for r in wide["rows"])
+               else {})})
     log(f"[done] {time.time() - t_start:.1f}s | {dev_info['smi']}")
     print(json.dumps({"kernels": table}))
     print(dev_info["smi"])

@@ -1,0 +1,1 @@
+"""checkpoint layer of the PyTorch port (see the package docstring)."""

@@ -17,9 +17,11 @@ A ``BucketPlan`` partitions the gradient leaves into fixed-byte
 The plan is built offline from ``(name, shape, dtype)`` leaves; a step's
 work is only ``gather_bucket`` / ``scatter_bucket`` (a concatenation and
 slices) around each bucket's sync.  Payloads keep the port's leading
-worker dimension: a dense bucket is ``[local, sum of sizes]``.  The
-reference's EF-compressed buckets (``compress``) and two-level plan tags
-(``hier(...)``) are ROADMAP queue 1, items 5 and 9.
+worker dimension: a dense bucket is ``[local, sum of sizes]``.  With a
+compressor (``core/sparsify.py``) every dense bucket carries its tag in
+``compress`` and is synced on its EF-sparsified payload (by Zen, an
+element-sparse payload of the bucket's size, or by a psum); row-sparse buckets are never compressed.  The reference's two-level plan
+tags (``hier(...)``) are ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -60,6 +62,9 @@ class Bucket:
     scheme: str                   # 'zen' | 'dense'
     slots: tuple[LeafSlot, ...]   # exactly 1 slot when kind == SPARSE
     nbytes: int
+    # compressor tag (core/sparsify.py spec, e.g. 'topk:0.01') of a dense
+    # bucket whose payload is EF-sparsified before the sync, else 'none'
+    compress: str = "none"
 
     @property
     def size(self) -> int:
@@ -67,8 +72,8 @@ class Bucket:
 
     @property
     def key(self) -> str:
-        """Stable identity for per-bucket state (Zen layouts): the first
-        slot's leaf path."""
+        """Stable identity for per-bucket state (EF residuals, Zen
+        layouts): the first slot's leaf path."""
         return self.slots[0].name
 
 
@@ -96,6 +101,9 @@ class BucketPlan:
                 seen.add(s.index)
             if b.kind == SPARSE and len(b.slots) != 1:
                 raise ValueError(f"sparse bucket {b.bid} fuses leaves")
+            if b.kind == SPARSE and b.compress != "none":
+                raise ValueError(
+                    f"row-sparse bucket {b.bid} must not be compressed")
             if (self.bucket_bytes is not None and b.kind == DENSE
                     and len(b.slots) > 1 and b.nbytes > self.bucket_bytes):
                 raise ValueError(f"fused bucket {b.bid} exceeds bucket_bytes")
@@ -110,10 +118,14 @@ def make_bucket_plan(
     bucket_bytes: int | None,
     sparse_scheme: Callable[[str, tuple], str],
     dense_scheme: str = "dense",
+    compress: str = "none",
+    compressed_scheme: Callable[[str, int], str] | None = None,
 ) -> BucketPlan:
     """Build the plan from ``(name, per-worker shape, dtype)`` leaves in
     gradient order; ``sparse_scheme(name, shape)`` resolves a row-sparse
-    leaf's scheme, dense buckets use ``dense_scheme``."""
+    leaf's scheme, dense buckets use ``dense_scheme``, unless ``compress``
+    is a sparsifier tag: then every dense bucket carries it and takes its
+    scheme from ``compressed_scheme(key, size)``."""
     if bucket_bytes is not None and bucket_bytes <= 0:
         raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
     buckets: list[Bucket] = []
@@ -123,9 +135,13 @@ def make_bucket_plan(
     def flush():
         nonlocal pend, pend_bytes
         if pend:
+            scheme = dense_scheme
+            if compress != "none" and compressed_scheme is not None:
+                scheme = compressed_scheme(pend[0].name,
+                                           sum(s.size for s in pend))
             buckets.append(Bucket(bid=len(buckets), kind=DENSE,
-                                  scheme=dense_scheme, slots=tuple(pend),
-                                  nbytes=pend_bytes))
+                                  scheme=scheme, slots=tuple(pend),
+                                  nbytes=pend_bytes, compress=compress))
             pend, pend_bytes = [], 0
 
     for i, (name, shape, dtype) in enumerate(leaves):
@@ -190,17 +206,22 @@ def scatter_bucket(bucket: Bucket, payload: torch.Tensor, out: list) -> None:
 # SyncStats reduction across buckets
 # ---------------------------------------------------------------------------
 
-def reduce_stats(plan: BucketPlan,
-                 per_bucket: list[SyncStats]) -> dict[str, torch.Tensor]:
+def reduce_stats(plan: BucketPlan, per_bucket: list[SyncStats],
+                 extra: dict[str, torch.Tensor] | None = None
+                 ) -> dict[str, torch.Tensor]:
     """Per-bucket SyncStats -> the trainer's per-worker metric vectors:
-    ``sync/sparse_sent_words`` (sparse-scheme buckets), ``sync/overflow``,
-    ``sync/dense_words`` (psum buckets), ``sync/n_buckets`` and per-scheme
-    bucket counts ``sync/buckets[<scheme>]``."""
+    ``sync/sparse_sent_words`` (sparse-scheme buckets, row-sparse leaves
+    and compressed dense buckets alike), ``sync/overflow``,
+    ``sync/dense_words`` (psum buckets), ``sync/n_buckets``,
+    ``sync/compressed_buckets`` (when any is) and per-scheme bucket counts
+    ``sync/buckets[<scheme>]``; ``extra`` (per-bucket EF densities) is
+    merged in."""
     like = per_bucket[0].sent_words
     zero = torch.zeros_like(like)
     sent, dense_words = zero, zero
     overflow = torch.zeros_like(per_bucket[0].overflow)
     tags: dict[str, int] = {}
+    n_compressed = 0
     for b, st in zip(plan.buckets, per_bucket):
         overflow = overflow + st.overflow
         if b.kind == SPARSE or not _all_dense(b.scheme):
@@ -208,12 +229,17 @@ def reduce_stats(plan: BucketPlan,
         else:
             dense_words = dense_words + st.sent_words
         tags[b.scheme] = tags.get(b.scheme, 0) + 1
+        n_compressed += b.compress != "none"
     stats = {
         "sync/sparse_sent_words": sent,
         "sync/overflow": overflow,
         "sync/dense_words": dense_words,
         "sync/n_buckets": torch.full_like(like, float(len(plan.buckets))),
     }
+    if n_compressed:
+        stats["sync/compressed_buckets"] = torch.full_like(
+            like, float(n_compressed))
     for scheme, count in sorted(tags.items()):
         stats[f"sync/buckets[{scheme}]"] = torch.full_like(like, float(count))
+    stats.update(extra or {})
     return stats

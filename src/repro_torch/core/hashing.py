@@ -168,12 +168,14 @@ def compact_indices(mask: torch.Tensor,
 def compact_rows(mask: torch.Tensor,
                  capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-wise :func:`compact_indices`: bool [r, M] -> (int32 [r, capacity],
-    int32 [r] overflow)."""
-    pos = torch.cumsum(mask.to(torch.int64), dim=1) - 1
+    int32 [r] overflow).  One row at a time, so its int64 positions take
+    8 M bytes, not 8 r M."""
     nnz = mask.sum(dim=1, dtype=torch.int32)
-    tgt = torch.where(mask & (pos < capacity), pos, capacity)
     src = torch.arange(mask.shape[1], dtype=torch.int32, device=mask.device)
     out = torch.full((mask.shape[0], capacity + 1), EMPTY, dtype=torch.int32,
                      device=mask.device)
-    out.scatter_(1, tgt, src.expand(mask.shape[0], -1))  # rest -> dump column
+    for i in range(mask.shape[0]):
+        pos = torch.cumsum(mask[i], 0, dtype=torch.int64) - 1
+        tgt = torch.where(mask[i] & (pos < capacity), pos, capacity)
+        out[i].scatter_(0, tgt, src)              # rest -> dump column
     return out[:, :capacity].contiguous(), (nnz - capacity).clamp(min=0)

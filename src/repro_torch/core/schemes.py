@@ -274,6 +274,29 @@ def default_seeds(key: int, k: int) -> np.ndarray:
     return rng.integers(1, 2**31 - 1, size=k + 1).astype(np.uint32)
 
 
+_HASH_CHUNK = 1 << 24   # indices hashed at once on the host
+
+
+def _hash_partitions(length: int, n: int, seed0: int):
+    """(perm, offsets, local_pos, counts) of ``h0 mod n`` over [0, length):
+    each partition's indices in ascending order, concatenated in partition
+    order (what a stable argsort of the partition ids gives), one pass a
+    partition."""
+    p = np.empty(length, dtype=np.int32)
+    for a in range(0, length, _HASH_CHUNK):
+        idx = torch.arange(a, min(a + _HASH_CHUNK, length), dtype=torch.int32)
+        p[a:a + idx.numel()] = hash_mod(idx, seed0, n).numpy()
+    parts = [np.flatnonzero(p == j) for j in range(n)]
+    del p
+    counts = np.array([q.size for q in parts], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    perm = np.concatenate(parts).astype(np.int32)
+    local = np.empty(length, dtype=np.int32)
+    for q in parts:
+        local[q] = np.arange(q.size, dtype=np.int32)
+    return perm, offsets, local, counts
+
+
 def make_zen_layout(length: int, n: int, *, density_budget: float,
                     key: int = 0, k: int = 3, r1_factor: float = 2.0,
                     r2_ratio: float = 0.1,
@@ -290,17 +313,11 @@ def make_zen_layout(length: int, n: int, *, density_budget: float,
              else np.asarray(seeds, dtype=np.uint32))
     if seeds.shape[0] < k + 1:
         raise ValueError(f"need {k + 1} seeds, got {seeds.shape[0]}")
-    idx = torch.arange(length, dtype=torch.int32)
-    p = hash_mod(idx, int(seeds[0]), n).numpy()
-    order = np.argsort(p, kind="stable").astype(np.int32)
-    counts = np.bincount(p, minlength=n)
-    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    local = np.empty(length, dtype=np.int32)
-    local[order] = np.arange(length, dtype=np.int32) - offsets[p[order]]
+    perm, offsets, local, counts = _hash_partitions(length, n, int(seeds[0]))
     cap_index = max(32, int(math.ceil(length * density_budget)))
     r1 = max(8, int(math.ceil(r1_factor * cap_index / n)))
     r2 = max(4, int(math.ceil(r2_ratio * r1)))
-    return ZenLayout(n=n, length=length, seeds=seeds, perm=order,
+    return ZenLayout(n=n, length=length, seeds=seeds, perm=perm,
                      offsets=offsets, local_pos=local,
                      cap_server=int(counts.max()), cap_index=cap_index,
                      r1=r1, r2=r2, k=k)

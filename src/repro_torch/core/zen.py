@@ -9,10 +9,16 @@ is a psum.  The leaves are partitioned into buckets (``core/buckets.py``:
 dense leaves fused up to ``bucket_bytes``, one bucket per leaf without it)
 and synced in the reference's double-buffered pipeline
 (``train/schedule.py``): on CUDA every bucket's encode runs on a side
-stream GradSync keeps, beside the previous bucket's commit.  The port
-covers the flat topology with ``scheme`` in {``zen``, ``dense``} and no
-compression; any other setting raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+stream GradSync keeps, beside the previous bucket's commit.
+
+With ``compress`` set (``core/sparsify.py``), every dense bucket's payload
+is EF-sparsified in its encode's pipeline slot before the scheme sees it:
+under ``zen`` it is an element-sparse payload of the bucket's size, whose
+layout is sized at ``min(1, 4 density)``.  The EF residual (one f32
+``[local, S]`` tensor per compressed bucket) is the caller's state,
+threaded through ``gs(grads, residual, step=t)``.  The port covers the
+flat topology with ``scheme`` in {``zen``, ``dense``}; any other setting
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -22,11 +28,13 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import buckets as bk
-from repro_torch.core import schemes
+from repro_torch.core import schemes, sparsify
 from repro_torch.core.hashing import check_backend
 from repro_torch.core.schemes import (DistGroup, SimGroup, SyncStats,
                                       make_zen_layout)
+from repro_torch.optim.optimizers import ef_residual_init
 from repro_torch.train import schedule
 
 
@@ -62,8 +70,6 @@ def _unsupported(cfg: SyncConfig) -> str | None:
     if cfg.scheme not in ("zen", "dense"):
         return (f"scheme {cfg.scheme!r}: the port runs 'zen' and 'dense'; "
                 f"the other schemes and 'auto' are ROADMAP queue 1, item 6")
-    if cfg.compress != "none":
-        return "EF compression: ROADMAP queue 1, item 5 (core/sparsify.py)"
     if cfg.calib_file is not None:
         return "measured-cost calibration: ROADMAP queue 1, item 7"
     if cfg.alpha_beta is not None:
@@ -101,6 +107,7 @@ class GradSync:
         self.n_data = n_data
         self.group = group or SimGroup(n_data)
         self.sparse_paths = tuple(sparse_paths)
+        self.compress = sparsify.parse_compress(cfg.compress)
         # the encodes' side stream, one per CUDA device (train/schedule.py)
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
 
@@ -110,26 +117,105 @@ class GradSync:
             return cfg.scheme
 
         self.names = [name for name, _, _ in leaves]
-        self.plan = bk.make_bucket_plan(leaves, self._is_sparse,
-                                        cfg.bucket_bytes, resolve_scheme)
-        self._layouts = {
-            b.key: make_zen_layout(
-                b.slots[0].shape[0], n_data,
-                density_budget=cfg.density_budget, key=cfg.seed, k=cfg.k,
-                r1_factor=cfg.r1_factor, r2_ratio=cfg.r2_ratio)
-            for b in self.plan.buckets
-            if b.kind == bk.SPARSE and b.scheme == "zen" and n_data > 1}
+        self.plan = bk.make_bucket_plan(
+            leaves, self._is_sparse, cfg.bucket_bytes, resolve_scheme,
+            compress=self.compress.tag(),
+            compressed_scheme=lambda key, size: cfg.scheme)
+        # Zen layouts: a row-sparse leaf's rows at the density budget, a
+        # compressed dense bucket's elements at the compressed budget;
+        # buckets of one size share one layout (and its device tables)
+        self._layouts = {}
+        shared: dict[tuple[int, float], schemes.ZenLayout] = {}
+        for b in self.plan.buckets:
+            if b.scheme != "zen" or n_data <= 1:
+                continue
+            if b.kind == bk.SPARSE:
+                rows, budget = b.slots[0].shape[0], cfg.density_budget
+            elif b.compress != "none":
+                rows, budget = b.size, self._compressed_budget()
+            else:
+                continue
+            if (rows, budget) not in shared:
+                shared[rows, budget] = make_zen_layout(
+                    rows, n_data, density_budget=budget, key=cfg.seed,
+                    k=cfg.k, r1_factor=cfg.r1_factor, r2_ratio=cfg.r2_ratio)
+            self._layouts[b.key] = shared[rows, budget]
 
     def _is_sparse(self, name: str) -> bool:
         return any(s in name for s in self.sparse_paths)
 
+    def _compressed_budget(self) -> float:
+        """Capacity budget of a compressed bucket: 4x the keep-density
+        (headroom for EF bursts and threshold drift; the overflow counters
+        surface real violations)."""
+        return min(1.0, 4 * self.compress.density)
+
     def describe(self) -> list[str]:
-        """One line per bucket, the reference's: kind, bytes, plan, key."""
+        """One line per bucket, the reference's: kind, bytes, plan,
+        compressor, key."""
         lines = [f"topology: data[{self.n_data}] α=0µs β=1µs/w"]
         for b in self.plan.buckets:
+            comp = "" if b.compress == "none" else f" compress={b.compress}"
             lines.append(f"bucket {b.bid:3d} {b.kind:11s} {b.nbytes:>10d}B "
-                         f"plan=[{b.scheme}@data[{self.n_data}]]  {b.key}")
+                         f"plan=[{b.scheme}@data[{self.n_data}]]{comp}  "
+                         f"{b.key}")
         return lines
+
+    # -- error-feedback residual state ---------------------------------------
+
+    @property
+    def has_compression(self) -> bool:
+        return self.compress.enabled
+
+    def compressed_buckets(self) -> dict[str, int]:
+        """{bucket key: payload element count} of every compressed bucket:
+        the residual state's shape contract."""
+        return {b.key: b.size for b in self.plan.buckets
+                if b.compress != "none"}
+
+    def bucket_schemes(self) -> dict[str, str]:
+        """{bucket key: scheme} of the compressed buckets."""
+        return {b.key: b.scheme for b in self.plan.buckets
+                if b.compress != "none"}
+
+    def init_residual(self, device=None) -> dict[str, torch.Tensor]:
+        """Zero EF residual memory: f32 ``[local, S]`` per compressed
+        bucket on ``device`` (``cuda`` unless the caller asks for the
+        CPU), for the ranks of this process; empty when EF is off."""
+        if not (self.compress.enabled and self.compress.ef):
+            return {}
+        local = len(self.group.ranks)
+        return ef_residual_init(
+            {k: (local, s) for k, s in self.compressed_buckets().items()},
+            resolve_device(device))
+
+    def compress_payload(self, bucket: bk.Bucket, payload: torch.Tensor,
+                         residual: torch.Tensor | None, step: int = 0,
+                         out_residual: torch.Tensor | None = None):
+        """EF-compress a compressed bucket's ``[local, S]`` payload, rank by
+        rank (``sparsify.compress_bucket``): (sent [local, S] in the
+        payload's dtype, new residual [local, S] f32 or None, d(1) f32
+        [local]).  The new residual is written into ``out_residual`` when
+        given (it may be ``residual`` itself)."""
+        ccfg = self.compress
+        seed = (sparsify.randk_seed(ccfg.seed, bucket.bid, step)
+                if ccfg.kind == "randk" else None)
+        sent = torch.empty_like(payload)
+        d1 = torch.empty(payload.shape[0], dtype=torch.float32,
+                         device=payload.device)
+        new = None
+        if residual is not None:
+            new = (torch.empty_like(residual) if out_residual is None
+                   else out_residual)
+        for w in range(payload.shape[0]):
+            s, r, d = sparsify.compress_bucket(
+                ccfg, payload[w], None if residual is None else residual[w],
+                seed=seed)
+            sent[w] = s
+            d1[w] = d
+            if new is not None:
+                new[w] = r
+        return sent, new, d1
 
     def _encode_bucket(self, bucket: bk.Bucket, payload: torch.Tensor):
         """Local, collective-free stage: Zen buckets encode to (indices,
@@ -177,22 +263,77 @@ class GradSync:
         flat = [grads[nm] for nm in self.names]
         return flat, _Payloads(self.plan.buckets, flat)
 
-    def __call__(self, grads: dict[str, torch.Tensor]):
+    def _compress_hook(self, residual, step: int, new_res: dict,
+                       extra: dict, donate: bool):
+        """The schedule's compress stage: compressed buckets' payloads are
+        EF-sparsified; their new residuals and d(1) go to ``new_res`` and
+        ``extra``."""
+        ef = self.compress.ef
+
+        def hook(bucket: bk.Bucket, payload: torch.Tensor):
+            if bucket.compress == "none":
+                return payload
+            r = residual[bucket.key] if ef else None
+            sent, r_new, d1 = self.compress_payload(
+                bucket, payload, r, step, out_residual=r if donate else None)
+            if r_new is not None:
+                new_res[bucket.key] = r_new
+            extra[sparsify.DENSITY1_KEY.format(key=bucket.key)] = d1
+            return sent
+
+        return hook
+
+    def __call__(self, grads: dict[str, torch.Tensor],
+                 residual: dict[str, torch.Tensor] | None = None, *,
+                 step: int | None = None, donate: bool = False):
         """``{leaf name: [local, ...] per-worker grads}`` -> (the same dict
-        of [local, ...] synced means, metric dict of per-worker vectors)."""
+        of [local, ...] synced means, metric dict of per-worker vectors).
+
+        With compression the EF residual is threaded through:
+        ``gs(grads, residual, step=t) -> (synced, new_residual, stats)``
+        (``step`` feeds randk's mask stream); passing ``residual`` always
+        selects this form.  ``donate=True`` writes the new residual into
+        ``residual``'s tensors, as a jit with donated buffers would."""
+        if self.compress.enabled and self.compress.ef and residual is None:
+            raise ValueError(
+                "EF compression keeps residual state: call "
+                "gs(grads, residual) with gs.init_residual() (or the "
+                "optimizer-state copy); a fresh zero residual every step "
+                "would silently disable error feedback")
+        new_res: dict = {}
+        extra: dict = {}
+        hook = (self._compress_hook(residual, 0 if step is None else int(step),
+                                    new_res, extra, donate)
+                if self.compress.enabled else None)
         flat, payloads = self._payloads(grads)
+        stream = self._side_stream(flat[0].device)
         outs, per_bucket = schedule.run_schedule(
             self.plan.buckets, payloads, self._encode_bucket,
-            self._commit_bucket, stream=self._side_stream(flat[0].device))
-        return self._unbucket(flat, outs, per_bucket)
+            self._commit_bucket, stream=stream, compress=hook)
+        if stream is not None:
+            # the compress stage's side outputs were made on the side
+            # stream; the current stream reads and frees them from here on
+            main = torch.cuda.current_stream(stream.device)
+            for t in (*new_res.values(), *extra.values()):
+                t.record_stream(main)
+        for b, out in zip(self.plan.buckets, outs):
+            if b.compress != "none":
+                # d(n), the post-aggregation density
+                extra[sparsify.DENSITYN_KEY.format(key=b.key)] = \
+                    sparsify.density(out != 0)
+        synced, stats = self._unbucket(flat, outs, per_bucket, extra)
+        if residual is None:
+            return synced, stats
+        return synced, new_res, stats
 
-    def _unbucket(self, flat: list, outs: list, per_bucket: list):
+    def _unbucket(self, flat: list, outs: list, per_bucket: list,
+                  extra: dict | None = None):
         """The synced leaf dict and metrics from the buckets' outputs."""
         synced = list(flat)
         for b, out in zip(self.plan.buckets, outs):
             bk.scatter_bucket(b, out, synced)
-        return dict(zip(self.names, synced)), bk.reduce_stats(self.plan,
-                                                              per_bucket)
+        return dict(zip(self.names, synced)), bk.reduce_stats(
+            self.plan, per_bucket, extra)
 
 
 class _Payloads(collections.abc.Sequence):

@@ -47,6 +47,16 @@
 //      writes the total, so the wrapper launches nothing else.
 // One block per partition leaves most of the 132 SMs idle at n = 8; the
 // filter pass could be split over a cluster (later work).
+//
+// Wide rows.  Where the row and the ballots do not fit in a block's shared
+// memory (an EF-compressed bucket: r1 + r2 up to 1.5M slots, C up to 5.4M
+// at qwen2-0.5b's lm_head/w), the same kernel keeps them in a per-partition
+// slice of the wrapper's global scratch instead (L + 4 ceil(C / 128) ints a
+// partition, 6.7 MB at lm_head/w, which the 50 MB L2 holds), with the
+// candidate list beside them; shared memory keeps the warp sums and a
+// list of up to 4096 candidates.  The phases, barriers and bits are the
+// same: __syncthreads orders a block's global writes for its own threads,
+// and the slot race is a global atomicMin.
 #include <cuda_runtime.h>
 
 #include "block_scan.cuh"
@@ -92,27 +102,42 @@ __device__ __forceinline__ bool live4(int4 v) {
          v.w != ZEN_EMPTY;
 }
 
+// whether the row and the ballots live in global scratch
+__host__ __device__ inline bool wide_row(int C, int r1, int r2) {
+  return fixed_ints(C, r1, r2) > kMaxSmemInts;
+}
+
+// the ints of shared memory besides the list: all of fixed_ints, or only
+// the warp sums when the row is wide
+__host__ __device__ inline int smem_fixed(int C, int r1, int r2) {
+  return wide_row(C, r1, r2) ? 32 : fixed_ints(C, r1, r2);
+}
+
 __host__ __device__ inline int list_cap(int C, int r1, int r2) {
-  const int room = (kMaxSmemInts - fixed_ints(C, r1, r2)) / 2;
+  const int room = (kMaxSmemInts - smem_fixed(C, r1, r2)) / 2;
   const int want = C < kListCap ? C : kListCap;
   return room <= 0 ? 0 : (want < room ? want : room);
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 zen_encode_kernel(const int* __restrict__ idx, int C, Seeds seeds, int k,
                   int n, int r1, int r2, FastMod mod_n, FastMod mod_r1,
                   int lcap, int* __restrict__ pidx,
                   int* __restrict__ occ, int* __restrict__ ovf_total,
-                  int* __restrict__ zscr, int* __restrict__ gscr) {
+                  int* __restrict__ zscr, int* __restrict__ gscr,
+                  int* __restrict__ gwide) {
   extern __shared__ int smem[];
   const int L = r1 + r2;
   const int Wq = (C + kChunk - 1) / kChunk;
-  int* row = smem;                                        // [L]
-  unsigned* ballot = reinterpret_cast<unsigned*>(row + L);  // [4 Wq]
-  int* warp_sums = reinterpret_cast<int*>(ballot + 4 * Wq);  // [32]
+  const int part = blockIdx.x;
+  // the row [L] and the ballots [4 Wq]: in shared memory, or (WIDE) in
+  // this partition's slice of gwide
+  int* row = WIDE ? gwide + (size_t)part * (L + 4 * (size_t)Wq) : smem;
+  unsigned* ballot = reinterpret_cast<unsigned*>(row + L);
+  int* warp_sums = WIDE ? smem : reinterpret_cast<int*>(ballot + 4 * Wq);
   int* slist = warp_sums + 32;                            // [2 lcap]
 
-  const int part = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -172,7 +197,7 @@ zen_encode_kernel(const int* __restrict__ idx, int C, Seeds seeds, int k,
   const int ncand = warp_sums[nwarps - 1];
   int off = warp ? warp_sums[warp - 1] : 0;
   // the candidate list and each candidate's state, beside it
-  int* list = ncand <= lcap ? slist : gscr + (size_t)part * 2 * C;
+  int* list = ncand <= lcap ? slist : gscr + (size_t)part * 2 * (size_t)C;
   int* state = list + (ncand <= lcap ? lcap : C);
   // the candidates in index order: 32 chunks' ballots at a time, one chunk
   // a lane; a warp scan of their popcounts gives each chunk's offset, and
@@ -310,23 +335,32 @@ zen_encode_kernel(const int* __restrict__ idx, int C, Seeds seeds, int k,
 
 extern "C" {
 
-// Shared memory the encode kernel asks for, in bytes: the row, the
-// candidate ballots, the warp sums and a candidate list of list_cap
-// entries (with their states).
+// Shared memory the encode kernel asks for, in bytes: the row and the
+// candidate ballots (unless the row is wide), the warp sums and a
+// candidate list of list_cap entries (with their states).
 int zen_encode_smem_bytes(int C, int r1, int r2) {
-  return (fixed_ints(C, r1, r2) + 2 * list_cap(C, r1, r2)) * (int)sizeof(int);
+  return (smem_fixed(C, r1, r2) + 2 * list_cap(C, r1, r2)) * (int)sizeof(int);
 }
 
+// Whether the encode keeps its rows and ballots in global scratch.
+int zen_encode_wide(int C, int r1, int r2) { return wide_row(C, r1, r2); }
+
 // Ints of global scratch for the candidate lists that do not fit in
-// shared memory: n x 2C, or 0 when every list fits.
+// shared memory (n x 2C, or 0 when every list fits), then for wide rows
+// each partition's row and ballots (n x (r1 + r2 + 4 ceil(C / 128))).
 long long zen_encode_gscratch(int C, int r1, int r2, int n) {
-  return C > list_cap(C, r1, r2) ? 2LL * n * C : 0LL;
+  const long long lists = C > list_cap(C, r1, r2) ? 2LL * n * C : 0LL;
+  const long long rows =
+      wide_row(C, r1, r2)
+          ? (long long)n * (r1 + r2 + 4LL * ((C + kChunk - 1) / kChunk))
+          : 0LL;
+  return lists + rows;
 }
 
 // idx int32 [C] (unique, EMPTY-padded) -> pidx int32 [n, r1+r2],
 // occ int32 words [n, ceil((r1+r2)/32)], ovf int32 [1] (the total).
 // zscr: 2 ints, zero, left zero (the 64-bit tally of filed blocks and
-// overflows); gscr: zen_encode_gscratch ints.
+// overflows); gscr: zen_encode_gscratch ints (no initial value).
 // Returns the cudaError_t of the launch (0 = success).
 int zen_encode_launch(const int* idx, int C, const unsigned* seeds_host,
                       int n_seeds, int n, int r1, int r2, int* pidx, int* occ,
@@ -337,15 +371,23 @@ int zen_encode_launch(const int* idx, int C, const unsigned* seeds_host,
   Seeds s = {};
   for (int i = 0; i < n_seeds; ++i) s.s[i] = seeds_host[i];
   const int smem = zen_encode_smem_bytes(C, r1, r2);
-  // the attribute once per device, at the most any launch may ask for
-  static int smem_set[kMaxDevices];
-  const cudaError_t err = allow_smem(
-      zen_encode_kernel, kMaxSmemInts * (int)sizeof(int), smem_set);
-  if (err != cudaSuccess) return (int)err;
-  zen_encode_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
-      idx, C, s, n_seeds - 1, n, r1, r2, fast_mod((unsigned)n),
-      fast_mod((unsigned)r1), list_cap(C, r1, r2), pidx, occ, ovf,
-      zscr, gscr);
+  const int lcap = list_cap(C, r1, r2);
+  if (wide_row(C, r1, r2)) {
+    int* gwide = gscr + (C > lcap ? 2LL * n * C : 0LL);
+    zen_encode_kernel<true><<<n, kThreads, smem, (cudaStream_t)stream>>>(
+        idx, C, s, n_seeds - 1, n, r1, r2, fast_mod((unsigned)n),
+        fast_mod((unsigned)r1), lcap, pidx, occ, ovf, zscr, gscr, gwide);
+  } else {
+    // the attribute once per device, at the most any launch may ask for
+    static int smem_set[kMaxDevices];
+    const cudaError_t err =
+        allow_smem(zen_encode_kernel<false>, kMaxSmemInts * (int)sizeof(int),
+                   smem_set);
+    if (err != cudaSuccess) return (int)err;
+    zen_encode_kernel<false><<<n, kThreads, smem, (cudaStream_t)stream>>>(
+        idx, C, s, n_seeds - 1, n, r1, r2, fast_mod((unsigned)n),
+        fast_mod((unsigned)r1), lcap, pidx, occ, ovf, zscr, gscr, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 

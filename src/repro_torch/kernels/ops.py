@@ -52,6 +52,7 @@ _SIGNATURES = {
             [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
         "zen_encode_smem_bytes": ([_I, _I, _I], _I),
         "zen_encode_gscratch": ([_I, _I, _I, _I], _LL),
+        "zen_encode_wide": ([_I, _I, _I], _I),
         "zen_encode_error_string": ([_I], ctypes.c_char_p),
     },
     "zen_commit": {
@@ -60,9 +61,12 @@ _SIGNATURES = {
             _I),
         "zen_commit_push_zscratch": ([_I], _LL),
         "zen_commit_push_iscratch": ([_I, _I], _LL),
-        "zen_commit_push_max_server": ([], _I),
+        "zen_commit_push_wide": ([_I], _I),
         "zen_commit_push_grid": ([_I, _I, _I, _I, _I, _P, _P, _P], _I),
-        "zen_commit_pull_launch": ([_P, _I, _I, _I, _I, _P, _P], _I),
+        "zen_commit_pull_zscratch": ([], _LL),
+        "zen_commit_pull_iscratch": ([_I, _I], _LL),
+        "zen_commit_pull_launch": ([_P, _I, _I, _I, _I, _P, _P, _P, _P],
+                                   _I),
         "zen_commit_error_string": ([_I], ctypes.c_char_p),
     },
     "hash_stage": {
@@ -183,8 +187,9 @@ def _kept_scratch(table: dict, dev: torch.device, stream: int, nz: int,
 
 
 # The encode's scratch, per (device, stream): its 64-bit tally of finished
-# blocks and their overflows (2 ints, left zero) and the candidate lists
-# that do not fit in shared memory.  The lock covers a call's use of it.
+# blocks and their overflows (2 ints, left zero), the candidate lists that
+# do not fit in shared memory and, for rows too wide for it, the rows and
+# ballots.  The lock covers a call's use of it.
 _ENCODE_SCRATCH: dict[tuple[int, int], list] = {}
 _ENCODE_LOCK = threading.Lock()
 
@@ -200,7 +205,9 @@ def _encode_sizes(C: int, n: int, r1: int, r2: int) -> tuple[int, int]:
 def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
                         r1: int, r2: int):
     """Zen encode: indices int32 [C] (unique, EMPTY-padded) -> (pidx int32
-    [n, r1+r2], occ int32 words [n, ceil((r1+r2)/32)], overflow int32)."""
+    [n, r1+r2], occ int32 words [n, ceil((r1+r2)/32)], overflow int32).
+    Rows too wide for shared memory (an EF-compressed bucket's) run from
+    the kept global scratch."""
     if not indices.is_cuda:
         PLAIN_CALLS["zen_encode"] += 1
         return ref.zen_encode_ref(indices, seeds, n, r1, r2)
@@ -208,10 +215,7 @@ def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
     seeds = [int(s) & 0xFFFFFFFF for s in seeds]
     lib = _lib("zen_encode")
     C, L = indices.shape[0], r1 + r2
-    smem, ng = _encode_sizes(C, n, r1, r2)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"zen_encode: row r1+r2={L} with C={C} needs "
-                         f"{smem} B of shared memory (> {_MAX_SMEM})")
+    _, ng = _encode_sizes(C, n, r1, r2)
     dev = indices.device
     pidx = torch.empty((n, L), dtype=torch.int32, device=dev)
     occ = torch.empty((n, -(-L // BITS)), dtype=torch.int32, device=dev)
@@ -230,6 +234,18 @@ def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def zen_fused_wide(n: int, cap_index: int, r1: int, r2: int,
+                   cap_server: int) -> dict[str, bool]:
+    """Which fused Zen kernels take their wide path at a layout's sizes
+    (the encode's rows, the push's bitmap prefix or the pull's row scan
+    out of shared memory); needs a card."""
+    W = -(-cap_server // BITS)
+    enc, com = _lib("zen_encode"), _lib("zen_commit")
+    return {"zen_encode": bool(enc.zen_encode_wide(cap_index, r1, r2)),
+            "zen_commit_push": bool(com.zen_commit_push_wide(cap_server)),
+            "zen_commit_pull": com.zen_commit_pull_iscratch(n, W) > 0}
 
 
 # The push's scratch, per (device, stream): the zeroed part and the slot
@@ -276,7 +292,9 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
                              cap_server: int, cap_pull: int):
     """Zen commit push: lp int32 [C] server-local positions (EMPTY and
     >= cap_server dropped), vals [C(, d)] -> (lpos int32 [cap_pull], vals
-    [cap_pull(, d)], bm int32 words [ceil(cap_server/32)], overflow)."""
+    [cap_pull(, d)], bm int32 words [ceil(cap_server/32)], overflow).
+    Past 376,832 slots (an EF-compressed bucket's server) the bitmap's
+    prefix is scanned grid-wide in global scratch."""
     if not lp.is_cuda:
         PLAIN_CALLS["zen_commit_push"] += 1
         return ref.zen_commit_push_ref(lp, vals, cap_server, cap_pull)
@@ -291,10 +309,6 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError("zen_commit_push: lp and vals must share device "
                          "and row count")
     lib = _lib("zen_commit")
-    if cap_server > lib.zen_commit_push_max_server():
-        raise ValueError(f"zen_commit_push: cap_server={cap_server} exceeds "
-                         f"{lib.zen_commit_push_max_server()} (the bitmap's "
-                         f"prefix lives in shared memory)")
     C, d = v2.shape
     dev = lp.device
     lpos = torch.empty((cap_pull,), dtype=torch.int32, device=dev)
@@ -316,20 +330,38 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
     return lpos, (out[:, 0] if squeeze else out), bm, ovf[0]
 
 
+# The pull's scratch, per (device, stream): its grid barrier's zeroed
+# words and, for wide rows, the items' totals.  The lock covers a call's
+# use of it.
+_PULL_SCRATCH: dict[tuple[int, int], list] = {}
+_PULL_LOCK = threading.Lock()
+
+
 def zen_commit_pull_fused_op(words: torch.Tensor, cap_server: int,
                              cap_pull: int) -> torch.Tensor:
     """Zen pull decode: int32 words [n, W] -> int32 [n, cap_pull], each
-    row's set-bit positions below ``cap_server``, ascending, EMPTY-padded."""
+    row's set-bit positions below ``cap_server``, ascending, EMPTY-padded.
+    Rows wider than SMs / n x 1024 words (an EF-compressed bucket's) run
+    as one cooperative launch with a grid barrier."""
     if not words.is_cuda:
         PLAIN_CALLS["zen_commit_pull"] += 1
         return ref.zen_commit_pull_ref(words, cap_server, cap_pull)
     _need(words, torch.int32, 2, "zen_commit_pull words")
     lib = _lib("zen_commit")
     n, W = words.shape
-    lpos = torch.empty((n, cap_pull), dtype=torch.int32, device=words.device)
-    rc = lib.zen_commit_pull_launch(words.data_ptr(), n, W, cap_server,
-                                    cap_pull, lpos.data_ptr(), _stream(words))
-    _check(lib, "zen_commit", rc, "zen_commit_pull launch")
+    dev = words.device
+    lpos = torch.empty((n, cap_pull), dtype=torch.int32, device=dev)
+    stream = _stream(words)
+    ni = lib.zen_commit_pull_iscratch(n, W)
+    if ni < 0:
+        raise RuntimeError("zen_commit_pull: no current CUDA device")
+    with _PULL_LOCK:
+        st = _kept_scratch(_PULL_SCRATCH, dev, stream,
+                           lib.zen_commit_pull_zscratch(), max(1, ni))
+        rc = lib.zen_commit_pull_launch(
+            words.data_ptr(), n, W, cap_server, cap_pull, lpos.data_ptr(),
+            st[0].data_ptr(), st[1].data_ptr(), stream)
+        _check(lib, "zen_commit", rc, "zen_commit_pull launch")
     LAUNCHES["zen_commit_pull"] += 1
     return lpos
 

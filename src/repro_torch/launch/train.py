@@ -25,7 +25,13 @@ runs the full update, which gives the same numbers as ZeRO-1.
 kernels (scatter-add, bitmap pack and unpack) instead of the push and pull
 megakernels, with the same results.  ``--bucket-bytes N`` fuses
 consecutive dense leaves of one dtype into psum buckets of at most N bytes
-(core/buckets.py); the synced values do not change.  ``--arch
+(core/buckets.py); the synced values do not change.  ``--compress
+topk:0.01`` (or ``randk:D``, ``threshold:T``, ``:noef`` for no error
+feedback) EF-sparsifies every dense bucket before the sync
+(core/sparsify.py); ``--ckpt-dir DIR`` saves ``{"params", "step"}`` to
+``DIR/final`` (and ``DIR/step_<k>`` every ``--ckpt-every`` steps) with
+``checkpoint/io.py``, rank 0 writing.  ``--replan-every`` is accepted with
+an explicit ``--sync`` and does nothing there, as in the reference.  ``--arch
 mamba2-370m`` trains the Mamba2 LM, its scan on the ``ssd_fwd`` kernel
 under autograd.  The plan GradSync runs is printed at start.
 """
@@ -34,11 +40,13 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.io import save
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.zen import SyncConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -89,10 +97,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
+    # --replan-every drives the density controller, which only 'auto'
+    # consults; with an explicit --sync it does nothing, as in the reference
     todo = {
         "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
-        "--replan-every": (args.replan_every > 0, "ROADMAP queue 1, item 5"),
-        "--ckpt-dir": (args.ckpt_dir is not None, "ROADMAP queue 1, item 8"),
+        "--replan-every with --sync auto": (
+            args.replan_every > 0 and args.sync == "auto",
+            "ROADMAP queue 1, item 6"),
     }
     for flag, (hit, item) in todo.items():
         if hit:
@@ -140,14 +151,20 @@ def _train(args, group, device) -> dict:
     log = print if prog.group.ranks[0] == 0 else _quiet   # rank 0 prints
     n_params = sum(p.numel() for p in prog.model.parameters())
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
-          f"sync={args.sync} backend={args.backend} device={dev} "
-          f"dtype={str(cfg.dtype).replace('torch.', '')}", flush=True)
+        f"sync={args.sync} compress={args.compress} backend={args.backend} "
+        f"device={dev} dtype={str(cfg.dtype).replace('torch.', '')}",
+        flush=True)
     for line in prog.gradsync.describe():   # the plan the run executes
         log(f"  {line}")
 
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def checkpoint(name: str, step: int) -> None:
+        if args.ckpt_dir and prog.group.ranks[0] == 0:   # rank 0 writes
+            save(Path(args.ckpt_dir) / name,
+                 {"params": dict(prog.model.named_leaves()), "step": step})
 
     data = iter(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
@@ -176,6 +193,9 @@ def _train(args, group, device) -> dict:
                   f"tok/s={tokens_done / dt:,.0f} "
                   f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
                   flush=True)
+        if args.ckpt_every and step and step % args.ckpt_every == 0:
+            checkpoint(f"step_{step}", step)
+    checkpoint("final", args.steps)
     sync()
     dt = time.time() - t0
     log("done")

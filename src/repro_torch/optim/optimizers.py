@@ -1,8 +1,10 @@
-"""AdamW on parameter tensors (port of ``repro.optim.optimizers``).
+"""AdamW and SGD on parameter tensors (port of ``repro.optim.optimizers``).
 
-The update runs elementwise in f32 on the full leaf; the reference's ZeRO-1
-applies the same update to a flat chunk per rank, so the numbers agree with
-its ``--no-zero1`` and its ZeRO-1 runs alike.
+The updates run elementwise in f32 on the full leaf, in place; the
+reference's ZeRO-1 applies the same update to a flat chunk per rank, so the
+numbers agree with its ``--no-zero1`` and its ZeRO-1 runs alike.  The EF
+residual (``core/sparsify.py``) is optimizer state too:
+:func:`ef_residual_init` makes it.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
-    kind: str = "adamw"      # only adamw is ported
+    kind: str = "adamw"      # adamw | sgd
     lr: float = 3e-4
     b1: float = 0.9
     b2: float = 0.95
@@ -41,3 +43,32 @@ def adamw_update(cfg: OptConfig, p: torch.Tensor, g: torch.Tensor,
     vh = st["v"] / (1 - cfg.b2 ** t)
     upd = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
     p.copy_((pf - cfg.lr * upd).to(p.dtype))
+
+
+def sgd_init(p: torch.Tensor) -> dict:
+    return {"mom": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+
+
+@torch.no_grad()
+def sgd_update(cfg: OptConfig, p: torch.Tensor, g: torch.Tensor, st: dict,
+               step: int) -> None:
+    """In-place SGD with momentum 0.9 (the reference's): ``mom = 0.9 mom +
+    g`` in f32, ``p -= lr mom``."""
+    del step
+    st["mom"].mul_(0.9).add_(g.float())
+    p.copy_((p.float() - cfg.lr * st["mom"]).to(p.dtype))
+
+
+INITS = {"adamw": adamw_init, "sgd": sgd_init}
+UPDATES = {"adamw": adamw_update, "sgd": sgd_update}
+
+
+def ef_residual_init(sizes: dict[str, tuple], device) -> dict:
+    """Zero error-feedback residual memory: one f32 tensor of each shape in
+    ``sizes`` (``{bucket key: (local ranks, elements)}``) on ``device``.
+
+    Like the moments it is optimizer state (checkpointed with them, updated
+    every step), but it is per rank and never ZeRO-chunked: compression
+    consumes the rank's own bucket payload before any update."""
+    return {k: torch.zeros(shape, dtype=torch.float32, device=device)
+            for k, shape in sizes.items()}

@@ -54,6 +54,18 @@ class Program:
     # the decode cache's batch, length and attention window (attach_serve)
     cache_specs: Any = None
 
+    def opt_state(self) -> dict:
+        """The trainer's optimizer state (``train_step.state``: moments,
+        step and, with EF compression, the residuals), what a checkpoint
+        holds beside the parameters."""
+        if self.train_step is None:
+            if self.tcfg.sync.compress != "none":
+                raise ValueError(
+                    "EF compression sizes the residual from the bucket plan: "
+                    "call attach_train(prog) before opt_state")
+            raise ValueError("call attach_train(prog) before opt_state")
+        return self.train_step.state
+
     def fresh_cache(self) -> dict:
         """An empty decode cache (zeros, every slot's position -1, t = 0)
         for the shape of the last ``attach_serve(..., mode="decode")``."""

@@ -1,5 +1,5 @@
 """Double-buffered emission of per-bucket sync ops (port of
-``repro.train.schedule``, flat topology, no compression).
+``repro.train.schedule``, flat topology).
 
 GradSync syncs bucket by bucket in a software pipeline, in the reference's
 issue order:
@@ -11,7 +11,9 @@ issue order:
 
 ``encode`` is a bucket's local, collective-free stage (Zen's compaction,
 hash and extract; the payload's assembly for a dense bucket) and
-``commit`` everything from the first collective on.  The reference fences
+``commit`` everything from the first collective on.  An optional
+``compress`` stage (EF sparsification, ``core/sparsify.py``) runs just
+before ``encode`` in the same pipeline slot.  The reference fences
 ``(enc[i], enc[i+1])`` with an ``optimization_barrier`` so XLA overlaps
 bucket i's collective with bucket i+1's encode.  Here that fence is
 stream order: on CUDA every encode runs on a side stream, which first
@@ -21,11 +23,12 @@ card runs encode(i+1) while commit(i)'s kernels and collectives run, and
 the collectives stay on the stream that ``torch.distributed`` syncs with.
 Tensors an encode makes on the side stream are marked as used by the
 current stream, so the caching allocator reuses their memory only after
-the commit that reads them.  On the CPU the same order runs without
-streams.  Neither changes a bit: :func:`run_in_order` is the plain loop
-the pipeline must equal.  The reference's compress and intra-node hooks
-come with EF compression and two-level topologies (ROADMAP queue 1, items
-5 and 9).
+the commit that reads them (a compress hook's side outputs, such as the
+EF residuals GradSync keeps, are its caller's to mark).  On the CPU the
+same order runs without streams.  Neither changes a bit:
+:func:`run_in_order` is the plain loop the pipeline must equal.  The
+reference's intra-node hook comes with two-level topologies (ROADMAP queue
+1, item 9).
 """
 from __future__ import annotations
 
@@ -52,13 +55,16 @@ def run_schedule(
     encode: Callable[[Bucket, Any], Any],
     commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
     stream: torch.cuda.Stream | None = None,
+    compress: Callable[[Bucket, Any], Any] | None = None,
 ) -> tuple[list[Any], list[SyncStats]]:
     """Emit the double-buffered per-bucket sync pipeline; ``payloads[i]``
     is read in encode i's pipeline slot (on ``stream`` when given).
 
     ``stream``: the CUDA side stream for the encodes, or None (the CPU)
-    to issue them in the same order on the current stream.  Returns
-    (synced payloads, per-bucket SyncStats), both in bucket order."""
+    to issue them in the same order on the current stream.  ``compress``:
+    ``compress(bucket, payload) -> payload'``, run just before the
+    bucket's encode in its slot.  Returns (synced payloads, per-bucket
+    SyncStats), both in bucket order."""
     nb = len(buckets)
     outs: list[Any] = [None] * nb
     stats: list[SyncStats] = [None] * nb
@@ -69,11 +75,17 @@ def run_schedule(
         main = torch.cuda.current_stream(stream.device)
         stream.wait_stream(main)
 
+    def slot(i: int):
+        p = payloads[i]
+        if compress is not None:
+            p = compress(buckets[i], p)
+        return encode(buckets[i], p)
+
     def prefetch(i: int):
         if stream is None:
-            return encode(buckets[i], payloads[i]), None
+            return slot(i), None
         with torch.cuda.stream(stream):
-            enc = encode(buckets[i], payloads[i])
+            enc = slot(i)
             done = torch.cuda.Event()
             done.record(stream)
         return enc, done
@@ -96,11 +108,15 @@ def run_in_order(
     payloads: Sequence[Any],
     encode: Callable[[Bucket, Any], Any],
     commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
+    compress: Callable[[Bucket, Any], Any] | None = None,
 ) -> tuple[list[Any], list[SyncStats]]:
-    """Encode, then commit, bucket by bucket on the current stream: the
-    oracle :func:`run_schedule` must equal bit for bit."""
+    """Compress (optional), encode, then commit, bucket by bucket on the
+    current stream: the oracle :func:`run_schedule` must equal bit for
+    bit."""
     outs, stats = [], []
     for b, p in zip(buckets, payloads):
+        if compress is not None:
+            p = compress(b, p)
         out, st = commit(b, encode(b, p))
         outs.append(out)
         stats.append(st)
@@ -111,7 +127,13 @@ def encode_all(
     buckets: Sequence[Bucket],
     payloads: Sequence[Any],
     encode: Callable[[Bucket, Any], Any],
+    compress: Callable[[Bucket, Any], Any] | None = None,
 ) -> list[Any]:
-    """The pipeline's local prefix in isolation: every bucket's encode, no
-    collectives, in order."""
-    return [encode(b, p) for b, p in zip(buckets, payloads)]
+    """The pipeline's local prefix in isolation: every bucket's compress
+    (optional) and encode, no collectives, in order."""
+    out = []
+    for b, p in zip(buckets, payloads):
+        if compress is not None:
+            p = compress(b, p)
+        out.append(encode(b, p))
+    return out

@@ -16,9 +16,16 @@ One step, for each rank ``w`` this process holds:
      takes the whole batch when D does not divide it, as the reference
      replicates it) and computes its local loss and gradients;
   2. ``GradSync`` syncs the stacked ``[local, ...]`` gradients over the
-     group: Zen on ``embed/table``, a psum on the rest, then ``/D``;
-  3. global-norm clip and the AdamW update of the (replicated) parameters,
-     on every process alike.
+     group: Zen on ``embed/table``, a psum on the rest (or, with
+     ``compress``, Zen or a psum on each dense bucket's EF-sparsified
+     payload), then ``/D``;
+  3. global-norm clip and the AdamW or SGD update of the (replicated)
+     parameters, on every process alike.
+
+The optimizer state, ``step_fn.state``, is the reference's: ``{"leaves":
+{name: moments}, "step": int}`` plus ``"residual"`` (the EF residuals,
+``[local, S]`` f32 per compressed bucket) when the sync keeps one; it is
+updated in place and can be checkpointed as it is.
 
 ``loss`` and the ``sync/*`` metrics are means over the whole group, the
 same on every rank.
@@ -36,7 +43,7 @@ import torch
 from repro_torch.core.schemes import DistGroup, SimGroup
 from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.models.model import Model
-from repro_torch.optim.optimizers import OptConfig, adamw_init, adamw_update
+from repro_torch.optim.optimizers import INITS, UPDATES, OptConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +75,8 @@ def split_batch(batch: dict, n: int) -> list[dict]:
 
 def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
                     gradsync: GradSync | None = None):
-    """Returns ``step_fn(batch) -> metrics`` that updates ``model`` in place.
+    """Returns ``step_fn(batch) -> metrics`` that updates ``model`` and
+    ``step_fn.state`` (the optimizer state) in place.
 
     ``batch`` holds int tensors tokens/labels [B, S] of the GLOBAL batch on
     the model's device; the group of ``gradsync`` (by default one over
@@ -79,20 +87,23 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         raise NotImplementedError(
             "ZeRO-1 sharded optimizer state is not ported (ROADMAP queue 1, "
             "item 9); the full update gives the same numbers: zero1=False")
-    if tcfg.opt.kind != "adamw":
-        raise NotImplementedError(f"optimizer {tcfg.opt.kind!r}: only adamw "
-                                  f"is ported")
+    if tcfg.opt.kind not in UPDATES:
+        raise ValueError(f"optimizer kind must be one of {tuple(UPDATES)}, "
+                         f"got {tcfg.opt.kind!r}")
+    init, update = INITS[tcfg.opt.kind], UPDATES[tcfg.opt.kind]
     if gradsync is None:
         gradsync = make_gradsync(model, tcfg, n_data, SimGroup(n_data))
     group = gradsync.group
     ranks = tuple(group.ranks)
     leaves = model.named_leaves()
-    state = {name: adamw_init(p) for name, p in leaves}
+    dev = leaves[0][1].device
+    state = {"leaves": {name: init(p) for name, p in leaves}, "step": 0}
+    if gradsync.has_compression and gradsync.compress.ef:
+        state["residual"] = gradsync.init_residual(dev)
     # this process's per-rank gradients, stacked: [local, ...] per leaf,
     # reused every step
     stacks = {name: torch.empty((len(ranks), *p.shape), dtype=p.dtype,
                                 device=p.device) for name, p in leaves}
-    step_no = [0]
 
     def step_fn(batch: dict) -> dict:
         losses = []
@@ -109,7 +120,15 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
                 else:
                     stacks[name][w].copy_(p.grad)
         model.zero_grad(set_to_none=True)
-        synced, sync_stats = gradsync(stacks)
+        if gradsync.has_compression:
+            # the residual is donated: updated in place in the state
+            synced, res, sync_stats = gradsync(
+                stacks, state.get("residual", {}), step=state["step"],
+                donate=True)
+            if "residual" in state:
+                state["residual"] = res
+        else:
+            synced, sync_stats = gradsync(stacks)
         grads = {name: synced[name][0] for name, _ in leaves}
 
         metrics = {}
@@ -122,13 +141,15 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
             grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
             metrics["grad_norm"] = gn
         for name, p in leaves:
-            adamw_update(tcfg.opt, p, grads[name], state[name], step_no[0])
-        step_no[0] += 1
+            update(tcfg.opt, p, grads[name], state["leaves"][name],
+                   state["step"])
+        state["step"] += 1
         metrics.update(group.mean({"loss": torch.stack(losses),
                                    **sync_stats}))
         return metrics
 
     step_fn.gradsync = gradsync
+    step_fn.state = state
     return step_fn
 
 

@@ -17,7 +17,9 @@ outputs back the same way.  The JAX reference runs here, while they run.
   buckets: bitwise the reference's psum at 2 ranks; within the summation
   bound ``(n - 1) u sum_w |x_w|`` of the exact sum at 4 (gloo adds in its
   own order); the Zen bucket bitwise at both; the metrics the reference
-  GradSync's at the same bucket size;
+  GradSync's at the same bucket size; with ``--compress topk:0.01`` (zen
+  on every dense bucket) over two steps, each of 2 ranks' synced leaves,
+  EF residual and metrics bitwise row w of the in-process ``SimGroup(2)``;
 * the reduced f32 qwen2 trainer with the reference's parameters: at 4x1
   within 1e-3 of the reference's (1,1) run with no overflow, each rank
   calling the fused route's wrappers once a step; at 2x1 the in-process
@@ -50,13 +52,14 @@ from repro.data.pipeline import SyntheticLM as RefSyntheticLM
 from repro.models.common import make_ctx
 from repro.models.model import build_model
 from repro_torch.configs import get_config
+from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import train
 from repro_torch.launch.mesh import TORCHRUN_ENV, make_data_group
 from repro_torch.models.model import Model
 from test_torch_trainer import BATCH, SEQ, STEPS, _ref_cfg, _ref_losses
 from test_torch_zen_sync import _integer_workers
-from torch_dist_rank import VARIANTS
+from torch_dist_rank import COMPRESS, VARIANTS
 
 ROOT = Path(__file__).resolve().parents[1]
 RANK_MAIN = Path(__file__).resolve().parent / "torch_dist_rank.py"
@@ -226,7 +229,7 @@ def groups(tmp_path_factory):
     out = {"ref_params": ref_params, "batch": batch}
     for n, jobs in ((4, ["zen", "dense", "gradsync", "broadcast",
                          "trainer"]),
-                    (2, ["dense", "gradsync", "trainer"])):
+                    (2, ["dense", "gradsync", "compress", "trainer"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
         inp = {**common, **_grad_inputs(n, seed=n), "n": n,
                "gs_bucket_bytes": BUCKET_BYTES}
@@ -383,6 +386,40 @@ def test_gradsync_bucketed_reduced_qwen2_leaves_vs_reference(groups, n):
     ref_st = jax.jit(jax.vmap(bgs, axis_name="data"))(tree)[1]
     assert float(ref_st["sync/n_buckets"][0]) < len(g["inp"]["gs_names"])
     _check_gradsync(g, n, "gsb", ref_out, ref_st, list(ref_st))
+
+
+def test_compressed_gradsync_2_ranks_equal_simgroup(groups):
+    """The bucketed GradSync with ``topk:0.01`` (zen on every dense
+    bucket's EF-sparsified payload), two steps with the residual threaded
+    through: each gloo rank's synced leaves, residuals and metrics equal
+    row w of the in-process ``SimGroup(2)`` run bit for bit."""
+    g = groups[2]
+    inp, ranks = g["inp"], g["ranks"].results()
+    names = [str(x) for x in inp["gs_names"]]
+    stacks = {nm: torch.from_numpy(inp[f"gs/{nm}"]) for nm in names}
+    gs = GradSync(SyncConfig(compress=COMPRESS,
+                             bucket_bytes=int(inp["gs_bucket_bytes"])),
+                  ["embed/table"], [(nm, tuple(v.shape[1:]), v.dtype)
+                                    for nm, v in stacks.items()], 2)
+    assert len(gs.compressed_buckets()) > 1
+    res = gs.init_residual("cpu")
+    for step in range(2):
+        synced, res, stats = gs({nm: v * (1 + step)
+                                 for nm, v in stacks.items()}, res, step=step)
+        for w, r in enumerate(ranks):
+            for nm in names:
+                np.testing.assert_array_equal(
+                    r[f"cgs/{step}/{nm}"][0], synced[nm][w].numpy(),
+                    err_msg=f"step {step} {nm} rank {w}")
+            for k, v in res.items():
+                np.testing.assert_array_equal(
+                    r[f"cgs/{step}/res/{k}"][0], v[w].numpy(),
+                    err_msg=f"step {step} residual {k} rank {w}")
+            for k, v in stats.items():
+                np.testing.assert_array_equal(
+                    r[f"cgs/{step}/stats/{k}"], v[w:w + 1].float().numpy(),
+                    err_msg=f"step {step} {k} rank {w}")
+    assert float(stats["sync/overflow"].sum()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -148,3 +148,24 @@ def test_default_seeds_are_the_ports_own():
     assert ((s >= 1) & (s < 2**31 - 1)).all()
     assert list(s) != _seeds(key=0)
     np.testing.assert_array_equal(TS.default_seeds(0, 3), s)
+
+
+@pytest.mark.parametrize("length", [1, 4099, 300_017])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_layout_partition_pass_equals_stable_argsort(length, n):
+    """The layout's per-partition pass gives the stable argsort of the
+    partition ids: perm, offsets, local_pos and cap_server."""
+    lo = TS.make_zen_layout(length, n, density_budget=0.04, key=7)
+    p = TH.hash_mod(torch.arange(length, dtype=torch.int32),
+                    int(lo.seeds[0]), n).numpy()
+    order = np.argsort(p, kind="stable").astype(np.int32)
+    counts = np.bincount(p, minlength=n)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    local = np.empty(length, dtype=np.int32)
+    local[order] = np.arange(length, dtype=np.int32) - offsets[p[order]]
+    for name, want in (("perm", order), ("offsets", offsets),
+                       ("local_pos", local)):
+        got = getattr(lo, name)
+        assert got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert lo.cap_server == int(counts.max())

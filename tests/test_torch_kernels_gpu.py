@@ -61,17 +61,31 @@ EMPTY = 2**31 - 1
 SCATTER_CASES = ["repeat4096", "distinct", "junk", "d=1", "d=100"]
 # the encode's cases: one partition far over C / n that overflows r2, r2 = 4,
 # EMPTY entries inside the stream, no candidate at all, lists too long for
-# shared memory, and indices that start off a 16-byte boundary
+# shared memory, indices that start off a 16-byte boundary, and the
+# EF-compressed buckets' rows at n = 8 and topk:0.01: a per-leaf ffn
+# leaf's (r1 + r2 = 47,941, the row in shared memory, the lists not) and a
+# 25 MiB bucket's (143,820: the row and ballots in global scratch)
 ENCODE_CASES = ["skew", "r2=4", "empty-middle", "all-empty", "scratch",
-                "unaligned"]
+                "unaligned", "row-47941", "row-143820"]
+# EF-compressed buckets at n = 8, topk:0.01 (layout budget 0.04): elements
+# S, and the layout's C, r1, r2 and cap_server
+COMPRESSED = {"row-47941": (4_358_144, 174_326, 43_582, 4_359, 544_768),
+              "row-143820": (13_074_432, 522_978, 130_745, 13_075,
+                             1_634_304)}
 # the push's cases: 1-D values (d = 1), a d that 16 bytes does not divide,
 # the slice's d, cap_pull below the kept slots, EMPTY / negative /
 # out-of-range positions, and slots whose rows cancel to +0.0 or are -0.0
-PUSH_CASES = ["d=1", "d=3", "d=896", "overflow", "junk", "cancel"]
+# and the element-sparse streams of EF-compressed buckets, whose servers
+# are past the bitmap prefix's shared memory (cap_server 544,768 and
+# 1,634,304, d = 1)
+PUSH_CASES = ["d=1", "d=3", "d=896", "overflow", "junk", "cancel",
+              "row-47941", "row-143820"]
 # the pull's cases: random rows at the slice's cap_server (not a multiple
 # of 32), all-ones and all-zero rows, cap_pull below a row's popcount, and
 # more words than a block's threads
-PULL_CASES = ["random", "ones-zeros", "small-cap", "wide"]
+# and a 25 MiB EF-compressed bucket's rows (W = 51,072 words, more than the
+# SMs' blocks cover, so one cooperative launch)
+PULL_CASES = ["random", "ones-zeros", "small-cap", "wide", "row-143820"]
 # the row compaction's cases: the slice's [n, r1 + r2] = [8, 10446], whose
 # odd rows start 8 bytes into a 16-byte group, at the realistic and the
 # dense stream's row densities; short rows; rows past one tile a block
@@ -155,6 +169,11 @@ def _encode_case(case: str):
     if case == "scratch":        # ~12000 candidates a partition: global list
         n, r1, r2 = 2, 4096, 256
         idx = rng.choice(1 << 20, 24000, replace=False)
+    elif case in COMPRESSED:     # a topk:0.01 payload's ascending ids
+        S, C, r1, r2, _ = COMPRESSED[case]
+        n, k = 8, -(-S // 100)
+        idx = np.concatenate([np.sort(rng.choice(S, k, replace=False)),
+                              np.full(C - k - 37, EMPTY)])
     else:
         idx = rng.choice(1 << 16, 3000, replace=False)
         if case == "skew":       # partition 0 takes 2/3 of the stream
@@ -211,10 +230,6 @@ def test_kernels_reject_what_they_do_not_take(gpu):
                        torch.zeros((1, 16, 2), device=gpu),
                        torch.zeros((1, 16, 16), device=gpu),
                        torch.zeros((1, 16, 16), device=gpu), chunk=16)
-    lp = torch.zeros((4,), dtype=torch.int32, device=gpu)
-    with pytest.raises(ValueError, match="cap_server"):  # prefix past 48 KB
-        ops.zen_commit_push_fused_op(lp, torch.zeros((4, 8), device=gpu),
-                                     cap_server=400_000, cap_pull=8)
     with pytest.raises(ValueError, match="torch.bool"):  # an int mask
         ops.bitmap_pack_rows_op(torch.ones((2, 40), dtype=torch.int32,
                                            device=gpu))
@@ -317,6 +332,9 @@ def _push_case(case: str, dtype, dev):
     vals is 1-D at d = 1."""
     rng = np.random.default_rng(len(case) + 5)
     M, L, C, d = 3000, 2500, 6000, 896
+    if case in COMPRESSED:       # 8 workers' rows for one server, d = 1
+        _, _, r1, r2, M = COMPRESSED[case]
+        L, C, d = r1 + r2, 8 * (r1 + r2), 1
     d = {"d=1": 1, "d=3": 3}.get(case, d)
     if case == "overflow":
         L = 97
@@ -385,9 +403,17 @@ def _pull_case(case: str):
     n, cap_server, cap_pull = 8, 19107, 10446
     if case == "wide":                          # W = 1563 > 1024 threads
         cap_server, cap_pull = 50000, 15000
+    elif case in COMPRESSED:                    # W = 51,072
+        _, _, r1, r2, cap_server = COMPRESSED[case]
+        cap_pull = r1 + r2
     W = -(-cap_server // 32)
     words = rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
     words &= rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
+    if case in COMPRESSED:   # 1 bit in 8 set in row 0 (past cap_pull), 1
+        # in 16 in the others (their EMPTY tails)
+        words &= rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
+        words[1:] &= rng.integers(0, 1 << 32, size=(n - 1, W),
+                                  dtype=np.uint64)
     if case == "ones-zeros":
         words[0] = words[3] = (1 << 32) - 1      # popcount > cap_pull
         words[1] = words[5] = 0

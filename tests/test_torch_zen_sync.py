@@ -138,9 +138,13 @@ def test_gradsync_matches_reference(scheme):
 def test_gradsync_rejects_unported_settings():
     leaves = [("embed/table", (64, 4), torch.float32)]
     for cfg in (SyncConfig(scheme="agsparse"), SyncConfig(scheme="auto"),
-                SyncConfig(compress="topk:0.01")):
+                SyncConfig(calib_file="calib.json"),
+                SyncConfig(alpha_beta="1,1")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GradSync(cfg, ["embed/table"], leaves, 4)
+    # EF compression is ported (tests/test_torch_sparsify.py)
+    assert GradSync(SyncConfig(compress="topk:0.01"), ["embed/table"],
+                    leaves, 4).has_compression
     # the unfused chains run (tests/test_torch_unfused_chain.py holds them
     # against the reference)
     for cfg in (SyncConfig(fused_commit=False), SyncConfig(fused_encode=False)):

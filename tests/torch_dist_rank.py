@@ -17,6 +17,10 @@ Jobs:
   gradsync  a whole ``GradSync`` over the ``gs/<leaf>`` stacks, one bucket
             per leaf and with dense leaves fused into ``gs_bucket_bytes``
             buckets;
+  compress  the bucketed GradSync with ``--compress topk:0.01`` (zen on
+            every dense bucket's EF-sparsified payload) over the ``gs/<leaf>``
+            stacks, two steps (the second on the stacks doubled), the
+            residual threaded through;
   broadcast ``build_program`` from seed ``w`` on rank ``w``: every rank
             must then hold rank 0's parameters;
   trainer   the reduced qwen2 trainer on ``<n>x1`` from the reference's
@@ -101,6 +105,29 @@ def _gradsync(inp, w: int, group, out: dict) -> None:
             out[f"{key}_stats/{k}"] = v.float().numpy()
 
 
+COMPRESS = "topk:0.01"
+
+
+def _compress(inp, w: int, group, out: dict) -> None:
+    names = [str(x) for x in inp["gs_names"]]
+    grads = {nm: torch.from_numpy(inp[f"gs/{nm}"][w:w + 1]) for nm in names}
+    gs = GradSync(SyncConfig(compress=COMPRESS,
+                             bucket_bytes=int(inp["gs_bucket_bytes"])),
+                  ["embed/table"], [(nm, tuple(g.shape[1:]), g.dtype)
+                                    for nm, g in grads.items()],
+                  group.n, group)
+    res = gs.init_residual("cpu")
+    for step in range(2):
+        synced, res, stats = gs({nm: g * (1 + step)
+                                 for nm, g in grads.items()}, res, step=step)
+        for nm in names:
+            out[f"cgs/{step}/{nm}"] = synced[nm].numpy()
+        for k, v in res.items():
+            out[f"cgs/{step}/res/{k}"] = v.numpy()
+        for k, v in stats.items():
+            out[f"cgs/{step}/stats/{k}"] = v.float().numpy()
+
+
 def _broadcast(inp, w: int, group, out: dict) -> None:
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               dtype=torch.float32)
@@ -153,7 +180,8 @@ def main(work: Path, jobs: list[str]) -> None:
     try:
         w = group.ranks[0]
         for job, fn in (("zen", _zen), ("dense", _dense),
-                        ("gradsync", _gradsync), ("broadcast", _broadcast)):
+                        ("gradsync", _gradsync), ("compress", _compress),
+                        ("broadcast", _broadcast)):
             if job in jobs:
                 fn(inp, w, group, out)
         if "trainer" in jobs:
