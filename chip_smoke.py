@@ -103,6 +103,22 @@ Phases (any failure exits non-zero; nothing is caught):
      words, overflow and residual digests bitwise; ``--sync dense --compress topk:0.01``:
      the same step-0 loss and residual digest; step time, tok/s, peak
      memory and one profiled step.
+  7d. schemes: the paper's baselines (agsparse, sparcml, sparse_ps,
+     omnireduce, balanced) at the slice's full width (M 151936, d 896,
+     n 8, bf16, ``stage_args_for`` at budget 0.25, through
+     ``stage_sync``) on the Zipf stream (random values, and rounded to
+     multiples of 1/8) and a 0.2 row-density stream (multiples of 1/8):
+     ``backend="cuda"`` bitwise ``"torch"`` (outputs, words, overflow),
+     ``coo_scatter_add`` launched and nothing plain, overflow 0, on the
+     dyadic streams every worker exactly the psum; ms a sync on both
+     routes; ``coo_scatter_add`` timed at agsparse's reduce (row 8b: 8 x
+     37984 EMPTY-padded rows into [151936, 896]) against ``index_add_``.
+     Then the full-size 8x1 trainer: ``--sync auto`` 4 steps (the plan
+     puts zen on ``embed/table``; losses and words bitwise ``--sync
+     zen``'s, the trainer phase's run), each scheme 2 steps on the
+     kernels (bitwise its ``--backend torch`` run; within 1e-3 of zen's
+     losses; ``coo_scatter_add`` launched, the Zen kernels not, nothing
+     plain, overflow 0).
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -110,7 +126,9 @@ Phases (any failure exits non-zero; nothing is caught):
      by ``torchrun`` after the parent built the kernels: ``zen_sync`` at the slice shapes on 8 ranks, each rank's
      output and stats bitwise row w of the in-process ``simulate`` on the
      card (sha256 digests) on all four (fused, fused_commit) routes, each
-     route's kernels launched once per rank, no plain call; then
+     route's kernels launched once per rank, no plain call, and the five
+     baseline schemes the same way (``--only dist_sync`` runs this part
+     alone); then
      ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
      width and depth (4 steps; 4 ranks, as a rank takes about 12 GB), per
      leaf and with 25 MiB buckets, against the in-process 4x1 trainer on
@@ -1516,6 +1534,228 @@ def phase_overlap(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the baseline schemes (agsparse, sparcml, sparse_ps, omnireduce, balanced)
+# ---------------------------------------------------------------------------
+
+SCHEMES = ("agsparse", "sparcml", "sparse_ps", "omnireduce", "balanced")
+SCHEME_STEPS = 2
+SCHEME_LOSS_TOL = 1e-3
+
+
+def scheme_sync(name: str, g: torch.Tensor, backend: str, group=None):
+    """One sync of ``name`` over [local, M, d] worker gradients, provisioned
+    as GradSync provisions the embedding (``stage_args_for`` at the slice's
+    budget) and dispatched through ``stage_sync``."""
+    from repro_torch.core import schemes as S
+
+    group = group or S.SimGroup(g.shape[0])
+    args = S.stage_args_for(name, rows=g.shape[1],
+                            budget=SLICE["density_budget"], backend=backend)
+    return S.stage_sync(name, g, group=group, n=group.n, stage_args=args)
+
+
+def dyadic(g: torch.Tensor) -> torch.Tensor:
+    """``g``'s values rounded to multiples of 1/8 in [-2, 2]: every sum of
+    8 of them is exact in bf16, in any order."""
+    return (g.float() * 8).round().clamp(-16, 16).div(8).to(g.dtype)
+
+
+def scheme_streams(dev) -> dict:
+    """The slice's embedding gradients, bf16 [8, 151936, 896]: the Zipf(1.2)
+    8 x 512-token rows (random values, and rounded to dyadic values) and a
+    0.2 row-density stream (dyadic)."""
+    M, d, n = SLICE["M"], SLICE["d"], SLICE["n"]
+    z = zipf_rows(np.random.default_rng(1), n, M, SLICE["tokens"], d,
+                  torch.bfloat16, dev)
+    return {"zipf": z, "zipf-dyadic": dyadic(z),
+            "dense-dyadic": dyadic(dense_rows(np.random.default_rng(2), n, M,
+                                              0.2, d, torch.bfloat16, dev))}
+
+
+def rows_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two [n, ...] outputs, row by row (an expanded
+    output holds one decode seen by every worker)."""
+    return a.shape == b.shape and a.dtype == b.dtype and all(
+        torch.equal(bits(a[w]), bits(b[w])) for w in range(a.shape[0]))
+
+
+def scheme_syncs(dev, smi: str) -> dict:
+    """Each scheme at the slice's width on each stream: ``backend="cuda"``
+    (the scatter-add kernel, counted) bitwise ``"torch"`` (outputs, words,
+    overflow); no overflow; on the dyadic streams every worker's output
+    exactly the psum of the inputs, on the random one within bf16's
+    rounding of it; ms per sync on both routes (CUDA events)."""
+    from repro_torch.kernels import ops as K
+
+    res = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    streams = scheme_streams(dev)
+    for sname, g in streams.items():
+        ref = g.float().sum(0)
+        for name in SCHEMES:
+            K.reset_counts()
+            a_out, a_st = scheme_sync(name, g, "cuda")
+            launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+            b_out, b_st = scheme_sync(name, g, "torch")
+            if not (rows_equal(a_out, b_out)
+                    and torch.equal(bits(a_st.sent_words),
+                                    bits(b_st.sent_words))
+                    and torch.equal(a_st.overflow, b_st.overflow)):
+                raise AssertionError(f"[schemes] {name} {sname}: cuda and "
+                                     f"torch routes differ")
+            if launches["coo_scatter_add"] == 0 or any(plain.values()) \
+                    or sum(launches.values()) != launches["coo_scatter_add"]:
+                raise AssertionError(f"[schemes] {name} {sname}: launches "
+                                     f"{launches}, plain {plain}")
+            if int(a_st.overflow.sum()):
+                raise AssertionError(f"[schemes] {name} {sname}: overflow "
+                                     f"{a_st.overflow.tolist()}")
+            worst = max(float((a_out[w].float() - ref).abs().max())
+                        for w in range(g.shape[0]))
+            if sname.endswith("dyadic") and worst != 0.0:
+                raise AssertionError(f"[schemes] {name} {sname}: not the "
+                                     f"exact psum (max |diff| {worst})")
+            if not sname.endswith("dyadic") and not all(torch.allclose(
+                    a_out[w].float(), ref, atol=0.1, rtol=0.02)
+                    for w in range(g.shape[0])):
+                raise AssertionError(f"[schemes] {name} {sname}: not the "
+                                     f"psum (max |diff| {worst})")
+            del a_out, b_out
+            ms = cuda_time_ms(lambda: scheme_sync(name, g, "cuda"), iters=5)
+            plain_ms = cuda_time_ms(lambda: scheme_sync(name, g, "torch"),
+                                    iters=3)
+            res[f"{name} {sname}"] = {
+                "sent_words": float(a_st.sent_words[0]),
+                "launches": launches["coo_scatter_add"], "ms": ms,
+                "plain_ms": plain_ms, "psum_max_abs_diff": worst}
+            log(f"[schemes] {name} {sname}: cuda == torch bitwise, overflow "
+                f"0, psum max |diff| {worst}, sent_words[0] "
+                f"{float(a_st.sent_words[0])}, coo_scatter_add launches "
+                f"{launches['coo_scatter_add']}, {ms:.3f} ms a sync (torch "
+                f"route {plain_ms:.3f} ms) | {smi}")
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[schemes] peak memory over the syncs {peak / 2**30:.2f} GiB "
+        f"(three [8, 151936, 896] bf16 streams held: "
+        f"{3 * streams['zipf'].numel() * 2 / 2**30:.2f} GiB) | {smi}")
+    row = scatter_agsparse_times(streams["zipf"], smi)
+    del streams
+    torch.cuda.empty_cache()
+    return {"syncs": res, "row_8b": row, "peak_bytes": peak}
+
+
+def scatter_agsparse_times(g: torch.Tensor, smi: str) -> dict:
+    """Row 8b: ``coo_scatter_add`` at agsparse's reduce on the Zipf stream:
+    the 8 gathered workers' 37,984 EMPTY-padded rows each into [151936,
+    896] bf16, against ``index_add_`` on the live rows."""
+    from repro_torch.core import schemes as S
+    from repro_torch.kernels import ops as K, ref as R
+
+    cap = max(64, int(SLICE["M"] * SLICE["density_budget"]))
+    idx, vals, _ = S._encode_rows(g, cap)
+    idx = idx.reshape(-1).contiguous()
+    vals = vals.reshape(idx.numel(), -1).contiguous()
+    out = torch.zeros_like(g[0])
+    keep = idx != 2**31 - 1
+    lib_idx, lib_vals = idx[keep].long(), vals[keep]
+    live, touched = int(keep.sum()), int(torch.unique(idx[keep]).numel())
+    d, el = vals.shape[1], vals.element_size()
+    log(f"[times] coo_scatter_add at agsparse's reduce: C={idx.numel()} "
+        f"live rows={live} touched targets={touched}")
+    return time_row(
+        "coo_scatter_add (agsparse reduce)",
+        lambda: K.coo_scatter_add_op(out, idx, vals),
+        lambda: R.coo_scatter_add_ref(out, idx, vals),
+        lambda: out.index_add_(0, lib_idx, lib_vals),
+        idx.numel() * 4 + live * d * el + 2 * touched * d * el, live * d,
+        OPS_PER_S, smi, plain_iters=5)
+
+
+def scheme_argv(sync: str, steps: int, *extra: str) -> list[str]:
+    """``qwen_argv``'s 8x1 smoke trainer with ``--sync sync``."""
+    argv = qwen_argv(8, steps, *extra)
+    argv[argv.index("--sync") + 1] = sync
+    return argv
+
+
+def scheme_trainer(sync: str, steps: int, *extra: str) -> dict:
+    """``launch/train.py`` on ``scheme_argv``, the kernel counts from 0
+    around the run."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    K.reset_counts()
+    res = train.main(scheme_argv(sync, steps, *extra))
+    res["launches"], res["plain"] = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    torch.cuda.empty_cache()
+    return res
+
+
+def scheme_trainers(smi: str, zen: dict | None) -> dict:
+    """The full-width 8x1 trainer under ``--sync auto`` (4 steps: the plan
+    puts zen on ``embed/table``; the losses bitwise ``--sync zen``'s) and
+    under each scheme (2 steps on the kernels, bitwise its ``--backend
+    torch`` run, within 1e-3 of zen's losses, ``coo_scatter_add`` launched
+    and nothing plain)."""
+    if zen is None:
+        zen = scheme_trainer("zen", 4)
+    out = {"zen": zen}
+    auto = scheme_trainer("auto", 4)
+    emb = [ln for ln in auto["plan"] if ln.endswith("embed/table")]
+    log(f"[schemes] auto plan: {emb} losses={auto['losses']} tok/s="
+        f"{auto['tok_per_s']} step_s={auto['step_s']} | {smi}")
+    if len(emb) != 1 or "plan=[zen@data[8]]" not in emb[0]:
+        raise AssertionError(f"[schemes] auto did not put zen on "
+                             f"embed/table: {emb}")
+    if auto["losses"] != zen["losses"] \
+            or auto["sparse_words_by_step"] != zen["sparse_words_by_step"]:
+        raise AssertionError(f"[schemes] auto {auto['losses']} != zen "
+                             f"{zen['losses']}")
+    out["auto"] = auto
+    for name in SCHEMES:
+        run = scheme_trainer(name, SCHEME_STEPS)
+        plain = scheme_trainer(name, SCHEME_STEPS, "--backend", "torch")
+        for k in ("losses", "sparse_words_by_step", "grad_norm"):
+            if run[k] != plain[k]:
+                raise AssertionError(f"[schemes] {name} trainer {k}: kernels "
+                                     f"{run[k]} != plain route {plain[k]}")
+        diff = max(abs(a - b) for a, b in zip(run["losses"], zen["losses"]))
+        if not all(np.isfinite(run["losses"])) or diff > SCHEME_LOSS_TOL:
+            raise AssertionError(f"[schemes] {name} trainer losses "
+                                 f"{run['losses']} vs zen {zen['losses']}")
+        if run["overflow"] or run["launches"]["coo_scatter_add"] == 0 \
+                or any(run["plain"].values()) \
+                or any(run["launches"][k] for k in ("zen_encode",
+                                                    "zen_commit_push",
+                                                    "zen_commit_pull")):
+            raise AssertionError(f"[schemes] {name} trainer: overflow "
+                                 f"{run['overflow']} launches "
+                                 f"{run['launches']} plain {run['plain']}")
+        run["bitwise_zen"] = run["losses"] == zen["losses"][:SCHEME_STEPS]
+        run["max_diff_zen"] = diff
+        log(f"[schemes] {name} trainer: losses={run['losses']} (bitwise the "
+            f"plain route; zen's {'bitwise' if run['bitwise_zen'] else diff})"
+            f" words={run['sparse_words_by_step']} overflow={run['overflow']}"
+            f" step_s={run['step_s']} tok/s={run['tok_per_s']} "
+            f"coo_scatter_add launches={run['launches']['coo_scatter_add']} "
+            f"(plain route step_s={plain['step_s']}) | {smi}")
+        out[name] = run
+    return out
+
+
+def phase_schemes(smi: str, zen: dict | None = None) -> dict:
+    """The baseline schemes at the slice's full width, then their trainers
+    and ``--sync auto``'s (``zen``: the trainer phase's fused run, when it
+    ran)."""
+    dev = torch.device("cuda")
+    syncs = scheme_syncs(dev, smi)
+    trainers = scheme_trainers(smi, zen)
+    return {**syncs, "trainers": trainers}
+
+
+# ---------------------------------------------------------------------------
 # data parallelism over a torch.distributed group: one process per rank
 # ---------------------------------------------------------------------------
 
@@ -1590,6 +1830,17 @@ def dist_zen_sync_rank(group, dev, work: Path) -> None:
             "s": time.time() - t0, "shape": list(out.shape),
             "digest": sync_digest(out[0], st.sent_words[0],
                                   st.overflow[0]),
+            "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
+        del out
+    for name in SCHEMES:   # the baselines, their aggregation on the kernel
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, st = scheme_sync(name, g, "cuda", group)
+        torch.cuda.synchronize()
+        res[name] = {
+            "s": time.time() - t0, "shape": list(out.shape),
+            "digest": sync_digest(out[0], st.sent_words[0], st.overflow[0]),
             "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
         del out
     (work / f"out{w}.json").write_text(json.dumps(res))
@@ -1702,7 +1953,10 @@ def dist_zen_sync(dev) -> None:
     """zen_sync at the slice shapes over an 8-rank gloo group, every rank
     on this card, against the in-process simulate on the card: each rank's
     output and stats bitwise row w of it (sha256 digests), on all four
-    routes, with each route's kernels launched once per rank."""
+    routes, with each route's kernels launched once per rank; then the
+    five baseline schemes on the same ranks (sparcml's exchange an
+    alltoallv), bitwise their in-process rows, ``coo_scatter_add``
+    launched on every rank and nothing plain."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import ops as K
 
@@ -1716,6 +1970,11 @@ def dist_zen_sync(dev) -> None:
                              fused=fe, fused_commit=fc)
         want[f"{fe},{fc}"] = [sync_digest(out[w], st.sent_words[w],
                                           st.overflow[w]) for w in range(n)]
+        del out
+    for name in SCHEMES:
+        out, st = scheme_sync(name, g, "cuda")
+        want[name] = [sync_digest(out[w], st.sent_words[w], st.overflow[w])
+                      for w in range(n)]
         del out
     work = Path(tempfile.mkdtemp(prefix="dist_zen_sync_"))
     try:
@@ -1731,7 +1990,24 @@ def dist_zen_sync(dev) -> None:
                for w in range(n)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for route, digests in want.items():
+    for name in SCHEMES:
+        for w in range(n):
+            r = got[w][name]
+            if r["digest"] != want[name][w] or r["shape"] != [1, M, d]:
+                raise AssertionError(f"dist {name} rank {w}: output or stats "
+                                     f"differ from the in-process row {w}")
+            if r["launches"]["coo_scatter_add"] == 0 \
+                    or any(r["plain"].values()) or sum(
+                        r["launches"].values()) != r["launches"][
+                            "coo_scatter_add"]:
+                raise AssertionError(f"dist {name} rank {w}: launches "
+                                     f"{r['launches']} plain {r['plain']}")
+        log(f"[dist] {name}: {n} gloo ranks bitwise the in-process rows, "
+            f"coo_scatter_add launches per rank "
+            f"{[got[w][name]['launches']['coo_scatter_add'] for w in range(n)]}"
+            f"; host s per rank {[got[w][name]['s'] for w in range(n)]}")
+    for route in [r for r in want if r not in SCHEMES]:
+        digests = want[route]
         fe, fc = (r == "True" for r in route.split(","))
         path = K.path_launches(1, fe, fc)
         for w in range(n):
@@ -2620,12 +2896,13 @@ def main(argv=None) -> None:
                     help="comma list of phases to run (debugging); default "
                          "all: kernels (with kernels_wide),zen_sync,trainer,"
                          "breakdown,buckets,overlap,serve_kernels,serve,"
-                         "mamba2_train,compress,dist,times "
+                         "mamba2_train,compress,schemes,dist,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_parts: the dist "
                          "trainers' step parts; dist_nccl: the dist trainer "
-                         "over nccl on four cards; neither in the default "
-                         "run)")
+                         "over nccl on four cards; dist_sync: dist's "
+                         "gloo zen_sync and schemes check alone; none of "
+                         "these in the default run)")
     ap.add_argument("--dist-rank", nargs=2, default=None,
                     metavar=("JOB", "DIR"),
                     help=argparse.SUPPRESS)   # one rank of phase 8 (torchrun)
@@ -2636,6 +2913,13 @@ def main(argv=None) -> None:
     only = set(filter(None, args.only.split(",")))
     want = (lambda p: not only or p in only)
     t_start = time.time()
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.time()
+        log(f"[phase] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     dev_info = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2644,27 +2928,45 @@ def main(argv=None) -> None:
     t0 = time.time()
     _build.build(verbose=True)   # every kernel, one nvcc per source at once
     log(f"[build] {len(_build.SOURCES)} libraries in {time.time() - t0:.1f}s")
+    phase_done("build")
     if want("dist"):   # first: four full-width ranks share this card
         phase_dist(dev, dev_info["smi"])
+        phase_done("dist")
+    elif "dist_sync" in only:
+        dist_zen_sync(dev)
+        phase_done("dist_sync")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
             if want("kernels") or want("times") or "kernels_wide" in only
             else None)
+    phase_done("kernels")
     if want("zen_sync"):
         phase_zen_sync(dev)
+        phase_done("zen_sync")
     trainer = phase_trainer() if want("trainer") else None
+    phase_done("trainer")
     if want("breakdown"):
         phase_breakdown()
+        phase_done("breakdown")
     bucketed = phase_buckets(dev_info["smi"]) if want("buckets") else None
+    phase_done("buckets")
     if want("overlap"):
         phase_overlap(dev, dev_info["smi"])
+        phase_done("overlap")
     skern = phase_serve_kernels() if want("serve_kernels") or want("times") \
         else None
+    phase_done("serve_kernels")
     served = phase_serve() if want("serve") else None
+    phase_done("serve")
     mamba = phase_mamba2_train(dev_info["smi"]) if want("mamba2_train") \
         else None
+    phase_done("mamba2_train")
     compressed = phase_compress(dev_info["smi"]) if want("compress") \
         else None
+    phase_done("compress")
+    schemes = phase_schemes(dev_info["smi"], trainer) if want("schemes") \
+        else None
+    phase_done("schemes")
     if "dist_parts" in only:
         dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
     if "dist_nccl" in only:
@@ -2680,6 +2982,7 @@ def main(argv=None) -> None:
         flash_wide_times(dev_info["smi"])
     if want("times") or want("bitmap_times"):
         bitmap_times(bitmap_inputs(dev), dev_info["smi"])
+    phase_done("times")
     launches = dict(trainer["launches"]) if trainer else {}
     if served:
         launches.update({k: served[a]["launches"]
@@ -2687,6 +2990,9 @@ def main(argv=None) -> None:
     # each main path's launches, counted from 0 around its run
     by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba,
                "compress": compressed}
+    if schemes:
+        by_path.update({f"trainer --sync {k}": v
+                        for k, v in schemes["trainers"].items() if k != "zen"})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
@@ -2714,7 +3020,12 @@ def main(argv=None) -> None:
                 "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")} for r in wide["rows"] if r["kernel"] == name]}
                if wide and any(r["kernel"] == name for r in wide["rows"])
-               else {})})
+               else {}),
+            # row 8b: the scatter-add as the baseline schemes' aggregation
+            **({"agsparse_reduce": {k: schemes["row_8b"][k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}}
+               if schemes and name == "coo_scatter_add" else {})})
     log(f"[done] {time.time() - t_start:.1f}s | {dev_info['smi']}")
     print(json.dumps({"kernels": table}))
     print(dev_info["smi"])

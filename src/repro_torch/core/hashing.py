@@ -157,6 +157,24 @@ def extract_partitions(part: HashPartition, *,
     return row_compact(part.memory)
 
 
+def strawman_hash(indices: torch.Tensor, *, n: int, r: int,
+                  seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Appendix A, Alg. 3: one universal hash into an ``n x r`` memory;
+    colliding indices lose (the smallest index keeps the slot).
+
+    Returns (memory int32 [n, r], lost count int32), the Fig. 8 / Fig. 14
+    baseline of the information-loss-vs-memory dilemma."""
+    valid = indices != EMPTY
+    slot = (hash_u32(indices, seed) % (n * r)).to(torch.int64)
+    memory = torch.full((n * r,), EMPTY, dtype=torch.int32,
+                        device=indices.device)
+    memory.scatter_reduce_(0, slot, torch.where(valid, indices, EMPTY),
+                           "amin")
+    survived = valid & (memory[slot] == indices)
+    lost = (valid & ~survived).sum(dtype=torch.int32)
+    return memory.view(n, r), lost
+
+
 def compact_indices(mask: torch.Tensor,
                     capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Positions where ``mask`` is True, ascending, as an EMPTY-padded int32

@@ -1,6 +1,9 @@
-"""Dense and Zen gradient synchronization over a group of workers.
+"""Gradient synchronization schemes over a group of workers.
 
-Port of the dense and Zen parts of ``repro.core.schemes``.  The reference
+Port of ``repro.core.schemes``: dense (ring allreduce), the paper's
+baselines (agsparse, sparcml, sparse_ps, omnireduce, balanced) and Zen,
+with the registry-driven ``stage_sync`` and the capacity provisioning
+(``stage_args_for``, ``plan_stage_args``).  The reference
 writes each scheme as an SPMD function of one worker's gradient with named
 ``jax.lax`` collectives and runs it under ``vmap`` (simulated) or
 ``shard_map`` (one program per device).  Here a scheme takes the gradients
@@ -12,25 +15,30 @@ which global ranks those are (``group.ranks``):
   counterpart): the process holds all ``n`` workers; ``all_to_all`` is a
   transpose of the (source, destination) dimensions, ``all_gather`` hands
   every worker the same stacked tensor, ``psum`` sums in worker order
-  0..n-1;
+  0..n-1, ``ppermute`` reorders the workers;
 * :class:`DistGroup`, one rank of a ``torch.distributed`` process group
   (the ``shard_map`` counterpart): the process holds one worker
   (``local = 1``) and each collective is the group's own.
 
-Worker ``w`` is also server ``w``: it owns the hash partition ``I_w``.
-Outputs keep the leading local dimension (one synced copy per worker) and
+Worker ``w`` is also server ``w`` (it owns the hash partition ``I_w``,
+or the index range ``w`` of the range-partitioned schemes).  Outputs keep
+the leading local dimension (one synced copy per worker) and
 :class:`SyncStats` fields are per-worker vectors, like the reference's
-``simulate``.  Zen's outputs are the same bits on both groups: the push
-delivers the sources in rank order, so every server sums its stream in
-the same order.
+``simulate``.  Where every local worker decodes the same gathered stack
+(agsparse's reduce and the pull decodes of sparse_ps, omnireduce and
+balanced), the decode runs once and is expanded over the local dimension:
+the same bits as one decode per worker.  The outputs are the same bits on
+both groups: pushes and gathers deliver the sources in rank order, so
+every server sums its stream in the same order.
 
-``backend`` selects the route of the three kernel stages (encode, commit
-push, pull decode): ``"cuda"`` goes through ``kernels/ops.py`` (the CUDA
-kernels for CUDA tensors), ``"torch"`` calls the plain versions in
-``kernels/ref.py`` directly.  ``fused`` (encode) and ``fused_commit``
-(push + pull) pick the fused megakernels or the pre-fusion chain of
-smaller kernels (hash stage, row compaction, scatter-add, bitmap pack and
-unpack).  Every combination gives the same bits.
+``backend`` selects the route of the kernel stages: ``"cuda"`` goes
+through ``kernels/ops.py`` (the CUDA kernels for CUDA tensors), ``"torch"``
+calls the plain versions in ``kernels/ref.py`` directly.  Zen's ``fused``
+(encode) and ``fused_commit`` (push + pull) pick the fused megakernels or
+the pre-fusion chain of smaller kernels.  Every other scheme's server
+aggregation is ``_coo_reduce``: the stream-order scatter-add kernel on
+``"cuda"`` (never ``index_add_``, whose CUDA atomics add duplicate
+targets in no fixed order).  Every combination gives the same bits.
 """
 from __future__ import annotations
 
@@ -43,9 +51,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import formats
+from repro_torch.core import registry as sreg
 from repro_torch.core.hashing import (EMPTY, check_backend, compact_rows,
                                       extract_partitions, hash_mod,
                                       hierarchical_hash)
+from repro_torch.core.registry import BALANCED_BINS, StageArgs
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -63,6 +73,20 @@ class SimGroup:
     def __init__(self, n: int):
         self.n = n
         self.ranks = range(n)
+
+    def rank_ids(self, device) -> torch.Tensor:
+        """int64 [local] global rank of each local worker (the counterpart
+        of ``lax.axis_index``), built on ``device``."""
+        return torch.arange(self.n, device=device)
+
+    def ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """[n, ...] -> [n, ...]: worker ``dst`` receives worker ``src``'s
+        block for each ``(src, dst)`` pair; a worker that receives nothing
+        gets zeros (``lax.ppermute``)."""
+        out = torch.zeros_like(x)
+        for src, dst in pairs:
+            out[dst] = x[src]
+        return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """[n_src, n_dst, ...] -> [n_dst, n_src, ...]: destination ``j``
@@ -105,6 +129,27 @@ class DistGroup:
     def __init__(self):
         self.n = dist.get_world_size()
         self.ranks = (dist.get_rank(),)
+
+    def rank_ids(self, device) -> torch.Tensor:
+        """int64 [1]: this process's rank, built on ``device`` (nothing
+        crosses from the host)."""
+        r = self.ranks[0]
+        return torch.arange(r, r + 1, device=device)
+
+    def ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        """[1, ...] -> [1, ...]: this rank sends its block to ``dst`` and
+        receives ``src``'s for the ``(src, dst)`` pairs naming it (zeros if
+        none), as one ``all_to_all_single`` with split sizes (alltoallv:
+        one peer's share non-empty each way)."""
+        src = self._one(x)[0].reshape(-1)
+        r, k = self.ranks[0], src.numel()
+        send = dict(pairs).get(r)
+        recv = {d: s for s, d in pairs}.get(r)
+        out = torch.zeros_like(src)
+        dist.all_to_all_single(
+            out, src, [k if j == recv else 0 for j in range(self.n)],
+            [k if j == send else 0 for j in range(self.n)])
+        return out.view(x.shape)
 
     @staticmethod
     def _one(x: torch.Tensor) -> torch.Tensor:
@@ -168,8 +213,11 @@ def _vwidth(dense: torch.Tensor) -> int:
 
 
 def _worker_mask(dense: torch.Tensor) -> torch.Tensor:
-    """[n, M] non-zero mask of stacked worker gradients [n, M(, d)]."""
-    return dense != 0 if dense.ndim == 2 else (dense != 0).any(dim=-1)
+    """[n, M] non-zero mask of stacked worker gradients [n, M, ...]: an
+    element, or a row (block) with any non-zero."""
+    if dense.ndim == 2:
+        return dense != 0
+    return (dense != 0).reshape(*dense.shape[:2], -1).any(dim=-1)
 
 
 def _gather_rows(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -177,9 +225,9 @@ def _gather_rows(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     dead = idx == EMPTY
     flat = torch.where(dead, 0, idx).reshape(-1).to(torch.int64)
     vals = dense.index_select(0, flat).reshape(*idx.shape, *dense.shape[1:])
-    if dense.ndim > 1:
-        dead = dead[..., None]
-    return torch.where(dead, torch.zeros_like(vals), vals)
+    dead = dead.view(*idx.shape, *([1] * (dense.ndim - 1)))
+    return torch.where(dead, torch.zeros((), dtype=vals.dtype,
+                                         device=vals.device), vals)
 
 
 def _scatter_unique(out: torch.Tensor, idx: torch.Tensor,
@@ -217,6 +265,266 @@ def dense_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup):
                       overflow=torch.zeros(local, dtype=torch.int32,
                                            device=dense.device))
     return out, stats
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines (Table 2) and the balanced split-and-exchange
+# ---------------------------------------------------------------------------
+
+def _encode_rows(dense: torch.Tensor, capacity: int):
+    """COO of each row of a stack ``[r, L(, d)]`` (``formats.coo_encode``
+    row by row): (indices int32 [r, capacity], values [r, capacity(, d)],
+    overflow int32 [r])."""
+    idx, ov = compact_rows(_worker_mask(dense), capacity)
+    return idx, _gather_stack(dense, idx), ov
+
+
+def _gather_stack(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``dense[w][idx[w]]`` for every row ``w`` of a stack ``[r, L, ...]``
+    and ``idx [r, ...]`` (EMPTY -> 0), in one gather."""
+    r, L = dense.shape[:2]
+    base = (torch.arange(r, device=idx.device) * L).view(
+        r, *([1] * (idx.ndim - 1)))
+    glob = torch.where(idx == EMPTY, EMPTY, idx + base)
+    return _gather_rows(dense.reshape(r * L, *dense.shape[2:]), glob)
+
+
+def _expand(out: torch.Tensor, local: int) -> torch.Tensor:
+    """One decode of the gathered stack, seen by every local worker."""
+    return out[None].expand(local, *out.shape)
+
+
+def agsparse_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
+                  capacity: int, backend: str = "torch"):
+    """AllGather of fixed-capacity COO; every worker aggregates
+    everything."""
+    n, local = group.n, dense.shape[0]
+    idx, vals, ov = _encode_rows(dense, capacity)
+    all_idx = group.all_gather(idx)                    # [n, C]
+    all_val = group.all_gather(vals)                   # [n, C(, d)]
+    out = _coo_reduce(torch.zeros_like(dense[0]), all_idx, all_val,
+                      backend=backend)
+    sent = (n - 1) * _nnz(idx) * (1 + _vwidth(dense[0]))
+    return _expand(out, local), SyncStats(sent_words=sent, overflow=ov)
+
+
+def sparcml_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup, n: int,
+                 capacity: int, backend: str = "torch"):
+    """Recursive doubling with incremental aggregation and COO exchange
+    (SSAR_Recursive_double).
+
+    Stage s pairs rank with rank XOR 2^s; the exchanged set doubles in the
+    worst case each stage, so stage capacity is ``min(capacity * 2^s * 2,
+    M)``.  Each received COO is added into the running sum in place."""
+    if n <= 0 or n & (n - 1) != 0:
+        raise ValueError(
+            f"sparcml_sync: recursive doubling needs a power-of-two worker "
+            f"count, got n={n}. Pad the data-parallel axis to the next power "
+            f"of two, or pick scheme='zen', which accepts any n.")
+    _check_n(group, n, "sparcml_sync")
+    local, M = dense.shape[:2]
+    acc = dense.clone()
+    sent = torch.zeros(local, dtype=torch.float32, device=dense.device)
+    overflow = torch.zeros(local, dtype=torch.int32, device=dense.device)
+    vw = _vwidth(dense[0])
+    for s in range(int(math.log2(n))):
+        cap_s = min(capacity * (2 ** s) * 2, M)
+        idx, vals, ov = _encode_rows(acc, cap_s)
+        perm = [(i, i ^ (1 << s)) for i in range(n)]
+        got_idx = group.ppermute(idx, perm)
+        got_val = group.ppermute(vals, perm)
+        for w in range(local):
+            _coo_reduce(acc[w], got_idx[w], got_val[w], backend=backend)
+        sent = sent + _nnz(idx) * (1 + vw)
+        overflow = overflow + ov
+    return acc, SyncStats(sent_words=sent, overflow=overflow)
+
+
+def _check_n(group, n: int, what: str) -> None:
+    if n != group.n:
+        raise ValueError(f"{what}: n={n} but the group has {group.n} ranks")
+
+
+def _own(counts: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """``counts[w, rank_w]``: each local worker's count for its own
+    partition (the part it keeps, off the wire)."""
+    return counts[torch.arange(counts.shape[0], device=counts.device), ranks]
+
+
+def sparse_ps_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
+                   n: int, cap_push: int, cap_pull: int,
+                   backend: str = "torch"):
+    """P2P + one-shot + parallelism with *even contiguous* partitions.
+
+    Each worker doubles as server ``rank``.  Because the partition is
+    positional, C3 skew concentrates non-zeros in few partitions: correct
+    provisioning needs ``cap_push ≈ skew × nnz / n``, the imbalance
+    cost."""
+    local, M = dense.shape[:2]
+    if M % n != 0:
+        raise ValueError(
+            f"sparse_ps_sync: even-range partitioning needs the tensor length "
+            f"to divide by the worker count, got M={M}, n={n} "
+            f"(M % n = {M % n}). Pad the tensor to "
+            f"{(M + n - 1) // n * n} rows or use scheme='zen', whose hash "
+            f"partitioning has no divisibility requirement.")
+    _check_n(group, n, "sparse_ps_sync")
+    shard, vshape = M // n, tuple(dense.shape[2:])
+    vw = _vwidth(dense[0])
+    dev = dense.device
+    # --- Push: split into n contiguous ranges, COO-encode each ---------------
+    parts = dense.reshape(local * n, shard, *vshape)
+    idx, vals, ov = _encode_rows(parts, cap_push)   # range-local indices
+    idx = idx.view(local, n, cap_push)
+    got_idx = group.all_to_all(idx)
+    got_val = group.all_to_all(vals.view(local, n, cap_push, *vshape))
+    # --- Server aggregation ---------------------------------------------------
+    buf = torch.zeros((local, shard, *vshape), dtype=dense.dtype, device=dev)
+    for s in range(local):
+        _coo_reduce(buf[s], got_idx[s], got_val[s], backend=backend)
+    # --- Pull: COO of the aggregated shard, all_gather -------------------------
+    pidx, pval, ov_p = _encode_rows(buf, cap_pull)
+    all_idx = group.all_gather(pidx)                 # [n, cap_pull]
+    all_val = group.all_gather(pval)
+    rank_off = (torch.arange(n, dtype=torch.int32, device=dev) * shard)[:, None]
+    glob = torch.where(all_idx == EMPTY, EMPTY, all_idx + rank_off)
+    out = _coo_reduce(torch.zeros_like(dense[0]), glob, all_val,
+                      backend=backend)
+    nnz = _nnz(idx)                                   # [local, n]
+    sent = (nnz.sum(-1) - _own(nnz, group.rank_ids(dev))
+            + (n - 1) * _nnz(pidx)) * (1 + vw)
+    overflow = ov.view(local, n).sum(-1, dtype=torch.int32) + ov_p
+    return _expand(out, local), SyncStats(sent_words=sent, overflow=overflow)
+
+
+def omnireduce_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
+                    n: int, block: int, cap_push: int, cap_pull: int,
+                    backend: str = "torch"):
+    """As Sparse PS but transmitting non-zero *blocks* of ``block`` rows (no
+    per-element index).  The servers' block adds are one coo reduce over
+    rows of width ``block · d``."""
+    local, M = dense.shape[:2]
+    if M % n != 0 or (M // n) % block != 0:
+        raise ValueError(
+            f"omnireduce_sync: needs M divisible by n*block so every worker's "
+            f"contiguous range is a whole number of blocks, got M={M}, n={n}, "
+            f"block={block}. Pad the tensor to "
+            f"{(M + n * block - 1) // (n * block) * (n * block)} rows, shrink "
+            f"`block`, or use scheme='zen' (no divisibility requirement).")
+    _check_n(group, n, "omnireduce_sync")
+    shard, vshape = M // n, tuple(dense.shape[2:])
+    nb, bshape = shard // block, (block, *tuple(dense.shape[2:]))
+    dev = dense.device
+    # --- Push: each range's non-zero blocks --------------------------------------
+    blocked = dense.reshape(local * n, nb, *bshape)
+    ids, vals, ov = _encode_rows(blocked, cap_push)
+    got_ids = group.all_to_all(ids.view(local, n, cap_push))
+    got_val = group.all_to_all(vals.view(local, n, cap_push, *bshape))
+    # --- Server aggregation: block adds -----------------------------------------
+    buf = torch.zeros((local, nb, *bshape), dtype=dense.dtype, device=dev)
+    for s in range(local):
+        _coo_reduce(buf[s].view(nb, -1), got_ids[s], got_val[s],
+                    backend=backend)
+    # --- Pull: the aggregated range's non-zero blocks, all_gather --------------
+    pids, pval, ov_p = _encode_rows(buf, cap_pull)
+    all_ids = group.all_gather(pids)
+    all_val = group.all_gather(pval)
+    rank_off = (torch.arange(n, dtype=torch.int32, device=dev) * nb)[:, None]
+    glob = torch.where(all_ids == EMPTY, EMPTY, all_ids + rank_off)
+    out_b = torch.zeros((M // block, *bshape), dtype=dense.dtype, device=dev)
+    _coo_reduce(out_b.view(M // block, -1), glob, all_val, backend=backend)
+    out = out_b.view(M, *vshape)
+    wpb = block * _vwidth(dense[0]) + 1  # words per block on the wire
+    nnz = _nnz(ids).view(local, n)
+    sent = (nnz.sum(-1) - _own(nnz, group.rank_ids(dev))
+            + (n - 1) * _nnz(pids)) * wpb
+    overflow = ov.view(local, n).sum(-1, dtype=torch.int32) + ov_p
+    return _expand(out, local), SyncStats(sent_words=sent, overflow=overflow)
+
+
+def balanced_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
+                  n: int, cap_push: int, cap_pull: int | None = None,
+                  bins: int | None = None, backend: str = "torch"):
+    """Load-balanced split-and-exchange allreduce (Ok-Topk family,
+    arXiv 2201.07598).
+
+    1. Compact local non-zero indices (budget ``n * cap_push``).
+    2. Build a ``min(M, bins)``-bin equal-width histogram of the global
+       non-zero multiset: one f32 allreduce of the local histograms.
+    3. Assign contiguous bin ranges to destinations by the exclusive
+       cumulative count, ``dest(j) = floor(cum(j) * n / total)`` (an f32
+       multiply, an f32 divide, truncation).
+    4. Split local non-zeros by destination, ``all_to_all`` the COO
+       (global indices), scatter-add into a length-M buffer, compact the
+       aggregated range (``cap_pull``, default ``cap_push``),
+       ``all_gather`` the reduced shards.
+
+    The histogram allreduce costs ``2 (n-1)/n * bins`` words, charged to
+    ``sent_words``."""
+    _check_n(group, n, "balanced_sync")
+    local, M = dense.shape[:2]
+    if cap_pull is None:
+        cap_pull = cap_push
+    B = min(M, bins or BALANCED_BINS)
+    bw = -(-M // B)  # bin width (ceil), last bin may be ragged
+    vw = _vwidth(dense[0])
+    dev = dense.device
+
+    # --- 1. local compaction -------------------------------------------------
+    cap_local = n * cap_push
+    idx, ov_c = compact_rows(_worker_mask(dense), cap_local)   # [local, n*cp]
+    live = idx != EMPTY
+    bin_of = torch.where(live, torch.where(live, idx, 0) // bw, B)
+
+    # --- 2. global multiset histogram (f32 counts < 2^24: exact) -------------
+    local_hist = torch.stack([
+        torch.bincount(bin_of[w].to(torch.int64), minlength=B + 1)[:B]
+        for w in range(local)]).to(torch.float32)
+    hist = group.psum(local_hist)                              # [local, B]
+    hist_words = torch.tensor(2 * (n - 1) / n, dtype=torch.float32,
+                              device=dev) * B
+
+    # --- 3. balanced contiguous bin -> destination assignment ----------------
+    cum = torch.cumsum(hist, dim=-1)
+    total = torch.clamp(cum[:, -1:], min=1.0)
+    excl = cum - hist                     # exclusive prefix counts
+    dest_of_bin = torch.clamp((excl * n / total).to(torch.int32), 0, n - 1)
+    dest = torch.where(
+        live, torch.gather(dest_of_bin, 1,
+                           bin_of.clamp(0, B - 1).to(torch.int64)), n)
+
+    # --- 4. per-destination split + exchange ---------------------------------
+    member = dest[:, None, :] == torch.arange(n, dtype=dest.dtype,
+                                              device=dev)[None, :, None]
+    lpos, ov_s = compact_rows(member.view(local * n, cap_local), cap_push)
+    lpos, ov_s = lpos.view(local, n, cap_push), ov_s.view(local, n)
+    pidx = torch.where(lpos == EMPTY, EMPTY, torch.gather(
+        idx, 1, lpos.clamp(0, cap_local - 1).view(local, -1).to(torch.int64)
+    ).view(local, n, cap_push))
+    pval = _gather_stack(dense, pidx)
+    got_idx = group.all_to_all(pidx)
+    got_val = group.all_to_all(pval)
+
+    # --- server aggregation over the full index space (global indices) -------
+    buf = torch.zeros_like(dense)
+    for s in range(local):
+        _coo_reduce(buf[s], got_idx[s], got_val[s], backend=backend)
+
+    # --- pull: compact the aggregated range, allgather the reduced shards ----
+    pull_idx, pull_val, ov_p = _encode_rows(buf, cap_pull)
+    del buf
+    all_idx = group.all_gather(pull_idx)              # [n, cap_pull]
+    all_val = group.all_gather(pull_val)
+    out = _coo_reduce(torch.zeros_like(dense[0]), all_idx, all_val,
+                      backend=backend)
+
+    nnz_per_dest = (pidx != EMPTY).sum(-1).to(torch.float32)   # [local, n]
+    push_sent = (nnz_per_dest.sum(-1)
+                 - _own(nnz_per_dest, group.rank_ids(dev))) * (1 + vw)
+    pull_sent = (n - 1) * _nnz(pull_idx) * (1 + vw)
+    stats = SyncStats(sent_words=push_sent + pull_sent + hist_words,
+                      overflow=ov_c + ov_s.sum(-1, dtype=torch.int32) + ov_p)
+    return _expand(out, local), stats
 
 
 # ---------------------------------------------------------------------------
@@ -397,10 +705,7 @@ def zen_commit(enc: ZenEncoded, dense: torch.Tensor, *,
     vw = _vwidth(dense[0])
     dev = dense.device
     tabs = lo.tables(dev)
-    # the local ranks are contiguous (range(n), or this process's one):
-    # built on the device, so nothing crosses from the host
-    r0 = group.ranks[0]
-    ranks = torch.arange(r0, r0 + local, device=dev)
+    ranks = group.rank_ids(dev)
     push = (kops.zen_commit_push_fused_op if backend == "cuda"
             else kref.zen_commit_push_ref)
     pull = (kops.zen_commit_pull_fused_op if backend == "cuda"
@@ -475,6 +780,120 @@ def zen_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
     return zen_commit(enc, dense, group=group, layout=layout,
                       use_hash_bitmap=use_hash_bitmap, backend=backend,
                       fused=fused_commit)
+
+
+# ---------------------------------------------------------------------------
+# CommPlan execution: per-stage dispatch and capacity provisioning
+# ---------------------------------------------------------------------------
+
+def stage_sync(scheme: str, dense: torch.Tensor, *,
+               group: SimGroup | DistGroup, n: int,
+               stage_args: StageArgs | None = None, **kw):
+    """Run one scheme over ``group``: the uniform entry GradSync's bucket
+    committer dispatches through.
+
+    Dispatch is registry-driven (``core/registry.py``): the scheme's
+    :class:`SchemeSpec` names the executable function, the
+    :class:`StageArgs` fields it consumes, and which are mandatory.
+    Callers pass either a typed ``stage_args`` or loose keyword arguments
+    (collected into one); validation raises config-named ValueErrors
+    before any collective runs.  ``interpret`` (a field kept for the
+    reference's field set) is never passed on: the port has no interpret
+    mode."""
+    spec = sreg.get_scheme(scheme)
+    if stage_args is None:
+        try:
+            stage_args = StageArgs(**kw)
+        except TypeError:
+            valid = ", ".join(f.name for f in dataclasses.fields(StageArgs))
+            bad = ", ".join(sorted(set(kw) - {
+                f.name for f in dataclasses.fields(StageArgs)}))
+            raise ValueError(
+                f"stage_sync({scheme!r}): unknown stage arg(s) {bad}; "
+                f"StageArgs fields are: {valid}") from None
+    elif kw:
+        raise ValueError(
+            "stage_sync: pass a typed stage_args OR loose keyword "
+            f"arguments, not both (got stage_args and {sorted(kw)})")
+    sreg.validate_stage_args(spec, stage_args,
+                             where=f"stage over a group of {n}")
+    kwargs = sreg.stage_kwargs(spec, stage_args)
+    kwargs.pop("interpret", None)
+    if spec.needs_n:
+        kwargs["n"] = n
+    return spec.resolve_sync()(dense, group=group, **kwargs)
+
+
+def level_budget(topology, budget: float, level: int) -> float:
+    """Capacity budget for a plan stage at ``level``: stages after the
+    intra merge provision for the worst-case merged density (the product
+    of earlier level sizes' non-overlapping non-zeros in one tensor).
+    Level 0 passes the configured budget through untouched."""
+    if level == 0:
+        return budget
+    grow = math.prod(lv.size for lv in topology.levels[:level])
+    return min(1.0, budget * grow)
+
+
+def stage_args_for(scheme: str, *, rows: int, budget: float,
+                   layout: ZenLayout | None = None,
+                   use_hash_bitmap: bool = True, backend: str = "torch",
+                   interpret: bool | None = None, fused: bool | None = None,
+                   fused_commit: bool | None = None) -> StageArgs:
+    """Provision one stage's :class:`StageArgs` from a density budget: the
+    one place capacity sizing lives (GradSync and the tests route through
+    it).  ``cap = max(64, rows * budget)``, with omnireduce's block split
+    as the reference provisions it.  The aggregating schemes carry
+    ``backend``, their server aggregation's kernel route."""
+    cap = max(64, int(rows * budget))
+    if scheme == "dense":
+        return StageArgs()
+    if scheme == "zen":
+        return StageArgs(layout=layout, use_hash_bitmap=use_hash_bitmap,
+                         backend=backend, interpret=interpret, fused=fused,
+                         fused_commit=fused_commit)
+    if scheme == "omnireduce":
+        blk = 8
+        nb = max(8, cap // blk)
+        return StageArgs(block=blk, cap_push=nb, cap_pull=nb, backend=backend)
+    # COO-capacity family: agsparse, sparcml, sparse_ps, balanced; the
+    # registry's arg aliases fan ``capacity`` into cap_push/cap_pull
+    return StageArgs(capacity=cap, backend=backend)
+
+
+def plan_stage_args(plan, topology, rows: int, *, density_budget: float,
+                    key: int = 0, k: int = 3, r1_factor: float = 2.0,
+                    r2_ratio: float = 0.1, backend: str = "torch",
+                    use_hash_bitmap: bool = True, fused: bool | None = None,
+                    fused_commit: bool | None = None,
+                    interpret: bool | None = None,
+                    seeds: Sequence[int] | None = None) -> dict[int, StageArgs]:
+    """Provision every stage of a CommPlan: {level -> StageArgs}, size-1
+    levels skipped (free identity) and capacity grown across the
+    intra-merge boundary via :func:`level_budget`.  Zen stages get a fresh
+    layout sized for the level's merged budget (hash ``seeds`` as in
+    :func:`make_zen_layout`).  Each stage is validated against the
+    registry, so a bad plan fails here with the level named."""
+    out: dict[int, StageArgs] = {}
+    for stage in plan.stages:
+        lvl = topology.levels[stage.level]
+        if lvl.size <= 1:
+            continue
+        b = level_budget(topology, density_budget, stage.level)
+        layout = None
+        if stage.scheme == "zen":
+            layout = make_zen_layout(rows, lvl.size, density_budget=b,
+                                     key=key, k=k, r1_factor=r1_factor,
+                                     r2_ratio=r2_ratio, seeds=seeds)
+        args = stage_args_for(
+            stage.scheme, rows=rows, budget=b, layout=layout,
+            use_hash_bitmap=use_hash_bitmap, backend=backend,
+            interpret=interpret, fused=fused, fused_commit=fused_commit)
+        sreg.validate_stage_args(
+            sreg.get_scheme(stage.scheme), args,
+            where=f"plan stage {stage.scheme}@level{stage.level}")
+        out[stage.level] = args
+    return out
 
 
 def simulate(fn, per_worker_dense: torch.Tensor, **kwargs):

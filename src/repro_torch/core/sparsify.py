@@ -18,9 +18,13 @@ randk's mask stream is the port's own: ``torch.rand`` from a
 :func:`randk_seed` of ``(cfg.seed, bucket id, step)``.  The reference
 draws it with threefry (``jax.random``), so the two masks differ; every
 local rank of a bucket draws the same mask, as every rank does under the
-reference's ``vmap``.  The reference's ``compress_profile``,
-``measured_profile`` and ``DensityController`` (the ``auto`` scheme's
-feedback loop) are not ported (ROADMAP queue 1, item 6).
+reference's ``vmap``.
+
+The ``auto`` scheme's feedback loop is here too: ``compress_profile``
+(the configured keep-density's worst case), ``measured_profile`` (from
+the measured d(1) and d(n)) and :class:`DensityController`, which folds
+the ``sync/ef_density*`` metrics into EMAs and says when
+``costmodel.choose_scheme`` would pick another scheme for a bucket.
 """
 from __future__ import annotations
 
@@ -166,3 +170,120 @@ def density(mask: torch.Tensor) -> torch.Tensor:
     count = mask.sum(-1, dtype=torch.int32).float()
     one = torch.ones((), dtype=torch.float32, device=mask.device)
     return count * (one / float(mask.shape[-1]))
+
+
+def compress_profile(cfg: CompressConfig, size: int, vw: int = 1):
+    """Offline worst-case profile of a compressed bucket: the configured
+    keep-density with no-overlap densification (the adversarial case for
+    Zen's pull), what ``choose_scheme`` uses before measurements exist."""
+    from repro_torch.core import costmodel  # deferred: costmodel imports metrics, which imports us
+
+    return costmodel.worst_case_profile(size, cfg.density, vw=vw)
+
+
+def measured_profile(size: int, d1: float, dn: float, n: int, vw: int = 1):
+    """Profile from the two measured densification points the runtime
+    reports: d(1) (local, post-compression) and d(n) (post-aggregation).
+    Intermediate i interpolate linearly; only d(1) and d(n) enter the
+    zen/dense volume formulas."""
+    from repro_torch.core import costmodel  # deferred: see compress_profile
+
+    d1 = float(min(max(d1, 0.0), 1.0))
+    dn = float(min(max(dn, d1), 1.0))
+
+    def d(i: int) -> float:
+        if n <= 1:
+            return d1
+        t = (min(max(i, 1), n) - 1) / (n - 1)
+        return d1 + (dn - d1) * t
+
+    return costmodel.SparsityProfile(M=size, d=d, s=lambda k: 1.0, vw=vw)
+
+
+class DensityController:
+    """Feed measured post-compression density back into scheme selection.
+
+    The bucket plan's schemes are fixed when GradSync is built, but the
+    density top-k/threshold produces drifts during training.  The
+    controller closes the loop from the host:
+
+        stats = train_step(...)            # sync/ef_density* metrics
+        controller.observe(stats)          # EMA update
+        if controller.drifted():           # choose_scheme disagrees
+            profiles = controller.profiles()
+            ...rebuild GradSync with profiles...
+
+    Bucket boundaries never depend on schemes or profiles, so keys and
+    residual shapes are stable across replans: the optimizer state
+    carries over untouched."""
+
+    def __init__(self, bucket_sizes: dict[str, int], schemes: dict[str, str],
+                 n: int, *, ema: float = 0.8, threshold: float = 1.0,
+                 topology=None, calib=None):
+        """``bucket_sizes``/``schemes``: per compressed-bucket key (from
+        ``GradSync.compressed_buckets()`` / ``bucket_schemes()``).  ``n``
+        is the sync world size; ``threshold`` mirrors
+        ``SyncConfig.auto_threshold``.  ``topology`` makes the decision
+        one over CommPlan tags (``costmodel.choose_scheme``); ``calib``
+        must be None (calibration: ROADMAP queue 1, item 7)."""
+        if calib is not None:
+            raise NotImplementedError(
+                "DensityController(calib=): measured-cost calibration is "
+                "ROADMAP queue 1, item 7")
+        self.sizes = dict(bucket_sizes)
+        self.current = dict(schemes)
+        self.n = max(n, 2)
+        self.topology = topology
+        self.ema = float(ema)
+        self.threshold = float(threshold)
+        self._d1: dict[str, float] = {}
+        self._dn: dict[str, float] = {}
+
+    def observe(self, stats: dict) -> None:
+        """Fold one step's metrics (host floats or 0-d tensors) into the
+        per-bucket density EMAs.  Unknown keys are ignored, so the whole
+        metrics dict can be passed as it is."""
+        for key in self.sizes:
+            for store, pattern in ((self._d1, DENSITY1_KEY),
+                                   (self._dn, DENSITYN_KEY)):
+                v = stats.get(pattern.format(key=key))
+                if v is None:
+                    continue
+                v = float(v)
+                old = store.get(key)
+                store[key] = v if old is None else (
+                    self.ema * old + (1 - self.ema) * v)
+
+    def profiles(self) -> dict:
+        """Measured profiles for every bucket with observations: the dict
+        to pass to ``GradSync(profiles=...)`` on a replan."""
+        out = {}
+        for key, size in self.sizes.items():
+            if key in self._d1 and key in self._dn:
+                out[key] = measured_profile(
+                    size, self._d1[key], self._dn[key], self.n)
+        return out
+
+    def schemes(self) -> dict[str, str]:
+        """choose_scheme on the measured profile per bucket; buckets with
+        no observations yet keep their current scheme."""
+        from repro_torch.core import costmodel  # deferred: see compress_profile
+
+        out = dict(self.current)
+        target = self.topology if self.topology is not None else self.n
+        for key, prof in self.profiles().items():
+            out[key] = costmodel.choose_scheme(
+                prof, target, threshold=self.threshold)
+        return out
+
+    def drifted(self) -> dict[str, tuple[str, str]]:
+        """``{key: (current, recommended)}`` where they disagree: truthy
+        iff a replan would change at least one bucket's scheme."""
+        rec = self.schemes()
+        return {k: (self.current[k], rec[k])
+                for k in self.current if rec[k] != self.current[k]}
+
+    def rebase(self, schemes: dict[str, str]) -> None:
+        """Record the schemes the rebuilt plan resolved (call after a
+        replan, so drift is measured against the live plan)."""
+        self.current = dict(schemes)

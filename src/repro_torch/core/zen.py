@@ -16,9 +16,19 @@ is EF-sparsified in its encode's pipeline slot before the scheme sees it:
 under ``zen`` it is an element-sparse payload of the bucket's size, whose
 layout is sized at ``min(1, 4 density)``.  The EF residual (one f32
 ``[local, S]`` tensor per compressed bucket) is the caller's state,
-threaded through ``gs(grads, residual, step=t)``.  The port covers the
-flat topology with ``scheme`` in {``zen``, ``dense``}; any other setting
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+threaded through ``gs(grads, residual, step=t)``.
+
+``scheme`` is any executable scheme of the registry
+(``registry.cli_scheme_choices()``) or ``auto``, the per-tensor choice:
+each row-sparse leaf and each compressed bucket consults its
+``SparsityProfile`` (measured, via ``profiles``, or the worst case of its
+budget) through ``costmodel.choose_scheme`` on the flat topology.  Every
+bucket resolves to a ``CommPlan``; Zen buckets run their encode in the
+pipeline's encode slot, every other scheme runs through
+``schemes.stage_sync`` in the commit slot.  The port runs the flat
+topology only: measured-cost calibration (``calib_file``) and two-level
+topologies (``alpha_beta``) raise ``NotImplementedError`` naming their
+ROADMAP items.
 """
 from __future__ import annotations
 
@@ -30,10 +40,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import buckets as bk
-from repro_torch.core import schemes, sparsify
+from repro_torch.core import costmodel, schemes, sparsify
+from repro_torch.core import topology as tpg
 from repro_torch.core.hashing import check_backend
+from repro_torch.core.registry import StageArgs
 from repro_torch.core.schemes import (DistGroup, SimGroup, SyncStats,
                                       make_zen_layout)
+from repro_torch.core.topology import CommPlan, resolve_plan
 from repro_torch.optim.optimizers import ef_residual_init
 from repro_torch.train import schedule
 
@@ -43,13 +56,17 @@ class SyncConfig:
     """How gradients are synchronized across the data-parallel group; the
     reference's fields, of which the port runs a subset (see GradSync)."""
 
-    scheme: str = "zen"           # zen | dense
+    scheme: str = "zen"           # a registry scheme (cli_scheme_choices()) | auto
     density_budget: float = 0.25  # capacity sizing for sparse buffers
     k: int = 3                    # Alg. 1 rehash rounds
     r1_factor: float = 2.0        # r1 = r1_factor * nnz_budget / n
     r2_ratio: float = 0.1         # r2 = r2_ratio * r1
     use_hash_bitmap: bool = True  # Alg. 2 on Pull (Fig. 18 ablation knob)
     seed: int = 0                 # hash seeds: schemes.default_seeds(seed)
+    # 'auto': per-leaf offline choice; Zen wins iff its volume under the
+    # (measured or budget) profile beats dense ring allreduce by this
+    # factor (costmodel.choose_scheme), else the leaf falls back to dense
+    auto_threshold: float = 1.0
     # Route of Zen's encode / commit / pull stages: "cuda" runs the CUDA
     # kernels (their plain versions for CPU tensors), "torch" the plain
     # versions everywhere.  "cuda" is the counterpart of the reference's
@@ -67,9 +84,6 @@ class SyncConfig:
 
 def _unsupported(cfg: SyncConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.scheme not in ("zen", "dense"):
-        return (f"scheme {cfg.scheme!r}: the port runs 'zen' and 'dense'; "
-                f"the other schemes and 'auto' are ROADMAP queue 1, item 6")
     if cfg.calib_file is not None:
         return "measured-cost calibration: ROADMAP queue 1, item 7"
     if cfg.alpha_beta is not None:
@@ -90,12 +104,18 @@ class GradSync:
       group: the collectives' group: by default ``SimGroup(n_data)`` (all
           workers in this process); a ``DistGroup`` of size ``n_data``
           runs this process's rank over ``torch.distributed``.
+      profiles: optional ``{leaf name or bucket key: SparsityProfile}`` of
+          measured sparsity (``costmodel.profile_from_masks``,
+          ``DensityController.profiles()``).  Under ``auto`` a profiled
+          leaf or bucket is decided from its own curves instead of the
+          worst case of its budget.
     """
 
     def __init__(self, cfg: SyncConfig, sparse_paths: Sequence[str],
                  leaves: Sequence[tuple[str, tuple, torch.dtype]],
                  n_data: int,
-                 group: SimGroup | DistGroup | None = None):
+                 group: SimGroup | DistGroup | None = None,
+                 profiles: dict | None = None):
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(f"GradSync: {why}")
@@ -110,17 +130,50 @@ class GradSync:
         self.compress = sparsify.parse_compress(cfg.compress)
         # the encodes' side stream, one per CUDA device (train/schedule.py)
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
+        # the degenerate flat topology (α=0, β=1: time == volume)
+        self.topology = tpg.flat_topology(n_data)
+        profiles = profiles or {}
+
+        def choose(prof) -> str:
+            # the world size 'auto' prices: the int n on the flat topology
+            return costmodel.choose_scheme(prof, max(n_data, 2),
+                                           threshold=cfg.auto_threshold)
 
         def resolve_scheme(name: str, shape: tuple) -> str:
+            """Plan tag of one row-sparse leaf; 'auto' consults the leaf's
+            own profile."""
             if len(shape) > 2:
                 raise ValueError(f"sparse leaf {name} must be 2-D, got {shape}")
-            return cfg.scheme
+            if cfg.scheme != "auto":
+                return cfg.scheme
+            prof = profiles.get(name)
+            if prof is None:
+                rows = shape[0] if len(shape) >= 1 else 1
+                d = shape[1] if len(shape) > 1 else 1
+                prof = costmodel.worst_case_profile(
+                    rows, cfg.density_budget, vw=max(d, 1))
+            return choose(prof)
+
+        def resolve_compressed(key: str, size: int) -> str:
+            """Plan tag of one EF-compressed dense bucket: 'auto' decides
+            from the measured profile when there is one (the
+            DensityController's loop), else from the keep-density's worst
+            case."""
+            if cfg.scheme != "auto":
+                return cfg.scheme
+            prof = profiles.get(key)
+            if prof is None:
+                prof = sparsify.compress_profile(self.compress, size)
+            return choose(prof)
 
         self.names = [name for name, _, _ in leaves]
         self.plan = bk.make_bucket_plan(
             leaves, self._is_sparse, cfg.bucket_bytes, resolve_scheme,
             compress=self.compress.tag(),
-            compressed_scheme=lambda key, size: cfg.scheme)
+            compressed_scheme=resolve_compressed)
+        self._plans: dict[int, CommPlan] = {
+            b.bid: resolve_plan(b.scheme, self.topology)
+            for b in self.plan.buckets}
         # Zen layouts: a row-sparse leaf's rows at the density budget, a
         # compressed dense bucket's elements at the compressed budget;
         # buckets of one size share one layout (and its device tables)
@@ -151,15 +204,33 @@ class GradSync:
         return min(1.0, 4 * self.compress.density)
 
     def describe(self) -> list[str]:
-        """One line per bucket, the reference's: kind, bytes, plan,
-        compressor, key."""
-        lines = [f"topology: data[{self.n_data}] α=0µs β=1µs/w"]
+        """One line per bucket, the reference's: kind, bytes, the resolved
+        CommPlan over the topology, compressor, key."""
+        topo = self.topology
+        lines = [f"topology: {topo.describe()}"]
         for b in self.plan.buckets:
+            stages = " ; ".join(
+                f"{s.scheme}@{topo.levels[s.level].axis}"
+                f"[{topo.levels[s.level].size}]"
+                for s in self._plans[b.bid].stages)
             comp = "" if b.compress == "none" else f" compress={b.compress}"
             lines.append(f"bucket {b.bid:3d} {b.kind:11s} {b.nbytes:>10d}B "
-                         f"plan=[{b.scheme}@data[{self.n_data}]]{comp}  "
-                         f"{b.key}")
+                         f"plan=[{stages}]{comp}  {b.key}")
         return lines
+
+    def _stage_args(self, bucket: bk.Bucket, scheme: str) -> StageArgs:
+        """Typed StageArgs of a bucket's (one, flat) plan stage, sized by
+        ``schemes.stage_args_for`` from the bucket's budget."""
+        cfg = self.cfg
+        budget = (self._compressed_budget() if bucket.compress != "none"
+                  else cfg.density_budget)
+        rows = (bucket.slots[0].shape[0] if bucket.kind == bk.SPARSE
+                else bucket.size)
+        return schemes.stage_args_for(
+            scheme, rows=rows, budget=budget,
+            layout=self._layouts.get(bucket.key),
+            use_hash_bitmap=cfg.use_hash_bitmap, backend=cfg.backend,
+            fused=cfg.fused_encode, fused_commit=cfg.fused_commit)
 
     # -- error-feedback residual state ---------------------------------------
 
@@ -229,7 +300,9 @@ class GradSync:
 
     def _commit_bucket(self, bucket: bk.Bucket,
                        enc) -> tuple[torch.Tensor, SyncStats]:
-        """Collectives + decode-apply, then the mean (every scheme sums)."""
+        """Collectives + decode-apply, then the mean (every scheme sums):
+        Zen's commit for an encoded bucket, the bucket's scheme through
+        ``schemes.stage_sync`` otherwise."""
         g, n = enc[0], self.group.n
         if n <= 1:
             zero = torch.zeros(g.shape[0], dtype=torch.float32,
@@ -243,7 +316,10 @@ class GradSync:
                 use_hash_bitmap=self.cfg.use_hash_bitmap,
                 backend=self.cfg.backend, fused=self.cfg.fused_commit)
         else:
-            out, st = schemes.dense_sync(g, group=self.group)
+            scheme = self._plans[bucket.bid].stages[0].scheme
+            out, st = schemes.stage_sync(
+                scheme, g, group=self.group, n=n,
+                stage_args=self._stage_args(bucket, scheme))
         if out.stride(0) == 0:   # SimGroup: one psum seen by every worker
             return (out[0] / n).expand_as(out), st
         return out / n, st

@@ -17,7 +17,9 @@ three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
 and/or ``fused_commit=False``) runs the pre-fusion chain of five smaller
 kernels, whose compositions ``zen_encode_unfused``,
 ``zen_commit_push_unfused`` and ``zen_commit_pull_unfused`` give the fused
-kernels' outputs bit for bit.  Two more carry the models' prefill:
+kernels' outputs bit for bit.  ``coo_scatter_add`` is also every
+baseline scheme's server aggregation (``batched_coo_reduce_op``).  Two
+more carry the models' prefill:
 ``flash_fwd`` (attention) and ``ssd_fwd`` (the Mamba2 scan), which
 ``SSDScan`` also puts under autograd for the Mamba2 trainer.
 """
@@ -533,7 +535,11 @@ def batched_coo_reduce_op(out: torch.Tensor, idx: torch.Tensor,
     shape scatter-added into ``out [M(, d)]``, which is updated IN PLACE
     and returned.  EMPTY and out-of-range indices are dropped.
     ``backend="cuda"`` runs the scatter-add kernel (its plain version for a
-    CPU tensor), ``"torch"`` the plain version."""
+    CPU tensor), ``"torch"`` the plain version.  Its callers: the unfused
+    Zen commit, agsparse's reduce, sparcml's add into the running sum,
+    the sparse_ps / balanced servers and pull decodes, and omnireduce's
+    block adds (rows of width ``block * d``); duplicates add in stream
+    order on both routes, which ``index_add_``'s CUDA atomics would not."""
     check_backend(backend)
     idx = idx.reshape(-1).contiguous()
     out2 = out[:, None] if out.ndim == 1 else out

@@ -30,8 +30,15 @@ topk:0.01`` (or ``randk:D``, ``threshold:T``, ``:noef`` for no error
 feedback) EF-sparsifies every dense bucket before the sync
 (core/sparsify.py); ``--ckpt-dir DIR`` saves ``{"params", "step"}`` to
 ``DIR/final`` (and ``DIR/step_<k>`` every ``--ckpt-every`` steps) with
-``checkpoint/io.py``, rank 0 writing.  ``--replan-every`` is accepted with
-an explicit ``--sync`` and does nothing there, as in the reference.  ``--arch
+``checkpoint/io.py``, rank 0 writing.  ``--sync`` takes every executable
+scheme of the registry (``core/registry.py``) or ``auto``, the cost
+model's per-bucket choice (``core/costmodel.py``).  ``--replan-every N``
+with ``--sync auto`` and ``--compress`` runs the density controller
+(``core/sparsify.py``): the measured ``sync/ef_density*`` metrics of every
+``--log-every`` step feed it, and at every N-th step whose measured
+densities flip a bucket's choice the plan is rebuilt (``attach_train``
+with the measured profiles), the optimizer state carried over; with an
+explicit ``--sync`` it does nothing, as in the reference.  ``--arch
 mamba2-370m`` trains the Mamba2 LM, its scan on the ``ssd_fwd`` kernel
 under autograd.  The plan GradSync runs is printed at start.
 """
@@ -48,6 +55,8 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.io import save
 from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.registry import cli_scheme_choices
+from repro_torch.core.sparsify import DensityController
 from repro_torch.core.zen import SyncConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops as kops
@@ -55,11 +64,6 @@ from repro_torch.launch.mesh import BACKENDS, make_data_group
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.train.build import attach_train, build_program
 from repro_torch.train.steps import TrainerConfig
-
-# the reference's --sync choices (registry schemes + auto)
-SYNC_CHOICES = ("dense", "agsparse", "sparcml", "sparse_ps", "omnireduce",
-                "balanced", "zen", "auto")
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -69,7 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--mesh", default="1x1", help="DxM, e.g. 8x1")
-    ap.add_argument("--sync", default="zen", choices=SYNC_CHOICES)
+    ap.add_argument("--sync", default="zen", choices=cli_scheme_choices())
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--density-budget", type=float, default=0.25)
     ap.add_argument("--bucket-bytes", type=int, default=None)
@@ -97,13 +101,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    # --replan-every drives the density controller, which only 'auto'
-    # consults; with an explicit --sync it does nothing, as in the reference
     todo = {
         "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
-        "--replan-every with --sync auto": (
-            args.replan_every > 0 and args.sync == "auto",
-            "ROADMAP queue 1, item 6"),
     }
     for flag, (hit, item) in todo.items():
         if hit:
@@ -113,7 +112,9 @@ def _check_ported(args) -> None:
 def main(argv=None) -> dict:
     """Train; returns losses, final tok/s, sparse words, overflow, step
     times (host clock after a device sync, seconds), each logged step's
-    sparse words, grad norm and dense words, the bucket plan (kind, dtype,
+    sparse words, grad norm and dense words, the steps at which the
+    density controller rebuilt the plan, the plan's ``describe()`` lines
+    at the end, the bucket plan (kind, dtype,
     bytes and leaves of each bucket) and the kernels' launches and plain
     calls in the run, summed over the group."""
     args = parse_args(argv)
@@ -157,6 +158,18 @@ def _train(args, group, device) -> dict:
     for line in prog.gradsync.describe():   # the plan the run executes
         log(f"  {line}")
 
+    # adaptive density control: measured post-compression densities feed
+    # choose_scheme; a flip triggers a replan.  Only under 'auto': an
+    # explicit scheme ignores the recommendations, so a disagreeing
+    # controller would flag drift every interval without converging.
+    controller = None
+    if (args.replan_every and prog.gradsync.has_compression
+            and args.sync == "auto"):
+        controller = DensityController(
+            prog.gradsync.compressed_buckets(),
+            prog.gradsync.bucket_schemes(), n=prog.n_data,
+            threshold=tcfg.sync.auto_threshold)
+
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -169,6 +182,7 @@ def _train(args, group, device) -> dict:
     data = iter(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
     losses, step_s, words, ovf, gnorm, dwords = [], [], [], [], [], []
+    replans: list[int] = []
     tokens_done = 0
     counts0 = _counts()
     sync()
@@ -193,6 +207,18 @@ def _train(args, group, device) -> dict:
                   f"tok/s={tokens_done / dt:,.0f} "
                   f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
                   flush=True)
+        if controller is not None and step % args.log_every == 0:
+            controller.observe({k: float(v) for k, v in m.items()
+                                if k.startswith("sync/ef_density")})
+        if (controller is not None and step
+                and step % args.replan_every == 0):
+            drift = controller.drifted()
+            if drift:
+                log(f"replan @ step {step}: density drift flips "
+                    f"{drift} — rebuilding plan", flush=True)
+                attach_train(prog, sparsity_profiles=controller.profiles())
+                controller.rebase(prog.gradsync.bucket_schemes())
+                replans.append(step)
         if args.ckpt_every and step and step % args.ckpt_every == 0:
             checkpoint(f"step_{step}", step)
     checkpoint("final", args.steps)
@@ -211,7 +237,8 @@ def _train(args, group, device) -> dict:
            "overflow": max(ovf) if ovf else 0, "step_s": step_s,
            "median_step_s": float(np.median(step_s)) if step_s else 0.0,
            "sparse_words_by_step": words, "grad_norm": gnorm,
-           "dense_words": dwords,
+           "dense_words": dwords, "replans": replans,
+           "plan": prog.gradsync.describe(),
            "buckets": [{"kind": b.kind, "nbytes": b.nbytes,
                         "leaves": len(b.slots),
                         "dtype": str(b.slots[0].dtype).replace("torch.", "")}

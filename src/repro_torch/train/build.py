@@ -53,6 +53,8 @@ class Program:
     decode_step: Any = None
     # the decode cache's batch, length and attention window (attach_serve)
     cache_specs: Any = None
+    # the measured profiles the train step's GradSync was planned from
+    sparsity_profiles: Any = None
 
     def opt_state(self) -> dict:
         """The trainer's optimizer state (``train_step.state``: moments,
@@ -96,13 +98,28 @@ def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
                    n_data=dp, device=dev, group=group)
 
 
-def attach_train(prog: Program) -> None:
+def attach_train(prog: Program, sparsity_profiles=None) -> None:
     """Build ``prog.train_step(batch) -> metrics`` and its GradSync over
-    ``prog.group``."""
+    ``prog.group``.
+
+    ``sparsity_profiles`` ({bucket key or leaf name: SparsityProfile})
+    feeds measured density curves into the ``auto`` scheme's per-bucket
+    choice: the DensityController's replan calls attach_train again with
+    the profiles it has learned.  A train step already attached hands its
+    optimizer state (moments, step, EF residuals) to the new one: bucket
+    boundaries and residual shapes do not depend on schemes."""
+    old = prog.gradsync
+    prog.sparsity_profiles = sparsity_profiles
     prog.gradsync = st.make_gradsync(prog.model, prog.tcfg, prog.n_data,
-                                     prog.group)
+                                     prog.group, sparsity_profiles)
+    state = None
+    if prog.train_step is not None:
+        if old.compressed_buckets() != prog.gradsync.compressed_buckets():
+            raise ValueError("attach_train: the rebuilt plan's compressed "
+                             "buckets differ from the live one's")
+        state = prog.train_step.state
     prog.train_step = st.make_train_step(prog.model, prog.tcfg, prog.n_data,
-                                         gradsync=prog.gradsync)
+                                         gradsync=prog.gradsync, state=state)
 
 
 def attach_serve(prog: Program, seq_len: int, global_batch: int,

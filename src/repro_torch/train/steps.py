@@ -54,12 +54,16 @@ class TrainerConfig:
 
 
 def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int,
-                  group: SimGroup | DistGroup) -> GradSync:
+                  group: SimGroup | DistGroup,
+                  sparsity_profiles: dict | None = None) -> GradSync:
     """The trainer's GradSync over ``group``, built offline from the
     per-rank grad shapes and dtypes (the parameters': parameters are
-    replicated)."""
+    replicated).  ``sparsity_profiles`` ({leaf name or bucket key:
+    SparsityProfile}) feeds measured density curves into the ``auto``
+    scheme's per-bucket choice."""
     leaves = [(n, tuple(p.shape), p.dtype) for n, p in model.named_leaves()]
-    return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data, group)
+    return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data, group,
+                    profiles=sparsity_profiles)
 
 
 def split_batch(batch: dict, n: int) -> list[dict]:
@@ -74,7 +78,8 @@ def split_batch(batch: dict, n: int) -> list[dict]:
 
 
 def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
-                    gradsync: GradSync | None = None):
+                    gradsync: GradSync | None = None,
+                    state: dict | None = None):
     """Returns ``step_fn(batch) -> metrics`` that updates ``model`` and
     ``step_fn.state`` (the optimizer state) in place.
 
@@ -82,7 +87,9 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     the model's device; the group of ``gradsync`` (by default one over
     ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
     are f32 scalars averaged over the group's ranks (``loss``,
-    ``grad_norm`` and the ``sync/*`` counters)."""
+    ``grad_norm`` and the ``sync/*`` counters).  ``state`` continues an
+    earlier step function's optimizer state (a replan: bucket keys and
+    residual shapes do not depend on schemes)."""
     if tcfg.zero1:
         raise NotImplementedError(
             "ZeRO-1 sharded optimizer state is not ported (ROADMAP queue 1, "
@@ -97,9 +104,10 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     ranks = tuple(group.ranks)
     leaves = model.named_leaves()
     dev = leaves[0][1].device
-    state = {"leaves": {name: init(p) for name, p in leaves}, "step": 0}
-    if gradsync.has_compression and gradsync.compress.ef:
-        state["residual"] = gradsync.init_residual(dev)
+    if state is None:
+        state = {"leaves": {name: init(p) for name, p in leaves}, "step": 0}
+        if gradsync.has_compression and gradsync.compress.ef:
+            state["residual"] = gradsync.init_residual(dev)
     # this process's per-rank gradients, stacked: [local, ...] per leaf,
     # reused every step
     stacks = {name: torch.empty((len(ranks), *p.shape), dtype=p.dtype,

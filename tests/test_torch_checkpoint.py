@@ -11,7 +11,10 @@ tests/test_sparsify.py's round trips, and the launcher's ``--ckpt-dir``.
   continued equals the uninterrupted residual;
 * ``launch/train.py --ckpt-dir`` writes ``step_<k>`` and ``final`` with the
   model's parameters; ``--replan-every`` is accepted with an explicit
-  ``--sync`` and raises under ``auto``.
+  ``--sync``, and under ``auto`` runs the density controller: a measured
+  density that flips the plan's pick prints the reference's ``replan @
+  step`` line and rebuilds the plan, the residuals' keys and shapes
+  unchanged.
 """
 import dataclasses
 
@@ -188,7 +191,7 @@ def test_residual_checkpoint_continues_bitwise(tmp_path):
     _assert_same_tree(r_a, r_b)
 
 
-def test_launcher_ckpt_dir(tmp_path):
+def test_launcher_ckpt_dir(tmp_path, monkeypatch, capsys):
     argv = ["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x1",
             "--global-batch", "4", "--seq-len", "16", "--steps", "3",
             "--log-every", "1", "--device", "cpu", "--compress", "topk:0.01",
@@ -209,5 +212,29 @@ def test_launcher_ckpt_dir(tmp_path):
         assert q.dtype == p.dtype and q.shape == p.shape
         moved += not torch.equal(q, p.detach())
     assert moved > len(names) // 2    # the run trained them
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.main(argv[:-4] + ["--sync", "auto", "--replan-every", "2"])
+    # --sync auto --replan-every 2: threshold:0 keeps every element, so
+    # the measured density (1.0) flips the controller from the plan's zen
+    # (priced at the spec's 0.01 budget) to dense, and the plan is rebuilt
+    # with the optimizer state carried over
+    seen = []
+
+    def spy(prog, **kw):
+        if prog.train_step is None:     # the launcher's first attach
+            return attach_train(prog, **kw)
+        shapes = {k: tuple(v.shape)
+                  for k, v in prog.opt_state()["residual"].items()}
+        attach_train(prog, **kw)
+        seen.append((shapes, {k: tuple(v.shape) for k, v in
+                              prog.opt_state()["residual"].items()},
+                     prog.gradsync.bucket_schemes()))
+
+    monkeypatch.setattr(train, "attach_train", spy)
+    auto = argv[:-8] + ["--compress", "threshold:0", "--sync", "auto",
+                        "--replan-every", "2"]
+    out = train.main(auto)
+    assert out["replans"] == [2] and len(seen) == 1
+    before, after, schemes = seen[0]
+    assert before == after and len(before) > 0
+    assert set(schemes.values()) == {"dense"}
+    assert "replan @ step 2: density drift flips" in capsys.readouterr().out
+    assert all(np.isfinite(out["losses"])) and len(out["losses"]) == 3

@@ -12,6 +12,12 @@ outputs back the same way.  The JAX reference runs here, while they run.
   pull, in f32 and bf16, element- and row-sparse, and at an undersized
   layout that overflows; each rank calls each route's kernel wrappers
   once (plain versions on the CPU);
+* the baseline schemes (agsparse, sparcml over ``ppermute``, sparse_ps,
+  omnireduce, balanced) on 4 ranks: each rank's output, wire words and
+  overflow bitwise worker w of the reference's ``simulate``, f32
+  element-sparse dyadic and bf16 row-sparse random values, with small
+  capacities that overflow, the aggregation on the scatter-add's plain
+  version;
 * ``dense_sync`` and a whole ``GradSync`` over the reduced qwen2 gradient
   leaves, one bucket per leaf and with the dense leaves fused into 1 MiB
   buckets: bitwise the reference's psum at 2 ranks; within the summation
@@ -153,6 +159,34 @@ class _Group(_Procs):
 # inputs (numpy, from seeds), then every process group started at once
 # ---------------------------------------------------------------------------
 
+# case -> (scheme, seed, dtype, row width or None, dyadic values)
+SCHEME_CASES = {f"{name}-{kind}": (name, 6, dt, d, dy)
+                for name in ("agsparse", "sparcml", "sparse_ps", "omnireduce",
+                             "balanced")
+                for kind, dt, d, dy in (("f32-element", "f32", None, True),
+                                        ("bf16-row", "bf16", D, False))}
+SCHEME_M = 512
+
+
+def _scheme_kwargs(name: str, n: int) -> dict:
+    from test_torch_schemes import _kwargs
+    return _kwargs(name, n)
+
+
+def _scheme_inputs(n: int) -> dict:
+    """npz entries of SCHEME_CASES: values, dtype, scheme and kwargs."""
+    from test_torch_schemes import _workers
+    inp = {}
+    for case, (name, seed, dt, d, dy) in SCHEME_CASES.items():
+        v, _ = _workers(seed, n, SCHEME_M, 0.1, dt, d, dy)
+        inp.update({f"schemes/{case}/vals": np.asarray(v.astype(jnp.float32)),
+                    f"schemes/{case}/dtype": dt,
+                    f"schemes/{case}/name": name,
+                    **{f"schemes/{case}/kw/{k}": val for k, val in
+                       _scheme_kwargs(name, n).items()}})
+    return inp
+
+
 def _zen_inputs(n: int) -> tuple[dict, dict]:
     """npz entries of ZEN_CASES and the reference layouts."""
     inp, layouts = {}, {}
@@ -227,8 +261,8 @@ def groups(tmp_path_factory):
             for path, v in jax.tree_util.tree_flatten_with_path(ref_params)[0]}
     common = {**flat, **{f"batch/{k}": v for k, v in batch.items()}}
     out = {"ref_params": ref_params, "batch": batch}
-    for n, jobs in ((4, ["zen", "dense", "gradsync", "broadcast",
-                         "trainer"]),
+    for n, jobs in ((4, ["zen", "schemes", "dense", "gradsync",
+                         "broadcast", "trainer"]),
                     (2, ["dense", "gradsync", "compress", "trainer"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
         inp = {**common, **_grad_inputs(n, seed=n), "n": n,
@@ -236,6 +270,8 @@ def groups(tmp_path_factory):
         if "zen" in jobs:
             zinp, out["layouts"] = _zen_inputs(n)
             inp.update(zinp)
+        if "schemes" in jobs:
+            inp.update(_scheme_inputs(n))
         gs, tree = _ref_gradsync(inp, n)
         inp["gs_seeds"] = gs._layouts["embed/table", 0].seeds
         np.savez(work / "inputs.npz", **inp)
@@ -294,6 +330,26 @@ def test_zen_sync_4_ranks_bitwise_vs_reference(groups, zen_refs, case,
                                       np.asarray(ref_st.overflow)[w:w + 1])
         # each wrapper once per rank (the plain versions on the CPU)
         assert r[f"{key}/plain"].tolist() == want_plain
+
+
+@pytest.mark.parametrize("case", list(SCHEME_CASES))
+def test_schemes_4_ranks_bitwise_vs_reference(groups, case):
+    ranks = groups[4]["ranks"].results()
+    name, _, dt, _, _ = SCHEME_CASES[case]
+    vals = jnp.asarray(groups[4]["inp"][f"schemes/{case}/vals"]).astype(JD[dt])
+    ref_out, ref_st = jax.jit(functools.partial(
+        S.simulate, getattr(S, f"{name}_sync"),
+        **_scheme_kwargs(name, 4)))(vals)
+    for w, r in enumerate(ranks):
+        key = f"schemes/{case}"
+        np.testing.assert_array_equal(
+            r[f"{key}/out"][0], np.asarray(ref_out[w].astype(jnp.float32)),
+            err_msg=f"rank {w}")
+        np.testing.assert_array_equal(r[f"{key}/sent"],
+                                      np.asarray(ref_st.sent_words)[w:w + 1])
+        np.testing.assert_array_equal(r[f"{key}/overflow"],
+                                      np.asarray(ref_st.overflow)[w:w + 1])
+        assert int(r[f"{key}/plain"]) > 0   # the plain scatter-add, counted
 
 
 # ---------------------------------------------------------------------------

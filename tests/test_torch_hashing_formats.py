@@ -169,3 +169,76 @@ def test_layout_partition_pass_equals_stable_argsort(length, n):
         assert got.dtype == np.int32, name
         np.testing.assert_array_equal(got, want, err_msg=name)
     assert lo.cap_server == int(counts.max())
+
+
+# ---------------------------------------------------------------------------
+# COO, tensor blocks, the hash bitmap and the strawman hash
+# ---------------------------------------------------------------------------
+
+def _sparse_dense(shape, density, seed):
+    rng = np.random.default_rng(seed)
+    keep = rng.random(shape[0]) < density
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x * keep.reshape(-1, *([1] * (len(shape) - 1)))
+
+
+@pytest.mark.parametrize("shape", [(256,), (256, 3)], ids=["element", "row"])
+@pytest.mark.parametrize("cap", [8, 64, 300])
+def test_coo_encode_decode_bitwise(shape, cap):
+    x = _sparse_dense(shape, 0.2, cap)
+    ref = F.coo_encode(jnp.asarray(x), cap)
+    got = TF.coo_encode(_t(x), cap)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert got.capacity == ref.capacity
+    assert int(got.nnz()) == int(ref.nnz())
+    assert int(got.wire_bytes()) == int(ref.wire_bytes())
+    np.testing.assert_array_equal(np.asarray(F.coo_decode(ref, 256)),
+                                  TF.coo_decode(got, 256).numpy())
+
+
+@pytest.mark.parametrize("shape", [(256,), (256, 3)], ids=["element", "row"])
+@pytest.mark.parametrize("block,cap", [(8, 3), (8, 40), (4, 64)])
+def test_blocks_encode_decode_bitwise(shape, block, cap):
+    x = _sparse_dense(shape, 0.05, block + cap)
+    ref = F.blocks_encode(jnp.asarray(x), block, cap)
+    got = TF.blocks_encode(_t(x), block, cap)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert int(got.n_blocks()) == int(ref.n_blocks())
+    assert int(got.wire_bytes()) == int(ref.wire_bytes())
+    np.testing.assert_array_equal(np.asarray(F.blocks_decode(ref, 256)),
+                                  TF.blocks_decode(got, 256).numpy())
+    with pytest.raises(ValueError, match="multiple of block"):
+        TF.blocks_encode(_t(x[:250]), block, cap)
+
+
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_hash_bitmap_layout_encode_decode_bitwise(n):
+    seeds = H.make_seeds(0, 4)
+    ref = F.make_hash_bitmap_layout(1000, n, seeds)
+    got = TF.make_hash_bitmap_layout(1000, n, np.asarray(seeds))
+    assert got.n == ref.n == n
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    x = _sparse_dense((1000, 2), 0.1, n)
+    w = F.hash_bitmap_encode(jnp.asarray(x), ref)
+    tw = TF.hash_bitmap_encode(_t(x), got)
+    np.testing.assert_array_equal(_words(w), tw.numpy())
+    np.testing.assert_array_equal(np.asarray(F.hash_bitmap_decode(w, ref)),
+                                  TF.hash_bitmap_decode(tw, got).numpy())
+    for m in (1, 31, 32, 33, 1000):
+        assert TF.bitmap_wire_bytes(m) == F.bitmap_wire_bytes(m)
+        assert TF.hash_bitmap_wire_bytes(m) == F.hash_bitmap_wire_bytes(m)
+
+
+@pytest.mark.parametrize("n,r", [(4, 8), (2, 64), (1, 3)])
+def test_strawman_hash_bitwise(n, r):
+    rng = np.random.default_rng(n * r)
+    idx = np.full(64, EMPTY, np.int32)
+    idx[:40] = rng.choice(5000, 40, replace=False)
+    for seed in (0, 12345, _seeds()[1]):
+        mem, lost = H.strawman_hash(jnp.asarray(idx), n=n, r=r, seed=seed)
+        tmem, tlost = TH.strawman_hash(_t(idx), n=n, r=r, seed=seed)
+        np.testing.assert_array_equal(np.asarray(mem), tmem.numpy())
+        assert int(lost) == int(tlost)

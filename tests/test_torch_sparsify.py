@@ -17,7 +17,15 @@ tests/test_sparsify.py).
   bit for bit on both routes over two steps (synced values, residuals,
   words, overflow, EF densities); compressed zen equals compressed dense
   (residuals bitwise, synced within 1e-5); topk:0.01 sends under 10 % of
-  the dense words; ``:noef`` keeps no state; EF without a residual raises.
+  the dense words; ``:noef`` keeps no state; EF without a residual raises;
+* under ``--sync auto`` the compressed GradSync resolves every bucket as
+  the reference's does (zen at ``topk:0.01``) and runs its two steps
+  bitwise the reference's;
+* ``compress_profile`` and ``measured_profile`` give the reference's
+  curves and picks, and ``DensityController`` fed the reference's metric
+  sequences gives its ``schemes()`` and ``drifted()`` step by step
+  (tests/test_sparsify.py's controller cases), and its profiles replan a
+  GradSync per bucket.
 
 Gradients are numpy draws from a seed, dyadic with few bits (multiples
 of 1/8 up to 4), so every sum the schemes take is exact and the compressed
@@ -35,12 +43,14 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.core import buckets as rbk
+from repro.core import costmodel as rcm
 from repro.core import sparsify as rsp
 from repro.core.zen import GradSync as RefGradSync
 from repro.core.zen import SyncConfig as RefSyncConfig
 from repro.models.common import make_ctx
 from repro.models.model import build_model
 from repro_torch.core import buckets as bk
+from repro_torch.core import costmodel as TC
 from repro_torch.core import schemes as TS
 from repro_torch.core import sparsify as sp
 from repro_torch.core.zen import GradSync, SyncConfig
@@ -407,3 +417,156 @@ def test_noef_keeps_no_state_and_ef_needs_residual():
     _, nres, _ = gs(grads, res, donate=True)
     assert all(nres[k] is before[k] for k in before)
     assert any(bool(v.abs().sum() > 0) for v in nres.values())
+
+
+# ---------------------------------------------------------------------------
+# 'auto' on compressed buckets, and the density controller
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_auto_compressed_gradsync_bitwise_reference(ref_runs, backend):
+    """``--sync auto --compress topk:0.01``: the reference's auto plan puts
+    zen on every compressed bucket (their worst case at density 0.01) and
+    on the embedding, the plan of the reference's zen run; the port's auto
+    GradSync plans the same, prints the same lines, and its two steps are
+    bitwise that run's."""
+    spec = "topk:0.01"
+    shapes, ref_zen, ref_steps = ref_runs[spec, None]
+    ref_auto = RefGradSync(RefSyncConfig(scheme="auto", density_budget=0.25,
+                                         bucket_bytes=1 << 20, compress=spec),
+                           SPARSE_PATHS, shapes, N, data_axis="data")
+    assert ref_auto.bucket_schemes() == ref_zen.bucket_schemes()
+    assert [b.scheme for b in ref_auto.plan.buckets] == \
+        [b.scheme for b in ref_zen.plan.buckets]
+    gs = _port_gs(shapes, spec, "auto", 1 << 20, ref_auto, backend)
+    assert gs.describe() == ref_auto.describe()
+    assert gs.bucket_schemes() == ref_auto.bucket_schemes()
+    leaves = _leaves(shapes)
+    res = gs.init_residual("cpu")
+    for step, (r_synced, r_res, r_stats) in enumerate(ref_steps):
+        grads = _grads(leaves, step)
+        synced, res, stats = gs({nm: torch.from_numpy(grads[nm]).to(dt)
+                                 for nm, _, dt in leaves}, res, step=step)
+        for nm, _, _ in leaves:
+            _equal(synced[nm], r_synced[nm], f"step {step} {nm}")
+        for k in r_res:
+            _equal(res[k], r_res[k], f"step {step} residual {k}")
+        for k in r_stats:
+            _equal(stats[k], r_stats[k], f"step {step} {k}")
+
+
+@pytest.mark.parametrize("spec", ["topk:0.01", "randk:0.3", "threshold:0.5"])
+@pytest.mark.parametrize("size,vw", [(896, 1), (1 << 20, 1), (151936, 896)])
+def test_compress_and_measured_profiles_match_reference(spec, size, vw):
+    tcfg, rcfg = sp.parse_compress(spec), rsp.parse_compress(spec)
+    t = sp.compress_profile(tcfg, size, vw)
+    r = rsp.compress_profile(rcfg, size, vw)
+    for i in range(0, 10):
+        assert t.d(i) == r.d(i)
+    for n in (2, 4, 8):
+        assert TC.choose_scheme(t, n) == rcm.choose_scheme(r, n)
+        for d1, dn in ((0.01, 0.02), (0.3, 0.9), (0.7, 0.5), (-1, 2)):
+            tm = sp.measured_profile(size, d1, dn, n, vw)
+            rm = rsp.measured_profile(size, d1, dn, n, vw)
+            for i in range(0, n + 3):
+                assert tm.d(i) == rm.d(i) and tm.s(i) == rm.s(i)
+            assert TC.choose_scheme(tm, n) == rcm.choose_scheme(rm, n)
+            assert (tm.M, tm.vw) == (rm.M, rm.vw)
+
+
+def _stats_for(key, d1, dn):
+    return {sp.DENSITY1_KEY.format(key=key): d1,
+            sp.DENSITYN_KEY.format(key=key): dn}
+
+
+def _both_controllers(*args, **kwargs):
+    return (sp.DensityController(*args, **kwargs),
+            rsp.DensityController(*args, **kwargs))
+
+
+def _same_step(t, r):
+    assert t.schemes() == r.schemes()
+    assert t.drifted() == r.drifted()
+    return t.drifted()
+
+
+def test_controller_flips_zen_to_dense_on_densification():
+    t, r = _both_controllers({"a": 1 << 14}, {"a": "zen"}, n=2, ema=0.0)
+    assert not _same_step(t, r)         # no observations: keep the plan
+    for c in (t, r):
+        c.observe(_stats_for("a", 0.02, 0.04))
+    assert not _same_step(t, r)         # sparse: zen stays
+    for c in (t, r):
+        c.observe(_stats_for("a", 0.7, 1.0))
+    assert _same_step(t, r) == {"a": ("zen", "dense")}
+    for c in (t, r):
+        c.rebase({"a": "dense"})
+    assert not _same_step(t, r)
+    # ...and back, when the measured density thins out again
+    for c in (t, r):
+        c.observe(_stats_for("a", 0.01, 0.02))
+    assert _same_step(t, r) == {"a": ("dense", "zen")}
+
+
+def test_controller_ema_smooths_single_outliers():
+    t, r = _both_controllers({"a": 1 << 14}, {"a": "zen"}, n=2, ema=0.9)
+    seq = ([(0.02, 0.04)] * 20 + [(0.9, 1.0)] + [(0.9, 1.0)] * 40)
+    flips = []
+    for step, (d1, dn) in enumerate(seq):
+        for c in (t, r):
+            c.observe(_stats_for("a", d1, dn))
+        if _same_step(t, r):
+            flips.append(step)
+    assert 20 not in flips              # one outlier: the plan holds
+    assert flips and flips[-1] == len(seq) - 1   # a sustained shift flips
+
+
+def test_controller_on_many_buckets_and_tensor_metrics():
+    """Several buckets, metrics as 0-d tensors beside unrelated keys, at
+    n = 8, over a drifting sequence: the same picks every step."""
+    sizes = {"b0": 896, "b1": 1 << 20, "b2": 13_074_432}
+    t, r = _both_controllers(sizes, dict.fromkeys(sizes, "zen"), n=8)
+    rng = np.random.default_rng(0)
+    for step in range(30):
+        stats = {"loss": 1.0}
+        for k in sizes:
+            d1 = float(rng.uniform(0.0, 0.2 + step / 40))
+            stats.update(_stats_for(k, d1, min(1.0, d1 * rng.uniform(1, 8))))
+        t.observe({k: torch.tensor(v) for k, v in stats.items()})
+        r.observe(stats)
+        _same_step(t, r)
+        if step % 7 == 6:
+            for c in (t, r):
+                c.rebase(r.schemes())
+    assert t.profiles().keys() == r.profiles().keys() == sizes.keys()
+
+
+def test_controller_profiles_feed_gradsync_replan():
+    """The full loop: a measured dense-ish profile makes 'auto' resolve
+    that bucket to dense while an unmeasured one keeps zen (per bucket,
+    not global); bucket keys and sizes are stable across the replan, as
+    in the reference's GradSync given the same profiles."""
+    shapes = {"layers": {"w00": jax.ShapeDtypeStruct((1024,), jnp.float32),
+                         "w01": jax.ShapeDtypeStruct((1024,), jnp.float32)}}
+    leaves = _leaves(shapes)
+    cfg = dict(scheme="auto", density_budget=0.25, bucket_bytes=4096,
+               compress="topk:0.05")
+    gs0 = GradSync(SyncConfig(**cfg), [], leaves, 2)
+    assert set(gs0.bucket_schemes().values()) == {"zen"}
+    t, r = _both_controllers(gs0.compressed_buckets(), gs0.bucket_schemes(),
+                             n=2, ema=0.0)
+    key0 = next(iter(gs0.compressed_buckets()))
+    for c in (t, r):
+        c.observe(_stats_for(key0, 0.7, 1.0))
+    assert _same_step(t, r)
+    gs1 = GradSync(SyncConfig(**cfg), [], leaves, 2, profiles=t.profiles())
+    ref1 = RefGradSync(RefSyncConfig(**cfg), [], shapes, 2,
+                       data_axis="data", profiles=r.profiles())
+    assert gs1.bucket_schemes() == ref1.bucket_schemes()
+    assert gs1.bucket_schemes()[key0] == "dense"
+    others = {k: v for k, v in gs1.bucket_schemes().items() if k != key0}
+    assert others and set(others.values()) == {"zen"}
+    assert gs1.compressed_buckets() == gs0.compressed_buckets()
+    assert gs1.describe() == ref1.describe()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        sp.DensityController({}, {}, 2, calib=object())

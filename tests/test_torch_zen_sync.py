@@ -102,54 +102,83 @@ def test_dense_sync_matches_reference():
     _assert_sync_equal(got, ref)
 
 
-@pytest.mark.parametrize("scheme", ["zen", "dense"])
+GRADSYNC_SCHEMES = ["zen", "dense", "agsparse", "sparcml", "sparse_ps",
+                    "omnireduce", "balanced", "auto"]
+
+
+@pytest.mark.parametrize("scheme", GRADSYNC_SCHEMES)
 def test_gradsync_matches_reference(scheme):
-    """GradSync over a small model-shaped pytree: zen (or a psum) on the
-    row-sparse embedding, psum on the rest, mean over 4 workers; the
-    synced grads and the sync metrics equal the reference's."""
+    """GradSync over a small model-shaped pytree: the scheme (or a psum,
+    or 'auto's per-leaf pick) on the row-sparse embedding, psum on the
+    rest, mean over 4 workers, two steps (the second on other grads): the
+    synced grads, the sync metrics and the describe() lines equal the
+    reference's, on both routes."""
     n = 4
     rng = np.random.default_rng(0)
-    emb = np.array(_integer_workers(3, n, 512, 0.05, jnp.float32, 8))
-    dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(np.float32)
     shapes = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
               "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
     ref_gs = RefGradSync(RefSyncConfig(scheme=scheme), ["embed/table"],
                          shapes, n)
-    ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
-        {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
     leaves = [("embed/table", (512, 8), torch.float32),
               ("w", (6, 5), torch.float32)]
-    gs = GradSync(SyncConfig(scheme=scheme), ["embed/table"], leaves, n)
-    if scheme == "zen":    # the reference's layout seeds
-        lo = ref_gs._layouts["embed/table", 0]
-        gs._layouts["embed/table"] = TS.make_zen_layout(
-            512, n, density_budget=0.25, seeds=lo.seeds)
-    out, st = gs({"embed/table": torch.from_numpy(emb),
-                  "w": torch.from_numpy(dense)})
-    np.testing.assert_array_equal(out["embed/table"].numpy(),
-                                  np.asarray(ref_out["embed"]["table"]))
-    np.testing.assert_array_equal(out["w"].numpy(), np.asarray(ref_out["w"]))
-    for k in ("sync/sparse_sent_words", "sync/overflow", "sync/dense_words",
-              "sync/n_buckets"):
-        np.testing.assert_array_equal(st[k].numpy(), np.asarray(ref_st[k]),
-                                      err_msg=k)
+    ports = {}
+    for backend in ("torch", "cuda"):
+        gs = GradSync(SyncConfig(scheme=scheme, backend=backend),
+                      ["embed/table"], leaves, n)
+        assert gs.describe() == ref_gs.describe()
+        if "embed/table" in gs._layouts:    # the reference's layout seeds
+            lo = ref_gs._layouts["embed/table", 0]
+            gs._layouts["embed/table"] = TS.make_zen_layout(
+                512, n, density_budget=0.25, seeds=lo.seeds)
+        ports[backend] = gs
+    for step in range(2):
+        emb = np.array(_integer_workers(3 + step, n, 512, 0.05, jnp.float32,
+                                        8))
+        dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(
+            np.float32)
+        ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
+            {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
+        for backend, gs in ports.items():
+            out, st = gs({"embed/table": torch.from_numpy(emb),
+                          "w": torch.from_numpy(dense)})
+            np.testing.assert_array_equal(
+                out["embed/table"].numpy(),
+                np.asarray(ref_out["embed"]["table"]))
+            np.testing.assert_array_equal(out["w"].numpy(),
+                                          np.asarray(ref_out["w"]))
+            assert set(st) == set(ref_st)
+            for k in ref_st:
+                np.testing.assert_array_equal(
+                    st[k].numpy(), np.asarray(ref_st[k]),
+                    err_msg=f"{scheme} {backend} step {step} {k}")
 
 
 def test_gradsync_rejects_unported_settings():
+    """Calibration (item 7) and two-level topologies (item 9) still raise;
+    every registry scheme and 'auto' build and run."""
     leaves = [("embed/table", (64, 4), torch.float32)]
-    for cfg in (SyncConfig(scheme="agsparse"), SyncConfig(scheme="auto"),
-                SyncConfig(calib_file="calib.json"),
+    for cfg in (SyncConfig(calib_file="calib.json"),
                 SyncConfig(alpha_beta="1,1")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GradSync(cfg, ["embed/table"], leaves, 4)
+    g = torch.zeros((4, 64, 4))
+    g[:, :8] = 1.0
+    for scheme in ("agsparse", "auto"):
+        gs = GradSync(SyncConfig(scheme=scheme), ["embed/table"], leaves, 4)
+        out, st = gs({"embed/table": g})
+        assert torch.equal(out["embed/table"], g)
+        assert not st["sync/overflow"].any()
+    # 'auto' picks per leaf by the cost model: zen at this budget
+    assert GradSync(SyncConfig(scheme="auto"), ["embed/table"], leaves,
+                    4).plan.buckets[0].scheme == "zen"
+    with pytest.raises(ValueError, match="registered schemes are"):
+        GradSync(SyncConfig(scheme="bogus"), ["embed/table"], leaves, 4)
     # EF compression is ported (tests/test_torch_sparsify.py)
     assert GradSync(SyncConfig(compress="topk:0.01"), ["embed/table"],
                     leaves, 4).has_compression
     # the unfused chains run (tests/test_torch_unfused_chain.py holds them
     # against the reference)
     for cfg in (SyncConfig(fused_commit=False), SyncConfig(fused_encode=False)):
-        g = torch.zeros((4, 64, 4))
-        g[:, :8] = 1.0
         out, st = GradSync(cfg, ["embed/table"], leaves, 4)({"embed/table": g})
         assert torch.equal(out["embed/table"], g)
         assert not st["sync/overflow"].any()

@@ -14,6 +14,10 @@ Jobs:
   zen       ``zen_sync`` of every ``zen/<case>/vals`` on every route and
             the COO pull;
   dense     ``dense_sync`` of every ``dense/<dtype>`` stack;
+  schemes   each baseline scheme (agsparse, sparcml, sparse_ps, omnireduce,
+            balanced) on every ``schemes/<case>/vals``, its stage kwargs
+            from ``schemes/<case>/kw/<name>``, on the ``"cuda"`` route (the
+            scatter-add's plain version on the CPU);
   gradsync  a whole ``GradSync`` over the ``gs/<leaf>`` stacks, one bucket
             per leaf and with dense leaves fused into ``gs_bucket_bytes``
             buckets;
@@ -84,6 +88,24 @@ def _dense(inp, w: int, group, out: dict) -> None:
         res, st = S.dense_sync(x, group=group)
         out[f"dense/{name}/out"] = res.float().numpy()
         out[f"dense/{name}/sent"] = st.sent_words.numpy()
+
+
+def _schemes(inp, w: int, group, out: dict) -> None:
+    cases = sorted({k.split("/")[1] for k in inp if k.startswith("schemes/")})
+    for case in cases:
+        pre = f"schemes/{case}"
+        vals = torch.from_numpy(inp[f"{pre}/vals"][w:w + 1])
+        vals = vals.to(DTYPES[str(inp[f"{pre}/dtype"])])
+        name = str(inp[f"{pre}/name"])
+        kw = {k.split("/")[-1]: int(inp[k]) for k in inp
+              if k.startswith(f"{pre}/kw/")}
+        K.reset_counts()
+        res, st = getattr(S, f"{name}_sync")(vals, group=group,
+                                              backend="cuda", **kw)
+        out[f"{pre}/out"] = res.float().numpy()
+        out[f"{pre}/sent"] = st.sent_words.numpy()
+        out[f"{pre}/overflow"] = st.overflow.numpy()
+        out[f"{pre}/plain"] = np.array(K.PLAIN_CALLS["coo_scatter_add"])
 
 
 def _gradsync(inp, w: int, group, out: dict) -> None:
@@ -180,6 +202,7 @@ def main(work: Path, jobs: list[str]) -> None:
     try:
         w = group.ranks[0]
         for job, fn in (("zen", _zen), ("dense", _dense),
+                        ("schemes", _schemes),
                         ("gradsync", _gradsync), ("compress", _compress),
                         ("broadcast", _broadcast)):
             if job in jobs:
