@@ -33,6 +33,12 @@ Phases (any failure exits non-zero; nothing is caught):
      shared-memory paths: bitwise against their plain versions, twice in a
      row, the push in bf16 and f32; at the 25 MiB bucket also the unfused
      chain's five kernels.  Timed with the times phase.
+  2c. new_shapes: the three fused Zen kernels at the shapes the two-level
+     and zoo paths give them: the inter stage of nodes of 4 (2 servers of
+     the node sums, budget 1: C 151936, r1 + r2 167130, the encode on its
+     wide path at d 896) and the zoo trainers' tables (qwen2.5-3b d 2048,
+     phi4-mini d 3072 and vocab 200064, 2 ranks): bitwise their plain
+     versions, twice in a row; timed with the times phase.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -78,10 +84,12 @@ Phases (any failure exits non-zero; nothing is caught):
      (qwen2) / 1e-2 (mamba2, beside the logit shift that merely reordering
      the plain scan gives) and the same greedy tokens.  One profiled bf16
      prefill per model.
-  7b. mamba2_train: ``launch/train.py --arch mamba2-370m --mesh 8x1``
-     at full width and depth (global batch 8 x 512, Zen on ``embed/table``,
-     4 steps): finite loss, 0 overflow, ``ssd_fwd`` launched
-     48 x 8 x steps times under ``SSDScan`` with as many plain recomputes
+  7b. mamba2_train: the mamba2-370m trainer (``build_program`` +
+     ``attach_train``, as ``launch/train.py --mesh 8x1`` builds it) at full
+     width and 24 of its 48 layers, so that the whole run stays inside its
+     time limit (global batch 8 x 512, Zen on ``embed/table``, 4 steps):
+     finite loss, 0 overflow, ``ssd_fwd`` launched
+     24 x 8 x steps times under ``SSDScan`` with as many plain recomputes
      in its backward, Zen's kernels 8 x steps times, nothing plain; the
      plain route (``--backend torch``): step-0 loss within 5e-3, the same
      wire words; ``SSDScan``'s gradients at a rank's shape bitwise those
@@ -119,6 +127,26 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels (bitwise its ``--backend torch`` run; within 1e-3 of zen's
      losses; ``coo_scatter_add`` launched, the Zen kernels not, nothing
      plain, overflow 0).
+  7e. hier: the qwen2-0.5b 8x1 trainer of phase 4 on two-level
+     topologies: ``--node-size 4`` and ``2``, each with ``--sync zen`` and
+     ``--sync auto``, and ``--node-size 2 --bucket-bytes 26214400``: 4
+     steps on the kernels beside 2 on the plain route (``--backend
+     torch``): losses, grad norm, words at each level
+     (``sync/intra_words``, ``sync/inter_words``) and overflow bitwise,
+     the step-0 loss the flat run's bits and later losses within 5e-3 of
+     its (the psums add in another order, in bf16), the Zen kernels launched at
+     both levels under zen (16 of each a step), ``auto``'s plans the
+     reference's (``hier(sparcml@intra,dense@inter)`` at 4,
+     ``hier(agsparse@intra,zen@inter)`` at 2) with ``coo_scatter_add``
+     launched, nothing plain; the ``describe()`` lines, words, step times
+     and peak memory are logged.
+  7f. zoo: qwen2.5-3b and phi4-mini: served at full size as in phase 7
+     (bf16 timed, ``flash_fwd`` at hd 128 in every layer of every
+     prefill; f32 kernels vs plain within 1e-3 and the same tokens; one
+     profiled prefill), then trained at full width on a 2x1 mesh (2 x 512
+     tokens, Zen on ``embed/table``, 2 steps) at the depth ``ZOO`` sets
+     (28 and 16 layers: the peak must stay under 70 GiB), the kernel
+     route bitwise its plain route, the peak memory logged.
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -127,16 +155,21 @@ Phases (any failure exits non-zero; nothing is caught):
      output and stats bitwise row w of the in-process ``simulate`` on the
      card (sha256 digests) on all four (fused, fused_commit) routes, each
      route's kernels launched once per rank, no plain call, and the five
-     baseline schemes the same way (``--only dist_sync`` runs this part
-     alone); then
+     baseline schemes the same way, and ``hier_sync`` of four two-level
+     plans (Zen at both levels, and ``auto``'s plans) over nodes of 4 and
+     2 ranks, the level groups made by ``dist.new_group``, each rank's
+     digest (words by level included) bitwise its ``simulate_hier`` row
+     (``--only dist_sync`` runs this part alone); then
      ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
      width and depth (4 steps; 4 ranks, as a rank takes about 12 GB), per
-     leaf and with 25 MiB buckets, against the in-process 4x1 trainer on
-     the same flags: losses finite,
+     leaf, with 25 MiB buckets and with ``--node-size 2`` (``--only
+     dist_hier`` runs this one alone), against the in-process 4x1 trainer
+     on the same topology: losses finite,
      falling and within 5e-3 of it, the same wire words, no overflow,
      ``zen_encode``, ``zen_commit_push`` and ``zen_commit_pull`` launched
-     once a step on every rank, no plain call; both runs' step times and
-     tok/s are logged.  Not in the default run: ``--only dist_parts`` logs
+     once a step on every rank (twice on nodes of 2: once a level), no
+     plain call, the words at each level the in-process run's; the runs'
+     step times and tok/s are logged.  Not in the default run: ``--only dist_parts`` logs
      where each one's step goes on the host's clock, per leaf and with 25
      MiB buckets (``step_parts``:
      forward and backward, Zen's sync and the whole GradSync, the last two
@@ -155,7 +188,8 @@ Phases (any failure exits non-zero; nothing is caught):
      products); beside the table, the scatter-add, the encode, the
      commit push, the hash stage and the row compaction are timed once
      more at phase 2's dense stream, and ``flash_fwd`` at the qwen2.5-3b
-     and pixtral-12b prefill shapes against SDPA.  The hash stage's, the
+     and pixtral-12b prefill shapes against SDPA; the fused Zen kernels
+     at phase 2c's new shapes (rows 1e-3g).  The hash stage's, the
      row compaction's, the push's and the pull's device time by launch
      (torch.profiler), the push's grid and its kept scratch are logged.
      Then the bitmap pair at its call sites on the realistic and dense
@@ -722,6 +756,93 @@ def phase_kernels_wide(dev, smi: str, timed: bool) -> dict:
     return {"err": err, "rows": rows}
 
 
+# the new shapes of the two-level and zoo paths: (tag, what, vocab, d, n,
+# ranks whose Zipf rows one node sums (1: a rank's own rows), layout budget)
+NEW_SHAPES = (("e", "inter stage, nodes of 4 (n 2, budget 1)", 151936, 896,
+               2, 4, 1.0),
+              ("f", "qwen2.5-3b embed/table (n 2)", 151936, 2048, 2, 1,
+               0.25),
+              ("g", "phi4-mini embed/table (n 2)", 200064, 3072, 2, 1, 0.25))
+
+
+def zen_rows(inp: dict, lo, d: int) -> dict:
+    """(kernel call, plain call, bytes, operations) of the three fused Zen
+    kernels at ``kernel_inputs``' worker 0 / server 0, at row width ``d``
+    (bf16), counted as the table's rows 1-3."""
+    from repro_torch.kernels import ops as K, ref as R
+
+    idx, lp, vals, bms = (inp[k] for k in ("idx", "lp", "vals", "bms"))
+    n, L, seeds = lo.n, lo.cap_pull, lo.static_seeds()
+    live = int((lp < lo.cap_server).sum())
+    W, el = -(-L // 32), vals.element_size()
+    return {
+        "zen_encode": (
+            lambda: K.zen_encode_fused_op(idx, seeds, n, lo.r1, lo.r2),
+            lambda: R.zen_encode_ref(idx, seeds, n, lo.r1, lo.r2),
+            idx.numel() * 4 + (n * (L + W) + 1) * 4, 0),
+        "zen_commit_push": (
+            lambda: K.zen_commit_push_fused_op(
+                lp, vals, cap_server=lo.cap_server, cap_pull=L),
+            lambda: R.zen_commit_push_ref(
+                lp, vals, cap_server=lo.cap_server, cap_pull=L),
+            lp.numel() * 4 + live * d * el + L * (4 + d * el)
+            + lo.cap_bitmap_words * 4 + 4, live * d),
+        "zen_commit_pull": (
+            lambda: K.zen_commit_pull_fused_op(bms, lo.cap_server, L),
+            lambda: R.zen_commit_pull_ref(bms, lo.cap_server, L),
+            bms.numel() * 4 + n * L * 4, 0)}
+
+
+def phase_new_shapes(dev, smi: str, timed: bool) -> dict:
+    """The fused Zen kernels at the shapes this slice's paths give them
+    (``NEW_SHAPES``): the inter stage of nodes of 4 (2 servers, budget 1:
+    the encode on its wide path at d 896) and the zoo trainers' embedding
+    tables at d 2048 and 3072 (2 ranks): bitwise their plain versions,
+    twice in a row; with ``timed`` each kernel's time and bound (rows 1e,
+    2f-g, 3f-g and the rest beside them)."""
+    from repro_torch.core import schemes as S_
+    from repro_torch.kernels import ops as K
+
+    err = {k: 0.0 for k in K.KERNELS}
+    rows = []
+    rng = np.random.default_rng(7)
+    for tag, what, M, d, n, per_node, budget in NEW_SHAPES:
+        g = zipf_rows(rng, n * per_node, M, SLICE["tokens"], d,
+                      torch.bfloat16, dev)
+        if per_node > 1:   # each node's sum of its ranks' rows
+            g = g.view(n, per_node, M, d).sum(1, dtype=torch.float32).to(
+                torch.bfloat16)
+        lo = S_.make_zen_layout(M, n, density_budget=budget)
+        inp = kernel_inputs(g, lo)
+        del g
+        wide = K.zen_fused_wide(lo.n, lo.cap_index, lo.r1, lo.r2,
+                                lo.cap_server)
+        log(f"[new_shapes] {tag} {what}: M={M} d={d} C={lo.cap_index} "
+            f"r1+r2={lo.cap_pull} cap_server={lo.cap_server}; worker 0 "
+            f"{int((inp['idx'] != 2**31 - 1).sum())} live rows, server 0 "
+            f"{int((inp['lp'] < lo.cap_server).sum())} pushed; wide paths "
+            f"{wide}")
+        if tag == "e" and not wide["zen_encode"]:
+            raise AssertionError("the inter stage's encode stayed on its "
+                                 "shared-memory path")
+        calls = zen_rows(inp, lo, d)
+        for name, (kern, plain, _, _) in calls.items():
+            want = plain()
+            for call in (1, 2):
+                err[name] = max(err[name], same(
+                    kern(), want, f"{name} {tag} {what} call {call}"))
+        log(f"[new_shapes] {tag}: zen_encode, zen_commit_push and "
+            f"zen_commit_pull equal their plain versions")
+        if timed:
+            for name, (kern, plain, nbytes, nops) in calls.items():
+                row = time_row(f"{name} ({what}, d {d})", kern, plain, None,
+                               nbytes, nops, OPS_PER_S, smi, plain_iters=5)
+                rows.append({**row, "kernel": name, "row": tag})
+        del inp, calls
+        torch.cuda.empty_cache()
+    return {"err": err, "rows": rows}
+
+
 def bitmap_checks(name: str, inp: dict, lo, check) -> None:
     """The bitmap pair in its row and 1-D forms against the plain versions,
     bitwise: every server's mask [n, cap_server] (the unfused commit's one
@@ -1224,7 +1345,7 @@ def step0_checks(prog, batch: dict) -> dict:
                                                         + zero)):
             raise AssertionError(f"EF invariant broken in bucket {b.bid} "
                                  f"({b.key})")
-        z, st = S_.simulate(S_.zen_sync, sent, layout=gs._layouts[b.key],
+        z, st = S_.simulate(S_.zen_sync, sent, layout=gs._layouts[b.key, 0],
                             backend="cuda")
         d, _ = S_.simulate(S_.dense_sync, sent)
         u = 2.0 ** (-8 if sent.dtype == torch.bfloat16 else -24)
@@ -1756,6 +1877,123 @@ def phase_schemes(smi: str, zen: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# two-level topologies: the 8x1 trainer on nodes of 4 and of 2 ranks
+# ---------------------------------------------------------------------------
+
+# (node size, --sync, extra flags) of the hier phase's trainers
+HIER_RUNS = ((4, "zen"), (4, "auto"), (2, "zen"), (2, "auto"),
+             (2, "zen", "--bucket-bytes", str(BUCKET_BYTES)))
+# 'auto''s plan for embed/table at 8 ranks (the reference's cost model)
+HIER_AUTO = {4: "hier(sparcml@intra,dense@inter)",
+             2: "hier(agsparse@intra,zen@inter)"}
+HIER_STEPS, HIER_PLAIN_STEPS = 4, 2
+# two levels add each psum's terms in another order (node sums first), in
+# bf16: the step-0 loss is the flat run's bits, later ones move as the dist
+# trainer's do when gloo reorders its 4-rank psum (DIST_LOSS_TOL)
+HIER_LOSS_TOL = 5e-3
+ZEN_KERNELS = ("zen_encode", "zen_commit_push", "zen_commit_pull")
+
+
+def hier_trainer(ns: int, sync: str, steps: int, *extra: str) -> dict:
+    """``scheme_trainer`` with ``--node-size ns``, the peak of the card's
+    allocated memory over the run beside it."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = scheme_trainer(sync, steps, "--node-size", str(ns), *extra)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def hier_launches(ns: int, sync: str, steps: int) -> dict:
+    """The Zen kernels' launches a run should make: under ``zen`` a
+    worker's encode, a server's push and a worker's pull at each of the
+    two levels (the inter level once for each of the ns columns of 8 / ns
+    ranks: Zen's intra outputs are a stack of per-worker decodes); under
+    ``auto`` Zen runs at the inter level only at node size 2, once over
+    the 4 node sums (agsparse hands a node's workers one shared sum, so
+    the columns' inputs are the same tensors, ``schemes.level_sync``),
+    and not at all at 4."""
+    n = SLICE["n"]
+    per = {"zen": 2 * n, "auto": n // ns if ns == 2 else 0}[sync]
+    return {k: steps * per for k in ZEN_KERNELS}
+
+
+def phase_hier(smi: str, flat: dict | None = None) -> dict:
+    """The full-size qwen2-0.5b 8x1 trainer on two-level topologies
+    (``HIER_RUNS``): the kernel route (4 steps) bitwise its ``--backend
+    torch`` route over the plain route's 2 steps (losses, grad norm, words
+    at each level, overflow 0), the step-0 loss bitwise the flat Zen run's
+    and later ones within ``HIER_LOSS_TOL`` (``flat``: the trainer phase's
+    run), the Zen kernels at both levels
+    under ``zen`` and ``coo_scatter_add`` under ``auto``, nothing plain;
+    the plans, words, step times and peak memory logged."""
+    if flat is None:
+        flat = scheme_trainer("zen", HIER_STEPS)
+    out = {}
+    for ns, sync, *extra in HIER_RUNS:
+        tag = f"node_size {ns} --sync {sync}{' ' if extra else ''}" \
+            + " ".join(extra)
+        run = hier_trainer(ns, sync, HIER_STEPS, *extra)
+        plain = hier_trainer(ns, sync, HIER_PLAIN_STEPS, *extra,
+                             "--backend", "torch")
+        plan = [ln for ln in run["plan"]
+                if ln.startswith("topology") or ln.endswith("embed/table")]
+        for ln in plan:
+            log(f"[hier] {tag}: {ln}")
+        log(f"[hier] {tag}: (the topology's α-β are the cost model's "
+            f"planning constants, not measurements)")
+        k = HIER_PLAIN_STEPS
+        for key in ("losses", "grad_norm", "sparse_words_by_step",
+                    "dense_words", "intra_words", "inter_words"):
+            if run[key][:k] != plain[key]:
+                raise AssertionError(f"[hier] {tag} {key}: kernels "
+                                     f"{run[key][:k]} != plain route "
+                                     f"{plain[key]}")
+        diff = max(abs(a - b) for a, b in zip(run["losses"], flat["losses"]))
+        log(f"[hier] {tag}: losses={run['losses']} (plain route bitwise over "
+            f"{k} steps; flat zen {flat['losses']}, max |diff| {diff}) "
+            f"intra_words={run['intra_words']} inter_words="
+            f"{run['inter_words']} sparse_words={run['sparse_words_by_step']}"
+            f" dense_words={run['dense_words']} overflow={run['overflow']} "
+            f"step_s={run['step_s']} (median after the first "
+            f"{np.median(run['step_s'][1:])}; plain route {plain['step_s']})"
+            f" tok/s={run['tok_per_s']} peak {run['peak_gib']:.2f} GiB; "
+            f"launches {run['launches']} | {smi}")
+        gdiff = abs(run["grad_norm"][0] - flat["grad_norm"][0])
+        log(f"[hier] {tag}: |loss - flat's| by step "
+            f"{[abs(a - b) for a, b in zip(run['losses'], flat['losses'])]}; "
+            f"step-0 grad norm {run['grad_norm'][0]} vs flat "
+            f"{flat['grad_norm'][0]} (relative {gdiff / flat['grad_norm'][0]})")
+        if not all(np.isfinite(run["losses"])) or diff > HIER_LOSS_TOL \
+                or run["losses"][0] != flat["losses"][0]:
+            raise AssertionError(f"[hier] {tag} losses {run['losses']} vs "
+                                 f"flat {flat['losses']}")
+        if run["overflow"] or plain["overflow"] or any(run["plain"].values()):
+            raise AssertionError(f"[hier] {tag}: overflow {run['overflow']}/"
+                                 f"{plain['overflow']} plain {run['plain']}")
+        want = hier_launches(ns, sync, HIER_STEPS)
+        got = {k: run["launches"][k] for k in ZEN_KERNELS}
+        if got != want:
+            raise AssertionError(f"[hier] {tag}: Zen launches {got}, "
+                                 f"expected {want}")
+        if sync == "auto":
+            emb = [ln for ln in run["plan"] if ln.endswith("embed/table")]
+            stages = HIER_AUTO[ns][5:-1].split(",")
+            want_plan = " ; ".join(
+                f"{st.split('@')[0]}@dp_{st.split('@')[1]}[{sz}]"
+                for st, sz in zip(stages, (ns, SLICE["n"] // ns)))
+            if len(emb) != 1 or f"plan=[{want_plan}]" not in emb[0] \
+                    or run["launches"]["coo_scatter_add"] == 0:
+                raise AssertionError(f"[hier] {tag}: plan {emb} (expected "
+                                     f"{HIER_AUTO[ns]}), coo_scatter_add "
+                                     f"{run['launches']['coo_scatter_add']}")
+        elif run["launches"]["coo_scatter_add"]:
+            raise AssertionError(f"[hier] {tag}: coo_scatter_add launched")
+        out[tag] = run
+    return out
+
+
+# ---------------------------------------------------------------------------
 # data parallelism over a torch.distributed group: one process per rank
 # ---------------------------------------------------------------------------
 
@@ -1763,6 +2001,9 @@ ROUTES = ((True, True), (False, True), (True, False), (False, False))
 DIST_ZEN_RANKS = 8         # zen_sync at the slice's n, every rank on cuda:0
 DIST_TRAIN_RANKS = 4       # about 12 GB a full-width trainer rank
 DIST_TIMEOUT_S = 600
+# the gloo trainer's losses against the in-process run's: gloo adds a
+# 4-rank psum in its own order (bf16), which moves later steps' losses
+DIST_LOSS_TOL = 5e-3
 
 
 def sync_digest(out: torch.Tensor, sent: torch.Tensor,
@@ -1843,7 +2084,51 @@ def dist_zen_sync_rank(group, dev, work: Path) -> None:
             "digest": sync_digest(out[0], st.sent_words[0], st.overflow[0]),
             "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
         del out
+    for ns, tag in DIST_HIER:   # two-level plans over the level groups
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, st = hier_case(g, ns, tag, group)
+        torch.cuda.synchronize()
+        res[f"{ns} {tag}"] = {
+            "s": time.time() - t0, "shape": list(out.shape),
+            "digest": hier_digest(out, st, 0),
+            "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
+        del out
     (work / f"out{w}.json").write_text(json.dumps(res))
+
+
+# (node size, plan tag) of the dist phase's two-level zen_sync check: Zen at
+# both levels, and 'auto''s plans for embed/table at 8 ranks
+DIST_HIER = ((4, "hier(zen@intra,zen@inter)"),
+             (4, "hier(sparcml@intra,dense@inter)"),
+             (2, "hier(zen@intra,zen@inter)"),
+             (2, "hier(agsparse@intra,zen@inter)"))
+
+
+def hier_case(g: torch.Tensor, ns: int, tag: str, group=None):
+    """``hier_sync`` of the plan ``tag`` over nodes of ``ns`` of the 8
+    ranks, stages provisioned by ``plan_stage_args`` at the slice's
+    budget, on the kernels: on ``group`` (this rank's [1, M, d]) or, with
+    None, ``simulate_hier`` of the [8, M, d] stack in this process."""
+    from repro_torch.core import schemes as S
+    from repro_torch.core.topology import build_topology, parse_plan
+    from repro_torch.launch.mesh import make_level_groups
+
+    topo, plan = build_topology(DIST_ZEN_RANKS, ns), parse_plan(tag)
+    kw = S.plan_stage_args(plan, topo, SLICE["M"],
+                           density_budget=SLICE["density_budget"],
+                           backend="cuda")
+    if group is None:
+        return S.simulate_hier(g, topology=topo, plan=plan, stage_kw=kw)
+    make_level_groups(group, topo)
+    return S.hier_sync(g, group=group, topology=topo, plan=plan, stage_kw=kw)
+
+
+def hier_digest(out: torch.Tensor, st, w: int) -> str:
+    """``sync_digest`` of worker ``w`` with each level's words."""
+    sent = torch.stack([st.sent_words[w], *(b[w] for b in st.by_level)])
+    return sync_digest(out[w], sent, st.overflow[w])
 
 
 def step_parts(prog, batch: dict, barrier=None, reps: int = 3) -> dict:
@@ -1861,7 +2146,7 @@ def step_parts(prog, batch: dict, barrier=None, reps: int = 3) -> dict:
     stacks = {nm: torch.zeros((len(ranks), *p.shape), dtype=p.dtype,
                               device=p.device)
               for nm, p in model.named_leaves()}
-    lo = prog.gradsync._layouts["embed/table"]
+    lo = prog.gradsync._layouts["embed/table", 0]
 
     def fwd_bwd():
         for r in ranks:
@@ -1976,6 +2261,15 @@ def dist_zen_sync(dev) -> None:
         want[name] = [sync_digest(out[w], st.sent_words[w], st.overflow[w])
                       for w in range(n)]
         del out
+    want_hier = {}
+    for ns, tag in DIST_HIER:
+        out, st = hier_case(g, ns, tag)
+        want_hier[f"{ns} {tag}"] = [hier_digest(out, st, w)
+                                    for w in range(n)]
+        log(f"[dist] {tag} over nodes of {ns}: in-process words by level "
+            f"{[float(b[0]) for b in st.by_level]}, overflow "
+            f"{int(st.overflow.sum())}")
+        del out
     work = Path(tempfile.mkdtemp(prefix="dist_zen_sync_"))
     try:
         for w in range(n):
@@ -2006,6 +2300,26 @@ def dist_zen_sync(dev) -> None:
             f"coo_scatter_add launches per rank "
             f"{[got[w][name]['launches']['coo_scatter_add'] for w in range(n)]}"
             f"; host s per rank {[got[w][name]['s'] for w in range(n)]}")
+    for key, digests in want_hier.items():
+        ns, tag = key.split(" ", 1)
+        for w in range(n):
+            r = got[w][key]
+            if r["digest"] != digests[w] or r["shape"] != [1, M, d]:
+                raise AssertionError(f"dist {tag} over nodes of {ns} rank "
+                                     f"{w}: output or stats differ from the "
+                                     f"in-process row {w}")
+            zen = [r["launches"][k] for k in ZEN_KERNELS]
+            want_zen = [tag.count("zen@")] * 3
+            if zen != want_zen or any(r["plain"].values()) or (
+                    ("agsparse" in tag or "sparcml" in tag)
+                    != (r["launches"]["coo_scatter_add"] > 0)):
+                raise AssertionError(f"dist {tag} over nodes of {ns} rank "
+                                     f"{w}: launches {r['launches']} plain "
+                                     f"{r['plain']}")
+        log(f"[dist] {tag} over nodes of {ns}: {n} gloo ranks (level groups "
+            f"by dist.new_group) bitwise the in-process rows, words by level "
+            f"included; launches per rank {got[0][key]['launches']}; host s "
+            f"per rank {[got[w][key]['s'] for w in range(n)]}")
     for route in [r for r in want if r not in SCHEMES]:
         digests = want[route]
         fe, fc = (r == "True" for r in route.split(","))
@@ -2033,23 +2347,32 @@ def dist_zen_sync(dev) -> None:
 
 def phase_dist(dev, smi: str) -> None:
     """The per-rank data-parallel path over a gloo group on this one card:
-    zen_sync at the slice shapes on 8 ranks, then the full-width trainer on
-    4 ranks, per leaf and with 25 MiB buckets, against the in-process 4x1
-    trainer."""
+    zen_sync at the slice shapes on 8 ranks (and two-level plans over
+    nodes of 4 and 2), then the full-width trainer on 4 ranks, per leaf,
+    with 25 MiB buckets and on nodes of 2 ranks, against the in-process
+    4x1 trainer on the same topology."""
     torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
         f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
     dist_zen_sync(dev)
-    dist_trainer("gloo", smi, bucket_bytes=(None, BUCKET_BYTES))
+    dist_trainer("gloo", smi, variants=DIST_VARIANTS)
+
+
+# the dist trainer's variants: (tag, extra launcher flags)
+DIST_VARIANTS = (("per-leaf", ()),
+                 (f"{BUCKET_BYTES} B buckets",
+                  ("--bucket-bytes", str(BUCKET_BYTES))),
+                 ("node_size 2", ("--node-size", "2")))
 
 
 def dist_trainer(backend: str, smi: str, steps: int = 4,
-                 bucket_bytes=(None,)) -> None:
+                 variants=DIST_VARIANTS[:1]) -> None:
     """``torchrun ... launch.train --mesh 4x1 --dist <backend>`` at full
-    width, once for each of ``bucket_bytes`` (None: a bucket a leaf),
-    against the in-process 4x1 trainer on the same flags (on this
-    process's card).  ``nccl`` needs a card a rank (``--only dist_nccl``
-    on four cards); gloo runs every rank on one card."""
+    width, once for each of ``variants`` (a bucket a leaf, 25 MiB buckets,
+    nodes of 2 ranks), against the in-process 4x1 trainer on the same
+    topology (on this process's card).  ``nccl`` needs a card a rank
+    (``--only dist_nccl`` on four cards); gloo runs every rank on one
+    card."""
     from repro_torch.kernels import ops as K
     from repro_torch.launch import train
 
@@ -2057,10 +2380,10 @@ def dist_trainer(backend: str, smi: str, steps: int = 4,
     if backend == "nccl" and torch.cuda.device_count() < n:
         raise AssertionError(f"dist_nccl needs {n} cards, a rank a card; "
                              f"{torch.cuda.device_count()} here")
-    runs = {}
-    for bb in bucket_bytes:
-        tag = f"{backend} {'per-leaf' if bb is None else f'{bb} B buckets'}"
-        extra = [] if bb is None else ["--bucket-bytes", str(bb)]
+    runs, extras = {}, {}
+    for name, extra in variants:
+        tag = f"{backend} {name}"
+        extras[tag] = list(extra)
         torch.cuda.empty_cache()
         out = run_ranks(n, ["-m", "repro_torch.launch.train",
                             *qwen_argv(n, steps, *extra), "--dist", backend],
@@ -2071,21 +2394,32 @@ def dist_trainer(backend: str, smi: str, steps: int = 4,
             raise AssertionError(f"dist trainer printed {len(lines)} result "
                                  f"lines:\n{out[-4000:]}")
         runs[tag] = json.loads(lines[0][len("dist result "):])
-    K.reset_counts()
-    local = train.main(qwen_argv(n, steps))
-    torch.cuda.empty_cache()
-    if local["overflow"] != 0:
-        raise AssertionError(f"in-process trainer overflow "
-                             f"{local['overflow']}")
-    check_launches(f"in-process {n}x1 trainer", local["launches"],
-                   local["plain_calls"],
-                   {k: steps * v for k, v in K.path_launches(n).items()})
-    log(f"[dist] trainer {n}x1 in-process: losses={local['losses']} "
-        f"sparse_words={local['sparse_words']} step_s={local['step_s']} "
-        f"tok/s={local['tok_per_s']}")
-    path = K.path_launches(1)
-    med = {"in-process": float(np.median(local["step_s"][1:]))}
+    locals_ = {}
+    for node in sorted({"--node-size" in e for e in extras.values()}):
+        K.reset_counts()
+        local = train.main(qwen_argv(n, steps, *(
+            ("--node-size", "2") if node else ())))
+        torch.cuda.empty_cache()
+        if local["overflow"] != 0:
+            raise AssertionError(f"in-process trainer overflow "
+                                 f"{local['overflow']}")
+        levels = 2 if node else 1
+        check_launches(f"in-process {n}x1 trainer", local["launches"],
+                       local["plain_calls"],
+                       {k: levels * steps * v
+                        for k, v in K.path_launches(n).items()})
+        log(f"[dist] trainer {n}x1 in-process{' node_size 2' * node}: "
+            f"losses={local['losses']} sparse_words={local['sparse_words']}"
+            f" intra_words={local.get('intra_words')} inter_words="
+            f"{local.get('inter_words')} step_s={local['step_s']} "
+            f"tok/s={local['tok_per_s']}")
+        locals_[node] = local
+    med = {}
     for tag, dres in runs.items():
+        node = "--node-size" in extras[tag]
+        local = locals_[node]
+        path = {k: (2 if node else 1) * v
+                for k, v in K.path_launches(1).items()}
         losses = dres["losses"]
         diff = max(abs(a - b) for a, b in zip(losses, local["losses"]))
         med[tag] = float(np.median(dres["step_s"][1:]))
@@ -2097,13 +2431,25 @@ def dist_trainer(backend: str, smi: str, steps: int = 4,
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"dist trainer {tag} loss not finite and "
                                  f"falling: {losses}")
-        if diff > 5e-3:
+        if diff > DIST_LOSS_TOL:
             raise AssertionError(f"dist trainer {tag} and the in-process "
                                  f"trainer diverge: {diff}")
-        if dres["sparse_words"] != local["sparse_words"]:
-            raise AssertionError(f"dist {tag} sparse words "
-                                 f"{dres['sparse_words']} != in-process "
-                                 f"{local['sparse_words']}")
+        if dres["sparse_words"] != local["sparse_words"] or any(
+                dres.get(k) != local.get(k)
+                for k in ("intra_words", "inter_words")):
+            raise AssertionError(f"dist {tag} words {dres['sparse_words']} "
+                                 f"{dres.get('intra_words')} "
+                                 f"{dres.get('inter_words')} != in-process "
+                                 f"{local['sparse_words']} "
+                                 f"{local.get('intra_words')} "
+                                 f"{local.get('inter_words')}")
+        if node:
+            log(f"[dist] trainer {n}x1 {tag}: losses "
+                f"{'bitwise' if losses == local['losses'] else 'not bitwise'}"
+                f" the in-process run's (each level's psum adds 2 ranks; the "
+                f"reported loss is a mean over all 4, in gloo's order), "
+                f"intra_words={dres['intra_words']} inter_words="
+                f"{dres['inter_words']} the same")
         if dres["overflow"] != 0:
             raise AssertionError(f"dist trainer {tag} overflow "
                                  f"{dres['overflow']}")
@@ -2115,9 +2461,12 @@ def dist_trainer(backend: str, smi: str, steps: int = 4,
                     f"{dres['launches_by_rank'][k]} by rank (expected "
                     f"{steps * path.get(k, 0)} each), plain "
                     f"{dres['plain_calls'][k]}")
+    for node, local in locals_.items():
+        med[f"in-process{' node_size 2' * node}"] = float(
+            np.median(local["step_s"][1:]))
     log(f"[dist] median step s after the first, {n} ranks: {med}; tok/s "
         f"{ {t: r['tok_per_s'] for t, r in runs.items()} }, in-process "
-        f"{local['tok_per_s']} | {smi}")
+        f"{ {n_: r['tok_per_s'] for n_, r in locals_.items()} } | {smi}")
 
 
 def dist_step_parts(n: int, smi: str) -> None:
@@ -2298,55 +2647,181 @@ def reorder_control(arch: str) -> float | None:
 def phase_serve() -> dict:
     """Both models served at full width and depth: timed on the kernels in
     bf16, then the f32 kernel route against the f32 plain route."""
+    return {arch: serve_arch(arch, kern, SERVE_LOGIT_TOL[arch])
+            for arch, kern in SERVE_KERNEL.items()}
+
+
+def serve_arch(arch: str, kern: str, tol: float, bf16_runs: int = 2) -> dict:
+    """One model served at full width and depth (``SERVE``): timed on the
+    kernels in bf16 (every prefill layer on ``kern``, nothing plain), then
+    the f32 kernel route against the f32 plain route: prefill logits
+    within ``tol``, the same greedy tokens; one profiled bf16 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+
+    n_layers, vocab = get_config(arch).n_layers, get_config(arch).vocab
+    runs = [serve_run(arch) for _ in range(bf16_runs)]
+    for i, r in enumerate(runs):
+        want = {k: n_layers if k == kern else 0 for k in K.MODEL_KERNELS}
+        if r["launches"] != want or any(r["plain_calls"].values()):
+            raise AssertionError(
+                f"serve {arch} bf16 run {i}: launches {r['launches']} "
+                f"(expected {want}), plain calls {r['plain_calls']}")
+        log(f"[serve] {arch} bf16 run {i}: prefill {r['prefill_ms']} ms, "
+            f"decode {r['decode_tok_per_s']} tok/s "
+            f"({SERVE['gen'] - 1} steps in {r['decode_s']} s), launches "
+            f"{r['launches']}, plain calls {r['plain_calls']}")
+    kf = serve_run(arch, "--dtype", "float32")
+    pf = serve_run(arch, "--dtype", "float32", "--backend", "torch")
+    if kf["launches"][kern] != n_layers or any(kf["plain_calls"].values()) \
+            or any(pf["launches"].values()):
+        raise AssertionError(f"serve {arch} f32: kernel route launches "
+                             f"{kf['launches']} plain {kf['plain_calls']};"
+                             f" plain route launches {pf['launches']}")
+    dlog = float((kf["prefill_logits"] - pf["prefill_logits"]).abs().max())
+    reorder = reorder_control(arch)
+    top = float(pf["prefill_logits"][:, :vocab].abs().max())
+    log(f"[serve] {arch} f32 kernels vs plain route: prefill logits max "
+        f"abs {dlog} (tolerance {tol}; reordering the plain scan alone: "
+        f"{reorder}; max |logit| {top}), prefill {kf['prefill_ms']} vs "
+        f"{pf['prefill_ms']} ms")
+    if not dlog <= tol:
+        raise AssertionError(f"serve {arch}: f32 prefill logits differ by "
+                             f"{dlog} > {tol}")
+    diff = kf["tokens"] != pf["tokens"]
+    if diff.any():
+        b, j = (int(x) for x in np.argwhere(diff)[0])
+        raise AssertionError(
+            f"serve {arch}: greedy token {j} of sequence {b} differs "
+            f"(kernels {kf['tokens'][b, j]}, plain {pf['tokens'][b, j]});"
+            f" top-2 logit gap there: kernels {kf['top2_gap'][j, b]}, "
+            f"plain {pf['top2_gap'][j, b]}")
+    log(f"[serve] {arch} f32: the same {kf['tokens'].size} greedy tokens "
+        f"on both routes; smallest top-2 gap "
+        f"{float(pf['top2_gap'].min())}")
+    out = {"bf16": runs, "f32": kf, "f32_plain": pf,
+           "launches": runs[0]["launches"][kern],
+           "breakdown": serve_breakdown(arch)}
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dense zoo configs: qwen2.5-3b and phi4-mini served and trained
+# ---------------------------------------------------------------------------
+
+# arch -> the trainer's depth on one card: about 22 bytes a parameter (bf16
+# weights and gradient 4, AdamW's f32 moments 8, two ranks' bf16 gradient
+# stacks 4, the synced sum, mean and clipped copies 6) plus one rank's
+# activations must stay under 70 GiB (PERF.md section 4)
+ZOO = {"qwen2.5-3b": 28, "phi4-mini-3.8b": 16}
+ZOO_TRAIN = dict(n=2, batch=2, seq=512, steps=2)
+ZOO_PEAK_GIB = 70.0
+
+
+def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
+                 backend: str = "cuda") -> dict:
+    """``cfg`` (cut to a depth, say) trained as ``launch/train.py`` would
+    (``build_program`` + ``attach_train``, mesh ``n`` x 1 in this process,
+    Zen, SyntheticLM batches of ``batch`` x ``seq`` tokens from seed 0) for
+    ``steps`` steps on the ``backend`` route: losses, grad norms, words,
+    overflow, step seconds (host clock after a sync), tok/s, the kernel
+    counts, parameters and peak memory."""
+    from repro_torch.core.zen import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as K
+    from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prog = build_program(cfg, f"{n}x1", TrainerConfig(
+        sync=SyncConfig(scheme="zen", backend=backend)), device="cuda",
+        seed=0, backend=backend)
+    attach_train(prog)
+    params = sum(p.numel() for p in prog.model.parameters())
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=seq, batch=batch)))
+    out = {k: [] for k in ("losses", "grad_norm", "sparse_words_by_step",
+                           "overflow", "step_s")}
+    K.reset_counts()
+    t0 = time.time()
+    for _ in range(steps):
+        b = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t_step = time.time()
+        m = prog.train_step(b)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.time() - t_step)
+        for k, key in (("losses", "loss"), ("grad_norm", "grad_norm"),
+                       ("sparse_words_by_step", "sync/sparse_sent_words"),
+                       ("overflow", "sync/overflow")):
+            out[k].append(float(m[key]))
+    out.update(launches=dict(K.LAUNCHES), plain=dict(K.PLAIN_CALLS),
+               recompute=dict(K.RECOMPUTE_CALLS), params=params,
+               tok_per_s=steps * batch * seq / (time.time() - t0),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train(arch: str, layers: int, backend: str) -> dict:
+    """The arch at full width and ``layers`` deep, ``ZOO_TRAIN``'s mesh,
+    batch and steps, Zen on ``embed/table`` on the ``backend`` route."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    z = ZOO_TRAIN
+    return direct_train(cfg, z["n"], z["batch"], z["seq"], z["steps"],
+                        backend)
+
+
+def phase_zoo(smi: str) -> dict:
+    """qwen2.5-3b and phi4-mini: served at full size (``serve_arch``: bf16
+    timed, f32 kernels vs plain within 1e-3, the same greedy tokens, every
+    prefill layer on ``flash_fwd`` at hd 128), then trained at full width
+    and ``ZOO`` depth on 2 ranks: the kernel route bitwise its plain route
+    (losses, grad norm, words), overflow 0, the Zen kernels once a rank a
+    step, nothing plain, the peak under ``ZOO_PEAK_GIB``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as K
 
     out = {}
-    for arch, kern in SERVE_KERNEL.items():
-        n_layers, vocab = get_config(arch).n_layers, get_config(arch).vocab
-        runs = [serve_run(arch) for _ in range(2)]
-        for i, r in enumerate(runs):
-            want = {k: n_layers if k == kern else 0 for k in K.MODEL_KERNELS}
-            if r["launches"] != want or any(r["plain_calls"].values()):
-                raise AssertionError(
-                    f"serve {arch} bf16 run {i}: launches {r['launches']} "
-                    f"(expected {want}), plain calls {r['plain_calls']}")
-            log(f"[serve] {arch} bf16 run {i}: prefill {r['prefill_ms']} ms, "
-                f"decode {r['decode_tok_per_s']} tok/s "
-                f"({SERVE['gen'] - 1} steps in {r['decode_s']} s), launches "
-                f"{r['launches']}, plain calls {r['plain_calls']}")
-        kf = serve_run(arch, "--dtype", "float32")
-        pf = serve_run(arch, "--dtype", "float32", "--backend", "torch")
-        if kf["launches"][kern] != n_layers or any(kf["plain_calls"].values()) \
-                or any(pf["launches"].values()):
-            raise AssertionError(f"serve {arch} f32: kernel route launches "
-                                 f"{kf['launches']} plain {kf['plain_calls']};"
-                                 f" plain route launches {pf['launches']}")
-        dlog = float((kf["prefill_logits"] - pf["prefill_logits"]).abs().max())
-        tol, reorder = SERVE_LOGIT_TOL[arch], reorder_control(arch)
-        top = float(pf["prefill_logits"][:, :vocab].abs().max())
-        log(f"[serve] {arch} f32 kernels vs plain route: prefill logits max "
-            f"abs {dlog} (tolerance {tol}; reordering the plain scan alone: "
-            f"{reorder}; max |logit| {top}), prefill {kf['prefill_ms']} vs "
-            f"{pf['prefill_ms']} ms")
-        if not dlog <= tol:
-            raise AssertionError(f"serve {arch}: f32 prefill logits differ by "
-                                 f"{dlog} > {tol}")
-        diff = kf["tokens"] != pf["tokens"]
-        if diff.any():
-            b, j = (int(x) for x in np.argwhere(diff)[0])
-            raise AssertionError(
-                f"serve {arch}: greedy token {j} of sequence {b} differs "
-                f"(kernels {kf['tokens'][b, j]}, plain {pf['tokens'][b, j]});"
-                f" top-2 logit gap there: kernels {kf['top2_gap'][j, b]}, "
-                f"plain {pf['top2_gap'][j, b]}")
-        log(f"[serve] {arch} f32: the same {kf['tokens'].size} greedy tokens "
-            f"on both routes; smallest top-2 gap "
-            f"{float(pf['top2_gap'].min())}")
-        out[arch] = {"bf16": runs, "f32": kf, "f32_plain": pf,
-                     "launches": runs[0]["launches"][kern],
-                     "breakdown": serve_breakdown(arch)}
-        torch.cuda.empty_cache()
+    for arch, layers in ZOO.items():
+        cfg = get_config(arch)
+        log(f"[zoo] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads} q / {cfg.n_kv} KV heads of {cfg.hd}, vocab "
+            f"{cfg.vocab} (padded {cfg.vocab_padded}), qkv_bias "
+            f"{cfg.qkv_bias}, rope_theta {cfg.rope_theta}")
+        served = serve_arch(arch, "flash_fwd", 1e-3)
+        runs = {b: zoo_train(arch, layers, b) for b in ("cuda", "torch")}
+        run, plain = runs["cuda"], runs["torch"]
+        for key in ("losses", "grad_norm", "sparse_words_by_step",
+                    "overflow"):
+            if run[key] != plain[key]:
+                raise AssertionError(f"[zoo] {arch} trainer {key}: kernels "
+                                     f"{run[key]} != plain {plain[key]}")
+        steps = ZOO_TRAIN["steps"]
+        check_launches(f"[zoo] {arch} trainer", run["launches"], run["plain"],
+                       {k: steps * v for k, v in
+                        K.path_launches(ZOO_TRAIN["n"]).items()})
+        log(f"[zoo] {arch} trainer, {layers} of {cfg.n_layers} layers "
+            f"({run['params'] / 1e9:.3f} B parameters), mesh "
+            f"{ZOO_TRAIN['n']}x1, {ZOO_TRAIN['batch']} x {ZOO_TRAIN['seq']} "
+            f"tokens: losses={run['losses']} grad_norm={run['grad_norm']} "
+            f"words={run['sparse_words_by_step']} overflow={run['overflow']} "
+            f"(plain route "
+            f"bitwise) step_s={run['step_s']} (plain route {plain['step_s']})"
+            f" peak {run['peak_gib']:.2f} GiB (plain route "
+            f"{plain['peak_gib']:.2f}) launches {run['launches']} | {smi}")
+        if not all(np.isfinite(run["losses"])) or any(run["overflow"]):
+            raise AssertionError(f"[zoo] {arch} trainer: losses "
+                                 f"{run['losses']} overflow {run['overflow']}")
+        if max(run["peak_gib"], plain["peak_gib"]) > ZOO_PEAK_GIB:
+            raise AssertionError(f"[zoo] {arch} trainer peak "
+                                 f"{run['peak_gib']} GiB > {ZOO_PEAK_GIB}")
+        out[arch] = {**served, "trainer": run}
     return out
 
 
@@ -2354,16 +2829,17 @@ def phase_serve() -> dict:
 # the Mamba2 trainer: ssd_fwd under autograd
 # ---------------------------------------------------------------------------
 
-MAMBA_TRAIN = dict(n=8, batch=8, seq=512)   # mamba2-370m, 8 x 512 tokens
+# mamba2-370m at full width, 8 x 512 tokens; 24 of its 48 layers keep the
+# whole smoke inside its time limit (the phase took 351 s at full depth)
+MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=24)
 
 
-def mamba_argv(steps: int, *extra: str) -> list[str]:
-    """``launch/train.py``'s flags for the mamba2-370m trainer: 8x1 mesh,
-    Zen on ``embed/table``, global batch 8 x 512 tokens, full size."""
-    m = MAMBA_TRAIN
-    return ["--arch", "mamba2-370m", "--mesh", f"{m['n']}x1", "--sync", "zen",
-            "--global-batch", str(m["batch"]), "--seq-len", str(m["seq"]),
-            "--steps", str(steps), "--log-every", "1", *extra]
+def mamba_cfg():
+    """mamba2-370m at full width, cut to ``MAMBA_TRAIN['layers']``."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("mamba2-370m"),
+                               n_layers=MAMBA_TRAIN["layers"])
 
 
 def ssd_scan_grads_check() -> None:
@@ -2411,11 +2887,10 @@ def mamba2_repeated_batch(smi: str, steps: int = 10) -> list[float]:
     not required to fall: at full depth this init's loss moves by noise
     over ten steps, fresh batches or one (the reference's trainer shows
     the same at 12 layers)."""
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
 
-    cfg = get_config("mamba2-370m")
+    cfg = mamba_cfg()
     batch = {k: torch.as_tensor(v, device="cuda").long()
              for k, v in next(iter(SyntheticLM(cfg, DataConfig(
                  seq_len=MAMBA_TRAIN["seq"],
@@ -2438,12 +2913,11 @@ def mamba2_repeated_batch(smi: str, steps: int = 10) -> list[float]:
 def mamba2_breakdown() -> dict:
     """One profiled step (after a warm-up step) of the mamba2 trainer:
     device ms by category, ``ssd_fwd``'s kernels' ms, idle share."""
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
 
     m = MAMBA_TRAIN
-    cfg = get_config("mamba2-370m")
+    cfg = mamba_cfg()
     prog = build_program(cfg, f"{m['n']}x1", device="cuda")
     attach_train(prog)
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=m["seq"],
@@ -2461,29 +2935,25 @@ def mamba2_breakdown() -> dict:
 
 
 def phase_mamba2_train(smi: str, steps: int = 4) -> dict:
-    """``launch/train.py --arch mamba2-370m --mesh 8x1`` at full width and
-    depth: finite loss, no overflow, ``ssd_fwd`` launched 48 x 8 x steps
-    times (the forward of every layer of every rank) and its plain
-    recompute as often (``SSDScan``'s backward), Zen's kernels 8 x steps
-    times, nothing plain; held to the plain route (``--backend torch``);
+    """The mamba2-370m trainer, mesh 8x1, at full width and
+    ``MAMBA_TRAIN['layers']`` deep: finite loss, no overflow, ``ssd_fwd``
+    launched layers x 8 x steps times (the forward of every layer of every
+    rank) and its plain recompute as often (``SSDScan``'s backward), Zen's
+    kernels 8 x steps times, nothing plain; held to the plain route;
     ``SSDScan``'s gradients bitwise the plain scan's; ten finite steps on
     one repeated batch; step time, peak memory, a profiled step."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops as K
-    from repro_torch.launch import train
 
     m = MAMBA_TRAIN
-    n_layers = get_config("mamba2-370m").n_layers
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_counts()
-    res = train.main(mamba_argv(steps))
-    peak = torch.cuda.max_memory_allocated()
-    launches = dict(K.LAUNCHES)
-    recompute = K.RECOMPUTE_CALLS["ssd_fwd"]
+    n_layers = m["layers"]
+    res = direct_train(mamba_cfg(), m["n"], m["batch"], m["seq"], steps)
+    res["overflow"] = max(res["overflow"])
+    peak = res["peak_gib"] * 2**30
+    launches = dict(res["launches"])
+    recompute = res["recompute"]["ssd_fwd"]
     want = {k: steps * v for k, v in K.path_launches(m["n"]).items()}
     want["ssd_fwd"] = n_layers * m["n"] * steps
-    check_launches("mamba2_train", launches, K.PLAIN_CALLS, want)
+    check_launches("mamba2_train", launches, res["plain"], want)
     if recompute != want["ssd_fwd"]:
         raise AssertionError(f"mamba2_train: {recompute} plain recomputes, "
                              f"expected {want['ssd_fwd']}")
@@ -2496,9 +2966,10 @@ def phase_mamba2_train(smi: str, steps: int = 4) -> dict:
         raise AssertionError(f"mamba2 trainer loss not finite: {losses}")
     if res["overflow"] != 0:
         raise AssertionError(f"mamba2 trainer overflow {res['overflow']}")
-    torch.cuda.empty_cache()
-    plain = train.main(mamba_argv(steps, "--backend", "torch"))
-    log(f"[mamba2_train] losses, kernels vs plain route: "
+    plain = direct_train(mamba_cfg(), m["n"], m["batch"], m["seq"], steps,
+                         "torch")
+    log(f"[mamba2_train] {n_layers} of 48 layers; losses, kernels vs plain "
+        f"route: "
         f"{list(zip(losses, plain['losses']))}; plain step_s="
         f"{plain['step_s']} tok/s={plain['tok_per_s']}")
     if abs(losses[0] - plain["losses"][0]) > 5e-3:
@@ -2518,7 +2989,7 @@ def phase_mamba2_train(smi: str, steps: int = 4) -> dict:
         f"peak memory {peak / 2**30:.2f} GiB; profiled step: ssd_fwd "
         f"{bd['ssd_fwd_ms']:.3f} device ms, idle share {bd['idle_share']} "
         f"| {smi}")
-    return {"launches": launches, "recompute": recompute, **res}
+    return {**res, "launches": launches, "recompute": recompute}
 
 
 def phase_serve_times(inp: dict, smi: str) -> list:
@@ -2894,11 +3365,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma list of phases to run (debugging); default "
-                         "all: kernels (with kernels_wide),zen_sync,trainer,"
-                         "breakdown,buckets,overlap,serve_kernels,serve,"
-                         "mamba2_train,compress,schemes,dist,times "
+                         "all: kernels (with kernels_wide and new_shapes),"
+                         "zen_sync,trainer,breakdown,buckets,overlap,"
+                         "serve_kernels,serve,mamba2_train,compress,schemes,"
+                         "hier,zoo,dist,times "
                          "(bitmap_times: the "
-                         "bitmap call sites alone; dist_parts: the dist "
+                         "bitmap call sites alone; dist_hier: the dist "
+                         "trainer on nodes of 2 ranks alone; dist_parts: the dist "
                          "trainers' step parts; dist_nccl: the dist trainer "
                          "over nccl on four cards; dist_sync: dist's "
                          "gloo zen_sync and schemes check alone; none of "
@@ -2932,13 +3405,24 @@ def main(argv=None) -> None:
     if want("dist"):   # first: four full-width ranks share this card
         phase_dist(dev, dev_info["smi"])
         phase_done("dist")
-    elif "dist_sync" in only:
-        dist_zen_sync(dev)
-        phase_done("dist_sync")
+    else:
+        if "dist_sync" in only:
+            dist_zen_sync(dev)
+            phase_done("dist_sync")
+        if "dist_hier" in only:
+            dist_trainer("gloo", dev_info["smi"], variants=DIST_VARIANTS[2:])
+            phase_done("dist_hier")
+    # zoo next: its trainers fill most of the card, before other phases
+    # leave kernel scratch and cached blocks behind
+    zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
+    phase_done("zoo")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
             if want("kernels") or want("times") or "kernels_wide" in only
             else None)
+    shapes = (phase_new_shapes(dev, dev_info["smi"], timed=want("times"))
+              if want("kernels") or want("times") or "new_shapes" in only
+              else None)
     phase_done("kernels")
     if want("zen_sync"):
         phase_zen_sync(dev)
@@ -2967,6 +3451,8 @@ def main(argv=None) -> None:
     schemes = phase_schemes(dev_info["smi"], trainer) if want("schemes") \
         else None
     phase_done("schemes")
+    hier = phase_hier(dev_info["smi"], trainer) if want("hier") else None
+    phase_done("hier")
     if "dist_parts" in only:
         dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
     if "dist_nccl" in only:
@@ -2993,13 +3479,22 @@ def main(argv=None) -> None:
     if schemes:
         by_path.update({f"trainer --sync {k}": v
                         for k, v in schemes["trainers"].items() if k != "zen"})
+    if hier:
+        by_path.update({f"trainer {k}": v for k, v in hier.items()})
+    if zoo:
+        by_path.update({f"zoo trainer {a}": v["trainer"]
+                        for a, v in zoo.items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
         for a, k in SERVE_KERNEL.items():
             path_launches[k][f"serve {a}"] = served[a]["launches"]
+    if zoo:
+        for a, v in zoo.items():
+            path_launches["flash_fwd"][f"serve {a}"] = v["launches"]
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for k, e in (wide["err"] if wide else {}).items():
+    for k, e in {**(wide["err"] if wide else {}),
+                 **(shapes["err"] if shapes else {})}.items():
         errs[k] = max(errs.get(k, 0.0), e)
     table = []
     for row in times:
@@ -3020,6 +3515,13 @@ def main(argv=None) -> None:
                 "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by")} for r in wide["rows"] if r["kernel"] == name]}
                if wide and any(r["kernel"] == name for r in wide["rows"])
+               else {}),
+            # the same kernel at the two-level and zoo paths' shapes
+            **({"new_shapes": [{k: r[k] for k in (
+                "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by")} for r in shapes["rows"]
+                if r["kernel"] == name]}
+               if shapes and any(r["kernel"] == name for r in shapes["rows"])
                else {}),
             # row 8b: the scatter-add as the baseline schemes' aggregation
             **({"agsparse_reduce": {k: schemes["row_8b"][k] for k in (

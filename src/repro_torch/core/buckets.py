@@ -20,8 +20,10 @@ slices) around each bucket's sync.  Payloads keep the port's leading
 worker dimension: a dense bucket is ``[local, sum of sizes]``.  With a
 compressor (``core/sparsify.py``) every dense bucket carries its tag in
 ``compress`` and is synced on its EF-sparsified payload (by Zen, an
-element-sparse payload of the bucket's size, or by a psum); row-sparse buckets are never compressed.  The reference's two-level plan
-tags (``hier(...)``) are ROADMAP queue 1, item 9.
+element-sparse payload of the bucket's size, or by a psum); row-sparse
+buckets are never compressed.  On a two-level topology a bucket's scheme
+may be a plan tag such as ``hier(zen@intra,dense@inter)``
+(``core/topology.py``), and the stats carry each level's words.
 """
 from __future__ import annotations
 
@@ -31,14 +33,24 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.schemes import SyncStats
+from repro_torch.core.topology import parse_plan
 
 DENSE = "dense_fused"
 SPARSE = "sparse"
 
 
 def _all_dense(tag: str) -> bool:
-    """Whether a flat plan tag moves only psum traffic."""
-    return tag == "dense"
+    """Whether a plan tag moves only psum traffic: the bare 'dense' tag, or
+    a hier plan whose every stage is dense (its words belong in
+    ``sync/dense_words`` at every node size)."""
+    if tag == "dense":
+        return True
+    if tag.startswith("hier("):
+        try:
+            return all(s.scheme == "dense" for s in parse_plan(tag).stages)
+        except ValueError:
+            return False
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +71,10 @@ class Bucket:
 
     bid: int
     kind: str                     # DENSE | SPARSE
-    scheme: str                   # 'zen' | 'dense'
+    # the resolved CommPlan tag (core/topology.py): a bare scheme name, or
+    # on a two-level topology under 'auto' a tag such as
+    # 'hier(zen@intra,dense@inter)'
+    scheme: str
     slots: tuple[LeafSlot, ...]   # exactly 1 slot when kind == SPARSE
     nbytes: int
     # compressor tag (core/sparsify.py spec, e.g. 'topk:0.01') of a dense
@@ -214,14 +229,16 @@ def reduce_stats(plan: BucketPlan, per_bucket: list[SyncStats],
     and compressed dense buckets alike), ``sync/overflow``,
     ``sync/dense_words`` (psum buckets), ``sync/n_buckets``,
     ``sync/compressed_buckets`` (when any is) and per-scheme bucket counts
-    ``sync/buckets[<scheme>]``; ``extra`` (per-bucket EF densities) is
-    merged in."""
+    ``sync/buckets[<scheme>]``; on a two-level topology also each level's
+    words, ``sync/intra_words`` and ``sync/inter_words``; ``extra``
+    (per-bucket EF densities) is merged in."""
     like = per_bucket[0].sent_words
     zero = torch.zeros_like(like)
     sent, dense_words = zero, zero
     overflow = torch.zeros_like(per_bucket[0].overflow)
     tags: dict[str, int] = {}
     n_compressed = 0
+    level_words: list = []
     for b, st in zip(plan.buckets, per_bucket):
         overflow = overflow + st.overflow
         if b.kind == SPARSE or not _all_dense(b.scheme):
@@ -230,12 +247,20 @@ def reduce_stats(plan: BucketPlan, per_bucket: list[SyncStats],
             dense_words = dense_words + st.sent_words
         tags[b.scheme] = tags.get(b.scheme, 0) + 1
         n_compressed += b.compress != "none"
+        # two-level plans tag their words by level (fastest first)
+        for i, w in enumerate(st.by_level):
+            if len(level_words) <= i:
+                level_words.append(zero)
+            level_words[i] = level_words[i] + w
     stats = {
         "sync/sparse_sent_words": sent,
         "sync/overflow": overflow,
         "sync/dense_words": dense_words,
         "sync/n_buckets": torch.full_like(like, float(len(plan.buckets))),
     }
+    if len(level_words) >= 2:
+        stats["sync/intra_words"] = level_words[0]
+        stats["sync/inter_words"] = level_words[-1]
     if n_compressed:
         stats["sync/compressed_buckets"] = torch.full_like(
             like, float(n_compressed))

@@ -31,6 +31,13 @@ the same bits as one decode per worker.  The outputs are the same bits on
 both groups: pushes and gathers deliver the sources in rank order, so
 every server sums its stream in the same order.
 
+A two-level plan (``hier_sync``, ``simulate_hier``) runs each stage over
+the groups of its topology level: ``group.split(sizes, axis)`` hands back
+the rows and the subgroup of each (a ``SimGroup`` splits its stack, a
+``DistGroup`` this rank's ``dist.new_group``), and ``level_sync`` runs the
+stage once for each distinct input, so a psum's shared node sum is not
+synced again for every column of the next level.
+
 ``backend`` selects the route of the kernel stages: ``"cuda"`` goes
 through ``kernels/ops.py`` (the CUDA kernels for CUDA tensors), ``"torch"``
 calls the plain versions in ``kernels/ref.py`` directly.  Zen's ``fused``
@@ -61,10 +68,33 @@ from repro_torch.kernels import ref as kref
 
 
 class SyncStats(NamedTuple):
-    """Per-worker accounting: f32 wire words sent and int32 overflows."""
+    """Per-worker accounting: f32 wire words sent and int32 overflows.
+
+    ``by_level`` tags the wire words by topology level for two-level plans
+    (fastest level first: ``(intra_words, inter_words)``); flat schemes
+    leave it empty, meaning "all words at level 0"."""
 
     sent_words: torch.Tensor  # f32 [n]
     overflow: torch.Tensor    # int32 [n]
+    by_level: tuple = ()      # per-level f32 [n] wire words (hier plans)
+
+
+def zero_stats(local: int, device) -> SyncStats:
+    """No words and no overflow for ``local`` workers (a skipped level)."""
+    zero = torch.zeros(local, dtype=torch.float32, device=device)
+    return SyncStats(sent_words=zero, overflow=zero.to(torch.int32))
+
+
+def level_rows(sizes: Sequence[int], axis: int) -> list[list[int]]:
+    """The groups of one level of a world laid out as the mixed-radix
+    ``sizes`` (outermost first, e.g. ``(pods, n_inter, n_intra)``): each
+    group is the ranks that differ only in digit ``axis``, in that digit's
+    order.  The intra groups are consecutive ranks ``[k*ns, ..., k*ns +
+    ns - 1]``, the inter groups ``[j, j + ns, ...]``, as the reference's
+    ``simulate_hier`` and ``launch/mesh.py`` lay out a node's workers."""
+    ids = np.arange(math.prod(sizes)).reshape(tuple(sizes))
+    ids = np.moveaxis(ids, axis, -1).reshape(-1, sizes[axis])
+    return [[int(r) for r in row] for row in ids]
 
 
 class SimGroup:
@@ -73,6 +103,16 @@ class SimGroup:
     def __init__(self, n: int):
         self.n = n
         self.ranks = range(n)
+
+    def split(self, sizes: Sequence[int], axis: int
+              ) -> list[tuple[list[int], "SimGroup"]]:
+        """The groups of level ``axis`` of the world laid out as ``sizes``
+        (:func:`level_rows`): ``[(rows of the stack, SimGroup), ...]``."""
+        if math.prod(sizes) != self.n:
+            raise ValueError(f"level sizes {tuple(sizes)} do not cover the "
+                             f"group's {self.n} workers")
+        return [(rows, SimGroup(sizes[axis]))
+                for rows in level_rows(sizes, axis)]
 
     def rank_ids(self, device) -> torch.Tensor:
         """int64 [local] global rank of each local worker (the counterpart
@@ -120,15 +160,39 @@ _all_gather_single = (getattr(dist, "all_gather_single", None)
 
 
 class DistGroup:
-    """This process's rank of the default ``torch.distributed`` process
-    group (``launch/mesh.py`` joins it): the leading dimension of every
-    stack is 1 (``local``), and the group's collectives run on the
-    tensors' own device (gloo stages CUDA tensors through host memory
-    itself; the kernels stay on the card)."""
+    """This process's rank of a ``torch.distributed`` process group (the
+    default group, which ``launch/mesh.py`` joins, or ``pg``): the leading
+    dimension of every stack is 1 (``local``), and the group's collectives
+    run on the tensors' own device (gloo stages CUDA tensors through host
+    memory itself; the kernels stay on the card).  ``ranks`` holds this
+    process's rank inside the group, the counterpart of ``lax.axis_index``
+    over the group's axis."""
 
-    def __init__(self):
-        self.n = dist.get_world_size()
-        self.ranks = (dist.get_rank(),)
+    def __init__(self, pg=None):
+        self.pg = pg
+        self.n = dist.get_world_size(pg)
+        self.ranks = (dist.get_rank(pg),)
+        self._levels: dict = {}
+
+    def split(self, sizes: Sequence[int], axis: int
+              ) -> list[tuple[list[int], "DistGroup"]]:
+        """This rank's group of level ``axis`` of the world laid out as
+        ``sizes`` (:func:`level_rows` over this group's ranks):
+        ``[([0], DistGroup)]``.  The first call makes every group of the
+        level with ``dist.new_group``, on every rank in one order (a
+        collective call: every rank must split alike)."""
+        key = (tuple(sizes), axis)
+        if key not in self._levels:
+            if math.prod(sizes) != self.n:
+                raise ValueError(f"level sizes {tuple(sizes)} do not cover "
+                                 f"the group's {self.n} ranks")
+            mine = None
+            for rows in level_rows(sizes, axis):
+                pg = dist.new_group([self._global(r) for r in rows])
+                if self.ranks[0] in rows:
+                    mine = DistGroup(pg)
+            self._levels[key] = mine
+        return [([0], self._levels[key])]
 
     def rank_ids(self, device) -> torch.Tensor:
         """int64 [1]: this process's rank, built on ``device`` (nothing
@@ -148,7 +212,7 @@ class DistGroup:
         out = torch.zeros_like(src)
         dist.all_to_all_single(
             out, src, [k if j == recv else 0 for j in range(self.n)],
-            [k if j == send else 0 for j in range(self.n)])
+            [k if j == send else 0 for j in range(self.n)], group=self.pg)
         return out.view(x.shape)
 
     @staticmethod
@@ -163,14 +227,14 @@ class DistGroup:
         ``j``; the blocks arrive in source-rank order."""
         src = self._one(x)[0]
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src)
+        dist.all_to_all_single(out, src, group=self.pg)
         return out[None]
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[1, ...] -> [n, ...], rank order."""
         x = self._one(x)
         out = x.new_empty((self.n, *x.shape[1:]))
-        _all_gather_single(out, x)
+        _all_gather_single(out, x, group=self.pg)
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -179,15 +243,19 @@ class DistGroup:
         simulated group's at two ranks, within the summation bound
         ``(n - 1) u sum|x|`` beyond."""
         out = self._one(x).clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.pg)
         return out
 
     def mean(self, vals: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """``{name: [1] values}`` -> f32 means over the group: one
         ``all_reduce`` of the sums, so every rank returns the same."""
         sums = torch.stack([v.float().sum() for v in vals.values()])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=self.pg)
         return dict(zip(vals, (sums / self.n).unbind()))
+
+    def _global(self, r: int) -> int:
+        """The default group's rank of this group's rank ``r``."""
+        return r if self.pg is None else dist.get_global_rank(self.pg, r)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Overwrite ``tensors`` with rank 0's, one flat buffer per dtype
@@ -197,7 +265,7 @@ class DistGroup:
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
             flat = torch.cat([t.detach().reshape(-1) for t in ts])
-            dist.broadcast(flat, src=0)
+            dist.broadcast(flat, src=self._global(0), group=self.pg)
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.detach().copy_(part.view_as(t))
 
@@ -901,3 +969,135 @@ def simulate(fn, per_worker_dense: torch.Tensor, **kwargs):
     of n workers: (aggregated [n, M(, d)], per-worker SyncStats)."""
     return fn(per_worker_dense, group=SimGroup(per_worker_dense.shape[0]),
               **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Two-level execution: one group per topology level
+# ---------------------------------------------------------------------------
+
+class Held:
+    """The ``[local, ...]`` per-worker values between the levels of a
+    multi-level sync, held as distinct tensors ``vals`` and each local
+    worker's index into them (``rep``).  After a level whose scheme hands
+    every worker of a group one shared tensor (a psum, agsparse's reduce),
+    that group's workers share one entry, so the next level's groups that
+    see the same inputs run once; ``base`` is the stack itself while no
+    level has run."""
+
+    def __init__(self, vals: list, rep: list[int], base=None):
+        self.vals, self.rep, self.base = vals, rep, base
+
+    @classmethod
+    def of(cls, x: torch.Tensor) -> "Held":
+        return cls(list(x.unbind(0)), list(range(x.shape[0])), base=x)
+
+    def take(self, rows: list[int]) -> torch.Tensor:
+        """The ``[len(rows), ...]`` stack of these workers' values (a view
+        of ``base`` for consecutive rows)."""
+        a = rows[0]
+        if self.base is not None and rows == list(range(a, a + len(rows))):
+            return self.base[a:a + len(rows)]
+        return torch.stack([self.vals[self.rep[r]] for r in rows])
+
+    def map(self, fn) -> "Held":
+        """``fn`` applied to every distinct value (once each)."""
+        return Held([fn(v) for v in self.vals], list(self.rep))
+
+    def stack(self) -> torch.Tensor:
+        """The ``[local, ...]`` values: one tensor expanded when every
+        worker holds the same one, as a psum's output is."""
+        if self.base is not None:
+            return self.base
+        if len(set(self.rep)) == 1:
+            v = self.vals[self.rep[0]]
+            return v[None].expand(len(self.rep), *v.shape)
+        return torch.stack([self.vals[i] for i in self.rep])
+
+
+def level_sync(held: Held, group: SimGroup | DistGroup, sizes: Sequence[int],
+               axis: int, fn) -> tuple[Held, SyncStats]:
+    """Run ``fn(x [s, ...], subgroup, rows) -> (out [s, ...], SyncStats)``
+    on every group of level ``axis`` of the world laid out as ``sizes``
+    (``group.split``).  Groups whose inputs are the same tensors run once
+    and share the result: the same inputs on the same ranks give the same
+    bits.  Returns the workers' outputs and per-worker stats."""
+    local = len(held.rep)
+    vals: list = []
+    rep: list = [0] * local
+    sent: list = [None] * local
+    ovf: list = [None] * local
+    done: dict = {}
+    for rows, sub in group.split(sizes, axis):
+        key = tuple(held.rep[r] for r in rows)
+        if key not in done:
+            out, st = fn(held.take(rows), sub, rows)
+            if len(rows) > 1 and out.stride(0) == 0:   # one shared value
+                idx = [len(vals)] * len(rows)
+                vals.append(out[0])
+            else:
+                idx = list(range(len(vals), len(vals) + len(rows)))
+                vals.extend(out.unbind(0))
+            done[key] = idx, st
+        idx, st = done[key]
+        for j, r in enumerate(rows):
+            rep[r] = idx[j]
+            sent[r], ovf[r] = st.sent_words[j], st.overflow[j]
+    return Held(vals, rep), SyncStats(sent_words=torch.stack(sent),
+                                      overflow=torch.stack(ovf))
+
+
+def world_sizes(topology, pods: int = 1) -> tuple[int, ...]:
+    """The world's mixed-radix layout, outermost first: ``(pods, *levels
+    slowest first)``; topology level ``L`` is digit ``len - 1 - L``."""
+    return (pods, *(lv.size for lv in reversed(topology.levels)))
+
+
+def hier_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup, topology,
+              plan, stage_kw: dict | None = None):
+    """Execute a CommPlan over a Topology: stage 0 aggregates over the fast
+    (intra) level's groups, stage 1 runs on the *intra-aggregated*
+    gradient over the slow (inter) level's.  Exact by associativity of the
+    sum.
+
+    ``group`` holds the whole data-parallel world (``topology.n`` ranks:
+    the in-process ``SimGroup`` splits its stack, a ``DistGroup`` runs
+    this rank's group of each level).  ``stage_kw`` maps a level index to
+    its stage's arguments, a typed :class:`StageArgs` (what
+    :func:`plan_stage_args` builds) or a loose kwargs dict.  Size-1 levels
+    are skipped and report zero words.  Returns the SUM over all workers
+    (the convention of every flat ``*_sync``) with ``SyncStats.by_level``
+    carrying the per-level wire words."""
+    stage_kw = stage_kw or {}
+    sizes = world_sizes(topology)
+    held = Held.of(dense)
+    sent, overflow, _ = zero_stats(dense.shape[0], dense.device)
+    by_level = []
+    for stage in plan.stages:
+        lvl = topology.levels[stage.level]
+        if lvl.size <= 1:
+            by_level.append(torch.zeros_like(sent))
+            continue
+        kw = stage_kw.get(stage.level, {})
+        kw = ({"stage_args": kw} if isinstance(kw, StageArgs) else kw)
+
+        def run(x, sub, _rows, scheme=stage.scheme, n=lvl.size, kw=kw):
+            return stage_sync(scheme, x, group=sub, n=n, **kw)
+
+        held, st = level_sync(held, group, sizes,
+                              len(sizes) - 1 - stage.level, run)
+        sent = sent + st.sent_words
+        overflow = overflow + st.overflow
+        by_level.append(st.sent_words)
+    return held.stack(), SyncStats(sent_words=sent, overflow=overflow,
+                                   by_level=tuple(by_level))
+
+
+def simulate_hier(per_worker_dense: torch.Tensor, *, topology, plan,
+                  stage_kw: dict | None = None):
+    """A hierarchical plan over [n, M(, d)] worker gradients on the
+    in-process group: a node's workers are CONSECUTIVE rows (the grouping
+    ``launch/mesh.py`` builds).  Returns (aggregated [n, M(, d)],
+    per-worker SyncStats with ``by_level``)."""
+    return hier_sync(per_worker_dense,
+                     group=SimGroup(per_worker_dense.shape[0]),
+                     topology=topology, plan=plan, stage_kw=stage_kw)

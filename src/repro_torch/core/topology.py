@@ -26,10 +26,9 @@ plans against two small IR pieces:
   A flat plan's tag is just the scheme name, so ``Bucket.scheme`` tags
   from the flat era parse unchanged (plan-stable identity).
 
-Pure Python: built offline, consumed by ``core/costmodel.py`` (α-β times)
-and ``core/zen.py`` (each bucket's plan).  The port builds and prices
-two-level topologies but runs flat ones only: executing a two-level plan
-(``hier_sync``) is ROADMAP queue 1, item 9.
+Pure Python: built offline, consumed by ``core/costmodel.py`` (α-β times),
+``core/schemes.py`` (``hier_sync``), ``core/zen.py`` (each bucket's plan
+and per-level layouts) and ``launch/mesh.py`` (the level groups).
 """
 from __future__ import annotations
 
@@ -205,7 +204,7 @@ class Stage:
 @dataclasses.dataclass(frozen=True)
 class CommPlan:
     """An executable composition of per-level scheme stages, fastest
-    level first."""
+    level first.  ``hier_sync`` (core/schemes.py) interprets it."""
 
     stages: tuple[Stage, ...]
 

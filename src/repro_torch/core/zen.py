@@ -1,15 +1,25 @@
 """Gradient-synchronization API (port of ``repro.core.zen``).
 
 ``GradSync`` maps the per-worker gradients of a model (one ``[local, ...]``
-stack per leaf: all ``n`` workers on the in-process ``SimGroup``, this
-process's one rank on a ``DistGroup``) to their mean over the data-parallel
-group.  Leaves named in ``sparse_paths`` (the row-sparse input embedding
+stack per leaf: all workers on the in-process ``SimGroup``, this process's
+one rank on a ``DistGroup``) to their mean over the data-parallel group.
+Leaves named in ``sparse_paths`` (the row-sparse input embedding
 ``embed/table``) go through the configured sparse scheme; every other leaf
 is a psum.  The leaves are partitioned into buckets (``core/buckets.py``:
 dense leaves fused up to ``bucket_bytes``, one bucket per leaf without it)
 and synced in the reference's double-buffered pipeline
 (``train/schedule.py``): on CUDA every bucket's encode runs on a side
 stream GradSync keeps, beside the previous bucket's commit.
+
+The data-parallel world may be two-level (``topology``, built from
+``--node-size``; paper §4.1: NVLink inside a node, the network across
+nodes): every bucket resolves to a ``CommPlan`` such as
+``hier(zen@intra,agsparse@inter)`` whose stages run fastest level first,
+over one group per level (``schemes.level_sync``), with capacities grown
+across the intra-merge boundary (``schemes.level_budget``); stage 0 runs in
+the schedule's ``intra`` slot.  A ``pods`` axis (a ``PxDx1`` mesh) takes
+the mean over the pods after the data-parallel sync.  The flat topology
+without pods is the single-group path, bit for bit.
 
 With ``compress`` set (``core/sparsify.py``), every dense bucket's payload
 is EF-sparsified in its encode's pipeline slot before the scheme sees it:
@@ -22,13 +32,11 @@ threaded through ``gs(grads, residual, step=t)``.
 (``registry.cli_scheme_choices()``) or ``auto``, the per-tensor choice:
 each row-sparse leaf and each compressed bucket consults its
 ``SparsityProfile`` (measured, via ``profiles``, or the worst case of its
-budget) through ``costmodel.choose_scheme`` on the flat topology.  Every
-bucket resolves to a ``CommPlan``; Zen buckets run their encode in the
-pipeline's encode slot, every other scheme runs through
-``schemes.stage_sync`` in the commit slot.  The port runs the flat
-topology only: measured-cost calibration (``calib_file``) and two-level
-topologies (``alpha_beta``) raise ``NotImplementedError`` naming their
-ROADMAP items.
+budget) through ``costmodel.choose_scheme``, on the int world size over a
+flat topology and on the α-β topology over a two-level one.  Zen buckets
+run their encode in the pipeline's encode slot, every other scheme runs
+through ``schemes.stage_sync``.  Measured-cost calibration
+(``calib_file``) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,9 +52,10 @@ from repro_torch.core import costmodel, schemes, sparsify
 from repro_torch.core import topology as tpg
 from repro_torch.core.hashing import check_backend
 from repro_torch.core.registry import StageArgs
-from repro_torch.core.schemes import (DistGroup, SimGroup, SyncStats,
-                                      make_zen_layout)
-from repro_torch.core.topology import CommPlan, resolve_plan
+from repro_torch.core.schemes import (DistGroup, Held, SimGroup, SyncStats,
+                                      level_sync, make_zen_layout,
+                                      world_sizes, zero_stats)
+from repro_torch.core.topology import CommPlan, Topology, resolve_plan
 from repro_torch.optim.optimizers import ef_residual_init
 from repro_torch.train import schedule
 
@@ -78,6 +87,9 @@ class SyncConfig:
     fused_commit: bool = True
     calib_file: str | None = None
     bucket_bytes: int | None = None
+    # α-β link override of the topology cost model ('a_intra,b_intra,
+    # a_inter,b_inter' in µs and µs/word, or 'a,b'): read where the trainer
+    # builds its topology (train/steps.make_gradsync), not here
     alpha_beta: str | None = None
     compress: str = "none"
 
@@ -86,13 +98,12 @@ def _unsupported(cfg: SyncConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet, or None."""
     if cfg.calib_file is not None:
         return "measured-cost calibration: ROADMAP queue 1, item 7"
-    if cfg.alpha_beta is not None:
-        return "two-level topologies: ROADMAP queue 1, item 9"
     return None
 
 
 class GradSync:
-    """Synchronize stacked per-worker gradients over a flat group.
+    """Synchronize stacked per-worker gradients over the data-parallel
+    group (and the pods).
 
     Args:
       cfg: SyncConfig.
@@ -101,43 +112,62 @@ class GradSync:
           order; the Zen layouts and the bucket plan are built from them
           offline.
       n_data: size of the data-parallel group.
-      group: the collectives' group: by default ``SimGroup(n_data)`` (all
-          workers in this process); a ``DistGroup`` of size ``n_data``
-          runs this process's rank over ``torch.distributed``.
+      group: the collectives' group over the whole world (``pods *
+          n_data`` ranks, pod-major): by default ``SimGroup`` of them all
+          in this process; a ``DistGroup`` runs this process's rank over
+          ``torch.distributed``.
       profiles: optional ``{leaf name or bucket key: SparsityProfile}`` of
           measured sparsity (``costmodel.profile_from_masks``,
           ``DensityController.profiles()``).  Under ``auto`` a profiled
           leaf or bucket is decided from its own curves instead of the
           worst case of its budget.
+      topology: the data-parallel world's ``Topology`` (default the
+          degenerate flat one over ``n_data``); two-level topologies run
+          each bucket's ``CommPlan`` level by level.
+      pods: the pod count of a ``PxDx1`` mesh: each pod syncs its
+          ``n_data`` ranks, then the pods' results are averaged (the
+          reference's ``pmean`` over ``pod``).
     """
 
     def __init__(self, cfg: SyncConfig, sparse_paths: Sequence[str],
                  leaves: Sequence[tuple[str, tuple, torch.dtype]],
                  n_data: int,
                  group: SimGroup | DistGroup | None = None,
-                 profiles: dict | None = None):
+                 profiles: dict | None = None,
+                 topology: Topology | None = None, pods: int = 1):
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(f"GradSync: {why}")
         check_backend(cfg.backend)
-        if group is not None and group.n != n_data:
-            raise ValueError(f"GradSync: n_data {n_data} != the group's "
-                             f"size {group.n}")
+        if group is not None and group.n != n_data * pods:
+            raise ValueError(f"GradSync: {pods} pod(s) of n_data {n_data} "
+                             f"!= the group's size {group.n}")
         self.cfg = cfg
         self.n_data = n_data
-        self.group = group or SimGroup(n_data)
+        self.pods = pods
+        self.group = group or SimGroup(n_data * pods)
         self.sparse_paths = tuple(sparse_paths)
         self.compress = sparsify.parse_compress(cfg.compress)
         # the encodes' side stream, one per CUDA device (train/schedule.py)
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
-        # the degenerate flat topology (α=0, β=1: time == volume)
-        self.topology = tpg.flat_topology(n_data)
+        # the degenerate flat topology (α=0, β=1: time == volume) unless
+        # the caller gives one
+        self.topology = (topology if topology is not None
+                         else tpg.flat_topology(n_data))
+        topo = self.topology
+        if topo.n != n_data:
+            raise ValueError(f"topology covers {topo.n} workers "
+                             f"({topo.describe()}) but n_data={n_data}")
+        # the world's mixed-radix layout, pod-major (schemes.level_rows)
+        self._sizes = world_sizes(topo, pods)
         profiles = profiles or {}
 
         def choose(prof) -> str:
-            # the world size 'auto' prices: the int n on the flat topology
-            return costmodel.choose_scheme(prof, max(n_data, 2),
-                                           threshold=cfg.auto_threshold)
+            # what 'auto' prices: the int world size on a flat topology
+            # (the historical picks), the α-β topology on a two-level one
+            return costmodel.choose_scheme(
+                prof, max(n_data, 2) if topo.flat else topo,
+                threshold=cfg.auto_threshold)
 
         def resolve_scheme(name: str, shape: tuple) -> str:
             """Plan tag of one row-sparse leaf; 'auto' consults the leaf's
@@ -172,27 +202,31 @@ class GradSync:
             compress=self.compress.tag(),
             compressed_scheme=resolve_compressed)
         self._plans: dict[int, CommPlan] = {
-            b.bid: resolve_plan(b.scheme, self.topology)
-            for b in self.plan.buckets}
-        # Zen layouts: a row-sparse leaf's rows at the density budget, a
-        # compressed dense bucket's elements at the compressed budget;
-        # buckets of one size share one layout (and its device tables)
-        self._layouts = {}
-        shared: dict[tuple[int, float], schemes.ZenLayout] = {}
+            b.bid: resolve_plan(b.scheme, topo) for b in self.plan.buckets}
+        # Zen layouts per (bucket key, level): a row-sparse leaf's rows at
+        # the density budget, a compressed dense bucket's elements at the
+        # compressed budget, each grown for the level (level_budget);
+        # stages of one size share one layout (and its device tables)
+        self._layouts: dict[tuple[str, int], schemes.ZenLayout] = {}
+        shared: dict[tuple[int, int, float], schemes.ZenLayout] = {}
         for b in self.plan.buckets:
-            if b.scheme != "zen" or n_data <= 1:
-                continue
             if b.kind == bk.SPARSE:
                 rows, budget = b.slots[0].shape[0], cfg.density_budget
             elif b.compress != "none":
                 rows, budget = b.size, self._compressed_budget()
             else:
                 continue
-            if (rows, budget) not in shared:
-                shared[rows, budget] = make_zen_layout(
-                    rows, n_data, density_budget=budget, key=cfg.seed,
-                    k=cfg.k, r1_factor=cfg.r1_factor, r2_ratio=cfg.r2_ratio)
-            self._layouts[b.key] = shared[rows, budget]
+            for stage in self._plans[b.bid].stages:
+                size = topo.levels[stage.level].size
+                if stage.scheme != "zen" or size <= 1:
+                    continue
+                lb = schemes.level_budget(topo, budget, stage.level)
+                if (rows, size, lb) not in shared:
+                    shared[rows, size, lb] = make_zen_layout(
+                        rows, size, density_budget=lb, key=cfg.seed,
+                        k=cfg.k, r1_factor=cfg.r1_factor,
+                        r2_ratio=cfg.r2_ratio)
+                self._layouts[b.key, stage.level] = shared[rows, size, lb]
 
     def _is_sparse(self, name: str) -> bool:
         return any(s in name for s in self.sparse_paths)
@@ -218,17 +252,20 @@ class GradSync:
                          f"plan=[{stages}]{comp}  {b.key}")
         return lines
 
-    def _stage_args(self, bucket: bk.Bucket, scheme: str) -> StageArgs:
-        """Typed StageArgs of a bucket's (one, flat) plan stage, sized by
-        ``schemes.stage_args_for`` from the bucket's budget."""
+    def _stage_args(self, bucket: bk.Bucket, scheme: str,
+                    level: int) -> StageArgs:
+        """Typed StageArgs of one plan stage of a bucket, sized by
+        ``schemes.stage_args_for`` from the bucket's budget grown for the
+        level (``schemes.level_budget``)."""
         cfg = self.cfg
         budget = (self._compressed_budget() if bucket.compress != "none"
                   else cfg.density_budget)
         rows = (bucket.slots[0].shape[0] if bucket.kind == bk.SPARSE
                 else bucket.size)
         return schemes.stage_args_for(
-            scheme, rows=rows, budget=budget,
-            layout=self._layouts.get(bucket.key),
+            scheme, rows=rows,
+            budget=schemes.level_budget(self.topology, budget, level),
+            layout=self._layouts.get((bucket.key, level)),
             use_hash_bitmap=cfg.use_hash_bitmap, backend=cfg.backend,
             fused=cfg.fused_encode, fused_commit=cfg.fused_commit)
 
@@ -289,37 +326,95 @@ class GradSync:
         return sent, new, d1
 
     def _encode_bucket(self, bucket: bk.Bucket, payload: torch.Tensor):
-        """Local, collective-free stage: Zen buckets encode to (indices,
-        values); everything else passes through."""
-        if bucket.key in self._layouts:
-            enc = schemes.zen_encode(payload, layout=self._layouts[bucket.key],
-                                     backend=self.cfg.backend,
-                                     fused=self.cfg.fused_encode)
+        """Local, collective-free stage: a bucket whose first plan stage is
+        Zen on a level larger than 1 encodes to (indices, values);
+        everything else passes through."""
+        if (bucket.key, 0) in self._layouts:
+            enc = schemes.zen_encode(
+                payload, layout=self._layouts[bucket.key, 0],
+                backend=self.cfg.backend, fused=self.cfg.fused_encode)
             return (payload, enc)
         return (payload,)
 
+    def _stage_fn(self, bucket: bk.Bucket, level: int, enc=None):
+        """``fn(x, group, rows) -> (out, SyncStats)``: one plan stage of a
+        bucket over one group of its level; ``enc`` carries the prefetched
+        ZenEncoded of stage 0 (its workers' rows are ``rows``)."""
+        scheme = self._plans[bucket.bid].stages[level].scheme
+        n = self.topology.levels[level].size
+
+        def fn(x, group, rows):
+            if enc is not None:   # stage 0's groups are consecutive rows
+                a, b = rows[0], rows[0] + len(rows)
+                return schemes.zen_commit(
+                    schemes.ZenEncoded(*(t[a:b] for t in enc)), x,
+                    group=group,
+                    layout=self._layouts[bucket.key, level],
+                    use_hash_bitmap=self.cfg.use_hash_bitmap,
+                    backend=self.cfg.backend, fused=self.cfg.fused_commit)
+            return schemes.stage_sync(
+                scheme, x, group=group, n=n,
+                stage_args=self._stage_args(bucket, scheme, level))
+
+        return fn
+
+    def _run_stage(self, bucket: bk.Bucket, level: int, held: Held,
+                   enc=None) -> tuple[Held, SyncStats]:
+        """One plan stage over every group of its level; a size-1 level is
+        the identity with zero words."""
+        if self.topology.levels[level].size <= 1:
+            return held, zero_stats(len(held.rep), held.vals[0].device)
+        axis = len(self._sizes) - 1 - level
+        return level_sync(held, self.group, self._sizes, axis,
+                          self._stage_fn(bucket, level, enc))
+
+    def _intra_bucket(self, bucket: bk.Bucket, enc):
+        """Two-level stage 0: aggregate over the fast (intra) level, in the
+        schedule's ``intra`` slot.  Returns (intra sums, stage-0 stats)."""
+        return self._run_stage(bucket, 0, Held.of(enc[0]),
+                               enc[1] if len(enc) > 1 else None)
+
     def _commit_bucket(self, bucket: bk.Bucket,
                        enc) -> tuple[torch.Tensor, SyncStats]:
-        """Collectives + decode-apply, then the mean (every scheme sums):
-        Zen's commit for an encoded bucket, the bucket's scheme through
-        ``schemes.stage_sync`` otherwise."""
+        """Collectives + decode-apply, then the mean (every scheme sums).
+        On the flat topology without pods: Zen's commit for an encoded
+        bucket, the bucket's scheme through ``schemes.stage_sync``
+        otherwise, over the one group.  On a two-level topology
+        ``_intra_bucket`` already ran stage 0 and ``enc`` is (intra sums,
+        stage-0 stats): stage 1 runs on them, and the stats carry
+        ``by_level``.  Pods then average their results."""
+        n = self.n_data
+        if self.topology.flat and self.pods == 1:
+            return self._commit_flat(bucket, enc)
+        if self.topology.flat:
+            out, st = self._run_stage(bucket, 0, Held.of(enc[0]),
+                                      enc[1] if len(enc) > 1 else None)
+        else:
+            mid, st0 = enc
+            out, st1 = self._run_stage(bucket, 1, mid)
+            st = SyncStats(sent_words=st0.sent_words + st1.sent_words,
+                           overflow=st0.overflow + st1.overflow,
+                           by_level=(st0.sent_words, st1.sent_words))
+        out = out.map(lambda v: v / n)
+        if self.pods > 1:   # the reference's pmean over the pod axis
+            out, _ = level_sync(out, self.group, self._sizes, 0, self._pmean)
+        return out.stack(), st
+
+    def _pmean(self, x: torch.Tensor, group, _rows):
+        """The pods' mean: their psum over ``pods`` (no wire words are
+        counted for it, as in the reference)."""
+        s = group.psum(x)
+        s = ((s[0] / self.pods).expand_as(s) if s.stride(0) == 0
+             else s / self.pods)
+        return s, zero_stats(x.shape[0], x.device)
+
+    def _commit_flat(self, bucket: bk.Bucket, enc):
+        """The flat topology's commit over the one group."""
         g, n = enc[0], self.group.n
         if n <= 1:
-            zero = torch.zeros(g.shape[0], dtype=torch.float32,
-                               device=g.device)
-            return g, SyncStats(sent_words=zero,
-                                overflow=zero.to(torch.int32))
-        if len(enc) > 1:
-            out, st = schemes.zen_commit(
-                enc[1], g, group=self.group,
-                layout=self._layouts[bucket.key],
-                use_hash_bitmap=self.cfg.use_hash_bitmap,
-                backend=self.cfg.backend, fused=self.cfg.fused_commit)
-        else:
-            scheme = self._plans[bucket.bid].stages[0].scheme
-            out, st = schemes.stage_sync(
-                scheme, g, group=self.group, n=n,
-                stage_args=self._stage_args(bucket, scheme))
+            return g, zero_stats(g.shape[0], g.device)
+        stage = self._stage_fn(bucket, 0, enc[1] if len(enc) > 1 else None)
+        out, st = stage(g, self.group, list(range(g.shape[0])))
         if out.stride(0) == 0:   # SimGroup: one psum seen by every worker
             return (out[0] / n).expand_as(out), st
         return out / n, st
@@ -385,7 +480,8 @@ class GradSync:
         stream = self._side_stream(flat[0].device)
         outs, per_bucket = schedule.run_schedule(
             self.plan.buckets, payloads, self._encode_bucket,
-            self._commit_bucket, stream=stream, compress=hook)
+            self._commit_bucket, stream=stream, compress=hook,
+            intra=None if self.topology.flat else self._intra_bucket)
         if stream is not None:
             # the compress stage's side outputs were made on the side
             # stream; the current stream reads and frees them from here on

@@ -12,6 +12,13 @@ by gloo itself), and it lets several ranks share one card, so a machine
 with one GPU runs the D ranks side by side on it.  ``nccl`` places one
 rank on each card and refuses two ranks on one; asking for it where the
 ranks outnumber the cards raises rather than quietly switching to gloo.
+
+Two-level data parallelism (``--node-size k``) and pods (``--mesh
+PxDx1``) lay the P x D ranks out pod-major, and a node's k ranks are
+CONSECUTIVE (the reference's ``launch/mesh.py`` grouping):
+:func:`make_level_groups` makes one ``torch.distributed`` group per node
+(ranks ``[j*k, ..., j*k + k - 1]``), per cross-node column (``[i, i + k,
+...]``) and per pod column, every rank making every group in one order.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.core.schemes import DistGroup
+from repro_torch.core.schemes import DistGroup, world_sizes
 
 BACKENDS = ("gloo", "nccl")
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
@@ -31,6 +38,32 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 # minutes instead of leaving them waiting (the slowest collective of the
 # full-width trainer, its start-up broadcast, takes seconds)
 TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def check_node_size(dp: int, node_size: int) -> None:
+    """``node_size`` must divide the data-parallel degree D (the
+    reference's ``split_node_axes`` check)."""
+    if node_size < 1:
+        raise ValueError(f"node_size must be >= 1, got {node_size}")
+    if node_size > 1 and dp % node_size != 0:
+        raise ValueError(
+            f"node_size={node_size} does not divide the data axis "
+            f"(size {dp}); pick a divisor of {dp}")
+
+
+def make_level_groups(group, topology, pods: int = 1) -> None:
+    """Make the groups of every level larger than one rank (the nodes, the
+    cross-node columns, the pod columns) for a world of ``pods`` x
+    ``topology.n`` ranks, so that GradSync's first sync finds them.  On a
+    ``DistGroup`` this calls ``dist.new_group`` for every group on every
+    rank in one order; on the in-process group it only checks the
+    layout."""
+    if topology.flat and pods == 1:
+        return   # the one flat group is the world itself
+    sizes = world_sizes(topology, pods)
+    for axis, size in enumerate(sizes):
+        if size > 1:
+            group.split(sizes, axis)
 
 
 def make_data_group(backend: str, device: str | None = None

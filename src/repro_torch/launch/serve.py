@@ -29,7 +29,7 @@ from repro_torch.kernels import ops
 from repro_torch.train import steps as st
 from repro_torch.train.build import Program, attach_serve, build_program
 
-ARCHS = ("qwen2-0.5b", "mamba2-370m")
+ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 

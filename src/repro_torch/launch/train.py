@@ -4,7 +4,9 @@
         --mesh 8x1 --sync zen --global-batch 8 --seq-len 512 --steps 4
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
-The D ranks of a ``Dx1`` mesh run in one of two modes (train/steps.py):
+The D ranks of a ``Dx1`` mesh (P x D of a ``PxDx1`` one: each pod syncs
+its D ranks, then the pods' results are averaged) run in one of two modes
+(train/steps.py):
 
 * without ``--dist``, all D ranks are held in this one process;
 * with ``--dist {gloo,nccl}``, each process started by ``torchrun`` runs
@@ -18,9 +20,14 @@ The D ranks of a ``Dx1`` mesh run in one of two modes (train/steps.py):
   ``--device cpu``); nccl needs a GPU per rank.  Only rank 0 prints, and
   ``main`` returns the same dict on every rank.
 
-Flags the port does not run yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.  ``--no-zero1`` is accepted: the port always
-runs the full update, which gives the same numbers as ZeRO-1.
+``--node-size k`` (a divisor of D) makes the data-parallel world two-level:
+nodes of k consecutive ranks, every bucket's plan run inside each node and
+then across the nodes (``core/topology.py``; ``--sync auto`` prices the
+plans on the α-β topology, whose defaults, or ``--alpha-beta``'s values,
+are planning constants, not measurements).  Flags the port does not run
+yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``--no-zero1`` is accepted: the port always runs the full update, which
+gives the same numbers as ZeRO-1.
 ``--no-fused-commit`` runs Zen's commit through the pre-fusion chain of
 kernels (scatter-add, bitmap pack and unpack) instead of the push and pull
 megakernels, with the same results.  ``--bucket-bytes N`` fuses
@@ -60,7 +67,8 @@ from repro_torch.core.sparsify import DensityController
 from repro_torch.core.zen import SyncConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import BACKENDS, make_data_group
+from repro_torch.launch.mesh import (BACKENDS, make_data_group,
+                                     make_level_groups)
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.train.build import attach_train, build_program
 from repro_torch.train.steps import TrainerConfig
@@ -72,13 +80,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--mesh", default="1x1", help="DxM, e.g. 8x1")
+    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM, e.g. 8x1 "
+                    "or 2x4x1 (M must be 1)")
     ap.add_argument("--sync", default="zen", choices=cli_scheme_choices())
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--density-budget", type=float, default=0.25)
     ap.add_argument("--bucket-bytes", type=int, default=None)
-    ap.add_argument("--node-size", type=int, default=1)
-    ap.add_argument("--alpha-beta", default=None)
+    ap.add_argument("--node-size", type=int, default=1,
+                    help="ranks per node: splits D into nodes of this many "
+                         "consecutive ranks (a two-level topology); must "
+                         "divide D; 1 = flat")
+    ap.add_argument("--alpha-beta", default=None,
+                    help="α-β link override of the topology cost model: "
+                         "'a_intra,b_intra,a_inter,b_inter' (µs, µs per "
+                         "f32 word) or 'a,b' for every level")
     ap.add_argument("--compress", default="none")
     ap.add_argument("--calib-file", default=None)
     ap.add_argument("--no-fused-commit", action="store_true")
@@ -100,25 +115,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    todo = {
-        "--node-size > 1": (args.node_size > 1, "ROADMAP queue 1, item 9"),
-    }
-    for flag, (hit, item) in todo.items():
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
-
-
 def main(argv=None) -> dict:
     """Train; returns losses, final tok/s, sparse words, overflow, step
     times (host clock after a device sync, seconds), each logged step's
     sparse words, grad norm and dense words, the steps at which the
     density controller rebuilt the plan, the plan's ``describe()`` lines
-    at the end, the bucket plan (kind, dtype,
-    bytes and leaves of each bucket) and the kernels' launches and plain
+    at the end, the bucket plan (kind, dtype, bytes and leaves of each
+    bucket), each logged step's words by level on a two-level topology
+    (``intra_words``, ``inter_words``) and the kernels' launches and plain
     calls in the run, summed over the group."""
     args = parse_args(argv)
-    _check_ported(args)
     if args.dist is None:
         return _train(args, None, args.device)
     group, dev = make_data_group(args.dist, args.device)
@@ -146,17 +152,23 @@ def _train(args, group, device) -> dict:
                         fused_commit=not args.no_fused_commit,
                         backend=args.backend, seed=args.seed))
     prog = build_program(cfg, args.mesh, tcfg, device=device,
-                         seed=args.seed, backend=args.backend, group=group)
+                         seed=args.seed, backend=args.backend, group=group,
+                         node_size=args.node_size)
     attach_train(prog)
+    topo = prog.gradsync.topology
+    make_level_groups(prog.group, topo, prog.pods)
     dev = prog.device
     log = print if prog.group.ranks[0] == 0 else _quiet   # rank 0 prints
     n_params = sum(p.numel() for p in prog.model.parameters())
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
         f"sync={args.sync} compress={args.compress} backend={args.backend} "
-        f"device={dev} dtype={str(cfg.dtype).replace('torch.', '')}",
-        flush=True)
+        f"node_size={args.node_size} device={dev} "
+        f"dtype={str(cfg.dtype).replace('torch.', '')}", flush=True)
     for line in prog.gradsync.describe():   # the plan the run executes
         log(f"  {line}")
+    if not topo.flat:
+        log(f"  (α-β: {'--alpha-beta' if args.alpha_beta else 'defaults'}: "
+            f"planning constants of the cost model, not measurements)")
 
     # adaptive density control: measured post-compression densities feed
     # choose_scheme; a flip triggers a replan.  Only under 'auto': an
@@ -168,7 +180,8 @@ def _train(args, group, device) -> dict:
         controller = DensityController(
             prog.gradsync.compressed_buckets(),
             prog.gradsync.bucket_schemes(), n=prog.n_data,
-            threshold=tcfg.sync.auto_threshold)
+            threshold=tcfg.sync.auto_threshold,
+            topology=None if topo.flat else topo)
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -182,6 +195,7 @@ def _train(args, group, device) -> dict:
     data = iter(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
     losses, step_s, words, ovf, gnorm, dwords = [], [], [], [], [], []
+    levels: dict[str, list[float]] = {}   # two-level topologies' words
     replans: list[int] = []
     tokens_done = 0
     counts0 = _counts()
@@ -203,6 +217,9 @@ def _train(args, group, device) -> dict:
             ovf.append(int(float(m["sync/overflow"])))
             gnorm.append(float(m["grad_norm"]))
             dwords.append(float(m["sync/dense_words"]))
+            for k in ("intra_words", "inter_words"):
+                if f"sync/{k}" in m:
+                    levels.setdefault(k, []).append(float(m[f"sync/{k}"]))
             log(f"step {step:5d} loss={losses[-1]:.4f} "
                   f"tok/s={tokens_done / dt:,.0f} "
                   f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
@@ -237,7 +254,7 @@ def _train(args, group, device) -> dict:
            "overflow": max(ovf) if ovf else 0, "step_s": step_s,
            "median_step_s": float(np.median(step_s)) if step_s else 0.0,
            "sparse_words_by_step": words, "grad_norm": gnorm,
-           "dense_words": dwords, "replans": replans,
+           "dense_words": dwords, "replans": replans, **levels,
            "plan": prog.gradsync.describe(),
            "buckets": [{"kind": b.kind, "nbytes": b.nbytes,
                         "leaves": len(b.slots),

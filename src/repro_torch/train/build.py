@@ -1,6 +1,8 @@
 """Glue: build a train or serve program for an architecture and a mesh
 (port of the parts of ``repro.train.build`` the trainer and the server
-need)."""
+need).  A mesh is ``Dx1`` or ``PxDx1`` (P pods of D data-parallel ranks);
+``node_size`` splits D into nodes (a two-level topology, ``launch/mesh.py``
+lays the ranks out).  Tensor parallelism (M > 1) raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,36 +12,36 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.schemes import DistGroup, SimGroup
+from repro_torch.launch.mesh import check_node_size
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.train import steps as st
 from repro_torch.train.steps import TrainerConfig
 
 
-def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int]:
-    """'DxM' (or a (D, M) tuple) -> (data-parallel D, tensor-parallel M).
-    A pod axis ('PxDxM') and M > 1 are not ported yet."""
+def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int, int]:
+    """'DxM' or 'PxDxM' (or a tuple) -> (pods P, data-parallel D,
+    tensor-parallel M), P = 1 for 'DxM'.  M > 1 is not ported yet."""
     dims = ([int(x) for x in mesh.split("x")] if isinstance(mesh, str)
             else [int(x) for x in mesh])
-    if len(dims) == 3:
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"mesh must be DxM or PxDxM with positive sizes, "
+                         f"got {mesh!r}")
+    pods, dp, tp = [1] * (3 - len(dims)) + dims
+    if tp != 1:
         raise NotImplementedError(
-            "pod meshes (PxDxM): ROADMAP queue 1, item 9 (two-level "
-            "topologies)")
-    if len(dims) != 2 or min(dims) < 1:
-        raise ValueError(f"mesh must be DxM with positive sizes, got {mesh!r}")
-    if dims[1] != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (mesh {mesh!r}, M={dims[1]}): ROADMAP queue "
-            f"1, item 9; the port runs Dx1 meshes")
-    return dims[0], dims[1]
+            f"tensor parallelism (mesh {mesh!r}, M={tp}): ROADMAP queue "
+            f"1, item 9; the port runs Dx1 and PxDx1 meshes")
+    return pods, dp, tp
 
 
 @dataclasses.dataclass
 class Program:
     """A model and its trainer or server on one device.  ``group`` holds
-    the mesh's D data-parallel ranks: all of them in this process
+    the mesh's P x D ranks (pod-major): all of them in this process
     (``SimGroup``), or this process's one rank of a ``torch.distributed``
-    group (``DistGroup``)."""
+    group (``DistGroup``).  ``n_data`` is D, ``pods`` P, and ``node_size``
+    the ranks of a node (1: the flat topology)."""
 
     cfg: ArchConfig
     model: Model
@@ -47,6 +49,8 @@ class Program:
     n_data: int
     device: torch.device
     group: SimGroup | DistGroup
+    node_size: int = 1
+    pods: int = 1
     train_step: Any = None
     gradsync: Any = None
     prefill_step: Any = None
@@ -80,22 +84,27 @@ class Program:
 
 def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
                   *, device=None, seed: int = 0, backend: str = "cuda",
-                  group: SimGroup | DistGroup | None = None) -> Program:
+                  group: SimGroup | DistGroup | None = None,
+                  node_size: int = 1) -> Program:
     """Model (initialised from ``seed`` with a torch.Generator) on
     ``device`` (default ``cuda``; ``"cpu"`` must be asked for), its
     prefill kernels on the ``backend`` route (``Model``).  ``group``
-    (default ``SimGroup(D)``) must have the mesh's D ranks; on a
-    ``DistGroup`` every rank then takes rank 0's parameters, as DDP does."""
-    dp, _ = parse_mesh(mesh)
-    if group is not None and group.n != dp:
-        raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks but "
-                         f"the process group has {group.n}")
+    (default ``SimGroup(P x D)``) must have the mesh's P x D ranks; on a
+    ``DistGroup`` every rank then takes rank 0's parameters, as DDP does.
+    ``node_size`` must divide D."""
+    pods, dp, _ = parse_mesh(mesh)
+    check_node_size(dp, node_size)
+    if group is not None and group.n != pods * dp:
+        pods_ = f" in each of {pods} pods" if pods > 1 else ""
+        raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks"
+                         f"{pods_} but the process group has {group.n}")
     dev = resolve_device(device)
     model = Model(cfg, device=dev, seed=seed, backend=backend)
-    group = group or SimGroup(dp)
+    group = group or SimGroup(pods * dp)
     group.broadcast_(list(model.parameters()))
     return Program(cfg=cfg, model=model, tcfg=tcfg or TrainerConfig(),
-                   n_data=dp, device=dev, group=group)
+                   n_data=dp, device=dev, group=group, node_size=node_size,
+                   pods=pods)
 
 
 def attach_train(prog: Program, sparsity_profiles=None) -> None:
@@ -111,7 +120,8 @@ def attach_train(prog: Program, sparsity_profiles=None) -> None:
     old = prog.gradsync
     prog.sparsity_profiles = sparsity_profiles
     prog.gradsync = st.make_gradsync(prog.model, prog.tcfg, prog.n_data,
-                                     prog.group, sparsity_profiles)
+                                     prog.group, sparsity_profiles,
+                                     node_size=prog.node_size, pods=prog.pods)
     state = None
     if prog.train_step is not None:
         if old.compressed_buckets() != prog.gradsync.compressed_buckets():

@@ -1,5 +1,5 @@
 """Double-buffered emission of per-bucket sync ops (port of
-``repro.train.schedule``, flat topology).
+``repro.train.schedule``).
 
 GradSync syncs bucket by bucket in a software pipeline, in the reference's
 issue order:
@@ -26,9 +26,13 @@ current stream, so the caching allocator reuses their memory only after
 the commit that reads them (a compress hook's side outputs, such as the
 EF residuals GradSync keeps, are its caller's to mark).  On the CPU the
 same order runs without streams.  Neither changes a bit:
-:func:`run_in_order` is the plain loop the pipeline must equal.  The
-reference's intra-node hook comes with two-level topologies (ROADMAP queue
-1, item 9).
+:func:`run_in_order` is the plain loop the pipeline must equal.
+
+On a two-level topology an ``intra`` stage (the fast level's collectives)
+runs bucket i's intra-node hop between encode i's event and commit(i),
+after encode(i+1) has been issued on the side stream, so the cheap hop
+overlaps the next encode as the slow commit does.  Like every collective
+it runs on the current stream.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ def run_schedule(
     commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
     stream: torch.cuda.Stream | None = None,
     compress: Callable[[Bucket, Any], Any] | None = None,
+    intra: Callable[[Bucket, Any], Any] | None = None,
 ) -> tuple[list[Any], list[SyncStats]]:
     """Emit the double-buffered per-bucket sync pipeline; ``payloads[i]``
     is read in encode i's pipeline slot (on ``stream`` when given).
@@ -63,8 +68,10 @@ def run_schedule(
     ``stream``: the CUDA side stream for the encodes, or None (the CPU)
     to issue them in the same order on the current stream.  ``compress``:
     ``compress(bucket, payload) -> payload'``, run just before the
-    bucket's encode in its slot.  Returns (synced payloads, per-bucket
-    SyncStats), both in bucket order."""
+    bucket's encode in its slot.  ``intra``: ``intra(bucket, enc) ->
+    enc'``, a two-level topology's fast-level stage, run on the current
+    stream after encode(i+1) was issued and before commit(i).  Returns
+    (synced payloads, per-bucket SyncStats), both in bucket order."""
     nb = len(buckets)
     outs: list[Any] = [None] * nb
     stats: list[SyncStats] = [None] * nb
@@ -97,6 +104,8 @@ def run_schedule(
             main.wait_event(done)
             for t in _tensors(enc):
                 t.record_stream(main)
+        if intra is not None:
+            enc = intra(b, enc)
         outs[i], stats[i] = commit(b, enc)
         if nxt is not None:
             enc, done = nxt
@@ -109,15 +118,19 @@ def run_in_order(
     encode: Callable[[Bucket, Any], Any],
     commit: Callable[[Bucket, Any], tuple[Any, SyncStats]],
     compress: Callable[[Bucket, Any], Any] | None = None,
+    intra: Callable[[Bucket, Any], Any] | None = None,
 ) -> tuple[list[Any], list[SyncStats]]:
-    """Compress (optional), encode, then commit, bucket by bucket on the
-    current stream: the oracle :func:`run_schedule` must equal bit for
-    bit."""
+    """Compress (optional), encode, intra (optional), then commit, bucket
+    by bucket on the current stream: the oracle :func:`run_schedule` must
+    equal bit for bit."""
     outs, stats = [], []
     for b, p in zip(buckets, payloads):
         if compress is not None:
             p = compress(b, p)
-        out, st = commit(b, encode(b, p))
+        enc = encode(b, p)
+        if intra is not None:
+            enc = intra(b, enc)
+        out, st = commit(b, enc)
         outs.append(out)
         stats.append(st)
     return outs, stats

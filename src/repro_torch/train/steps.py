@@ -1,7 +1,7 @@
 """The data-parallel train step (port of ``repro.train.steps.make_train_step``).
 
-Data parallelism runs as ``--mesh Dx1`` in one of two modes, chosen by the
-group the step is given:
+Data parallelism runs as ``--mesh Dx1`` (or ``PxDx1``: P pods of D ranks)
+in one of two modes, chosen by the group the step is given:
 
 * ``SimGroup(D)`` (the default): all D ranks in one process on one device,
   the way the reference's tests hold 8 host devices in one process (its
@@ -12,13 +12,16 @@ group the step is given:
 
 One step, for each rank ``w`` this process holds:
 
-  1. rank ``w`` takes contiguous rows ``w`` of the global batch (every rank
-     takes the whole batch when D does not divide it, as the reference
-     replicates it) and computes its local loss and gradients;
+  1. rank ``w`` (pod-major over P x D) takes contiguous rows ``w`` of the
+     global batch (every rank takes the whole batch when P x D does not
+     divide it, as the reference replicates it) and computes its local
+     loss and gradients;
   2. ``GradSync`` syncs the stacked ``[local, ...]`` gradients over the
      group: Zen on ``embed/table``, a psum on the rest (or, with
      ``compress``, Zen or a psum on each dense bucket's EF-sparsified
-     payload), then ``/D``;
+     payload), then ``/D``; on a two-level topology (``node_size > 1``)
+     each bucket's plan runs inside each node, then across nodes; with
+     pods the pods' results are averaged;
   3. global-norm clip and the AdamW or SGD update of the (replicated)
      parameters, on every process alike.
 
@@ -41,6 +44,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.schemes import DistGroup, SimGroup
+from repro_torch.core.topology import build_topology
 from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import INITS, UPDATES, OptConfig
@@ -55,15 +59,19 @@ class TrainerConfig:
 
 def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int,
                   group: SimGroup | DistGroup,
-                  sparsity_profiles: dict | None = None) -> GradSync:
+                  sparsity_profiles: dict | None = None, *,
+                  node_size: int = 1, pods: int = 1) -> GradSync:
     """The trainer's GradSync over ``group``, built offline from the
     per-rank grad shapes and dtypes (the parameters': parameters are
     replicated).  ``sparsity_profiles`` ({leaf name or bucket key:
     SparsityProfile}) feeds measured density curves into the ``auto``
-    scheme's per-bucket choice."""
+    scheme's per-bucket choice.  The data-parallel topology is
+    ``build_topology(n_data, node_size)`` with the sync config's α-β
+    override (``node_size`` 1: the degenerate flat topology)."""
     leaves = [(n, tuple(p.shape), p.dtype) for n, p in model.named_leaves()]
+    topo = build_topology(n_data, node_size, alpha_beta=tcfg.sync.alpha_beta)
     return GradSync(tcfg.sync, model.sparse_paths, leaves, n_data, group,
-                    profiles=sparsity_profiles)
+                    profiles=sparsity_profiles, topology=topo, pods=pods)
 
 
 def split_batch(batch: dict, n: int) -> list[dict]:
@@ -115,7 +123,7 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
 
     def step_fn(batch: dict) -> dict:
         losses = []
-        per_rank = split_batch(batch, n_data)
+        per_rank = split_batch(batch, group.n)
         for w, rank in enumerate(ranks):
             b = per_rank[rank]
             model.zero_grad(set_to_none=True)

@@ -95,7 +95,7 @@ def _port_run(shapes, grads, bucket_bytes, ref_gs, scheme="zen",
                              bucket_bytes=bucket_bytes),
                   SPARSE_PATHS, leaves, N)
     for key in list(gs._layouts):   # the reference's hash seeds
-        lo = ref_gs._layouts[key, 0]
+        lo = ref_gs._layouts[key]
         gs._layouts[key] = TS.make_zen_layout(
             lo.length, N, density_budget=budget, seeds=lo.seeds)
     out, stats = gs({name: torch.from_numpy(grads[name]).to(dt)

@@ -30,6 +30,12 @@ outputs back the same way.  The JAX reference runs here, while they run.
   within 1e-3 of the reference's (1,1) run with no overflow, each rank
   calling the fused route's wrappers once a step; at 2x1 the in-process
   ``SimGroup`` 2x1 trainer's losses and parameters bit for bit;
+* on a two-level topology (nodes of 2 ranks, every level's group of 2
+  ranks) at 4 ranks: GradSync per leaf and bucketed, each rank's synced
+  leaves and metrics (``sync/intra_words``, ``sync/inter_words``) bitwise
+  row w of the in-process ``SimGroup`` run, and the 4x1 ``--node-size 2``
+  trainer's losses, words and parameters bitwise the in-process
+  two-level trainer's;
 * the launcher under ``torchrun --nproc-per-node 2 ... --dist gloo``
   prints the in-process 2x1 run's losses, and its misuses raise.
 """
@@ -58,6 +64,7 @@ from repro.data.pipeline import SyntheticLM as RefSyntheticLM
 from repro.models.common import make_ctx
 from repro.models.model import build_model
 from repro_torch.configs import get_config
+from repro_torch.core.topology import build_topology
 from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import train
@@ -65,7 +72,7 @@ from repro_torch.launch.mesh import TORCHRUN_ENV, make_data_group
 from repro_torch.models.model import Model
 from test_torch_trainer import BATCH, SEQ, STEPS, _ref_cfg, _ref_losses
 from test_torch_zen_sync import _integer_workers
-from torch_dist_rank import COMPRESS, VARIANTS
+from torch_dist_rank import COMPRESS, HIER_NODE, VARIANTS
 
 ROOT = Path(__file__).resolve().parents[1]
 RANK_MAIN = Path(__file__).resolve().parent / "torch_dist_rank.py"
@@ -262,7 +269,7 @@ def groups(tmp_path_factory):
     common = {**flat, **{f"batch/{k}": v for k, v in batch.items()}}
     out = {"ref_params": ref_params, "batch": batch}
     for n, jobs in ((4, ["zen", "schemes", "dense", "gradsync",
-                         "broadcast", "trainer"]),
+                         "broadcast", "trainer", "hier"]),
                     (2, ["dense", "gradsync", "compress", "trainer"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
         inp = {**common, **_grad_inputs(n, seed=n), "n": n,
@@ -531,6 +538,49 @@ def test_trainer_2x1_processes_equal_in_process_2x1(groups):
             np.testing.assert_array_equal(r[f"trainer/{k}"],
                                           sim[f"simgroup/{k}"],
                                           err_msg=f"{k} rank {w}")
+
+
+@pytest.mark.parametrize("key", ["hgs", "hgsb"])
+def test_two_level_4_ranks_equal_in_process(groups, key):
+    """Nodes of 2 ranks over gloo: GradSync (per leaf, ``hgs``; bucketed,
+    ``hgsb``) and the 4x1 ``--node-size 2`` trainer equal the in-process
+    two-level runs bit for bit (each level's group adds two ranks)."""
+    g = groups[4]
+    inp, ranks = g["inp"], g["ranks"].results()
+    names = [str(x) for x in inp["gs_names"]]
+    stacks = {nm: torch.from_numpy(inp[f"gs/{nm}"]) for nm in names}
+    gs = GradSync(SyncConfig(bucket_bytes=None if key == "hgs"
+                             else int(inp["gs_bucket_bytes"])),
+                  ["embed/table"], [(nm, tuple(v.shape[1:]), v.dtype)
+                                    for nm, v in stacks.items()], 4,
+                  topology=build_topology(4, HIER_NODE))
+    synced, stats = gs(stacks)
+    assert {"sync/intra_words", "sync/inter_words"} <= set(stats)
+    for w, r in enumerate(ranks):
+        for nm in names:
+            np.testing.assert_array_equal(r[f"{key}/{nm}"][0],
+                                          synced[nm][w].numpy(),
+                                          err_msg=f"{nm} rank {w}")
+        assert set(k.split("_stats/")[1] for k in r
+                   if k.startswith(f"{key}_stats/")) == set(stats)
+        for k, v in stats.items():
+            np.testing.assert_array_equal(r[f"{key}_stats/{k}"],
+                                          v[w:w + 1].float().numpy(),
+                                          err_msg=f"{k} rank {w}")
+    sim = ranks[0]
+    assert np.isfinite(sim["hsim/loss"]).all()
+    assert sim["hsim/sync/overflow"].tolist() == [0.0] * STEPS
+    for w, r in enumerate(ranks):
+        for k in ("sync/overflow", "sync/sparse_sent_words", "embed"):
+            np.testing.assert_array_equal(r[f"htrainer/{k}"],
+                                          sim[f"hsim/{k}"],
+                                          err_msg=f"{k} rank {w}")
+        # the reported loss is a mean over all 4 ranks (the world, not a
+        # level), whose gloo all_reduce adds in its own order: each side
+        # is within 3 u of the exact mean of the 4 positive losses
+        np.testing.assert_allclose(r["htrainer/loss"], sim["hsim/loss"],
+                                   rtol=6 * U["f32"], atol=0,
+                                   err_msg=f"loss rank {w}")
 
 
 # ---------------------------------------------------------------------------

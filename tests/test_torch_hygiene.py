@@ -76,13 +76,17 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_gpu):
 
 
 def test_unported_meshes_and_flags_raise():
+    """Tensor parallelism (M > 1, with or without pods) and the configs
+    the port lacks raise naming their ROADMAP item; pod meshes and
+    ``--node-size`` run (tests/test_torch_hier.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_mesh("2x2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_mesh("2x4x1")
-    assert parse_mesh("8x1") == (8, 1)
+        parse_mesh("2x4x2")
+    assert parse_mesh("8x1") == (1, 8, 1)
+    assert parse_mesh("2x4x1") == (2, 4, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "qwen2-0.5b", "--reduced", "--node-size", "2",
+        train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x2",
                     "--device", "cpu"])
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("olmoe-1b-7b")

@@ -294,8 +294,9 @@ def _port_gs(shapes, spec, scheme, bucket_bytes, ref_gs, backend="cuda"):
                              backend=backend),
                   SPARSE_PATHS, _leaves(shapes), N)
     for key in list(gs._layouts):   # the reference's hash seeds
-        lo = ref_gs._layouts[key, 0]
-        budget = 0.25 if key in SPARSE_PATHS else gs._compressed_budget()
+        lo = ref_gs._layouts[key]
+        budget = (0.25 if key[0] in SPARSE_PATHS
+                  else gs._compressed_budget())
         gs._layouts[key] = TS.make_zen_layout(
             lo.length, N, density_budget=budget, seeds=lo.seeds)
         assert gs._layouts[key].cap_index == lo.cap_index

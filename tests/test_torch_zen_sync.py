@@ -126,9 +126,9 @@ def test_gradsync_matches_reference(scheme):
         gs = GradSync(SyncConfig(scheme=scheme, backend=backend),
                       ["embed/table"], leaves, n)
         assert gs.describe() == ref_gs.describe()
-        if "embed/table" in gs._layouts:    # the reference's layout seeds
+        if ("embed/table", 0) in gs._layouts:   # the reference's seeds
             lo = ref_gs._layouts["embed/table", 0]
-            gs._layouts["embed/table"] = TS.make_zen_layout(
+            gs._layouts["embed/table", 0] = TS.make_zen_layout(
                 512, n, density_budget=0.25, seeds=lo.seeds)
         ports[backend] = gs
     for step in range(2):
@@ -154,13 +154,15 @@ def test_gradsync_matches_reference(scheme):
 
 
 def test_gradsync_rejects_unported_settings():
-    """Calibration (item 7) and two-level topologies (item 9) still raise;
-    every registry scheme and 'auto' build and run."""
+    """Calibration (item 7) still raises; an α-β override is accepted
+    (the trainer's topology reads it: tests/test_torch_hier.py); every
+    registry scheme and 'auto' build and run."""
     leaves = [("embed/table", (64, 4), torch.float32)]
-    for cfg in (SyncConfig(calib_file="calib.json"),
-                SyncConfig(alpha_beta="1,1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GradSync(cfg, ["embed/table"], leaves, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GradSync(SyncConfig(calib_file="calib.json"), ["embed/table"],
+                 leaves, 4)
+    assert GradSync(SyncConfig(alpha_beta="1,1"), ["embed/table"], leaves,
+                    4).topology.flat
     g = torch.zeros((4, 64, 4))
     g[:, :8] = 1.0
     for scheme in ("agsparse", "auto"):
@@ -276,7 +278,7 @@ def test_gradsync_unfused_matches_reference(fused_encode, fused_commit):
                   [("embed/table", (512, 8), torch.float32),
                    ("w", (6, 5), torch.float32)], n)
     lo = ref_gs._layouts["embed/table", 0]
-    gs._layouts["embed/table"] = TS.make_zen_layout(
+    gs._layouts["embed/table", 0] = TS.make_zen_layout(
         512, n, density_budget=0.25, seeds=lo.seeds)
     tops.reset_counts()
     out, st = gs({"embed/table": torch.from_numpy(emb),

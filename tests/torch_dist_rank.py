@@ -29,7 +29,12 @@ Jobs:
             must then hold rank 0's parameters;
   trainer   the reduced qwen2 trainer on ``<n>x1`` from the reference's
             parameters; on a 2-rank group rank 0 then runs the in-process
-            ``SimGroup`` 2x1 trainer on the same inputs.
+            ``SimGroup`` 2x1 trainer on the same inputs;
+  hier      on a two-level topology of nodes of 2 ranks (``--node-size
+            2``, the level groups made by ``launch.mesh.make_level_groups``):
+            the ``gradsync`` job's two GradSyncs, then the ``trainer`` job,
+            after which rank 0 runs the in-process two-level trainer on the
+            same inputs.
 """
 from __future__ import annotations
 
@@ -44,9 +49,10 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import schemes as S
+from repro_torch.core.topology import build_topology
 from repro_torch.core.zen import GradSync, SyncConfig
 from repro_torch.kernels import ops as K
-from repro_torch.launch.mesh import make_data_group
+from repro_torch.launch.mesh import make_data_group, make_level_groups
 from repro_torch.train.build import attach_train, build_program
 from repro_torch.train.steps import TrainerConfig
 
@@ -118,8 +124,29 @@ def _gradsync(inp, w: int, group, out: dict) -> None:
                        for nm, g in grads.items()],
                       group.n, group)
         rows = grads["embed/table"].shape[1]
-        gs._layouts["embed/table"] = S.make_zen_layout(
+        gs._layouts["embed/table", 0] = S.make_zen_layout(
             rows, group.n, density_budget=0.25, seeds=inp["gs_seeds"])
+        synced, stats = gs(grads)
+        for nm in names:
+            out[f"{key}/{nm}"] = synced[nm].numpy()
+        for k, v in stats.items():
+            out[f"{key}_stats/{k}"] = v.float().numpy()
+
+
+HIER_NODE = 2   # ranks per node of the hier job
+
+
+def _hier_gradsync(inp, w: int, group, out: dict) -> None:
+    names = [str(x) for x in inp["gs_names"]]
+    grads = {nm: torch.from_numpy(inp[f"gs/{nm}"][w:w + 1]) for nm in names}
+    topo = build_topology(group.n, HIER_NODE)
+    make_level_groups(group, topo)
+    for key, bucket_bytes in (("hgs", None),
+                              ("hgsb", int(inp["gs_bucket_bytes"]))):
+        gs = GradSync(SyncConfig(bucket_bytes=bucket_bytes), ["embed/table"],
+                      [(nm, tuple(g.shape[1:]), g.dtype)
+                       for nm, g in grads.items()],
+                      group.n, group, topology=topo)
         synced, stats = gs(grads)
         for nm in names:
             out[f"{key}/{nm}"] = synced[nm].numpy()
@@ -172,7 +199,7 @@ def _reference_tree(inp) -> dict:
     return tree
 
 
-def _train(inp, group, out: dict, prefix: str) -> None:
+def _train(inp, group, out: dict, prefix: str, node_size: int = 1) -> None:
     """STEPS steps of the reduced f32 qwen2 trainer on ``group`` (None:
     the in-process SimGroup) from the reference's parameters."""
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
@@ -180,7 +207,7 @@ def _train(inp, group, out: dict, prefix: str) -> None:
     n = int(inp["n"])
     prog = build_program(cfg, f"{n}x1",
                          TrainerConfig(sync=SyncConfig(scheme="zen")),
-                         device="cpu", group=group)
+                         device="cpu", group=group, node_size=node_size)
     prog.model.load_reference_params(_reference_tree(inp))
     attach_train(prog)
     batch = {k: torch.from_numpy(inp[f"batch/{k}"]).long()
@@ -209,10 +236,15 @@ def main(work: Path, jobs: list[str]) -> None:
                 fn(inp, w, group, out)
         if "trainer" in jobs:
             _train(inp, group, out, "trainer")
+        if "hier" in jobs:
+            _hier_gradsync(inp, w, group, out)
+            _train(inp, group, out, "htrainer", node_size=HIER_NODE)
     finally:
         dist.destroy_process_group()
     if "trainer" in jobs and group.n == 2 and w == 0:
         _train(inp, None, out, "simgroup")
+    if "hier" in jobs and w == 0:
+        _train(inp, None, out, "hsim", node_size=HIER_NODE)
     np.savez(work / f"rank{os.environ['RANK']}.npz", **out)
 
 
