@@ -36,9 +36,11 @@ Phases (any failure exits non-zero; nothing is caught):
   2c. new_shapes: the three fused Zen kernels at the shapes the two-level
      and zoo paths give them: the inter stage of nodes of 4 (2 servers of
      the node sums, budget 1: C 151936, r1 + r2 167130, the encode on its
-     wide path at d 896) and the zoo trainers' tables (qwen2.5-3b d 2048,
-     phi4-mini d 3072 and vocab 200064, 2 ranks): bitwise their plain
-     versions, twice in a row; timed with the times phase.
+     wide path at d 896), the zoo trainers' tables (qwen2.5-3b d 2048,
+     phi4-mini d 3072 and vocab 200064, 2 ranks) and phase 7g's tables
+     (zamba2-1.2b 32000 x 2048, olmoe-1b-7b 50304 x 2048, phi3.5-moe 32064
+     x 4096, 2 ranks): bitwise their plain versions, twice in a row; timed
+     with the times phase.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -147,6 +149,31 @@ Phases (any failure exits non-zero; nothing is caught):
      tokens, Zen on ``embed/table``, 2 steps) at the depth ``ZOO`` sets
      (28 and 16 layers: the peak must stay under 70 GiB), the kernel
      route bitwise its plain route, the peak memory logged.
+  7g. hybrid_moe: zamba2-1.2b (38 Mamba2 layers and one shared attention
+     block at the start of each of its 6 groups), olmoe-1b-7b (64 experts,
+     top-8) and phi3.5-moe-42b-a6.6b (16 experts, top-2; 12 of its 32
+     layers: 41.9B parameters do not fit one card) served as in phase 7
+     (``launch/serve.py``, bf16 timed twice; every prefill on the kernels
+     at the launches ``HYBRID_MOE`` expects: zamba2 6 ``flash_fwd`` and 38
+     ``ssd_fwd``, olmoe 16, phi3.5-moe 12 ``flash_fwd``; f32 kernels vs the
+     plain route within 1e-1 (zamba2, beside the controls that reorder the
+     plain scan's and the plain attention's sums) / 1e-3 (MoE), the same
+     greedy tokens (zamba2's sequences may part only at a token whose
+     top-2 gap is under 1e-1 on both routes), the smallest top-2 gap
+     logged; one profiled bf16 prefill), then trained at full width on 2x1 (2 x 512
+     tokens, Zen on ``embed/table``, 2 steps) at the depths ``HYBRID_MOE``
+     sets (38, 6 and 2 layers; the peak under 70 GiB) on both routes: the
+     MoE models' losses, grad norm, words, overflow and MoE stats
+     (``moe/aux_loss``, ``moe/dropped``, ``moe/skew``) bitwise, zamba2's
+     words and overflow bitwise and its losses within 5e-2 (its scan is
+     ``ssd_fwd`` on one route only; a plain run with the scan's chunk
+     halved logged as a control), overflow 0, the Zen kernels
+     once a rank a step, zamba2's ``ssd_fwd`` 38 x 2 x 2 times with as many
+     plain recomputes, nothing plain.  Then the prefill kernels at the
+     new shapes (bf16 ``flash_fwd`` B 8, S 512 at 32 / 32 heads of 64, 16 /
+     16 and 32 / 8 of 128; f32 ``ssd_fwd`` at H 64, hd 64, N 64, Q 64)
+     against their plain versions (one bf16 ulp, 2e-4) and bitwise equal
+     across two calls, timed beside SDPA and the bound (rows 9d-9f, 10b).
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -206,6 +233,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -242,7 +270,13 @@ SSD_TOL = 2e-4             # the reference's own SSD test (atol and rtol)
 # attention layers do: reordering the plain route's own scan (chunk 32 for
 # 64) moves its logits further than the kernel route does (the serve phase
 # logs both), so mamba2's gate is 10x qwen2's.
-SERVE_LOGIT_TOL = {"qwen2-0.5b": 1e-3, "mamba2-370m": 1e-2}
+# zamba2's shared attention block feeds 38 Mamba2 layers: at random init
+# a reordered f32 sum there moves its logits further still (0.051 when the
+# plain attention's KV chunk alone goes from 512 to 64), so its gate is
+# 10x mamba2's; the serve phase logs the controls beside the kernel
+# route's difference.
+SERVE_LOGIT_TOL = {"qwen2-0.5b": 1e-3, "mamba2-370m": 1e-2,
+                   "zamba2-1.2b": 1e-1}
 SERVE_KERNEL = {"qwen2-0.5b": "flash_fwd", "mamba2-370m": "ssd_fwd"}
 REPLACES = {
     "zen_encode": "src/repro/kernels/zen_encode.py:108",
@@ -762,7 +796,13 @@ NEW_SHAPES = (("e", "inter stage, nodes of 4 (n 2, budget 1)", 151936, 896,
                2, 4, 1.0),
               ("f", "qwen2.5-3b embed/table (n 2)", 151936, 2048, 2, 1,
                0.25),
-              ("g", "phi4-mini embed/table (n 2)", 200064, 3072, 2, 1, 0.25))
+              ("g", "phi4-mini embed/table (n 2)", 200064, 3072, 2, 1, 0.25),
+              ("h", "zamba2-1.2b embed/table (n 2)", 32000, 2048, 2, 1,
+               0.25),
+              ("i", "olmoe-1b-7b embed/table (n 2)", 50304, 2048, 2, 1,
+               0.25),
+              ("j", "phi3.5-moe embed/table (n 2)", 32064, 4096, 2, 1,
+               0.25))
 
 
 def zen_rows(inp: dict, lo, d: int) -> dict:
@@ -2597,16 +2637,30 @@ def serve_run(arch: str, *extra: str) -> dict:
     res = serve.main(["--arch", arch, "--batch", str(SERVE["batch"]),
                       "--prompt-len", str(SERVE["prompt"]),
                       "--gen", str(SERVE["gen"]), *extra])
+    free_card()   # the served model before the next one is built
     return res
 
 
-def serve_breakdown(arch: str) -> dict:
-    """One profiled bf16 prefill (after a warm one) of the serve batch."""
+def free_card() -> None:
+    """Return the memory of dropped models to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cfg(arch: str, layers: int | None = None, **kw):
+    """The arch's config, cut to its first ``layers`` layers if given."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, **kw)
+
+
+def serve_breakdown(arch: str, layers: int | None = None) -> dict:
+    """One profiled bf16 prefill (after a warm one) of the serve batch."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_serve, build_program
 
-    cfg = get_config(arch)
+    cfg = serve_cfg(arch, layers)
     prog = build_program(cfg, "1x1", device="cuda")
     attach_serve(prog, SERVE["prompt"], SERVE["batch"], "prefill")
     tok = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
@@ -2620,49 +2674,76 @@ def serve_breakdown(arch: str) -> dict:
     return out
 
 
-def reorder_control(arch: str) -> float | None:
-    """Max |logit| difference between two f32 plain-route prefills of the
-    serve batch that differ only in the SSD chunk (64, then 32): how far
-    summation order alone moves the logits through the model's depth.
-    None for attention models (the plain attention has no such knob)."""
-    from repro_torch.configs import get_config
+def reorder_control(arch: str, layers: int | None = None) -> dict | None:
+    """Max |logit| difference between f32 plain-route prefills of the
+    serve batch that differ only in the order of a sum: the SSD chunk (64,
+    then 32) and, for the hybrid, the plain attention's KV chunk (512,
+    then 64: its online softmax over 8 chunks).  How far summation order
+    alone moves the logits through the model's depth.  None for models
+    without Mamba2 layers."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import layers as LY
     from repro_torch.train.build import build_program
 
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
-    if cfg.kind != "ssm":
+    cfg = serve_cfg(arch, layers, dtype=torch.float32)
+    if cfg.kind not in ("ssm", "hybrid"):
         return None
     tok = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
         seq_len=SERVE["prompt"], batch=SERVE["batch"]))))["tokens"],
         device="cuda").long()
-    out = []
-    for chunk in (cfg.ssm_chunk, cfg.ssm_chunk // 2):
+    plain_attention = LY.flash_fwd_ref
+
+    def prefill(chunk: int, kv_chunk: int | None = None) -> torch.Tensor:
         prog = build_program(dataclasses.replace(cfg, ssm_chunk=chunk), "1x1",
                              device="cuda", backend="torch")
-        out.append(prog.model.prefill(tok)[0].float())
-        del prog
-    return float((out[0] - out[1]).abs().max())
+        if kv_chunk:
+            LY.flash_fwd_ref = functools.partial(plain_attention,
+                                                 chunk=kv_chunk)
+        try:
+            return prog.model.prefill(tok)[0].float()
+        finally:
+            LY.flash_fwd_ref = plain_attention
+            del prog
+            free_card()
+
+    base = prefill(cfg.ssm_chunk)
+    out = {f"ssd chunk {cfg.ssm_chunk // 2}": float(
+        (prefill(cfg.ssm_chunk // 2) - base).abs().max())}
+    if cfg.kind == "hybrid":
+        out["attention KV chunk 64"] = float(
+            (prefill(cfg.ssm_chunk, 64) - base).abs().max())
+    return out
 
 
 def phase_serve() -> dict:
     """Both models served at full width and depth: timed on the kernels in
     bf16, then the f32 kernel route against the f32 plain route."""
-    return {arch: serve_arch(arch, kern, SERVE_LOGIT_TOL[arch])
+    from repro_torch.configs import get_config
+
+    return {arch: serve_arch(arch, {kern: get_config(arch).n_layers},
+                             SERVE_LOGIT_TOL[arch])
             for arch, kern in SERVE_KERNEL.items()}
 
 
-def serve_arch(arch: str, kern: str, tol: float, bf16_runs: int = 2) -> dict:
-    """One model served at full width and depth (``SERVE``): timed on the
-    kernels in bf16 (every prefill layer on ``kern``, nothing plain), then
-    the f32 kernel route against the f32 plain route: prefill logits
-    within ``tol``, the same greedy tokens; one profiled bf16 prefill."""
-    from repro_torch.configs import get_config
+def serve_arch(arch: str, launches: dict, tol: float, bf16_runs: int = 2,
+               layers: int | None = None,
+               tie_tol: float | None = None) -> dict:
+    """One model served at full width (``SERVE``), at full depth or its
+    first ``layers`` layers: timed on the kernels in bf16 (each prefill
+    launching each model kernel as often as ``launches`` says, nothing
+    plain), then the f32 kernel route against the f32 plain route:
+    prefill logits within ``tol``, the same greedy tokens; with
+    ``tie_tol``, a sequence may part where both routes' top-2 gap is
+    under ``tie_tol`` (a tie inside the routes' logit noise; its later
+    tokens follow other inputs and are not compared).  One profiled bf16
+    prefill.  ``launches`` in the result are the first bf16 run's."""
     from repro_torch.kernels import ops as K
 
-    n_layers, vocab = get_config(arch).n_layers, get_config(arch).vocab
-    runs = [serve_run(arch) for _ in range(bf16_runs)]
+    vocab = serve_cfg(arch).vocab
+    cut = ("--layers", str(layers)) if layers else ()
+    want = {k: launches.get(k, 0) for k in K.MODEL_KERNELS}
+    runs = [serve_run(arch, *cut) for _ in range(bf16_runs)]
     for i, r in enumerate(runs):
-        want = {k: n_layers if k == kern else 0 for k in K.MODEL_KERNELS}
         if r["launches"] != want or any(r["plain_calls"].values()):
             raise AssertionError(
                 f"serve {arch} bf16 run {i}: launches {r['launches']} "
@@ -2671,37 +2752,44 @@ def serve_arch(arch: str, kern: str, tol: float, bf16_runs: int = 2) -> dict:
             f"decode {r['decode_tok_per_s']} tok/s "
             f"({SERVE['gen'] - 1} steps in {r['decode_s']} s), launches "
             f"{r['launches']}, plain calls {r['plain_calls']}")
-    kf = serve_run(arch, "--dtype", "float32")
-    pf = serve_run(arch, "--dtype", "float32", "--backend", "torch")
-    if kf["launches"][kern] != n_layers or any(kf["plain_calls"].values()) \
+    kf = serve_run(arch, *cut, "--dtype", "float32")
+    pf = serve_run(arch, *cut, "--dtype", "float32", "--backend", "torch")
+    if kf["launches"] != want or any(kf["plain_calls"].values()) \
             or any(pf["launches"].values()):
         raise AssertionError(f"serve {arch} f32: kernel route launches "
                              f"{kf['launches']} plain {kf['plain_calls']};"
                              f" plain route launches {pf['launches']}")
     dlog = float((kf["prefill_logits"] - pf["prefill_logits"]).abs().max())
-    reorder = reorder_control(arch)
+    reorder = reorder_control(arch, layers)
     top = float(pf["prefill_logits"][:, :vocab].abs().max())
     log(f"[serve] {arch} f32 kernels vs plain route: prefill logits max "
-        f"abs {dlog} (tolerance {tol}; reordering the plain scan alone: "
-        f"{reorder}; max |logit| {top}), prefill {kf['prefill_ms']} vs "
+        f"abs {dlog} (tolerance {tol}; reordering the plain route's sums "
+        f"alone: {reorder}; max |logit| {top}), prefill {kf['prefill_ms']} vs "
         f"{pf['prefill_ms']} ms")
     if not dlog <= tol:
         raise AssertionError(f"serve {arch}: f32 prefill logits differ by "
                              f"{dlog} > {tol}")
     diff = kf["tokens"] != pf["tokens"]
-    if diff.any():
-        b, j = (int(x) for x in np.argwhere(diff)[0])
-        raise AssertionError(
-            f"serve {arch}: greedy token {j} of sequence {b} differs "
-            f"(kernels {kf['tokens'][b, j]}, plain {pf['tokens'][b, j]});"
-            f" top-2 logit gap there: kernels {kf['top2_gap'][j, b]}, "
-            f"plain {pf['top2_gap'][j, b]}")
-    log(f"[serve] {arch} f32: the same {kf['tokens'].size} greedy tokens "
-        f"on both routes; smallest top-2 gap "
-        f"{float(pf['top2_gap'].min())}")
+    ties = []
+    for b in np.flatnonzero(diff.any(1)):
+        j = int(np.flatnonzero(diff[b])[0])
+        gaps = (float(kf["top2_gap"][j, b]), float(pf["top2_gap"][j, b]))
+        if tie_tol is None or max(gaps) > tie_tol:
+            raise AssertionError(
+                f"serve {arch}: greedy token {j} of sequence {b} differs "
+                f"(kernels {kf['tokens'][b, j]}, plain {pf['tokens'][b, j]});"
+                f" top-2 logit gap there: kernels {gaps[0]}, plain "
+                f"{gaps[1]}")
+        ties.append({"sequence": int(b), "token": j, "top2_gap": gaps})
+    same_toks = int(sum(int(np.flatnonzero(diff[b])[0]) if diff[b].any()
+                        else diff.shape[1] for b in range(diff.shape[0])))
+    log(f"[serve] {arch} f32: {same_toks} of {kf['tokens'].size} greedy "
+        f"tokens the same on both routes; sequences that part at a top-2 "
+        f"tie under {tie_tol} on both routes (token, gaps kernels / plain)"
+        f": {ties}; smallest top-2 gap {float(pf['top2_gap'].min())}")
     out = {"bf16": runs, "f32": kf, "f32_plain": pf,
-           "launches": runs[0]["launches"][kern],
-           "breakdown": serve_breakdown(arch)}
+           "launches": runs[0]["launches"],
+           "breakdown": serve_breakdown(arch, layers)}
     torch.cuda.empty_cache()
     return out
 
@@ -2725,8 +2813,8 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
     (``build_program`` + ``attach_train``, mesh ``n`` x 1 in this process,
     Zen, SyntheticLM batches of ``batch`` x ``seq`` tokens from seed 0) for
     ``steps`` steps on the ``backend`` route: losses, grad norms, words,
-    overflow, step seconds (host clock after a sync), tok/s, the kernel
-    counts, parameters and peak memory."""
+    overflow, an MoE model's ``moe/*`` stats, step seconds (host clock
+    after a sync), tok/s, the kernel counts, parameters and peak memory."""
     from repro_torch.core.zen import SyncConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops as K
@@ -2757,6 +2845,8 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
                        ("sparse_words_by_step", "sync/sparse_sent_words"),
                        ("overflow", "sync/overflow")):
             out[k].append(float(m[key]))
+        for key in sorted(k for k in m if k.startswith("moe/")):
+            out.setdefault(key, []).append(float(m[key]))
     out.update(launches=dict(K.LAUNCHES), plain=dict(K.PLAIN_CALLS),
                recompute=dict(K.RECOMPUTE_CALLS), params=params,
                tok_per_s=steps * batch * seq / (time.time() - t0),
@@ -2794,7 +2884,7 @@ def phase_zoo(smi: str) -> dict:
             f"{cfg.n_heads} q / {cfg.n_kv} KV heads of {cfg.hd}, vocab "
             f"{cfg.vocab} (padded {cfg.vocab_padded}), qkv_bias "
             f"{cfg.qkv_bias}, rope_theta {cfg.rope_theta}")
-        served = serve_arch(arch, "flash_fwd", 1e-3)
+        served = serve_arch(arch, {"flash_fwd": cfg.n_layers}, 1e-3)
         runs = {b: zoo_train(arch, layers, b) for b in ("cuda", "torch")}
         run, plain = runs["cuda"], runs["torch"]
         for key in ("losses", "grad_norm", "sparse_words_by_step",
@@ -2823,6 +2913,213 @@ def phase_zoo(smi: str) -> dict:
                                  f"{run['peak_gib']} GiB > {ZOO_PEAK_GIB}")
         out[arch] = {**served, "trainer": run}
     return out
+
+
+# ---------------------------------------------------------------------------
+# zamba2 and the MoE models: served and trained
+# ---------------------------------------------------------------------------
+
+# arch -> (served layers, trained layers, f32 serve tolerance).  One card
+# holds zamba2 (1.17B parameters) and olmoe (6.92B: 27.7 GB in f32) whole;
+# phi3.5-moe's 41.9B do not fit it even in bf16, so it serves its first 12
+# of 32 layers (15.9B: 59.1 GiB in f32, one model resident at a time).  The
+# trainers keep ZOO's rule (about 22 bytes a parameter plus one rank's
+# activations under 70 GiB): olmoe 6 of 16 layers (2.72B), phi3.5-moe 2 of
+# 32 (2.86B).  The f32 serve gates: zamba2's from SERVE_LOGIT_TOL, the MoE
+# models' qwen2's.
+HYBRID_MOE = {"zamba2-1.2b": (38, 38, SERVE_LOGIT_TOL["zamba2-1.2b"]),
+              "olmoe-1b-7b": (16, 6, 1e-3),
+              "phi3.5-moe-42b-a6.6b": (12, 2, 1e-3)}
+MOE_STATS = ("moe/aux_loss", "moe/dropped", "moe/skew")
+# zamba2's trainer losses, kernel route vs plain route (bf16): its scan
+# runs on ssd_fwd on one route only, and the shared attention block carries
+# that rounding on through the depth as in serving (0.0175 apart at step
+# 0 on one H100, against mamba2_train's 5e-3 gate at 24 narrower layers)
+HYBRID_LOSS_TOL = 5e-2
+# the new prefill shapes (B 8, S 512): flash_fwd at each model's heads,
+# ssd_fwd at zamba2's Mamba2 layer
+HM_FLASH = {"zamba2-1.2b": dict(B=8, S=512, H=32, KV=32, hd=64),
+            "olmoe-1b-7b": dict(B=8, S=512, H=16, KV=16, hd=128),
+            "phi3.5-moe-42b-a6.6b": dict(B=8, S=512, H=32, KV=8, hd=128)}
+HM_SSD = dict(B=8, S=512, H=64, hd=64, N=64, Q=64)
+
+
+def prefill_launches(cfg) -> dict:
+    """A hybrid or MoE prefill's model-kernel launches: one ``flash_fwd``
+    an attention application (the hybrid's shared block once a group),
+    one ``ssd_fwd`` a Mamba2 layer."""
+    if cfg.kind == "hybrid":
+        return {"flash_fwd": cfg.n_layers // cfg.shared_attn_every,
+                "ssd_fwd": cfg.n_layers}
+    return {"flash_fwd": cfg.n_layers}
+
+
+def hybrid_moe_train(arch: str, layers: int, smi: str) -> dict:
+    """``arch`` at full width and ``layers`` deep trained on ``ZOO_TRAIN``'s
+    mesh, batch and steps on both routes: the MoE models' kernel route
+    bitwise the plain route (losses, grad norm, words, overflow, the MoE
+    stats; only the Zen kernels differ), zamba2's words and overflow
+    bitwise and its losses within ``HYBRID_LOSS_TOL`` (its scan runs
+    ``ssd_fwd`` on one route and the plain scan on the other; a plain run
+    with the scan's chunk halved is logged beside, as a control); the Zen
+    kernels once a rank a step, each Mamba2 layer's ``ssd_fwd`` once a
+    rank a step with as many plain recomputes, nothing plain, the peak
+    under ``ZOO_PEAK_GIB``."""
+    from repro_torch.kernels import ops as K
+
+    cfg = serve_cfg(arch, layers)
+    z = ZOO_TRAIN
+    runs = {b: direct_train(cfg, z["n"], z["batch"], z["seq"], z["steps"], b)
+            for b in ("cuda", "torch")}
+    run, plain = runs["cuda"], runs["torch"]
+    keys = ("sparse_words_by_step", "overflow")
+    if cfg.kind == "moe":
+        keys += ("losses", "grad_norm") + MOE_STATS
+    else:
+        control = direct_train(dataclasses.replace(
+            cfg, ssm_chunk=cfg.ssm_chunk // 2), z["n"], z["batch"], z["seq"],
+            1, "torch")
+        gap = max(abs(a - b) for a, b in zip(run["losses"], plain["losses"]))
+        c0 = control["losses"][0]
+        log(f"[hybrid_moe] {arch} trainer losses, kernels vs plain route: "
+            f"{list(zip(run['losses'], plain['losses']))} (max difference "
+            f"{gap}, tolerance {HYBRID_LOSS_TOL}); grad norms "
+            f"{list(zip(run['grad_norm'], plain['grad_norm']))}; the plain "
+            f"route with the scan's chunk {cfg.ssm_chunk // 2}: step-0 loss "
+            f"{c0} ({abs(c0 - plain['losses'][0])} from the plain route)")
+        if not gap <= HYBRID_LOSS_TOL:
+            raise AssertionError(f"[hybrid_moe] {arch} trainer losses "
+                                 f"{run['losses']} vs plain route "
+                                 f"{plain['losses']}")
+    for key in keys:
+        if run[key] != plain[key]:
+            raise AssertionError(f"[hybrid_moe] {arch} trainer {key}: "
+                                 f"kernels {run[key]} != plain {plain[key]}")
+    ranks_steps = z["n"] * z["steps"]
+    want = {k: z["steps"] * v for k, v in K.path_launches(z["n"]).items()}
+    scans = prefill_launches(cfg).get("ssd_fwd", 0) * ranks_steps
+    if scans:
+        want["ssd_fwd"] = scans
+    check_launches(f"[hybrid_moe] {arch} trainer", run["launches"],
+                   run["plain"], want)
+    if run["recompute"]["ssd_fwd"] != scans \
+            or any(plain["launches"].values()):
+        raise AssertionError(f"[hybrid_moe] {arch} trainer: "
+                             f"{run['recompute']} plain recomputes (expected "
+                             f"{scans}); plain route launches "
+                             f"{plain['launches']}")
+    if not all(np.isfinite(run["losses"])) or any(run["overflow"]):
+        raise AssertionError(f"[hybrid_moe] {arch} trainer: losses "
+                             f"{run['losses']} overflow {run['overflow']}")
+    stats = {k: run[k] for k in MOE_STATS if k in run}
+    log(f"[hybrid_moe] {arch} trainer, {layers} of "
+        f"{serve_cfg(arch).n_layers} layers ({run['params'] / 1e9:.3f} B "
+        f"parameters), mesh {z['n']}x1, {z['batch']} x {z['seq']} tokens: "
+        f"losses={run['losses']} grad_norm={run['grad_norm']} "
+        f"words={run['sparse_words_by_step']} overflow={run['overflow']} "
+        f"{stats} (plain route {'bitwise' if cfg.kind == 'moe' else 'above'})"
+        f" step_s={run['step_s']} (plain "
+        f"route {plain['step_s']}) peak {run['peak_gib']:.2f} GiB (plain "
+        f"route {plain['peak_gib']:.2f}) launches {run['launches']} "
+        f"recomputes {run['recompute']} | {smi}")
+    if max(run["peak_gib"], plain["peak_gib"]) > ZOO_PEAK_GIB:
+        raise AssertionError(f"[hybrid_moe] {arch} trainer peak "
+                             f"{run['peak_gib']} GiB > {ZOO_PEAK_GIB}")
+    return {"kernels": run, "plain": plain}
+
+
+def hybrid_moe_kernel_shapes(smi: str) -> dict:
+    """``flash_fwd`` (bf16) at the three models' prefill heads and
+    ``ssd_fwd`` (f32) at zamba2's Mamba2 layer: two kernel calls bitwise
+    equal, each within its stated tolerance of the plain version (one
+    bf16 ulp; ``SSD_TOL``), then timed beside SDPA and the bound (rows
+    9d-9f, 10b)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K, ref as R
+
+    err = {"flash_fwd": 0.0, "ssd_fwd": 0.0}
+    rows = []
+    for (arch, shp), tag in zip(HM_FLASH.items(), "def"):
+        q, k, v = flash_inputs(torch.bfloat16, **shp)
+        got = K.flash_fwd_op(q, k, v)
+        same([K.flash_fwd_op(q, k, v)], [got],
+             f"flash_fwd {arch}: second call")
+        want = R.flash_fwd_ref(q, k, v)
+        diff = (got.float() - want.float()).abs()
+        worst = float(diff.max())
+        if not bool((diff <= bf16_ulp(want) + 1e-6).all()):
+            raise AssertionError(f"flash_fwd {arch} {shp}: differs from the "
+                                 f"plain version by more than one bf16 ulp "
+                                 f"(max abs {worst})")
+        err["flash_fwd"] = max(err["flash_fwd"], worst)
+        log(f"[hybrid_moe] flash_fwd {arch} {shp}: two calls bitwise equal, "
+            f"max abs {worst} from the plain version, within one bf16 ulp")
+        B, S, H, hd = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = time_row(
+            f"flash_fwd ({arch}, {H} / {k.shape[2]} heads of {hd})",
+            lambda: K.flash_fwd_op(q, k, v),
+            lambda: R.flash_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * (B * H * S * (S + 1) // 2) * hd, BF16_OPS_PER_S, smi)
+        rows.append({**row, "kernel": "flash_fwd", "row": f"9{tag}"})
+        del q, k, v, qt, kt, vt, got, want
+    c = HM_SSD
+    x, dA, Bm, Cm = ssd_scan_inputs(*ssd_inputs(c["B"], c["S"], c["H"],
+                                                c["hd"], c["N"])[:5])
+    got = K.ssd_fwd_op(x, dA, Bm, Cm, chunk=c["Q"])
+    same(K.ssd_fwd_op(x, dA, Bm, Cm, chunk=c["Q"]), got,
+         "ssd_fwd zamba2: second call")
+    want = R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=c["Q"])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=SSD_TOL, rtol=SSD_TOL)
+    err["ssd_fwd"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    log(f"[hybrid_moe] ssd_fwd zamba2 {c}: two calls bitwise equal, max abs "
+        f"{err['ssd_fwd']} from the plain version, within {SSD_TOL}")
+    Q, tri, nc = c["Q"], c["Q"] * (c["Q"] + 1) // 2, c["S"] // c["Q"]
+    ssd_ops = c["B"] * nc * (2 * tri * c["N"] + c["H"] * (
+        2 * tri * c["hd"] + 4 * Q * c["N"] * c["hd"]))
+    nbytes = 4 * (2 * x.numel() + dA.numel() + Bm.numel() + Cm.numel()
+                  + c["B"] * c["H"] * c["hd"] * c["N"])
+    row = time_row(
+        f"ssd_fwd (zamba2-1.2b, {c['H']} heads of {c['hd']}, N {c['N']})",
+        lambda: K.ssd_fwd_op(x, dA, Bm, Cm, chunk=Q),
+        lambda: R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=Q), None, nbytes, ssd_ops,
+        OPS_PER_S, smi)
+    row["bound_split_ms"] = bound(nbytes, ssd_ops, TF32_OPS_PER_S / 3)[0]
+    log(f"[hybrid_moe] ssd_fwd zamba2: bound at the split TF32 rate "
+        f"{row['bound_split_ms']:.6f} ms, at the f32 FMA rate "
+        f"{row['bound_ms']:.6f} ms")
+    rows.append({**row, "kernel": "ssd_fwd", "row": "10b"})
+    return {"err": err, "rows": rows}
+
+
+def phase_hybrid_moe(smi: str) -> dict:
+    """zamba2-1.2b, olmoe-1b-7b and phi3.5-moe-42b-a6.6b served
+    (``serve_arch`` at the depths and tolerances ``HYBRID_MOE`` sets, the
+    launches ``prefill_launches`` counts) and trained
+    (``hybrid_moe_train``), one model on the card at a time; then the
+    prefill kernels at the models' new shapes."""
+    out = {}
+    for arch, (serve_layers, train_layers, tol) in HYBRID_MOE.items():
+        full = serve_cfg(arch)
+        cfg = serve_cfg(arch, serve_layers)
+        log(f"[hybrid_moe] {arch} ({full.kind}): {full.n_layers} layers, d "
+            f"{full.d_model}, {full.n_heads} q / {full.n_kv} KV heads of "
+            f"{full.hd}, d_ff {full.d_ff}, vocab {full.vocab}, experts "
+            f"{full.n_experts} top-{full.top_k}, ssm_state {full.ssm_state}, "
+            f"shared attention every {full.shared_attn_every}; served at "
+            f"{serve_layers} layers, trained at {train_layers}")
+        cut = serve_layers if serve_layers != full.n_layers else None
+        # zamba2's tokens may part at a tie inside its logit gate
+        served = serve_arch(arch, prefill_launches(cfg), tol, layers=cut,
+                            tie_tol=tol if cfg.kind == "hybrid" else None)
+        out[arch] = {**served,
+                     "trainer": hybrid_moe_train(arch, train_layers, smi)}
+    return {"models": out, **hybrid_moe_kernel_shapes(smi)}
 
 
 # ---------------------------------------------------------------------------
@@ -3368,7 +3665,7 @@ def main(argv=None) -> None:
                          "all: kernels (with kernels_wide and new_shapes),"
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
-                         "hier,zoo,dist,times "
+                         "hier,zoo,hybrid_moe,dist,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -3416,6 +3713,11 @@ def main(argv=None) -> None:
     # leave kernel scratch and cached blocks behind
     zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
     phase_done("zoo")
+    # the same for zamba2 and the MoE models (phi3.5-moe's trainer alone
+    # needs about 60 GiB)
+    hybrid_moe = phase_hybrid_moe(dev_info["smi"]) if want("hybrid_moe") \
+        else None
+    phase_done("hybrid_moe")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
             if want("kernels") or want("times") or "kernels_wide" in only
@@ -3471,7 +3773,7 @@ def main(argv=None) -> None:
     phase_done("times")
     launches = dict(trainer["launches"]) if trainer else {}
     if served:
-        launches.update({k: served[a]["launches"]
+        launches.update({k: served[a]["launches"][k]
                          for a, k in SERVE_KERNEL.items()})
     # each main path's launches, counted from 0 around its run
     by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba,
@@ -3484,18 +3786,26 @@ def main(argv=None) -> None:
     if zoo:
         by_path.update({f"zoo trainer {a}": v["trainer"]
                         for a, v in zoo.items()})
+    if hybrid_moe:
+        by_path.update({f"trainer {a}": v["trainer"]["kernels"]
+                        for a, v in hybrid_moe["models"].items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
         for a, k in SERVE_KERNEL.items():
-            path_launches[k][f"serve {a}"] = served[a]["launches"]
-    if zoo:
-        for a, v in zoo.items():
-            path_launches["flash_fwd"][f"serve {a}"] = v["launches"]
+            path_launches[k][f"serve {a}"] = served[a]["launches"][k]
+    for group in (zoo, hybrid_moe and hybrid_moe["models"]):
+        for a, v in (group or {}).items():
+            for k, n in v["launches"].items():
+                if n:
+                    path_launches[k][f"serve {a}"] = n
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for k, e in {**(wide["err"] if wide else {}),
-                 **(shapes["err"] if shapes else {})}.items():
-        errs[k] = max(errs.get(k, 0.0), e)
+    for part in (wide, shapes, hybrid_moe):
+        for k, e in (part["err"] if part else {}).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    # the kernels at the two-level, zoo, hybrid and MoE paths' shapes
+    new_rows = [r for part in (shapes, hybrid_moe) if part
+                for r in part["rows"]]
     table = []
     for row in times:
         name = row["name"]
@@ -3516,13 +3826,13 @@ def main(argv=None) -> None:
                 "bound_by")} for r in wide["rows"] if r["kernel"] == name]}
                if wide and any(r["kernel"] == name for r in wide["rows"])
                else {}),
-            # the same kernel at the two-level and zoo paths' shapes
+            # the same kernel at the two-level, zoo, hybrid and MoE paths'
+            # shapes
             **({"new_shapes": [{k: r[k] for k in (
                 "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by")} for r in shapes["rows"]
-                if r["kernel"] == name]}
-               if shapes and any(r["kernel"] == name for r in shapes["rows"])
-               else {}),
+                "bound_by", "library_ms", "library_device_ms")}
+                for r in new_rows if r["kernel"] == name]}
+               if any(r["kernel"] == name for r in new_rows) else {}),
             # row 8b: the scatter-add as the baseline schemes' aggregation
             **({"agsparse_reduce": {k: schemes["row_8b"][k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

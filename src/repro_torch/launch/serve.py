@@ -8,7 +8,8 @@ Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
 The prompts are ``SyntheticLM`` batches from ``--seed``; the weights are
 random, drawn from the same seed.  Prefill runs every layer over the whole
 prompt (attention on the ``flash_fwd`` kernel, the Mamba2 scan on
-``ssd_fwd``; ``--backend torch`` takes their plain versions) and its cache
+``ssd_fwd``; zamba2 runs both, MoE models route each layer's tokens to
+their experts; ``--backend torch`` takes their plain versions) and its cache
 is carried over to decode: the first new token is the argmax of prefill's
 last-position logits, and each of the ``--gen - 1`` decode steps feeds the
 last token and takes the next.  (The reference example instead replays the
@@ -29,7 +30,8 @@ from repro_torch.kernels import ops
 from repro_torch.train import steps as st
 from repro_torch.train.build import Program, attach_serve, build_program
 
-ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b")
+ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b",
+         "zamba2-1.2b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -41,6 +43,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=48,
                     help="new tokens per sequence (>= 1)")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut, for a "
+                         "model one card cannot hold)")
     ap.add_argument("--dtype", default=None, choices=tuple(DTYPES),
                     help="override the config's dtype")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
@@ -50,22 +55,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:
-        ap.error("--gen, --prompt-len and --batch must be positive")
+    if args.gen < 1 or args.prompt_len < 1 or args.batch < 1 \
+            or (args.layers is not None and args.layers < 1):
+        ap.error("--gen, --prompt-len, --batch and --layers must be "
+                 "positive")
     return args
 
 
 @torch.inference_mode()
 def handoff(prog: Program, cache: dict) -> dict:
-    """The decode cache continuing a prefill ``cache``: for attention
-    layers a ``make_cache(B, S + gen)`` cache holding the prompt's S K/V
-    slots and positions with ``t = S``; an SSM cache is the decode cache
-    already."""
-    if prog.cfg.kind == "ssm":
-        return cache
+    """The decode cache continuing a prefill ``cache``: a
+    ``make_cache(B, S + gen)`` cache with ``t = S`` whose attention
+    entries hold the prompt's S K/V slots and positions; a Mamba2 entry
+    (SSD state and conv tail) is the decode cache already and is taken
+    as it is.  The entries are in execution order (the hybrid's attention
+    applications among its Mamba2 layers)."""
     dec = prog.fresh_cache()
     S = cache["t"]
-    for new, old in zip(dec["layers"], cache["layers"]):
+    for i, (new, old) in enumerate(zip(dec["layers"], cache["layers"])):
+        if "k" not in new:
+            dec["layers"][i] = old
+            continue
         new["k"][:, :S] = old["k"]
         new["v"][:, :S] = old["v"]
         new["pos"][:S] = old["pos"]
@@ -82,6 +92,8 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=DTYPES[args.dtype])
     prog = build_program(cfg, "1x1", device=args.device, seed=args.seed,

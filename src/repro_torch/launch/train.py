@@ -47,7 +47,11 @@ densities flip a bucket's choice the plan is rebuilt (``attach_train``
 with the measured profiles), the optimizer state carried over; with an
 explicit ``--sync`` it does nothing, as in the reference.  ``--arch
 mamba2-370m`` trains the Mamba2 LM, its scan on the ``ssd_fwd`` kernel
-under autograd.  The plan GradSync runs is printed at start.
+under autograd; ``zamba2-1.2b`` the hybrid (Mamba2 layers and one shared
+attention block); ``olmoe-1b-7b`` and ``phi3.5-moe-42b-a6.6b`` the MoE
+decoders, whose router stats (``moe/aux_loss``, ``moe/dropped``,
+``moe/skew``) are logged beside the loss.  The plan GradSync runs is
+printed at start.
 """
 from __future__ import annotations
 
@@ -122,8 +126,10 @@ def main(argv=None) -> dict:
     density controller rebuilt the plan, the plan's ``describe()`` lines
     at the end, the bucket plan (kind, dtype, bytes and leaves of each
     bucket), each logged step's words by level on a two-level topology
-    (``intra_words``, ``inter_words``) and the kernels' launches and plain
-    calls in the run, summed over the group."""
+    (``intra_words``, ``inter_words``), an MoE model's router stats at
+    each logged step (``moe``: ``{"moe/aux_loss": [...], ...}``, group
+    means) and the kernels' launches and plain calls in the run, summed
+    over the group."""
     args = parse_args(argv)
     if args.dist is None:
         return _train(args, None, args.device)
@@ -196,6 +202,7 @@ def _train(args, group, device) -> dict:
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
     losses, step_s, words, ovf, gnorm, dwords = [], [], [], [], [], []
     levels: dict[str, list[float]] = {}   # two-level topologies' words
+    moe: dict[str, list[float]] = {}      # an MoE model's router stats
     replans: list[int] = []
     tokens_done = 0
     counts0 = _counts()
@@ -220,10 +227,13 @@ def _train(args, group, device) -> dict:
             for k in ("intra_words", "inter_words"):
                 if f"sync/{k}" in m:
                     levels.setdefault(k, []).append(float(m[f"sync/{k}"]))
+            for k in sorted(k for k in m if k.startswith("moe/")):
+                moe.setdefault(k, []).append(float(m[k]))
             log(f"step {step:5d} loss={losses[-1]:.4f} "
-                  f"tok/s={tokens_done / dt:,.0f} "
-                  f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}",
-                  flush=True)
+                f"tok/s={tokens_done / dt:,.0f} "
+                f"sparse_words={words[-1]:,.0f} overflow={ovf[-1]}"
+                + "".join(f" {k}={v[-1]:.4f}" for k, v in moe.items()),
+                flush=True)
         if controller is not None and step % args.log_every == 0:
             controller.observe({k: float(v) for k, v in m.items()
                                 if k.startswith("sync/ef_density")})
@@ -255,6 +265,7 @@ def _train(args, group, device) -> dict:
            "median_step_s": float(np.median(step_s)) if step_s else 0.0,
            "sparse_words_by_step": words, "grad_norm": gnorm,
            "dense_words": dwords, "replans": replans, **levels,
+           **({"moe": moe} if moe else {}),
            "plan": prog.gradsync.describe(),
            "buckets": [{"kind": b.kind, "nbytes": b.nbytes,
                         "leaves": len(b.slots),

@@ -31,7 +31,11 @@ The optimizer state, ``step_fn.state``, is the reference's: ``{"leaves":
 updated in place and can be checkpointed as it is.
 
 ``loss`` and the ``sync/*`` metrics are means over the whole group, the
-same on every rank.
+same on every rank.  ``loss`` is the LM loss (``Model.train_loss``'s
+``metrics["loss"]``); an MoE model differentiates it plus its weighted
+load-balance loss, and its ``moe/*`` stats (each a mean over the layers)
+join the metrics as group means too, as the reference's step merges
+``train_loss``'s metrics.
 
 Tensor parallelism and ZeRO-1 raise ``NotImplementedError``; ZeRO-1 is a
 layout of the same elementwise update, so the full update here gives the
@@ -95,7 +99,7 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     the model's device; the group of ``gradsync`` (by default one over
     ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
     are f32 scalars averaged over the group's ranks (``loss``,
-    ``grad_norm`` and the ``sync/*`` counters).  ``state`` continues an
+    ``grad_norm``, the ``sync/*`` counters and an MoE model's ``moe/*``).  ``state`` continues an
     earlier step function's optimizer state (a replan: bucket keys and
     residual shapes do not depend on schemes)."""
     if tcfg.zero1:
@@ -122,14 +126,15 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
                                 device=p.device) for name, p in leaves}
 
     def step_fn(batch: dict) -> dict:
-        losses = []
+        stats: dict[str, list] = {}   # per rank: loss (LM) and moe/*
         per_rank = split_batch(batch, group.n)
         for w, rank in enumerate(ranks):
             b = per_rank[rank]
             model.zero_grad(set_to_none=True)
-            loss = model(b["tokens"], b["labels"])
+            loss, m = model.train_loss(b["tokens"], b["labels"])
             loss.backward()
-            losses.append(loss.detach().float())
+            for k, v in m.items():
+                stats.setdefault(k, []).append(v.detach().float())
             for name, p in leaves:
                 if p.grad is None:
                     stacks[name][w].zero_()
@@ -149,7 +154,7 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
 
         metrics = {}
         if tcfg.opt.grad_clip > 0:
-            sq = torch.zeros((), dtype=torch.float32, device=losses[0].device)
+            sq = torch.zeros((), dtype=torch.float32, device=dev)
             for name, _ in leaves:
                 sq = sq + (grads[name].float() ** 2).sum()
             gn = torch.sqrt(sq)
@@ -160,7 +165,8 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
             update(tcfg.opt, p, grads[name], state["leaves"][name],
                    state["step"])
         state["step"] += 1
-        metrics.update(group.mean({"loss": torch.stack(losses),
+        metrics.update(group.mean({**{k: torch.stack(v)
+                                      for k, v in stats.items()},
                                    **sync_stats}))
         return metrics
 

@@ -89,7 +89,7 @@ def test_unported_meshes_and_flags_raise():
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x2",
                     "--device", "cpu"])
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("olmoe-1b-7b")
+        get_config("whisper-medium")
 
 
 def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
@@ -107,7 +107,7 @@ def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     assert ops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
     assert model.embed.table.grad is not None
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        Model(dataclasses.replace(cfg, kind="hybrid"), device="cpu")
+        Model(dataclasses.replace(cfg, kind="enc_dec"), device="cpu")
 
 
 def test_cuda_sources_name_the_kernel_they_replace():

@@ -75,7 +75,7 @@ def test_configs_match_reference():
         (3, 128, False, 10_000.0)
     assert p.vocab == p.vocab_padded == 200064 == 1563 * 128
     with pytest.raises(KeyError, match="ROADMAP queue 1, item 9"):
-        get_config("zamba2-1.2b")
+        get_config("whisper-medium")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
