@@ -39,8 +39,9 @@ Phases (any failure exits non-zero; nothing is caught):
      wide path at d 896), the zoo trainers' tables (qwen2.5-3b d 2048,
      phi4-mini d 3072 and vocab 200064, 2 ranks) and phase 7g's tables
      (zamba2-1.2b 32000 x 2048, olmoe-1b-7b 50304 x 2048, phi3.5-moe 32064
-     x 4096, 2 ranks): bitwise their plain versions, twice in a row; timed
-     with the times phase.
+     x 4096, 2 ranks) and phase 7h's (whisper-medium 51968 x 1024,
+     pixtral-12b 131072 x 5120, 2 ranks): bitwise their plain versions,
+     twice in a row; timed with the times phase.
   3. zen_sync: n = 8 simulated ranks at M = 151936, d = 896, bf16;
      ``backend="cuda"`` must equal ``backend="torch"`` bitwise, on the
      fused route and with (fused, fused_commit) in {(F,T), (T,F), (F,F)}.
@@ -88,10 +89,11 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill per model.
   7b. mamba2_train: the mamba2-370m trainer (``build_program`` +
      ``attach_train``, as ``launch/train.py --mesh 8x1`` builds it) at full
-     width and 24 of its 48 layers, so that the whole run stays inside its
-     time limit (global batch 8 x 512, Zen on ``embed/table``, 4 steps):
-     finite loss, 0 overflow, ``ssd_fwd`` launched
-     24 x 8 x steps times under ``SSDScan`` with as many plain recomputes
+     width and 12 of its 48 layers, so that the whole run stays inside its
+     time limit (24 layers until phase 7h came; global batch 8 x 512, Zen
+     on ``embed/table``, 4 steps): finite loss, 0 overflow, ``ssd_fwd``
+     launched 12 x 8 x steps times under ``SSDScan`` with as many plain
+     recomputes
      in its backward, Zen's kernels 8 x steps times, nothing plain; the
      plain route (``--backend torch``): step-0 loss within 5e-3, the same
      wire words; ``SSDScan``'s gradients at a rank's shape bitwise those
@@ -174,6 +176,33 @@ Phases (any failure exits non-zero; nothing is caught):
      16 and 32 / 8 of 128; f32 ``ssd_fwd`` at H 64, hd 64, N 64, Q 64)
      against their plain versions (one bf16 ulp, 2e-4) and bitwise equal
      across two calls, timed beside SDPA and the bound (rows 9d-9f, 10b).
+     For zamba2 also each leaf's step-0 gradient on one rank's 512 tokens
+     on the kernel route, the plain route and the plain route with the
+     scan's chunk halved (a control): each route's gap from the plain
+     route by module, and the first leaf from the loss back whose gap
+     passes the control's.
+  7h. enc_dec_vlm: whisper-medium (24 encoder layers over 1500 stub frames,
+     24 decoder layers with cross-attention) and pixtral-12b (40 layers,
+     256 stub patches before the prompt, hd 160) served at full size as in
+     phase 7 (``launch/serve.py``, 8 prompts of 512 tokens, 16 greedy
+     tokens; bf16 timed twice; whisper's prefill launches ``flash_fwd`` 72
+     times (24 encoder, 24 causal self, 24 cross) and each decode step 24
+     (cross), pixtral's prefill 40 at S 768, nothing plain; whisper's bf16
+     model runs its encoder in f32 activations, as the reference's JAX
+     promotion does; f32 kernels vs the plain route within 1e-3 and the same
+     greedy tokens, the smallest top-2 gap logged; one profiled bf16
+     prefill), then trained at full width on 2x1 (2 x 512 tokens and each
+     rank's frames or patches, Zen on ``embed/table``, 2 steps; whisper at
+     full depth, pixtral at 5 of 40 layers: the peak under 70 GiB) on both
+     routes: losses, grad norm, words and overflow bitwise, overflow 0,
+     the Zen kernels once a rank a step, nothing plain.  Then
+     ``flash_fwd`` at the two models' shapes (``EDV_FLASH``: the encoder,
+     1500 x 1500 without a mask, in f32 as the main path runs it and in
+     bf16; the cross prefill, Sq 512 / Sk 1500; the cross decode, Sq 1;
+     pixtral's S 768 at 32 / 8 heads of 160, causal) against the plain
+     version (one bf16 ulp, 2e-5) and bitwise equal across two calls, timed
+     beside SDPA and the bound (rows 9g-9k); the Zen kernels at the two
+     new tables are ``new_shapes`` rows k-l.
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -276,7 +305,8 @@ SSD_TOL = 2e-4             # the reference's own SSD test (atol and rtol)
 # 10x mamba2's; the serve phase logs the controls beside the kernel
 # route's difference.
 SERVE_LOGIT_TOL = {"qwen2-0.5b": 1e-3, "mamba2-370m": 1e-2,
-                   "zamba2-1.2b": 1e-1}
+                   "zamba2-1.2b": 1e-1, "whisper-medium": 1e-3,
+                   "pixtral-12b": 1e-3}
 SERVE_KERNEL = {"qwen2-0.5b": "flash_fwd", "mamba2-370m": "ssd_fwd"}
 REPLACES = {
     "zen_encode": "src/repro/kernels/zen_encode.py:108",
@@ -802,6 +832,10 @@ NEW_SHAPES = (("e", "inter stage, nodes of 4 (n 2, budget 1)", 151936, 896,
               ("i", "olmoe-1b-7b embed/table (n 2)", 50304, 2048, 2, 1,
                0.25),
               ("j", "phi3.5-moe embed/table (n 2)", 32064, 4096, 2, 1,
+               0.25),
+              ("k", "whisper-medium embed/table (n 2)", 51968, 1024, 2, 1,
+               0.25),
+              ("l", "pixtral-12b embed/table (n 2)", 131072, 5120, 2, 1,
                0.25))
 
 
@@ -2660,14 +2694,18 @@ def serve_breakdown(arch: str, layers: int | None = None) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_serve, build_program
 
+    from repro_torch.train.steps import MODEL_INPUTS
+
     cfg = serve_cfg(arch, layers)
     prog = build_program(cfg, "1x1", device="cuda")
     attach_serve(prog, SERVE["prompt"], SERVE["batch"], "prefill")
-    tok = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
-        seq_len=SERVE["prompt"], batch=SERVE["batch"]))))["tokens"],
-        device="cuda").long()
-    prog.prefill_step({"tokens": tok})
-    out = device_breakdown(lambda: prog.prefill_step({"tokens": tok}),
+    b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=SERVE["prompt"],
+                                              batch=SERVE["batch"]))))
+    batch = {"tokens": torch.as_tensor(b["tokens"], device="cuda").long(),
+             **{k: torch.as_tensor(b[k], device="cuda")
+                for k in MODEL_INPUTS if k in b}}   # frames, patches: f32
+    prog.prefill_step(batch)
+    out = device_breakdown(lambda: prog.prefill_step(batch),
                            f"serve {arch} prefill")
     del prog
     torch.cuda.empty_cache()
@@ -2834,8 +2872,11 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
     K.reset_counts()
     t0 = time.time()
     for _ in range(steps):
-        b = {k: torch.as_tensor(v, device="cuda").long()
+        # token ids as int64; whisper's frames and pixtral's patches f32
+        b = {k: torch.as_tensor(v, device="cuda")
              for k, v in next(data).items()}
+        for k in ("tokens", "labels"):
+            b[k] = b[k].long()
         torch.cuda.synchronize()
         t_step = time.time()
         m = prog.train_step(b)
@@ -2961,10 +3002,11 @@ def hybrid_moe_train(arch: str, layers: int, smi: str) -> dict:
     stats; only the Zen kernels differ), zamba2's words and overflow
     bitwise and its losses within ``HYBRID_LOSS_TOL`` (its scan runs
     ``ssd_fwd`` on one route and the plain scan on the other; a plain run
-    with the scan's chunk halved is logged beside, as a control); the Zen
-    kernels once a rank a step, each Mamba2 layer's ``ssd_fwd`` once a
-    rank a step with as many plain recomputes, nothing plain, the peak
-    under ``ZOO_PEAK_GIB``."""
+    with the scan's chunk halved is logged beside, as a control, and
+    ``leaf_grad_gaps`` compares the three routes' step-0 gradients leaf by
+    leaf); the Zen kernels once a rank a step, each Mamba2 layer's
+    ``ssd_fwd`` once a rank a step with as many plain recomputes, nothing
+    plain, the peak under ``ZOO_PEAK_GIB``."""
     from repro_torch.kernels import ops as K
 
     cfg = serve_cfg(arch, layers)
@@ -2973,6 +3015,7 @@ def hybrid_moe_train(arch: str, layers: int, smi: str) -> dict:
             for b in ("cuda", "torch")}
     run, plain = runs["cuda"], runs["torch"]
     keys = ("sparse_words_by_step", "overflow")
+    out = {"kernels": run, "plain": plain}
     if cfg.kind == "moe":
         keys += ("losses", "grad_norm") + MOE_STATS
     else:
@@ -2991,6 +3034,7 @@ def hybrid_moe_train(arch: str, layers: int, smi: str) -> dict:
             raise AssertionError(f"[hybrid_moe] {arch} trainer losses "
                                  f"{run['losses']} vs plain route "
                                  f"{plain['losses']}")
+        out["grad_gaps"] = leaf_grad_gaps(cfg)
     for key in keys:
         if run[key] != plain[key]:
             raise AssertionError(f"[hybrid_moe] {arch} trainer {key}: "
@@ -3025,7 +3069,70 @@ def hybrid_moe_train(arch: str, layers: int, smi: str) -> dict:
     if max(run["peak_gib"], plain["peak_gib"]) > ZOO_PEAK_GIB:
         raise AssertionError(f"[hybrid_moe] {arch} trainer peak "
                              f"{run['peak_gib']} GiB > {ZOO_PEAK_GIB}")
-    return {"kernels": run, "plain": plain}
+    return out
+
+
+def leaf_grad_gaps(cfg) -> dict:
+    """The hybrid's step-0 gradients on the 2x1 trainer's rank-0 batch
+    (``ZOO_TRAIN``: one row of 512 tokens, the trainer's weights from seed
+    0) on three routes: the kernels (``ssd_fwd`` forward under
+    ``SSDScan``), the plain route, and the plain route with the scan's
+    chunk halved (a control that only reorders the plain scan's sums).
+    For each leaf, the max |gradient difference| from the plain route of
+    the kernel route and of the control, each over the leaf's largest
+    plain gradient; logged by module from the loss back to the embedding
+    (the largest of a module's leaves), with the first leaf, in that
+    order, whose kernel-route gap passes the control's."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+
+    z = ZOO_TRAIN
+    b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=z["seq"],
+                                              batch=z["batch"]))))
+    rows = z["batch"] // z["n"]
+    tok, lab = (torch.as_tensor(b[k][:rows], device="cuda").long()
+                for k in ("tokens", "labels"))
+    grads, losses, norms = {}, {}, {}
+    for tag, backend, chunk in (("kernels", "cuda", cfg.ssm_chunk),
+                                ("plain", "torch", cfg.ssm_chunk),
+                                ("control", "torch", cfg.ssm_chunk // 2)):
+        model = Model(dataclasses.replace(cfg, ssm_chunk=chunk),
+                      device="cuda", seed=0, backend=backend)
+        loss, _ = model.train_loss(tok, lab)
+        loss.backward()
+        losses[tag] = float(loss)
+        grads[tag] = [(n, p.grad) for n, p in model.named_leaves()]
+        norms[tag] = float(torch.sqrt(sum((g.float() ** 2).sum()
+                                          for _, g in grads[tag])))
+        del model, loss
+        free_card()
+    table = []
+    for (name, gp), (_, gk), (_, gc) in zip(grads["plain"], grads["kernels"],
+                                            grads["control"]):
+        gp = gp.float()
+        top = float(gp.abs().max()) or 1.0
+        table.append((name, float((gk.float() - gp).abs().max()) / top,
+                      float((gc.float() - gp).abs().max()) / top))
+    del grads
+    free_card()
+    first = next((r for r in reversed(table) if r[1] > r[2]), None)
+    modules: dict[str, list] = {}
+    for name, k, c in reversed(table):   # from the loss back
+        parts = name.split("/")        # a module: a layer, or a top leaf
+        mod = "/".join(parts[:{"groups": 3, "tail": 2, "shared": 2}.get(
+            parts[0], 1)])
+        m = modules.setdefault(mod, [0.0, 0.0])
+        m[0], m[1] = max(m[0], k), max(m[1], c)
+    log(f"[hybrid_moe] {cfg.name} step-0 gradients on one rank's 512 tokens:"
+        f" losses {losses}, grad norms {norms}; the first leaf from the loss "
+        f"back whose kernel-route gap passes the chunk-"
+        f"{cfg.ssm_chunk // 2} control's: {first} ({len(table)} leaves; "
+        f"{sum(k > c for _, k, c in table)} pass their control)")
+    for mod, (k, c) in modules.items():
+        log(f"[hybrid_moe]   {mod:28s} max |kernels - plain| {k:.3e}, "
+            f"|control - plain| {c:.3e} (of the leaf's largest gradient)")
+    return {"losses": losses, "grad_norms": norms, "first": first,
+            "leaves": table}
 
 
 def hybrid_moe_kernel_shapes(smi: str) -> dict:
@@ -3123,12 +3230,177 @@ def phase_hybrid_moe(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# whisper-medium (enc_dec) and pixtral-12b (vlm): served and trained
+# ---------------------------------------------------------------------------
+
+# arch -> trained layers on 2x1.  Both serve at full size: whisper-medium's
+# 0.81B parameters, pixtral-12b's 12.80B (25.6 GB in bf16, 51.2 GB in f32,
+# one model resident at a time).  The trainers keep ZOO's rule (about 22
+# bytes a parameter plus one rank's activations under 70 GiB): whisper at
+# full depth (24 encoder and 24 decoder layers), pixtral at 5 of its 40
+# layers (1.368B of embedding, head and vis_proj plus 285.7M a layer:
+# 2.80B).
+ENC_DEC_VLM = {"whisper-medium": 24, "pixtral-12b": 5}
+# flash_fwd at the shapes the two models' serving gives it: (row, what,
+# dtype, flash_inputs' shape, causal).  whisper's frames are f32, so its
+# bf16 model's encoder attends in f32 (JAX's promotion, as the reference);
+# that row is also timed in bf16.  The cross-attention is bf16.
+EDV_FLASH = (
+    ("9g", "whisper-medium encoder", torch.float32,
+     dict(B=8, S=1500, H=16, KV=16, hd=64), False),
+    ("9h", "whisper-medium encoder, bf16", torch.bfloat16,
+     dict(B=8, S=1500, H=16, KV=16, hd=64), False),
+    ("9i", "whisper-medium cross prefill", torch.bfloat16,
+     dict(B=8, S=512, Sk=1500, H=16, KV=16, hd=64), False),
+    ("9j", "whisper-medium cross decode", torch.bfloat16,
+     dict(B=8, S=1, Sk=1500, H=16, KV=16, hd=64), False),
+    ("9k", "pixtral-12b prefill, 256 patches + 512 tokens", torch.bfloat16,
+     dict(B=8, S=768, H=32, KV=8, hd=160), True))
+
+
+def serve_launches(cfg) -> tuple[int, int]:
+    """``flash_fwd`` launches of an enc_dec or vlm prefill and of one
+    decode step: whisper's encoder layers plus each decoder layer's self-
+    and cross-attention, then a cross-attention a decoder layer a step;
+    pixtral one a layer, then none (decode attention is plain)."""
+    if cfg.kind == "enc_dec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def enc_dec_vlm_train(arch: str, layers: int, smi: str) -> dict:
+    """``arch`` at full width and ``layers`` deep trained on ``ZOO_TRAIN``'s
+    mesh, batch and steps (each rank's frames or patches with its rows) on
+    both routes: the kernel route bitwise the plain route (losses, grad
+    norm, words, overflow; the trainer's attention is plain on both, so only
+    the Zen kernels differ), overflow 0, the Zen kernels once a rank a
+    step, nothing plain, the peak under ``ZOO_PEAK_GIB``."""
+    from repro_torch.kernels import ops as K
+
+    cfg = serve_cfg(arch, layers)
+    z = ZOO_TRAIN
+    runs = {b: direct_train(cfg, z["n"], z["batch"], z["seq"], z["steps"], b)
+            for b in ("cuda", "torch")}
+    run, plain = runs["cuda"], runs["torch"]
+    for key in ("losses", "grad_norm", "sparse_words_by_step", "overflow"):
+        if run[key] != plain[key]:
+            raise AssertionError(f"[enc_dec_vlm] {arch} trainer {key}: "
+                                 f"kernels {run[key]} != plain {plain[key]}")
+    check_launches(f"[enc_dec_vlm] {arch} trainer", run["launches"],
+                   run["plain"], {k: z["steps"] * v for k, v in
+                                  K.path_launches(z["n"]).items()})
+    if any(plain["launches"].values()):
+        raise AssertionError(f"[enc_dec_vlm] {arch} trainer: plain route "
+                             f"launches {plain['launches']}")
+    if not all(np.isfinite(run["losses"])) or any(run["overflow"]):
+        raise AssertionError(f"[enc_dec_vlm] {arch} trainer: losses "
+                             f"{run['losses']} overflow {run['overflow']}")
+    log(f"[enc_dec_vlm] {arch} trainer, {layers} of "
+        f"{serve_cfg(arch).n_layers} layers ({run['params'] / 1e9:.3f} B "
+        f"parameters), mesh {z['n']}x1, {z['batch']} x {z['seq']} tokens: "
+        f"losses={run['losses']} grad_norm={run['grad_norm']} "
+        f"words={run['sparse_words_by_step']} overflow={run['overflow']} "
+        f"(plain route bitwise) step_s={run['step_s']} (plain route "
+        f"{plain['step_s']}) tok/s {run['tok_per_s']:.1f} peak "
+        f"{run['peak_gib']:.2f} GiB (plain route {plain['peak_gib']:.2f}) "
+        f"launches {run['launches']} | {smi}")
+    if max(run["peak_gib"], plain["peak_gib"]) > ZOO_PEAK_GIB:
+        raise AssertionError(f"[enc_dec_vlm] {arch} trainer peak "
+                             f"{run['peak_gib']} GiB > {ZOO_PEAK_GIB}")
+    return {"kernels": run, "plain": plain}
+
+
+def enc_dec_vlm_kernel_shapes(smi: str) -> dict:
+    """``flash_fwd`` at ``EDV_FLASH``'s shapes: two kernel calls bitwise
+    equal, within one bf16 ulp / ``FLASH_F32_TOL`` of the plain version,
+    then timed beside SDPA (``is_causal`` as the kernel) and the bound
+    (rows 9g-9k)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K, ref as R
+
+    err, rows = 0.0, []
+    for tag, what, dtype, shp, causal in EDV_FLASH:
+        q, k, v = flash_inputs(dtype, **shp)
+        got = K.flash_fwd_op(q, k, v, causal=causal)
+        same([K.flash_fwd_op(q, k, v, causal=causal)], [got],
+             f"flash_fwd {what}: second call")
+        want = R.flash_fwd_ref(q, k, v, causal=causal)
+        diff = (got.float() - want.float()).abs()
+        bf16 = dtype == torch.bfloat16
+        tol = bf16_ulp(want) + 1e-6 if bf16 else FLASH_F32_TOL
+        worst = float(diff.max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"flash_fwd {what} {shp} {dtype}: differs "
+                                 f"from the plain version (max abs {worst})")
+        err = max(err, worst)
+        log(f"[enc_dec_vlm] flash_fwd {what} {shp} {dtype}, causal "
+            f"{causal}: two calls bitwise equal, max abs {worst} from the "
+            f"plain version, within "
+            f"{'one bf16 ulp' if bf16 else FLASH_F32_TOL}")
+        B, Sq, H, hd = q.shape
+        Sk = k.shape[1]
+        pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = time_row(
+            f"flash_fwd ({what}, {H} / {k.shape[2]} heads of {hd}, Sq {Sq}, "
+            f"Sk {Sk}, {str(dtype).replace('torch.', '')})",
+            lambda: K.flash_fwd_op(q, k, v, causal=causal),
+            lambda: R.flash_fwd_ref(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * pairs * hd, BF16_OPS_PER_S if bf16 else OPS_PER_S, smi,
+            plain_iters=5)
+        rows.append({**row, "kernel": "flash_fwd", "row": tag})
+        del q, k, v, qt, kt, vt, got, want, diff
+        torch.cuda.empty_cache()
+    return {"err": {"flash_fwd": err}, "rows": rows}
+
+
+def phase_enc_dec_vlm(smi: str) -> dict:
+    """whisper-medium and pixtral-12b served at full size (``serve_arch``:
+    bf16 timed twice, every prefill and decode step on ``flash_fwd`` as
+    ``serve_launches`` counts, nothing plain; f32 kernels vs the plain
+    route within ``SERVE_LOGIT_TOL`` and the same greedy tokens; one
+    profiled bf16 prefill) and trained (``enc_dec_vlm_train`` at
+    ``ENC_DEC_VLM``'s depths), one model on the card at a time; then
+    ``flash_fwd`` at the two models' shapes."""
+    out = {}
+    gen_steps = SERVE["gen"] - 1
+    for arch, train_layers in ENC_DEC_VLM.items():
+        cfg = serve_cfg(arch)
+        log(f"[enc_dec_vlm] {arch} ({cfg.kind}): {cfg.n_layers} layers "
+            f"({cfg.n_enc_layers} encoder layers of {cfg.enc_len} frames), d "
+            f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} KV heads of "
+            f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+            f"{cfg.vocab_padded}), {cfg.n_patches} patches, qkv_bias "
+            f"{cfg.qkv_bias}, rope_theta {cfg.rope_theta}; served at full "
+            f"size, trained at {train_layers} layers")
+        prefill, step = serve_launches(cfg)
+        served = serve_arch(arch, {"flash_fwd": prefill + gen_steps * step},
+                            SERVE_LOGIT_TOL[arch])
+        for r in served["bf16"] + [served["f32"]]:
+            got = r["decode_launches"]["flash_fwd"]
+            if got != gen_steps * step:
+                raise AssertionError(f"[enc_dec_vlm] {arch}: decode launched "
+                                     f"flash_fwd {got} times, expected "
+                                     f"{gen_steps} x {step}")
+        log(f"[enc_dec_vlm] {arch}: flash_fwd {prefill} a prefill, {step} a "
+            f"decode step ({gen_steps} steps), nothing plain")
+        out[arch] = {**served, "prefill_launches": prefill,
+                     "trainer": enc_dec_vlm_train(arch, train_layers, smi)}
+    return {"models": out, **enc_dec_vlm_kernel_shapes(smi)}
+
+
+# ---------------------------------------------------------------------------
 # the Mamba2 trainer: ssd_fwd under autograd
 # ---------------------------------------------------------------------------
 
-# mamba2-370m at full width, 8 x 512 tokens; 24 of its 48 layers keep the
-# whole smoke inside its time limit (the phase took 351 s at full depth)
-MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=24)
+# mamba2-370m at full width, 8 x 512 tokens; 12 of its 48 layers keep the
+# whole smoke inside its time limit (the phase took 351 s at full depth and
+# 186 s at 24 layers, on one H100)
+MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=12)
 
 
 def mamba_cfg():
@@ -3665,7 +3937,7 @@ def main(argv=None) -> None:
                          "all: kernels (with kernels_wide and new_shapes),"
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
-                         "hier,zoo,hybrid_moe,dist,times "
+                         "hier,zoo,hybrid_moe,enc_dec_vlm,dist,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -3718,6 +3990,9 @@ def main(argv=None) -> None:
     hybrid_moe = phase_hybrid_moe(dev_info["smi"]) if want("hybrid_moe") \
         else None
     phase_done("hybrid_moe")
+    # and for whisper and pixtral (pixtral's trainer about 60 GiB)
+    edv = phase_enc_dec_vlm(dev_info["smi"]) if want("enc_dec_vlm") else None
+    phase_done("enc_dec_vlm")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
             if want("kernels") or want("times") or "kernels_wide" in only
@@ -3786,25 +4061,27 @@ def main(argv=None) -> None:
     if zoo:
         by_path.update({f"zoo trainer {a}": v["trainer"]
                         for a, v in zoo.items()})
-    if hybrid_moe:
+    for part in (hybrid_moe, edv):
         by_path.update({f"trainer {a}": v["trainer"]["kernels"]
-                        for a, v in hybrid_moe["models"].items()})
+                        for a, v in (part or {}).get("models", {}).items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
         for a, k in SERVE_KERNEL.items():
             path_launches[k][f"serve {a}"] = served[a]["launches"][k]
-    for group in (zoo, hybrid_moe and hybrid_moe["models"]):
+    for group in (zoo, hybrid_moe and hybrid_moe["models"],
+                  edv and edv["models"]):
         for a, v in (group or {}).items():
             for k, n in v["launches"].items():
                 if n:
                     path_launches[k][f"serve {a}"] = n
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for part in (wide, shapes, hybrid_moe):
+    for part in (wide, shapes, hybrid_moe, edv):
         for k, e in (part["err"] if part else {}).items():
             errs[k] = max(errs.get(k, 0.0), e)
-    # the kernels at the two-level, zoo, hybrid and MoE paths' shapes
-    new_rows = [r for part in (shapes, hybrid_moe) if part
+    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec and vlm
+    # paths' shapes
+    new_rows = [r for part in (shapes, hybrid_moe, edv) if part
                 for r in part["rows"]]
     table = []
     for row in times:
@@ -3826,8 +4103,8 @@ def main(argv=None) -> None:
                 "bound_by")} for r in wide["rows"] if r["kernel"] == name]}
                if wide and any(r["kernel"] == name for r in wide["rows"])
                else {}),
-            # the same kernel at the two-level, zoo, hybrid and MoE paths'
-            # shapes
+            # the same kernel at the two-level, zoo, hybrid, MoE, enc_dec
+            # and vlm paths' shapes
             **({"new_shapes": [{k: r[k] for k in (
                 "row", "name", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}

@@ -9,11 +9,14 @@ The prompts are ``SyntheticLM`` batches from ``--seed``; the weights are
 random, drawn from the same seed.  Prefill runs every layer over the whole
 prompt (attention on the ``flash_fwd`` kernel, the Mamba2 scan on
 ``ssd_fwd``; zamba2 runs both, MoE models route each layer's tokens to
-their experts; ``--backend torch`` takes their plain versions) and its cache
+their experts; whisper encodes its batch's stub frames on ``flash_fwd``
+and cross-attends to them, pixtral puts its stub patches before the
+prompt; ``--backend torch`` takes the plain versions) and its cache
 is carried over to decode: the first new token is the argmax of prefill's
 last-position logits, and each of the ``--gen - 1`` decode steps feeds the
-last token and takes the next.  (The reference example instead replays the
-prompt through decode and feeds its last token twice.)
+last token and takes the next (whisper's cross-attention one ``flash_fwd``
+a layer a step).  (The reference example instead replays the prompt
+through decode and feeds its last token twice.)
 """
 from __future__ import annotations
 
@@ -28,10 +31,12 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.train import steps as st
+from repro_torch.train.steps import MODEL_INPUTS
 from repro_torch.train.build import Program, attach_serve, build_program
 
 ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b",
-         "zamba2-1.2b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b")
+         "zamba2-1.2b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+         "whisper-medium", "pixtral-12b")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -65,11 +70,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 @torch.inference_mode()
 def handoff(prog: Program, cache: dict) -> dict:
     """The decode cache continuing a prefill ``cache``: a
-    ``make_cache(B, S + gen)`` cache with ``t = S`` whose attention
-    entries hold the prompt's S K/V slots and positions; a Mamba2 entry
-    (SSD state and conv tail) is the decode cache already and is taken
-    as it is.  The entries are in execution order (the hybrid's attention
-    applications among its Mamba2 layers)."""
+    ``make_cache(B, S + gen)`` cache with ``t = S`` (a VLM's S counts its
+    patch prefix) whose attention entries hold the prompt's S K/V slots
+    and positions, and an encoder-decoder layer's entry the prefill's
+    cross cache; a Mamba2 entry (SSD state and conv tail) is the decode
+    cache already and is taken as it is.  The entries are in execution
+    order (the hybrid's attention applications among its Mamba2
+    layers)."""
     dec = prog.fresh_cache()
     S = cache["t"]
     for i, (new, old) in enumerate(zip(dec["layers"], cache["layers"])):
@@ -79,6 +86,8 @@ def handoff(prog: Program, cache: dict) -> dict:
         new["k"][:, :S] = old["k"]
         new["v"][:, :S] = old["v"]
         new["pos"][:S] = old["pos"]
+        if "cross" in old:
+            new["cross"] = old["cross"]
     dec["t"] = S
     return dec
 
@@ -87,7 +96,8 @@ def main(argv=None) -> dict:
     """Serve one batch; returns the prompt, the generated tokens [B, gen],
     prefill's last-position logits (f32, CPU), per-step max logits and
     top-2 gaps, prefill ms, decode tok/s (host clock after a device sync)
-    and the prefill kernels' launch and plain-call counters."""
+    and the model kernels' launch and plain-call counters (and the
+    launches of the decode steps alone: whisper's cross-attention)."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -112,13 +122,16 @@ def main(argv=None) -> dict:
 
     b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=S, batch=B,
                                               seed=args.seed))))
-    tokens = torch.as_tensor(b["tokens"], device=dev).long()
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev).long(),
+             **{k: torch.as_tensor(b[k], device=dev)
+                for k in MODEL_INPUTS if k in b}}
     attach_serve(prog, seq_len=S, global_batch=B, mode="prefill")
     sync()
     t0 = time.perf_counter()
-    logits, cache = prog.prefill_step({"tokens": tokens})
+    logits, cache = prog.prefill_step(batch)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    in_prefill = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
 
     attach_serve(prog, seq_len=S + args.gen, global_batch=B, mode="decode")
     decode = st.make_decode_step(prog.model, prog.cache_specs["window"],
@@ -144,8 +157,10 @@ def main(argv=None) -> dict:
     tok_s = B * (args.gen - 1) / decode_s if args.gen > 1 else 0.0
     counts = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
     plain = {k: ops.PLAIN_CALLS[k] for k in ops.MODEL_KERNELS}
+    in_decode = {k: counts[k] - in_prefill[k] for k in counts}
     print(f"prefill: {prefill_ms:.1f} ms | decode: {args.gen - 1} steps "
           f"{decode_s * 1e3:.1f} ms, {tok_s:,.0f} tok/s | launches {counts} "
+          f"(in decode {in_decode}) "
           f"plain calls {plain}", flush=True)
     print("sample token ids:", gen[0][:16].tolist())
     return {"prompt": b["tokens"], "tokens": gen,
@@ -153,6 +168,7 @@ def main(argv=None) -> dict:
             "top2_gap": torch.stack(gaps).float().cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_s": decode_s,
             "decode_tok_per_s": tok_s, "launches": counts,
+            "decode_launches": in_decode,
             "plain_calls": plain}
 
 

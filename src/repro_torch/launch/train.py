@@ -50,8 +50,10 @@ mamba2-370m`` trains the Mamba2 LM, its scan on the ``ssd_fwd`` kernel
 under autograd; ``zamba2-1.2b`` the hybrid (Mamba2 layers and one shared
 attention block); ``olmoe-1b-7b`` and ``phi3.5-moe-42b-a6.6b`` the MoE
 decoders, whose router stats (``moe/aux_loss``, ``moe/dropped``,
-``moe/skew``) are logged beside the loss.  The plan GradSync runs is
-printed at start.
+``moe/skew``) are logged beside the loss; ``whisper-medium`` the
+encoder-decoder (its batches carry f32 stub ``frames``) and
+``pixtral-12b`` the VLM backbone (f32 stub ``patches``, a prefix whose
+positions take no loss).  The plan GradSync runs is printed at start.
 """
 from __future__ import annotations
 
@@ -211,8 +213,11 @@ def _train(args, group, device) -> dict:
     for step in range(args.steps):
         b = next(data)
         t_step = time.time()
-        batch = {k: torch.as_tensor(v, device=dev).long()
-                 for k, v in b.items()}
+        # token ids as int64; whisper's frames and pixtral's patches stay
+        # f32
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        for k in ("tokens", "labels"):
+            batch[k] = batch[k].long()
         m = prog.train_step(batch)
         tokens_done += args.global_batch * args.seq_len
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -1,12 +1,14 @@
 """Primitive layers of the port's models (port of ``repro.models.layers``).
 
-RMSNorm (plain and over the SSM's d_inner), RoPE, the SwiGLU MLP, the
-untied input embedding, the LM head with its cross-entropy, prefill
+RMSNorm (plain and over the SSM's d_inner), RoPE, the SwiGLU and GELU
+MLPs, the untied input embedding, the LM head with its cross-entropy, prefill
 attention (:func:`flash_attention`, on the ``flash_fwd`` kernel) and
 decode attention over a KV cache.  Tensor parallelism is not ported
 (ROADMAP queue 1, item 9), so there are no collectives here and the cache
 is not sequence-sharded.  Numerics follow the reference: norms and the
-softmax run in f32, matmuls in the parameters' dtype.
+softmax run in f32, matmuls in the parameters' dtype.  A linear layer
+given activations of another dtype promotes as JAX does: f32 activations
+on bf16 weights (whisper's f32 encoder frames) run in f32.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ def rmsnorm_sharded(scale: torch.Tensor, x: torch.Tensor,
 
 class Linear(nn.Module):
     """``x @ w (+ b)`` with ``w`` stored [d_in, d_out] as in the reference;
-    init ``normal * 1/sqrt(d_in)``, zero bias."""
+    init ``normal * 1/sqrt(d_in)``, zero bias.  Mixed dtypes promote as
+    ``jnp.matmul`` does (f32 @ bf16 runs in f32)."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype=torch.bfloat16, device=None,
@@ -66,7 +69,11 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
+        w = self.w
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        y = x @ w
         return y + self.b if self.b is not None else y
 
 
@@ -162,6 +169,21 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class GeluMLP(nn.Module):
+    """Whisper's MLP: ``down(gelu(up(x)))`` with biases; the GELU is the
+    tanh form, ``jax.nn.gelu``'s default."""
+
+    def __init__(self, d: int, d_ff: int, *, dtype=torch.bfloat16,
+                 device=None, gen: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(bias=True, dtype=dtype, device=device, gen=gen)
+        self.up = Linear(d, d_ff, **kw)
+        self.down = Linear(d_ff, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
 def mask_padded_logits(lf: torch.Tensor, valid_vocab: int) -> torch.Tensor:

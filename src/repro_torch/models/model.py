@@ -1,5 +1,6 @@
 """The port's language models (port of ``repro.models.model`` for
-``kind="dense"``, ``"moe"``, ``"ssm"`` and ``"hybrid"``).
+``kind="dense"``, ``"moe"``, ``"ssm"``, ``"hybrid"``, ``"enc_dec"`` and
+``"vlm"``).
 
 The input embedding is UNTIED from the LM head: its gradient is row-sparse
 (only rows of tokens in the batch are non-zero), which is the tensor Zen
@@ -15,7 +16,21 @@ carries a reference parameter pytree over.
   ``shared_attn_every`` Mamba2 layers, then the remaining tail layers, and
   ONE shared dense decoder layer applied at the start of every group.  The
   shared layer is one set of parameters (one leaf each for GradSync);
-  autograd sums its gradient over its applications.
+  autograd sums its gradient over its applications;
+* ``enc_dec`` (whisper): an encoder of ``n_enc_layers`` pre-norm layers
+  (non-causal GQA without RoPE, GELU MLP) over the batch's stub ``frames``
+  [B, enc_len, d] plus a sinusoidal position table, then ``ln_enc``; the
+  decoder layers add a cross-attention block (``lnx``, ``xattn``: K/V
+  from the encoder output) between the self-attention and the FFN, which
+  is the GELU MLP.  The frames are f32, so the encoder runs in f32
+  activations, as JAX's promotion runs the reference's (the dtype choice
+  is in ``models/attention.py``'s docstring);
+* ``vlm`` (pixtral): a dense decoder whose input is the batch's stub
+  ``patches`` [B, P, d] through ``vis_proj`` (no bias), cast to the
+  model's dtype, then the token embeddings, at positions 0..P+S-1; the
+  patch positions are dropped before the head.  A config with
+  ``mla_kv_rank`` set (minicpm3's MLA) raises: MLA is ROADMAP queue 1,
+  item 9, and is never built as GQA.
 
 Every path runs the layers in execution order (``Model.exec_layers``: for
 the hybrid, the shared layer once per group), and the decode cache holds
@@ -30,8 +45,12 @@ mean ``moe/aux_loss``, ``moe/dropped`` and ``moe/skew``.  Calling the model
 (:meth:`Model.forward`) returns the differentiated loss alone.
 
 Serving: :meth:`Model.prefill` runs the prompt (prefill attention on the
-``flash_fwd`` kernel, the Mamba2 scan on ``ssd_fwd``) and returns the
-decode cache; :meth:`Model.decode` takes one greedy step.  The train loss
+``flash_fwd`` kernel: the encoder's, the decoder's self- and
+cross-attention; the Mamba2 scan on ``ssd_fwd``) and returns the decode
+cache (an enc_dec layer's entry also holds its cross cache under
+``"cross"``; a VLM's ``t`` counts the patch prefix); :meth:`Model.decode`
+takes one greedy step (an enc_dec layer's cross-attention is one
+``flash_fwd`` at Sq = 1).  The train loss
 runs every kind; a Mamba2 layer's scan is ``ssd_fwd`` under autograd
 (``ops.SSDScan``), whose gradient is the plain chunked scan's, as the
 reference trains by autodiff through that scan.
@@ -49,18 +68,56 @@ from repro_torch import resolve_device
 from repro_torch.core.hashing import check_backend
 from repro_torch.models.attention import GQA, gqa_make_cache
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import (Embedding, Linear, RMSNorm, SwiGLU,
-                                       cross_entropy, mask_padded_logits)
+from repro_torch.models.layers import (Embedding, GeluMLP, Linear, RMSNorm,
+                                       SwiGLU, cross_entropy,
+                                       mask_padded_logits)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 
-KINDS = ("dense", "moe", "ssm", "hybrid")
+KINDS = ("dense", "moe", "ssm", "hybrid", "enc_dec", "vlm")
 AUX_LOSS_W = 0.01     # the MoE load-balance loss's weight in the train loss
 
 
+def sinusoid_table(T: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's encoder position table [T, d] in f32: sin | cos of
+    ``t * 10000^(-i / (d/2))``."""
+    half = d // 2
+    freqs = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                      device=device) / half)
+    ang = torch.arange(T, device=device).float()[:, None] * freqs[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class EncoderLayer(nn.Module):
+    """Whisper's encoder block: x + attn(ln1 x) (non-causal, no RoPE),
+    then + ffn(ln2 x) (GELU MLP)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = GQA(cfg, device=device, gen=gen)
+        self.ln2 = RMSNorm(cfg.d_model, device=device)
+        self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
+                           device=device, gen=gen)
+
+    def forward(self, x: torch.Tensor, *, backend: str | None = None):
+        """x [B, T, d] -> [B, T, d]: the trainer's plain attention, or with
+        a ``backend`` the prefill's (``flash_fwd``)."""
+        h = self.ln1(x)
+        if backend is None:
+            x = x + self.attn(h, causal=False, use_rope=False)
+        else:
+            x = x + self.attn.prefill(h, backend=backend, causal=False,
+                                      use_rope=False)[0]
+        return x + self.ffn(self.ln2(x))
+
+
 class DecoderLayer(nn.Module):
-    """Pre-norm block: x + attn(ln1 x), then + ffn(ln2 x); the FFN is a
-    SwiGLU, or the MoE FFN for ``kind="moe"``."""
+    """Pre-norm block: x + attn(ln1 x), for ``kind="enc_dec"`` then +
+    xattn(lnx x) over the encoder output, then + ffn(ln2 x); the FFN is a
+    SwiGLU, the MoE FFN for ``kind="moe"`` or the GELU MLP for
+    ``"enc_dec"``."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  gen: torch.Generator | None = None):
@@ -68,12 +125,18 @@ class DecoderLayer(nn.Module):
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.attn = GQA(cfg, device=device, gen=gen)
+        self.cross = cfg.kind == "enc_dec"
+        if self.cross:
+            self.lnx = RMSNorm(cfg.d_model, device=device)
+            self.xattn = GQA(cfg, device=device, gen=gen)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, gen=gen)
         if cfg.kind == "moe":
             self.ffn = MoE(cfg, device=device, gen=gen)
+        elif self.cross:
+            self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
         else:
-            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
-                              device=device, gen=gen)
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
     def _ffn(self, x: torch.Tensor):
         """(ffn(x), the MoE stats or {})."""
@@ -81,25 +144,44 @@ class DecoderLayer(nn.Module):
             return self.ffn(x)
         return self.ffn(x), {}
 
-    def forward(self, x: torch.Tensor, *, backend: str = "cuda"):
-        """x [B, S, d] -> (x', stats); the trainer's attention is plain
-        (``GQA.forward``), so ``backend`` changes nothing here."""
+    def forward(self, x: torch.Tensor, *, backend: str = "cuda",
+                enc_out: torch.Tensor | None = None):
+        """x [B, S, d] (and an enc_dec layer's ``enc_out`` [B, T, d]) ->
+        (x', stats); the trainer's attention is plain (``GQA.forward``), so
+        ``backend`` changes nothing here."""
         x = x + self.attn(self.ln1(x))
+        if self.cross:
+            x = x + self.xattn(self.lnx(x), kv_src=enc_out)
         y, stats = self._ffn(self.ln2(x))
         return x + y, stats
 
     def make_cache(self, batch: int, cache_len: int) -> dict:
-        return gqa_make_cache(self.cfg, batch, cache_len,
-                              device=self.ln1.scale.device)
+        """K/V slots (``gqa_make_cache``); an enc_dec layer's also a zero
+        cross cache of ``enc_len`` frames in the model's dtype."""
+        cfg, dev = self.cfg, self.ln1.scale.device
+        cache = gqa_make_cache(cfg, batch, cache_len, device=dev)
+        if self.cross:
+            shape = (batch, cfg.enc_len, cfg.n_kv, cfg.hd)
+            cache["cross"] = {n: torch.zeros(shape, dtype=cfg.dtype,
+                                             device=dev) for n in ("k", "v")}
+        return cache
 
-    def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
+    def prefill(self, x: torch.Tensor, *, backend: str = "cuda",
+                enc_out: torch.Tensor | None = None):
         a, cache = self.attn.prefill(self.ln1(x), backend=backend)
         x = x + a
+        if self.cross:
+            a, cache["cross"] = self.xattn.prefill(
+                self.lnx(x), backend=backend, kv_src=enc_out)
+            x = x + a
         return x + self._ffn(self.ln2(x))[0], cache
 
     def decode(self, x: torch.Tensor, cache: dict, t: int, *,
-               window: int = 0):
+               window: int = 0, backend: str = "cuda"):
         x = x + self.attn.decode(self.ln1(x), cache, t, window=window)
+        if self.cross:
+            x = x + self.xattn.cross_decode(self.lnx(x), cache["cross"],
+                                            backend=backend)
         # the FFN sees the step's B tokens as [B, 1, d] (MoE: T = B)
         return x + self._ffn(self.ln2(x)[:, None])[0][:, 0], cache
 
@@ -125,13 +207,14 @@ class SSMLayer(nn.Module):
         return x + y, cache
 
     def decode(self, x: torch.Tensor, cache: dict, t: int, *,
-               window: int = 0):
+               window: int = 0, backend: str = "cuda"):
         y, cache = self.mixer.decode(self.ln1(x), cache)
         return x + y, cache
 
 
 class Model(nn.Module):
-    """Dense or MoE decoder, Mamba2 LM or zamba2 hybrid;
+    """Dense or MoE decoder, Mamba2 LM, zamba2 hybrid, whisper
+    encoder-decoder or pixtral VLM backbone;
     :meth:`train_loss` (and calling the model) is the train loss of a
     batch, :meth:`prefill` / :meth:`decode` serve.
 
@@ -151,6 +234,12 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
                 f"1, item 9); the port runs {KINDS}")
+        if cfg.mla_kv_rank or cfg.mla_q_rank:
+            raise NotImplementedError(
+                f"config {cfg.name!r} sets MLA (mla_q_rank "
+                f"{cfg.mla_q_rank}, mla_kv_rank {cfg.mla_kv_rank}): MLA is "
+                f"not ported yet (ROADMAP queue 1, item 9) and is never "
+                f"built as GQA")
         check_backend(backend)
         self.cfg, self.backend = cfg, backend
         device = resolve_device(device)
@@ -174,29 +263,62 @@ class Model(nn.Module):
             self.exec_layers = [ly for g in self.groups
                                 for ly in (self.shared, *g)] + [*self.tail]
         else:
+            if cfg.kind == "enc_dec":
+                self.enc_layers = nn.ModuleList(
+                    EncoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers))
+                self.ln_enc = RMSNorm(cfg.d_model, device=device)
             layer = SSMLayer if cfg.kind == "ssm" else DecoderLayer
             self.layers = nn.ModuleList(
                 layer(cfg, **kw) for _ in range(cfg.n_layers))
             self.exec_layers = list(self.layers)
+        if cfg.kind == "vlm":
+            self.vis_proj = Linear(cfg.d_model, cfg.d_model, **kw,
+                                   dtype=cfg.dtype)
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         self.lm_head = Linear(cfg.d_model, vp, dtype=cfg.dtype, device=device,
                               gen=gen)
         with torch.no_grad():   # padded vocab columns start (and stay) zero
             self.lm_head.w[:, cfg.vocab:] = 0
 
-    def train_loss(self, tokens: torch.Tensor, labels: torch.Tensor):
-        """tokens/labels [B, S] (labels -1 masked) -> (differentiated loss,
-        metrics): embed, the layers, ``ln_f``, the untied head, the mean
-        next-token cross-entropy (``metrics["loss"]``), for MoE plus
-        ``AUX_LOSS_W`` x the layers' mean ``moe/aux_loss`` (``metrics``
-        also holds the layers' mean MoE stats)."""
+    def encode(self, frames: torch.Tensor, *,
+               backend: str | None = None) -> torch.Tensor:
+        """The whisper encoder over stub frames [B, T, d] (f32: the
+        activations stay f32, as the reference's): the sinusoidal table
+        added, the encoder layers (plain attention, or with a ``backend``
+        the prefill's ``flash_fwd``), ``ln_enc``."""
+        x = frames + sinusoid_table(frames.shape[1], self.cfg.d_model,
+                                    frames.device).to(frames.dtype)
+        for layer in self.enc_layers:
+            x = layer(x, backend=backend)
+        return self.ln_enc(x)
+
+    def _inputs(self, tokens: torch.Tensor, patches: torch.Tensor | None):
+        """The first layer's input: the token embeddings, after a VLM's
+        projected patch prefix (cast to the model's dtype)."""
         x = self.embed(tokens)
+        if self.cfg.kind == "vlm":
+            x = torch.cat([self.vis_proj(patches).to(x.dtype), x], dim=1)
+        return x
+
+    def train_loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
+                   frames: torch.Tensor | None = None,
+                   patches: torch.Tensor | None = None):
+        """tokens/labels [B, S] (labels -1 masked; whisper adds ``frames``
+        [B, T, d], pixtral ``patches`` [B, P, d]) -> (differentiated loss,
+        metrics): embed, the layers, ``ln_f``, the untied head (on the
+        token positions only), the mean next-token cross-entropy
+        (``metrics["loss"]``), for MoE plus ``AUX_LOSS_W`` x the layers'
+        mean ``moe/aux_loss`` (``metrics`` also holds the layers' mean MoE
+        stats)."""
+        x = self._inputs(tokens, patches)
+        kw = ({"enc_out": self.encode(frames)} if self.cfg.kind == "enc_dec"
+              else {})
         stats = []
         for layer in self.exec_layers:
-            x, st = layer(x, backend=self.backend)
+            x, st = layer(x, backend=self.backend, **kw)
             if st:
                 stats.append(st)
-        logits = self.lm_head(self.ln_f(x))
+        logits = self.lm_head(self.ln_f(x[:, x.shape[1] - tokens.shape[1]:]))
         loss = cross_entropy(logits, labels, self.cfg.vocab)
         metrics = {"loss": loss}
         if stats:
@@ -205,10 +327,10 @@ class Model(nn.Module):
             loss = loss + AUX_LOSS_W * metrics["moe/aux_loss"]
         return loss, metrics
 
-    def forward(self, tokens: torch.Tensor,
-                labels: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
+                **inputs) -> torch.Tensor:
         """The differentiated loss of :meth:`train_loss`."""
-        return self.train_loss(tokens, labels)[0]
+        return self.train_loss(tokens, labels, **inputs)[0]
 
     # ---- serving -----------------------------------------------------------
 
@@ -220,22 +342,30 @@ class Model(nn.Module):
     def make_cache(self, batch: int, cache_len: int) -> dict:
         """An empty decode cache: ``t = 0`` and, per layer application in
         execution order, zero K/V with every slot's position -1 (attention,
-        ``cache_len`` slots) or a zero SSD state and conv tail (Mamba2)."""
+        ``cache_len`` slots; an enc_dec layer's also a zero cross cache) or
+        a zero SSD state and conv tail (Mamba2)."""
         return {"t": 0, "layers": [ly.make_cache(batch, cache_len)
                                    for ly in self.exec_layers]}
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor):
-        """Run the prompt tokens [B, S]; returns (last-position logits
-        [B, vocab_padded] in the model's dtype, padded columns masked, and
-        the decode cache with ``t = S``: per layer application the prompt's
-        K/V and positions 0..S-1, or the final SSD state and conv tail)."""
-        x = self.embed(tokens)
+    def prefill(self, tokens: torch.Tensor, *,
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None):
+        """Run the prompt tokens [B, S] (whisper: after encoding ``frames``;
+        pixtral: after the ``patches`` prefix of P positions); returns
+        (last-position logits [B, vocab_padded] in the model's dtype,
+        padded columns masked, and the decode cache with ``t`` = S (P + S
+        for a VLM): per layer application the prompt's K/V and positions
+        0..t-1 (and an enc_dec layer's cross cache), or the final SSD state
+        and conv tail)."""
+        x = self._inputs(tokens, patches)
+        kw = ({"enc_out": self.encode(frames, backend=self.backend)}
+              if self.cfg.kind == "enc_dec" else {})
         caches = []
         for layer in self.exec_layers:
-            x, c = layer.prefill(x, backend=self.backend)
+            x, c = layer.prefill(x, backend=self.backend, **kw)
             caches.append(c)
-        return self._head_logits(x[:, -1]), {"t": tokens.shape[1],
+        return self._head_logits(x[:, -1]), {"t": x.shape[1],
                                              "layers": caches}
 
     @torch.inference_mode()
@@ -249,7 +379,8 @@ class Model(nn.Module):
         x = self.embed(tokens)[:, 0]
         for i, layer in enumerate(self.exec_layers):
             x, cache["layers"][i] = layer.decode(x, cache["layers"][i], t,
-                                                 window=window)
+                                                 window=window,
+                                                 backend=self.backend)
         cache["t"] = t + 1
         lf = self._head_logits(x).float()
         m, nxt = lf.max(-1)
@@ -269,7 +400,9 @@ class Model(nn.Module):
         """Copy the reference's parameter pytree (arrays or numpy arrays;
         layers stacked [L, ...] by ``lax.scan``; the hybrid's
         ``groups/inner`` stacked [groups, every, ...], ``tail`` [n_tail,
-        ...] and ``shared`` unstacked) into this model."""
+        ...] and ``shared`` unstacked; whisper's ``enc_layers`` stacked,
+        ``ln_enc``, and each decoder layer's ``lnx`` and ``xattn``;
+        pixtral's ``vis_proj_w``) into this model."""
         def put(p: torch.Tensor, x) -> None:
             a = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
             if tuple(a.shape) != tuple(p.shape):
@@ -286,20 +419,27 @@ class Model(nn.Module):
                          "norm"):
                 put(getattr(mix, name), at(mx[name]))
 
-        def put_decoder(layer: DecoderLayer, ly, at) -> None:
+        def put_linears(mod: nn.Module, names, tree, at) -> None:
+            for name in names:
+                lin = getattr(mod, name)
+                put(lin.w, at(tree[f"{name}_w"]))
+                if lin.b is not None:
+                    put(lin.b, at(tree[f"{name}_b"]))
+
+        def put_decoder(layer: DecoderLayer | EncoderLayer, ly, at) -> None:
             put(layer.ln1.scale, at(ly["ln1"]))
             put(layer.ln2.scale, at(ly["ln2"]))
-            for name in ("q", "k", "v", "o"):
-                lin = getattr(layer.attn, name)
-                put(lin.w, at(ly["attn"][f"{name}_w"]))
-                if lin.b is not None:
-                    put(lin.b, at(ly["attn"][f"{name}_b"]))
-            if layer.cfg.kind == "moe":
+            put_linears(layer.attn, "qkvo", ly["attn"], at)
+            if getattr(layer, "cross", False):
+                put(layer.lnx.scale, at(ly["lnx"]))
+                put_linears(layer.xattn, "qkvo", ly["xattn"], at)
+            if isinstance(layer.ffn, MoE):
                 for name in ("router_w", "w_gate", "w_up", "w_down"):
                     put(getattr(layer.ffn, name), at(ly["ffn"][name]))
                 return
-            for name in ("gate", "up", "down"):
-                put(getattr(layer.ffn, name).w, at(ly["ffn"][f"{name}_w"]))
+            names = (("up", "down") if isinstance(layer.ffn, GeluMLP)
+                     else ("gate", "up", "down"))
+            put_linears(layer.ffn, names, ly["ffn"], at)
 
         put(self.embed.table, tree["embed"]["table"])
         put(self.lm_head.w, tree["lm_head_w"])
@@ -313,6 +453,13 @@ class Model(nn.Module):
                 put_ssm(layer, tree["tail"], lambda a, i=i: np.asarray(a)[i])
             put_decoder(self.shared, tree["shared"], lambda a: a)
             return
+        if self.cfg.kind == "enc_dec":
+            for i, layer in enumerate(self.enc_layers):
+                put_decoder(layer, tree["enc_layers"],
+                            lambda a, i=i: np.asarray(a)[i])
+            put(self.ln_enc.scale, tree["ln_enc"])
+        if self.cfg.kind == "vlm":
+            put(self.vis_proj.w, tree["vis_proj_w"])
         fill = put_ssm if self.cfg.kind == "ssm" else put_decoder
         for i, layer in enumerate(self.layers):
             fill(layer, tree["layers"], lambda a, i=i: np.asarray(a)[i])

@@ -136,13 +136,17 @@ def attach_serve(prog: Program, seq_len: int, global_batch: int,
                  mode: str) -> None:
     """Build ``prog.prefill_step`` (``mode="prefill"``) or
     ``prog.decode_step`` and the decode cache's shape (``"decode"``) for
-    ``global_batch`` sequences of ``seq_len`` tokens.  Decode attends to a
+    ``global_batch`` sequences of ``seq_len`` tokens (a VLM's cache also
+    holds its ``n_patches`` prefix positions; an encoder-decoder's each
+    layer's cross cache of ``enc_len`` frames).  Decode attends to a
     sliding window only above 65536 tokens, as the reference does."""
     if mode == "prefill":
         prog.prefill_step = st.make_prefill_step(prog.model)
         return
     if mode != "decode":
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if prog.cfg.kind == "vlm":
+        seq_len += prog.cfg.n_patches
     window = prog.cfg.sliding_window if seq_len > 65536 else 0
     prog.decode_step = st.make_decode_step(prog.model, window=window)
     prog.cache_specs = {"batch": global_batch, "window": window,

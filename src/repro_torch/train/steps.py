@@ -54,6 +54,10 @@ from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import INITS, UPDATES, OptConfig
 
 
+# batch entries beside tokens/labels: whisper's frames, pixtral's patches
+MODEL_INPUTS = ("frames", "patches")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     opt: OptConfig = OptConfig()
@@ -96,7 +100,8 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     ``step_fn.state`` (the optimizer state) in place.
 
     ``batch`` holds int tensors tokens/labels [B, S] of the GLOBAL batch on
-    the model's device; the group of ``gradsync`` (by default one over
+    the model's device (and whisper's f32 ``frames`` or pixtral's f32
+    ``patches``, which each rank's ``train_loss`` takes with its rows); the group of ``gradsync`` (by default one over
     ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
     are f32 scalars averaged over the group's ranks (``loss``,
     ``grad_norm``, the ``sync/*`` counters and an MoE model's ``moe/*``).  ``state`` continues an
@@ -131,7 +136,9 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         for w, rank in enumerate(ranks):
             b = per_rank[rank]
             model.zero_grad(set_to_none=True)
-            loss, m = model.train_loss(b["tokens"], b["labels"])
+            loss, m = model.train_loss(
+                b["tokens"], b["labels"],
+                **{k: b[k] for k in MODEL_INPUTS if k in b})
             loss.backward()
             for k, v in m.items():
                 stats.setdefault(k, []).append(v.detach().float())
@@ -181,9 +188,12 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
 
 def make_prefill_step(model: Model):
     """``prefill_fn(batch) -> (last-position logits, cache)`` for a batch
-    holding ``tokens`` [B, S] on the model's device (inference mode)."""
+    holding ``tokens`` [B, S] (and whisper's ``frames`` or pixtral's
+    ``patches``) on the model's device (inference mode)."""
     def prefill_fn(batch: dict):
-        return model.prefill(batch["tokens"])
+        return model.prefill(batch["tokens"],
+                             **{k: batch[k] for k in MODEL_INPUTS
+                                if k in batch})
     return prefill_fn
 
 

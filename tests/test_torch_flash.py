@@ -6,8 +6,10 @@ The reference's Pallas ``flash_fwd`` does not run under this JAX
 reference's ``layers.flash_attention``, the function that kernel computes,
 on the same numpy inputs: the four shapes of
 ``tests/test_perf_opts.py::test_flash_kernel_matches_reference`` (window
-64, KV = H, KV = 1), a ragged Sq, a decode-style q_offset, and the wide
-head dims (160 with GQA, 128 with g = 3 and a window).
+64, KV = H, KV = 1), a ragged Sq, a decode-style q_offset, the wide
+head dims (160 with GQA, 128 with g = 3 and a window), and whisper's and
+pixtral's serve shapes (non-causal with Sq != Sk and Sk = 1500, Sq = 1,
+the encoder's 1500 x 1500; hd 160 at S 768).
 Tolerances: f32 to the reference test's 2e-5; bf16 to one bf16 ulp of the
 reference's output (plus 1e-6 for values near zero), since both round the
 same f32 result once.  The kernel itself is held against the plain version
@@ -42,6 +44,13 @@ SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (1, 37, 600, 4, 2, 32, True, 0, 563),       # queries after a cache
     (1, 96, 96, 4, 2, 160, True, 0, 0),         # hd 160 GQA (pixtral)
     (1, 80, 80, 6, 2, 128, True, 32, 0),        # hd 128, g = 3, window
+    # whisper: cross-attention at Sq != Sk and Sk = 1500 (its last 64-key
+    # tile holds 28 keys), the cross decode at Sq = 1, the encoder's
+    # 1500 x 1500 without a mask (past the reference's 1024-row q chunk)
+    (1, 40, 1500, 2, 2, 64, False, 0, 0),
+    (2, 1, 1500, 4, 4, 64, False, 0, 0),
+    (1, 1500, 1500, 1, 1, 64, False, 0, 0),
+    (1, 768, 768, 4, 1, 160, True, 0, 0),       # pixtral: 256 + 512, hd 160
 ]
 IDS = [f"B{s[0]}-Sq{s[1]}-Sk{s[2]}-H{s[3]}-KV{s[4]}-hd{s[5]}-"
        f"{'causal' if s[6] else 'full'}-w{s[7]}-off{s[8]}" for s in SHAPES]

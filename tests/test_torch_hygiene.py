@@ -89,15 +89,15 @@ def test_unported_meshes_and_flags_raise():
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x2",
                     "--device", "cpu"])
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-medium")
+        get_config("minicpm3-4b")
 
 
 def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     """The Mamba2 trainer is the plain-scan trainer the reference runs: a
     train loss raises nothing, its backward is the plain chunked scan's
     gradient (one recompute a layer, never a gradient through the SSD
-    kernel), and a model kind the port lacks still raises naming its
-    ROADMAP item."""
+    kernel), and a config the port lacks (MLA: ``mla_kv_rank`` set) still
+    raises naming its ROADMAP item."""
     cfg = get_config("mamba2-370m").reduced()
     model = Model(cfg, device="cpu")
     tok = torch.zeros((1, 16), dtype=torch.long)
@@ -107,7 +107,8 @@ def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     assert ops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
     assert model.embed.table.grad is not None
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        Model(dataclasses.replace(cfg, kind="enc_dec"), device="cpu")
+        Model(dataclasses.replace(cfg, kind="dense", mla_q_rank=64,
+                                  mla_kv_rank=32), device="cpu")
 
 
 def test_cuda_sources_name_the_kernel_they_replace():

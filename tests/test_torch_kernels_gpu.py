@@ -48,6 +48,13 @@ FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (1, 256, 256, 32, 8, 160, True, 0, 0),     # g = 4, as pixtral-12b
     (2, 100, 100, 8, 2, 160, True, 0, 0),      # ragged Sq
     (1, 150, 150, 6, 2, 160, False, 32, 0),    # window, non-causal
+    # whisper-medium: cross prefill (Sq != Sk, Sk = 1500: a last tile of
+    # 28 keys), cross decode (Sq = 1), the encoder (1500 x 1500, no mask);
+    # pixtral-12b's prefill (256 patches + 512 tokens, hd 160)
+    (1, 512, 1500, 16, 16, 64, False, 0, 0),
+    (8, 1, 1500, 16, 16, 64, False, 0, 0),
+    (1, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (1, 768, 768, 32, 8, 160, True, 0, 0),
 ]
 SSD_SHAPES = [  # B, S, H, hd, N, chunk
     (2, 128, 4, 32, 16, 64), (1, 96, 3, 64, 128, 32), (2, 64, 2, 64, 128, 16),

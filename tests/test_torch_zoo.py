@@ -1,7 +1,10 @@
 """Port parity: the dense zoo configs ``qwen2.5-3b`` and ``phi4-mini-3.8b``.
 
 * the port's configs equal the reference's field for field, ``source``
-  included; phi4-mini's vocab of 200064 is a multiple of the 128-row pad;
+  included (and so do this slice's whisper-medium and pixtral-12b, with
+  their encoder, patch and MLA fields); phi4-mini's vocab of 200064 is a
+  multiple of the 128-row pad; minicpm3-4b, whose MLA is not ported, is
+  no arch of the port;
 * each at reduced depth and width (2 layers, d_model 256, vocab 512) that
   keeps what defines it: its q and KV head counts (GQA groups 8 and 3),
   the explicit head_dim 128, QKV bias on (qwen2.5-3b) or off
@@ -42,6 +45,10 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 FIELDS = ("name", "kind", "n_layers", "d_model", "n_heads", "n_kv", "d_ff",
           "vocab", "vocab_padded", "hd", "head_dim", "qkv_bias",
           "rope_theta", "sliding_window", "source")
+# the enc_dec and vlm configs' further fields
+NEW_ARCHS = ["whisper-medium", "pixtral-12b"]
+NEW_FIELDS = FIELDS + ("n_enc_layers", "enc_len", "n_patches", "mla_q_rank",
+                       "mla_kv_rank", "mla_rope_dim", "mla_v_dim")
 
 
 def _small(cfg):
@@ -74,8 +81,14 @@ def test_configs_match_reference():
     assert (p.n_heads // p.n_kv, p.hd, p.qkv_bias, p.rope_theta) == \
         (3, 128, False, 10_000.0)
     assert p.vocab == p.vocab_padded == 200064 == 1563 * 128
+    for arch in NEW_ARCHS:
+        for ref, port in ((ref_get_config(arch), get_config(arch)),
+                          (ref_get_config(arch).reduced(),
+                           get_config(arch).reduced())):
+            for f in NEW_FIELDS:
+                assert getattr(ref, f) == getattr(port, f), (arch, f)
     with pytest.raises(KeyError, match="ROADMAP queue 1, item 9"):
-        get_config("whisper-medium")
+        get_config("minicpm3-4b")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
