@@ -89,10 +89,11 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill per model.
   7b. mamba2_train: the mamba2-370m trainer (``build_program`` +
      ``attach_train``, as ``launch/train.py --mesh 8x1`` builds it) at full
-     width and 12 of its 48 layers, so that the whole run stays inside its
-     time limit (24 layers until phase 7h came; global batch 8 x 512, Zen
-     on ``embed/table``, 4 steps): finite loss, 0 overflow, ``ssd_fwd``
-     launched 12 x 8 x steps times under ``SSDScan`` with as many plain
+     width and 6 of its 48 layers, so that the whole run stays inside its
+     time limit (24 layers until phase 7h came, 12 until phase 7i; global
+     batch 8 x 512, Zen on ``embed/table``, 4 steps): finite loss, 0
+     overflow, ``ssd_fwd`` launched 6 x 8 x steps times under ``SSDScan``
+     with as many plain
      recomputes
      in its backward, Zen's kernels 8 x steps times, nothing plain; the
      plain route (``--backend torch``): step-0 loss within 5e-3, the same
@@ -203,6 +204,28 @@ Phases (any failure exits non-zero; nothing is caught):
      version (one bf16 ulp, 2e-5) and bitwise equal across two calls, timed
      beside SDPA and the bound (rows 9g-9k); the Zen kernels at the two
      new tables are ``new_shapes`` rows k-l.
+  7i. mla_zero1: minicpm3-4b (62 layers, d 2560, 40 heads; MLA: q from a
+     rank-768 latent, K/V from a rank-256 latent and one shared 32-wide
+     RoPE key a position, q/k 96 = 64 + rope 32, v 64) served at full size
+     as in phase 7 (``launch/serve.py``, 8 prompts of 512 tokens, 16 greedy
+     tokens; bf16 timed twice; every prefill 62 ``flash_fwd`` at (96, 64),
+     decode none (its absorbed-matrix einsums against the latent cache),
+     nothing plain; f32 kernels vs the plain route within 1e-3 and the same
+     greedy tokens; one profiled bf16 prefill), then trained under ZeRO-1
+     at full width on 2x1 (2 x 512 tokens, Zen on ``embed/table``, 2
+     steps) at 38 of 62 layers (the peak under 70 GiB) on both routes:
+     losses, grad norm, words and overflow bitwise, the Zen kernels once a
+     rank a step, nothing plain.  ``flash_fwd`` at its prefill shape (B 8,
+     S 512, 40 / 40 heads, q/k 96, v 64, causal) against the plain
+     version in bf16 (one ulp) and f32 (2e-5), bitwise across two calls,
+     timed beside SDPA and the bound (row 9l).  Then ZeRO-1: the phase-4
+     qwen2-0.5b 8x1 trainer in this process, 4 steps under ZeRO-1 and under
+     the full update: losses 12.4552, 9.8899, 12.8994, 9.4000 on both,
+     every parameter and moment bitwise; and ``launch/train.py --mesh 2x1
+     --dist gloo`` under ZeRO-1 (2 steps) against the in-process 2x1 ZeRO-1
+     run: losses and words bitwise, each process holding half the
+     moments.  The earlier phases keep the full update (``--no-zero1``,
+     ``zero1=False``), so that their numbers compare with PRs 11-26.
   8. dist (run right after the build, while this process holds no card
      memory: four full-width ranks need most of it): data parallelism over
      a real ``torch.distributed`` gloo group, one process per rank, every
@@ -1159,7 +1182,7 @@ def train_unfused(steps: int) -> dict:
     from repro_torch.train.steps import TrainerConfig
 
     cfg = get_config("qwen2-0.5b")
-    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4),
+    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4), zero1=False,
                          sync=SyncConfig(scheme="zen", density_budget=0.25,
                                          **UNFUSED))
     prog = build_program(cfg, "8x1", tcfg, device="cuda", seed=0)
@@ -1238,10 +1261,12 @@ def phase_breakdown(steps: int = 2) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
 
     torch.cuda.empty_cache()
     cfg = get_config("qwen2-0.5b")
-    prog = build_program(cfg, "8x1", device="cuda")
+    prog = build_program(cfg, "8x1", TrainerConfig(zero1=False),
+                         device="cuda")
     attach_train(prog)
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8)))
 
@@ -1268,10 +1293,12 @@ OVERLAP_REPEATS = 5
 
 def qwen_argv(n: int, steps: int, *extra: str) -> list[str]:
     """``launch/train.py``'s flags for the qwen2-0.5b smoke trainer on an
-    ``n`` x 1 mesh: Zen, global batch 8 x 512 tokens."""
+    ``n`` x 1 mesh: Zen, global batch 8 x 512 tokens, the full update
+    (``--no-zero1``: these phases' numbers compare with the runs before
+    ZeRO-1 came; phase 7i runs ZeRO-1)."""
     return ["--arch", "qwen2-0.5b", "--mesh", f"{n}x1", "--sync", "zen",
             "--global-batch", "8", "--seq-len", "512", "--steps", str(steps),
-            "--log-every", "1", *extra]
+            "--log-every", "1", "--no-zero1", *extra]
 
 
 def check_launches(tag: str, launches: dict, plain: dict,
@@ -1349,9 +1376,11 @@ def compress_program(scheme: str = "zen", backend: str = "cuda"):
     from repro_torch.train.build import attach_train, build_program
     from repro_torch.train.steps import TrainerConfig
 
-    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4), sync=SyncConfig(
-        scheme=scheme, density_budget=0.25, bucket_bytes=BUCKET_BYTES,
-        compress=COMPRESS, backend=backend))
+    tcfg = TrainerConfig(opt=OptConfig(lr=3e-4), zero1=False,
+                         sync=SyncConfig(
+                             scheme=scheme, density_budget=0.25,
+                             bucket_bytes=BUCKET_BYTES, compress=COMPRESS,
+                             backend=backend))
     prog = build_program(get_config("qwen2-0.5b"), "8x1", tcfg,
                          device="cuda", seed=0, backend=backend)
     attach_train(prog)
@@ -1491,7 +1520,12 @@ def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops as K
 
-    torch.cuda.empty_cache()
+    # step0_checks frees and allocates one bucket's [8, S] temporaries after
+    # another, up to 4.06 GiB at lm_head/w near the phase's 66.8 GiB peak:
+    # with fixed-size segments the allocator once held 13 GiB there that no
+    # such block fit in.  This phase's segments grow in place instead.
+    free_card()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     data = iter(SyntheticLM(get_config("qwen2-0.5b"),
                             DataConfig(seq_len=512, batch=8, seed=0)))
     batches = [{k: torch.as_tensor(v, device="cuda").long()
@@ -1564,6 +1598,8 @@ def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
         f"dense; median step s after the first {res['median_step_s']}, "
         f"tok/s {run['tok_per_s']}, peak {peak:.2f} GiB | {smi}")
     log(f"[compress] json {json.dumps(res)}")
+    free_card()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     return res
 
 
@@ -1649,7 +1685,8 @@ def profiled_bucketed_step(smi: str) -> dict:
     torch.cuda.empty_cache()
     cfg = get_config("qwen2-0.5b")
     prog = build_program(cfg, "8x1", TrainerConfig(
-        sync=SyncConfig(bucket_bytes=BUCKET_BYTES)), device="cuda")
+        zero1=False, sync=SyncConfig(bucket_bytes=BUCKET_BYTES)),
+        device="cuda")
     attach_train(prog)
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8)))
     batches = [{k: torch.as_tensor(v, device="cuda").long()
@@ -2262,7 +2299,8 @@ def smoke_trainer(n: int, group=None, dev="cuda", bucket_bytes=None):
 
     cfg = get_config("qwen2-0.5b")
     prog = build_program(cfg, f"{n}x1", TrainerConfig(
-        sync=SyncConfig(bucket_bytes=bucket_bytes)), device=dev, group=group)
+        zero1=False, sync=SyncConfig(bucket_bytes=bucket_bytes)), device=dev,
+        group=group)
     attach_train(prog)
     b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8))))
     return prog, {k: torch.as_tensor(v, device=dev).long()
@@ -2572,11 +2610,12 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def flash_inputs(dtype, B, S, H, KV, hd, Sk=None):
+def flash_inputs(dtype, B, S, H, KV, hd, Sk=None, hd_v=None):
     g = torch.Generator(device="cuda").manual_seed(0)
     Sk = S if Sk is None else Sk
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd),
+                          (B, Sk, KV, hd_v or hd))]
 
 
 def ssd_inputs(B, S, H, hd, N):
@@ -2846,11 +2885,12 @@ ZOO_PEAK_GIB = 70.0
 
 
 def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
-                 backend: str = "cuda") -> dict:
+                 backend: str = "cuda", zero1: bool = False) -> dict:
     """``cfg`` (cut to a depth, say) trained as ``launch/train.py`` would
     (``build_program`` + ``attach_train``, mesh ``n`` x 1 in this process,
     Zen, SyntheticLM batches of ``batch`` x ``seq`` tokens from seed 0) for
-    ``steps`` steps on the ``backend`` route: losses, grad norms, words,
+    ``steps`` steps on the ``backend`` route, with the full update (the
+    runs before ZeRO-1 came) or ``zero1``: losses, grad norms, words,
     overflow, an MoE model's ``moe/*`` stats, step seconds (host clock
     after a sync), tok/s, the kernel counts, parameters and peak memory."""
     from repro_torch.core.zen import SyncConfig
@@ -2862,8 +2902,8 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     prog = build_program(cfg, f"{n}x1", TrainerConfig(
-        sync=SyncConfig(scheme="zen", backend=backend)), device="cuda",
-        seed=0, backend=backend)
+        zero1=zero1, sync=SyncConfig(scheme="zen", backend=backend)),
+        device="cuda", seed=0, backend=backend)
     attach_train(prog)
     params = sum(p.numel() for p in prog.model.parameters())
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=seq, batch=batch)))
@@ -3394,13 +3434,284 @@ def phase_enc_dec_vlm(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# minicpm3-4b's MLA and ZeRO-1
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3-4b"
+# served at all 62 layers (8.5 GB of bf16 weights); trained on 2x1 at 38
+# of them, 2.76B parameters, by the zoo's rule (ZOO)
+MLA_TRAIN_LAYERS = 38
+# flash_fwd at minicpm3's prefill: q/k 96 (64 + rope 32), v 64, 40 heads
+MLA_FLASH = dict(B=8, S=512, H=40, KV=40, hd=96, hd_v=64)
+# the 8x1 qwen2-0.5b trainer's losses on every route since PR 11, at the
+# launcher's 4 decimals
+SMOKE_LOSSES = ("12.4552", "9.8899", "12.8994", "9.4000")
+ZERO1_GLOO = dict(n=2, steps=2)
+
+
+def mla_kernel_shape(smi: str) -> dict:
+    """``flash_fwd`` at ``MLA_FLASH`` in bf16 and f32: two calls bitwise
+    equal, within one bf16 ulp / ``FLASH_F32_TOL`` of the plain version;
+    the bf16 call timed beside SDPA (``is_causal``, v at 64) and the
+    bound (row 9l)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K, ref as R
+
+    err, rows = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(dtype, **MLA_FLASH)
+        got = K.flash_fwd_op(q, k, v)
+        same([K.flash_fwd_op(q, k, v)], [got], "flash_fwd MLA: second call")
+        want = R.flash_fwd_ref(q, k, v)
+        diff = (got.float() - want.float()).abs()
+        bf16 = dtype == torch.bfloat16
+        tol = bf16_ulp(want) + 1e-6 if bf16 else FLASH_F32_TOL
+        worst = float(diff.max())
+        if got.shape != want.shape or not bool((diff <= tol).all()):
+            raise AssertionError(f"flash_fwd MLA {MLA_FLASH} {dtype}: "
+                                 f"differs from the plain version (max abs "
+                                 f"{worst}, shape {tuple(got.shape)})")
+        err = max(err, worst)
+        log(f"[mla_zero1] flash_fwd {MLA_FLASH} {dtype}, causal: out "
+            f"{tuple(got.shape)}, two calls bitwise equal, max abs {worst} "
+            f"from the plain version, within "
+            f"{'one bf16 ulp' if bf16 else FLASH_F32_TOL}")
+        if not bf16:
+            continue
+        B, S, H, hd = q.shape
+        hd_v = v.shape[-1]
+        pairs = B * H * S * (S + 1) // 2
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = time_row(
+            f"flash_fwd (minicpm3-4b prefill, {H} / {k.shape[2]} heads, q/k "
+            f"{hd}, v {hd_v}, S {S}, bfloat16)",
+            lambda: K.flash_fwd_op(q, k, v), lambda: R.flash_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            q.element_size() * (q.numel() + k.numel() + 2 * v.numel()),
+            2 * pairs * (hd + hd_v), BF16_OPS_PER_S, smi, plain_iters=5)
+        rows.append({**row, "kernel": "flash_fwd", "row": "9l"})
+        del qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"err": {"flash_fwd": err}, "rows": rows}
+
+
+def mla_train(smi: str) -> dict:
+    """minicpm3-4b at full width and ``MLA_TRAIN_LAYERS`` deep on
+    ``ZOO_TRAIN``'s mesh, batch and steps under ZeRO-1, on both routes: the
+    kernel route bitwise the plain route (losses, grad norm, words,
+    overflow; the trainer's attention is plain on both), overflow 0, the
+    Zen kernels once a rank a step, nothing plain, the peak under
+    ``ZOO_PEAK_GIB``."""
+    from repro_torch.kernels import ops as K
+
+    cfg = serve_cfg(MLA_ARCH, MLA_TRAIN_LAYERS)
+    z = ZOO_TRAIN
+    runs = {b: direct_train(cfg, z["n"], z["batch"], z["seq"], z["steps"], b,
+                            zero1=True) for b in ("cuda", "torch")}
+    run, plain = runs["cuda"], runs["torch"]
+    for key in ("losses", "grad_norm", "sparse_words_by_step", "overflow"):
+        if run[key] != plain[key]:
+            raise AssertionError(f"[mla_zero1] {MLA_ARCH} trainer {key}: "
+                                 f"kernels {run[key]} != plain {plain[key]}")
+    check_launches(f"[mla_zero1] {MLA_ARCH} trainer", run["launches"],
+                   run["plain"], {k: z["steps"] * v for k, v in
+                                  K.path_launches(z["n"]).items()})
+    if any(plain["launches"].values()):
+        raise AssertionError(f"[mla_zero1] trainer: plain route launches "
+                             f"{plain['launches']}")
+    if not all(np.isfinite(run["losses"])) or any(run["overflow"]):
+        raise AssertionError(f"[mla_zero1] trainer: losses {run['losses']} "
+                             f"overflow {run['overflow']}")
+    log(f"[mla_zero1] {MLA_ARCH} trainer under ZeRO-1, {MLA_TRAIN_LAYERS} of "
+        f"{serve_cfg(MLA_ARCH).n_layers} layers ({run['params'] / 1e9:.3f} B "
+        f"parameters), mesh {z['n']}x1, {z['batch']} x {z['seq']} tokens: "
+        f"losses={run['losses']} grad_norm={run['grad_norm']} "
+        f"words={run['sparse_words_by_step']} overflow={run['overflow']} "
+        f"(plain route bitwise) step_s={run['step_s']} (plain route "
+        f"{plain['step_s']}) tok/s {run['tok_per_s']:.1f} peak "
+        f"{run['peak_gib']:.2f} GiB (plain route {plain['peak_gib']:.2f}) "
+        f"launches {run['launches']} | {smi}")
+    if max(run["peak_gib"], plain["peak_gib"]) > ZOO_PEAK_GIB:
+        raise AssertionError(f"[mla_zero1] trainer peak {run['peak_gib']} "
+                             f"GiB > {ZOO_PEAK_GIB}")
+    return {"kernels": run, "plain": plain}
+
+
+def zero1_smoke(zero1: bool, steps: int = 4) -> dict:
+    """The phase-4 trainer (qwen2-0.5b, 8x1 in this process, Zen, 8 x 512
+    tokens, seed 0) built as ``launch/train.py`` builds it, under ZeRO-1
+    or the full update: losses, launches (counted from 0 around the run),
+    step seconds, the parameters and the moments (each flattened, on the
+    card) and the moments' bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.zen import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as K
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
+
+    cfg = get_config("qwen2-0.5b")
+    prog = build_program(cfg, "8x1", TrainerConfig(
+        opt=OptConfig(lr=3e-4), zero1=zero1,
+        sync=SyncConfig(scheme="zen", density_budget=0.25)), device="cuda",
+        seed=0)
+    attach_train(prog)
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8, seed=0)))
+    out = {"losses": [], "step_s": []}
+    K.reset_counts()
+    for _ in range(steps):
+        b = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = prog.train_step(b)
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.time() - t0)
+        if float(m["sync/overflow"]):
+            raise AssertionError(f"zero1={zero1} trainer overflow")
+    out.update(launches=dict(K.LAUNCHES), plain=dict(K.PLAIN_CALLS))
+    leaves = prog.opt_state()["leaves"]
+    out["params"] = {n: p.detach().reshape(-1).clone()
+                     for n, p in prog.model.named_leaves()}
+    out["moments"] = {(n, k): m.reshape(-1).clone()
+                      for n, st in leaves.items() for k, m in st.items()}
+    out["moment_bytes"] = sum(m.numel() * 4 for m in out["moments"].values())
+    del prog
+    free_card()
+    return out
+
+
+def zero1_in_process(smi: str) -> dict:
+    """``zero1_smoke`` under ZeRO-1 and under the full update: the ZeRO-1
+    losses the smoke trainer's ``SMOKE_LOSSES`` and bitwise the full
+    update's, every parameter bitwise, each leaf's moments the full
+    update's (flattened, zero-padded to 8 x c), the fused Zen kernels 8 a
+    step, nothing plain."""
+    from repro_torch.kernels import ops as K
+
+    z = zero1_smoke(True)
+    f = zero1_smoke(False)
+    steps = len(z["losses"])
+    for tag, r in (("zero1", z), ("full", f)):
+        check_launches(f"[mla_zero1] 8x1 {tag} trainer", r["launches"],
+                       r["plain"], {k: steps * v for k, v in
+                                    K.path_launches(8).items()})
+    shown = tuple(f"{x:.4f}" for x in z["losses"])
+    if shown != SMOKE_LOSSES or z["losses"] != f["losses"]:
+        raise AssertionError(f"[mla_zero1] 8x1 ZeRO-1 losses {z['losses']} "
+                             f"({shown}); full update {f['losses']}; "
+                             f"expected {SMOKE_LOSSES}")
+    for n, p in z["params"].items():
+        if not torch.equal(bits(p), bits(f["params"][n])):
+            raise AssertionError(f"[mla_zero1] ZeRO-1 parameter {n} differs "
+                                 f"from the full update's")
+    for (n, k), m in z["moments"].items():
+        full = f["moments"][n, k]
+        if not torch.equal(bits(m[:full.numel()]), bits(full)) \
+                or bool(m[full.numel():].any()):
+            raise AssertionError(f"[mla_zero1] ZeRO-1 moment {n}/{k} is not "
+                                 f"the full update's")
+    log(f"[mla_zero1] qwen2-0.5b 8x1 in one process under ZeRO-1: losses "
+        f"{z['losses']} ({', '.join(shown)}), bitwise the full update's; "
+        f"{len(z['params'])} parameters and {len(z['moments'])} moments "
+        f"bitwise; moments {z['moment_bytes']} B ([8, c] a leaf) against "
+        f"{f['moment_bytes']} B; step_s {z['step_s']} (full update "
+        f"{f['step_s']}); launches {z['launches']} | {smi}")
+    return {"zero1": {k: z[k] for k in ("losses", "step_s", "launches",
+                                        "moment_bytes")},
+            "full": {k: f[k] for k in ("losses", "step_s", "moment_bytes")}}
+
+
+def zero1_gloo(smi: str, full_bytes: int) -> dict:
+    """``launch/train.py --mesh 2x1 --dist gloo`` (ZeRO-1, the default) on
+    2 ranks of this card against the in-process 2x1 ZeRO-1 run: losses,
+    words and overflow bitwise, each rank's kernels once a step, nothing
+    plain; each process holds its own [1, c] row of every leaf's moments,
+    half the in-process run's [2, c] (``full_bytes``: the full update's
+    moments, which every process would hold)."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+
+    n, steps = ZERO1_GLOO["n"], ZERO1_GLOO["steps"]
+    argv = [a for a in qwen_argv(n, steps) if a != "--no-zero1"]
+    free_card()
+    out = run_ranks(n, ["-m", "repro_torch.launch.train", *argv, "--dist",
+                        "gloo"], "mla_zero1 gloo")
+    lines = [ln for ln in out.splitlines() if ln.startswith("dist result ")]
+    if len(lines) != 1:
+        raise AssertionError(f"gloo ZeRO-1 trainer printed {len(lines)} "
+                             f"result lines:\n{out[-4000:]}")
+    dres = json.loads(lines[0][len("dist result "):])
+    K.reset_counts()
+    local = train.main(argv)
+    free_card()
+    for key in ("losses", "sparse_words_by_step", "overflow"):
+        if dres[key] != local[key]:
+            raise AssertionError(f"[mla_zero1] gloo ZeRO-1 {key} "
+                                 f"{dres[key]} != in-process {local[key]}")
+    for k in K.KERNELS:
+        want = steps * K.path_launches(1).get(k, 0)
+        if dres["launches_by_rank"][k] != [want] * n or dres["plain_calls"][k]:
+            raise AssertionError(f"[mla_zero1] gloo ZeRO-1: {k} launched "
+                                 f"{dres['launches_by_rank'][k]} by rank")
+    if 2 * dres["moment_bytes"] != local["moment_bytes"]:
+        raise AssertionError(f"[mla_zero1] gloo ZeRO-1 moments "
+                             f"{dres['moment_bytes']} B a process, in-process "
+                             f"{local['moment_bytes']} B")
+    log(f"[mla_zero1] qwen2-0.5b 2x1 over gloo under ZeRO-1: losses "
+        f"{dres['losses']} words {dres['sparse_words_by_step']} bitwise the "
+        f"in-process run's; moments a process {dres['moment_bytes']} B "
+        f"against {local['moment_bytes']} B in one process (both ranks) and "
+        f"{full_bytes} B a process under the full update; step_s "
+        f"{dres['step_s']} (in process {local['step_s']}) | {smi}")
+    return {"gloo": {k: dres[k] for k in ("losses", "moment_bytes",
+                                          "step_s")},
+            "in_process": {k: local[k] for k in ("losses", "moment_bytes")},
+            "full_moment_bytes": full_bytes}
+
+
+def phase_mla_zero1(smi: str) -> dict:
+    """minicpm3-4b served at full size (``serve_arch``: bf16 timed twice,
+    one ``flash_fwd`` at (96, 64) a layer a prefill, nothing plain; f32
+    kernels vs the plain route within 1e-3 and the same greedy tokens; one
+    profiled bf16 prefill) and trained under ZeRO-1 (``mla_train``); the
+    kernel at its prefill shape (row 9l); then ZeRO-1 in one process
+    (``zero1_in_process``) and over gloo (``zero1_gloo``)."""
+    from repro_torch.kernels import ops as K
+
+    cfg = serve_cfg(MLA_ARCH)
+    log(f"[mla_zero1] {MLA_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, q/k {cfg.hd} + rope {cfg.mla_rope_dim}, v "
+        f"{cfg.mla_v_dim}, ranks q {cfg.mla_q_rank} / kv {cfg.mla_kv_rank}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}); "
+        f"served at full size, trained at {MLA_TRAIN_LAYERS} layers")
+    served = serve_arch(MLA_ARCH, {"flash_fwd": cfg.n_layers}, 1e-3)
+    for r in served["bf16"] + [served["f32"]]:
+        if r["decode_launches"] != {k: 0 for k in K.MODEL_KERNELS}:
+            raise AssertionError(f"[mla_zero1] decode launched "
+                                 f"{r['decode_launches']}")
+    log(f"[mla_zero1] {MLA_ARCH}: flash_fwd {cfg.n_layers} a prefill at q/k "
+        f"96, v 64, none in decode (the latent einsums), nothing plain")
+    model = {**served, "trainer": mla_train(smi)}
+    shape = mla_kernel_shape(smi)
+    in_process = zero1_in_process(smi)
+    return {"models": {MLA_ARCH: model}, **shape, "zero1_8x1": in_process,
+            "zero1_gloo": zero1_gloo(smi,
+                                     in_process["full"]["moment_bytes"])}
+
+
+# ---------------------------------------------------------------------------
 # the Mamba2 trainer: ssd_fwd under autograd
 # ---------------------------------------------------------------------------
 
-# mamba2-370m at full width, 8 x 512 tokens; 12 of its 48 layers keep the
-# whole smoke inside its time limit (the phase took 351 s at full depth and
-# 186 s at 24 layers, on one H100)
-MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=12)
+# mamba2-370m at full width, 8 x 512 tokens; 6 of its 48 layers keep the
+# whole smoke inside its time limit (the phase took 351 s at full depth,
+# 186 s at 24 layers and 90 s at 12, on one H100)
+MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=6)
 
 
 def mamba_cfg():
@@ -3458,13 +3769,15 @@ def mamba2_repeated_batch(smi: str, steps: int = 10) -> list[float]:
     the same at 12 layers)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
 
     cfg = mamba_cfg()
     batch = {k: torch.as_tensor(v, device="cuda").long()
              for k, v in next(iter(SyntheticLM(cfg, DataConfig(
                  seq_len=MAMBA_TRAIN["seq"],
                  batch=MAMBA_TRAIN["batch"])))).items()}
-    prog = build_program(cfg, "1x1", device="cuda")
+    prog = build_program(cfg, "1x1", TrainerConfig(zero1=False),
+                         device="cuda")
     attach_train(prog)
     metrics = [prog.train_step(batch) for _ in range(steps)]
     losses = [float(m["loss"]) for m in metrics]
@@ -3484,10 +3797,12 @@ def mamba2_breakdown() -> dict:
     device ms by category, ``ssd_fwd``'s kernels' ms, idle share."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train.build import attach_train, build_program
+    from repro_torch.train.steps import TrainerConfig
 
     m = MAMBA_TRAIN
     cfg = mamba_cfg()
-    prog = build_program(cfg, f"{m['n']}x1", device="cuda")
+    prog = build_program(cfg, f"{m['n']}x1", TrainerConfig(zero1=False),
+                         device="cuda")
     attach_train(prog)
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=m["seq"],
                                             batch=m["batch"])))
@@ -3937,7 +4252,8 @@ def main(argv=None) -> None:
                          "all: kernels (with kernels_wide and new_shapes),"
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
-                         "hier,zoo,hybrid_moe,enc_dec_vlm,dist,times "
+                         "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,"
+                         "times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -3993,6 +4309,9 @@ def main(argv=None) -> None:
     # and for whisper and pixtral (pixtral's trainer about 60 GiB)
     edv = phase_enc_dec_vlm(dev_info["smi"]) if want("enc_dec_vlm") else None
     phase_done("enc_dec_vlm")
+    # and for minicpm3 (its trainer about 60 GiB) and ZeRO-1
+    mla = phase_mla_zero1(dev_info["smi"]) if want("mla_zero1") else None
+    phase_done("mla_zero1")
     kern = phase_kernels(dev) if want("kernels") or want("times") else None
     wide = (phase_kernels_wide(dev, dev_info["smi"], timed=want("times"))
             if want("kernels") or want("times") or "kernels_wide" in only
@@ -4061,27 +4380,29 @@ def main(argv=None) -> None:
     if zoo:
         by_path.update({f"zoo trainer {a}": v["trainer"]
                         for a, v in zoo.items()})
-    for part in (hybrid_moe, edv):
+    for part in (hybrid_moe, edv, mla):
         by_path.update({f"trainer {a}": v["trainer"]["kernels"]
                         for a, v in (part or {}).get("models", {}).items()})
+    if mla:
+        by_path["trainer --zero1 (8x1)"] = mla["zero1_8x1"]["zero1"]
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
         for a, k in SERVE_KERNEL.items():
             path_launches[k][f"serve {a}"] = served[a]["launches"][k]
     for group in (zoo, hybrid_moe and hybrid_moe["models"],
-                  edv and edv["models"]):
+                  edv and edv["models"], mla and mla["models"]):
         for a, v in (group or {}).items():
             for k, n in v["launches"].items():
                 if n:
                     path_launches[k][f"serve {a}"] = n
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for part in (wide, shapes, hybrid_moe, edv):
+    for part in (wide, shapes, hybrid_moe, edv, mla):
         for k, e in (part["err"] if part else {}).items():
             errs[k] = max(errs.get(k, 0.0), e)
-    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec and vlm
+    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec, vlm and MLA
     # paths' shapes
-    new_rows = [r for part in (shapes, hybrid_moe, edv) if part
+    new_rows = [r for part in (shapes, hybrid_moe, edv, mla) if part
                 for r in part["rows"]]
     table = []
     for row in times:

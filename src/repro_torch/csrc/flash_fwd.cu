@@ -6,7 +6,9 @@
 // prefill attention of every attention layer).  Plain version:
 // repro_torch/kernels/ref.py :: flash_fwd_ref.
 //
-// Layout: q [B, Sq, H, HD], k and v [B, Sk, KV, HD], o like q; H = g * KV.
+// Layout: q [B, Sq, H, HD_QK], k [B, Sk, KV, HD_QK], v [B, Sk, KV, HD_V],
+// o [B, Sq, H, HD_V]; H = g * KV.  HD_QK = HD_V at hd 32 / 64 / 128 / 160;
+// MLA (minicpm3) has q/k of 96 (64 + rope 32) and v of 64.
 // Query row i sits at position q_offset + i, key j at j; a row keeps the
 // keys lo <= j <= hi with hi = min(pos, Sk - 1) when causal (else Sk - 1)
 // and lo = pos - window + 1 when window > 0 (else 0).  A row with no key
@@ -30,11 +32,11 @@
 //   K by ldmatrix.  The online softmax runs in registers on unscaled
 //   scores: each thread holds rows lane/4 and lane/4 + 8 of its warp's C
 //   fragment, the row max is a __shfl_xor over the 4 threads of a row,
-//   (m, l) stay in f32, and p = 2^(s c - m c) with c = log2(e) / sqrt(HD)
-//   on the special-function unit.  On diagonal, window-edge and tail tiles
-//   the keys out of a row's range (past Sk, above the diagonal, before the
-//   window) score kNeg and give p = 0 -- also in a row that has kept no key
-//   yet, which exponentiates against 0 instead of kNeg.
+//   (m, l) stay in f32, and p = 2^(s c - m c) with c = log2(e) /
+//   sqrt(HD_QK) on the special-function unit.  On diagonal, window-edge and
+//   tail tiles the keys out of a row's range (past Sk, above the diagonal,
+//   before the window) score kNeg and give p = 0 -- also in a row that has
+//   kept no key yet, which exponentiates against 0 instead of kNeg.
 //   P.V: P is split exactly into three bf16 parts, P = P_hi + P_mid +
 //   P_lo (split3_bf16), and O += P_hi V + P_mid V + P_lo V on mma.sync
 //   (V by ldmatrix.trans), so P.V is exact products with f32 sums, as in
@@ -46,10 +48,13 @@
 //   f32 P.
 //
 // The K/V ring is dynamic shared memory at every width (86,016 B at hd
-// 160), and V is read one 16-column tile at a time inside the P.V loop,
-// so only 4 of its registers are live.  hd 128 and 160 (qwen2.5-3b,
-// phi4-mini, the MoE configs; pixtral-12b) run one block an SM: Q's
-// fragments and O's accumulators take HD / 4 + HD / 2 registers a thread.
+// 160), K's rows HD_QK + 8 and V's HD_V + 8 elements apart, and V is read
+// one 16-column tile at a time inside the P.V loop, so only 4 of its
+// registers are live.  Q K^T takes HD_QK / 16 k-steps (6 at MLA's 96), O
+// has HD_V / 8 column tiles (8 at its 64).  hd 128 and 160 (qwen2.5-3b,
+// phi4-mini, the MoE configs; pixtral-12b) and MLA's (96, 64) run one
+// block an SM: Q's fragments and O's accumulators take HD_QK / 4 + HD_V /
+// 2 registers a thread, past what two blocks of 8 warps leave.
 //
 // f32: the FMA units.  One block per (batch, KV head, 128 / g query
 // positions) holds the g q heads of a KV head, so each K/V tile (f32 in
@@ -57,9 +62,9 @@
 // registers and (m, l, o) are updated every 16 keys.  It stays off the
 // tensor cores: TF32 keeps about 3 decimal digits, too few for the f32
 // gate of 2e-5.  A query row is one thread at hd 32 / 64; at hd 128 / 160
-// four adjacent lanes share it, each holding a quarter of q and o, and the
-// dot products are summed across the four by __shfl_xor, an order the
-// 2e-5 gate allows.
+// and MLA's (96, 64) four adjacent lanes share it, each holding a quarter
+// of q and of o, and the dot products are summed across the four by
+// __shfl_xor, an order the 2e-5 gate allows.
 //
 // Both skip tiles wholly above the causal diagonal or before the window.
 //
@@ -167,31 +172,42 @@ __device__ __forceinline__ void split3_bf16(float x, float y,
 
 // The K/V ring (2 stages of K and V) in dynamic shared memory: 20,480 /
 // 36,864 / 69,632 / 86,016 B at hd 32 / 64 / 128 / 160, past the 48 KB a
-// static array may take at the last two.
-template <int HD>
+// static array may take at the last two; 45,056 B at (96, 64).
+template <int HDQ, int HDV>
 constexpr int bf16_smem_bytes() {
-  return 2 * 2 * kBN * (HD + kPad) * (int)sizeof(__nv_bfloat16);
+  return 2 * kBN * (HDQ + kPad + HDV + kPad) * (int)sizeof(__nv_bfloat16);
 }
 
-// One block an SM at hd 128 / 160: Q's fragments and O's accumulators take
-// HD / 4 + HD / 2 registers a thread, too many for two blocks of 8 warps.
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, HD > 64 ? 1 : 2)
+// Q's fragments and O's accumulators take HDQ / 4 + HDV / 2 registers a
+// thread: two blocks of 8 warps an SM up to 48 of them (hd 32, 64), one
+// block past that (hd 128, 160; MLA's 24 + 32).
+template <int HDQ, int HDV>
+constexpr int bf16_blocks_per_sm() {
+  return HDQ / 4 + HDV / 2 > 48 ? 1 : 2;
+}
+
+template <int HDQ, int HDV>
+__global__ void __launch_bounds__(kMmaThreads, bf16_blocks_per_sm<HDQ, HDV>())
 flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int B, int Sq,
                           int Sk, int H, int KV, int causal, int window,
                           int q_offset, float scale_log2e) {
-  constexpr int LD = HD + kPad;  // shared-memory row stride, elements
-  constexpr int KS = HD / 16;    // k-steps of Q K^T
-  constexpr int ND = HD / 8;     // 8-column tiles of O
-  constexpr int NK = kBN / 16;   // 16-key groups of a tile
-  constexpr int CPR = HD / 8;    // 16-byte chunks per key row
-  constexpr int STAGE = kBN * LD;  // elements of one ring stage
+  constexpr int LDK = HDQ + kPad;  // shared-memory row strides, elements
+  constexpr int LDV = HDV + kPad;
+  constexpr int KS = HDQ / 16;     // k-steps of Q K^T
+  constexpr int ND = HDV / 8;      // 8-column tiles of O
+  constexpr int NK = kBN / 16;     // 16-key groups of a tile
+  constexpr int CPK = HDQ / 8;     // 16-byte chunks per key row of K
+  constexpr int CPV = HDV / 8;     // and of V
+  constexpr int KSTAGE = kBN * LDK;  // elements of one ring stage of K
+  constexpr int VSTAGE = kBN * LDV;  // and of V
+  static_assert(kBN * CPK % kMmaThreads == 0 && kBN * CPV % kMmaThreads == 0,
+                "a tile's 16-byte chunks must split over the block");
   extern __shared__ __align__(16) unsigned char flash_smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(flash_smem);
-  __nv_bfloat16* vs = ks + 2 * STAGE;  // each [2][kBN * LD]
+  __nv_bfloat16* vs = ks + 2 * KSTAGE;  // [2][kBN * LDK], [2][kBN * LDV]
 
   // block -> (row tile, heaviest first; KV head; batch).  The rows of a
   // (batch, KV head) are its Sq x g (query, q head) pairs, query-major, so
@@ -227,7 +243,7 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int all_lo = window > 0 ? wpos_hi - window + 1 : 0;
 
   // this thread's two rows (C-fragment rows lane/4 and lane/4 + 8): their
-  // offsets in q and o (in rows of HD) and the keys each keeps
+  // row index in q and o (rows of HDQ and of HDV) and the keys each keeps
   bool live_row[2];
   size_t qrow[2];
   int lo[2], hi[2];
@@ -252,22 +268,31 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int half = 0; half < 2; ++half) {
         uint32_t x = 0u;
         if (live_row[r])
-          x = *reinterpret_cast<const uint32_t*>(q + qrow[r] * HD + 16 * s +
+          x = *reinterpret_cast<const uint32_t*>(q + qrow[r] * HDQ + 16 * s +
                                                  8 * half + 2 * tq);
         qf[s][r + 2 * half] = x;
       }
 
   auto load_tile = [&](int stage, int t0) {
 #pragma unroll
-    for (int i = 0; i < kBN * CPR / kMmaThreads; ++i) {
+    for (int i = 0; i < kBN * CPK / kMmaThreads; ++i) {
       const int c = tid + i * kMmaThreads;
-      const int j = c / CPR, part = c - j * CPR;
+      const int j = c / CPK, part = c - j * CPK;
       const int key = t0 + j;
       const bool ok = key < Sk;
       const size_t off =
-          (((size_t)b * Sk + (ok ? key : 0)) * KV + kvh) * HD + 8 * part;
-      cp_async16(ks + stage * STAGE + j * LD + 8 * part, k + off, ok);
-      cp_async16(vs + stage * STAGE + j * LD + 8 * part, v + off, ok);
+          (((size_t)b * Sk + (ok ? key : 0)) * KV + kvh) * HDQ + 8 * part;
+      cp_async16(ks + stage * KSTAGE + j * LDK + 8 * part, k + off, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kBN * CPV / kMmaThreads; ++i) {
+      const int c = tid + i * kMmaThreads;
+      const int j = c / CPV, part = c - j * CPV;
+      const int key = t0 + j;
+      const bool ok = key < Sk;
+      const size_t off =
+          (((size_t)b * Sk + (ok ? key : 0)) * KV + kvh) * HDV + 8 * part;
+      cp_async16(vs + stage * VSTAGE + j * LDV + 8 * part, v + off, ok);
     }
     cp_async_commit();
   };
@@ -292,8 +317,8 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile it is in shared memory for every warp
     if (warp_live && t0 <= any_hi && t0 + kBN - 1 >= any_lo) {
       const bool edge = !(t0 + kBN - 1 <= all_hi && t0 >= all_lo);
-      const __nv_bfloat16* kt = ks + st * STAGE;
-      const __nv_bfloat16* vt = vs + st * STAGE;
+      const __nv_bfloat16* kt = ks + st * KSTAGE;
+      const __nv_bfloat16* vt = vs + st * VSTAGE;
       // 16-key groups that hold a key some row of the warp keeps
       bool live[NK];
 #pragma unroll
@@ -312,7 +337,7 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < NK; ++j) {
           if (!live[j]) continue;
           uint32_t r[4];  // b0/b1 of key tiles 2j and 2j + 1
-          ldsm_x4(r, kt + (16 * j + (lane >> 4) * 8 + (lane & 7)) * LD +
+          ldsm_x4(r, kt + (16 * j + (lane >> 4) * 8 + (lane & 7)) * LDK +
                          16 * s + ((lane >> 3) & 1) * 8);
           mma_bf16(sc[2 * j], qf[s], r[0], r[1]);
           mma_bf16(sc[2 * j + 1], qf[s], r[2], r[3]);
@@ -384,10 +409,10 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
           split3_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3], p);
           a[0][3] = p[0], a[1][3] = p[1], a[2][3] = p[2];
         }
-        // one 16-column V tile at a time (4 registers, not HD / 2); each
+        // one 16-column V tile at a time (4 registers, not HDV / 2); each
         // accumulator takes P_hi, P_mid, P_lo in that order
         const __nv_bfloat16* vrow =
-            vt + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+            vt + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDV +
             (lane >> 4) * 8;
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
@@ -410,7 +435,7 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (!live_row[r]) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* out = o + qrow[r] * HD + 2 * tq;
+    __nv_bfloat16* out = o + qrow[r] * HDV + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) = __floats2bfloat162_rn(
@@ -418,7 +443,7 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HDQ, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int KV, int causal, int window,
                 int q_offset, cudaStream_t stream) {
@@ -426,18 +451,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const long long blocks = (rows + kBM - 1) / kBM * KV * B;
   if (rows > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = bf16_smem_bytes<HD>();
+  constexpr int smem = bf16_smem_bytes<HDQ, HDV>();
   static int smem_set[kMaxDevices];
   const cudaError_t err =
-      allow_smem(flash_fwd_bf16_mma_kernel<HD>, smem, smem_set);
+      allow_smem(flash_fwd_bf16_mma_kernel<HDQ, HDV>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_bf16_mma_kernel<HD><<<(unsigned)blocks, kMmaThreads, smem,
-                                  stream>>>(
+  flash_fwd_bf16_mma_kernel<HDQ, HDV><<<(unsigned)blocks, kMmaThreads, smem,
+                                        stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       B, Sq, Sk, H, KV, causal, window, q_offset,
-      1.4426950408889634f / sqrtf((float)HD));
+      1.4426950408889634f / sqrtf((float)HDQ));
   return (int)cudaGetLastError();
 }
 
@@ -449,35 +474,39 @@ constexpr int kRows = 128;      // query rows per block
 constexpr int kSub = 16;        // keys per online-softmax update
 constexpr int kKeys = 64;       // keys per shared-memory tile
 
-// Lanes a query row is split over: at hd 128 / 160 a row's q and o (HD
-// floats each) do not fit one thread's registers.  With one lane (hd 32 /
-// 64) the shuffle loop is empty and the row's sums run in column order.
-template <int HD>
-constexpr int kSplit = HD > 64 ? 4 : 1;
+// Lanes a query row is split over: at hd 128 / 160 (and q/k 96) a row's q
+// and o do not fit one thread's registers.  With one lane (hd 32 / 64) the
+// shuffle loop is empty and the row's sums run in column order.
+template <int HDQ, int HDV>
+constexpr int kSplit = HDQ > 64 || HDV > 64 ? 4 : 1;
 
 // The K/V tile (64 keys of K and V, f32) in dynamic shared memory: 16 / 32
-// / 64 / 80 KB at hd 32 / 64 / 128 / 160.
-template <int HD>
+// / 64 / 80 KB at hd 32 / 64 / 128 / 160, 40 KB at (96, 64).
+template <int HDQ, int HDV>
 constexpr int f32_smem_bytes() {
-  return 2 * kKeys * HD * (int)sizeof(float);
+  return kKeys * (HDQ + HDV) * (int)sizeof(float);
 }
 
 // SPLIT adjacent lanes share a row, each owning the float4 chunks
-// c = sub + SPLIT u of it; the q.k dot product is summed over the lanes by
-// __shfl_xor (the row's lanes only), after which every lane holds the same
-// scores and runs the same online softmax on its own columns.
-template <int HD, int SPLIT = kSplit<HD>>
+// c = sub + SPLIT u of its q (and k) and of its o (and v); the q.k dot
+// product is summed over the lanes by __shfl_xor (the row's lanes only),
+// after which every lane holds the same scores and runs the same online
+// softmax on its own columns of o.
+template <int HDQ, int HDV, int SPLIT = kSplit<HDQ, HDV>>
 __global__ void __launch_bounds__(kRows * SPLIT, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int Sq, int Sk, int H, int KV, int causal, int window,
                      int q_offset, float scale) {
-  constexpr int C4 = HD / 4;        // float4 chunks of a row
-  constexpr int CT = C4 / SPLIT;    // chunks a lane owns
-  static_assert(C4 % SPLIT == 0, "HD / 4 must split over the lanes");
+  constexpr int CQ = HDQ / 4;       // float4 chunks of a q / k row
+  constexpr int CV = HDV / 4;       // and of a v / o row
+  constexpr int TQ = CQ / SPLIT;    // chunks a lane owns
+  constexpr int TV = CV / SPLIT;
+  static_assert(CQ % SPLIT == 0 && CV % SPLIT == 0,
+                "HD / 4 must split over the lanes");
   extern __shared__ __align__(16) unsigned char flash_smem[];
-  float4* ks = reinterpret_cast<float4*>(flash_smem);   // [kKeys][C4]
-  float4* vs = ks + kKeys * C4;
+  float4* ks = reinterpret_cast<float4*>(flash_smem);   // [kKeys][CQ]
+  float4* vs = ks + kKeys * CQ;                         // [kKeys][CV]
 
   const int g = H / KV;
   const int bq = kRows / g;  // query positions per block
@@ -500,34 +529,40 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_begin =
       window > 0 ? max(0, q_offset + q0 - window + 1) / kKeys * kKeys : 0;
 
-  float qr[4 * CT], acc[4 * CT];
+  float qr[4 * TQ], acc[4 * TV];
   float m = kNeg, l = 0.f;
   const size_t row = ((size_t)b * Sq + i) * H + (size_t)kvh * g + hh;
 #pragma unroll
-  for (int u = 0; u < CT; ++u) {
+  for (int u = 0; u < TQ; ++u) {
     const int c = sub + SPLIT * u;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (active) x = *reinterpret_cast<const float4*>(q + row * HD + 4 * c);
+    if (active) x = *reinterpret_cast<const float4*>(q + row * HDQ + 4 * c);
     qr[4 * u] = x.x * scale;
     qr[4 * u + 1] = x.y * scale;
     qr[4 * u + 2] = x.z * scale;
     qr[4 * u + 3] = x.w * scale;
   }
 #pragma unroll
-  for (int d = 0; d < 4 * CT; ++d) acc[d] = 0.f;
+  for (int d = 0; d < 4 * TV; ++d) acc[d] = 0.f;
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += kKeys) {
     __syncthreads();  // every row is done with the previous tile
-    for (int e = threadIdx.x; e < kKeys * C4; e += kRows * SPLIT) {
-      const int j = e / C4, c = e - j * C4;
+    for (int e = threadIdx.x; e < kKeys * CQ; e += kRows * SPLIT) {
+      const int j = e / CQ, c = e - j * CQ;
       const int key = t0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < Sk) {
-        const size_t off = (((size_t)b * Sk + key) * KV + kvh) * HD + 4 * c;
-        kk = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key < Sk)
+        kk = *reinterpret_cast<const float4*>(
+            k + (((size_t)b * Sk + key) * KV + kvh) * HDQ + 4 * c);
       ks[e] = kk;
+    }
+    for (int e = threadIdx.x; e < kKeys * CV; e += kRows * SPLIT) {
+      const int j = e / CV, c = e - j * CV;
+      const int key = t0 + j;
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key < Sk)
+        vv = *reinterpret_cast<const float4*>(
+            v + (((size_t)b * Sk + key) * KV + kvh) * HDV + 4 * c);
       vs[e] = vv;
     }
     __syncthreads();
@@ -540,10 +575,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = kNeg;
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
-        const float4* kr = ks + (s0 + jj) * C4 + sub;
+        const float4* kr = ks + (s0 + jj) * CQ + sub;
         float dot = 0.f;
 #pragma unroll
-        for (int u = 0; u < CT; ++u) {
+        for (int u = 0; u < TQ; ++u) {
           const float4 kk = kr[SPLIT * u];
           dot = fmaf(qr[4 * u], kk.x, dot);
           dot = fmaf(qr[4 * u + 1], kk.y, dot);
@@ -567,12 +602,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l = l * corr + ps;
 #pragma unroll
-      for (int u = 0; u < CT; ++u) {
+      for (int u = 0; u < TV; ++u) {
         float a0 = acc[4 * u] * corr, a1 = acc[4 * u + 1] * corr;
         float a2 = acc[4 * u + 2] * corr, a3 = acc[4 * u + 3] * corr;
 #pragma unroll
         for (int jj = 0; jj < kSub; ++jj) {
-          const float4 vv = vs[(s0 + jj) * C4 + sub + SPLIT * u];
+          const float4 vv = vs[(s0 + jj) * CV + sub + SPLIT * u];
           a0 = fmaf(p[jj], vv.x, a0);
           a1 = fmaf(p[jj], vv.y, a1);
           a2 = fmaf(p[jj], vv.z, a2);
@@ -589,28 +624,30 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (active) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int u = 0; u < CT; ++u)
-      *reinterpret_cast<float4*>(o + row * HD + 4 * (sub + SPLIT * u)) =
+    for (int u = 0; u < TV; ++u)
+      *reinterpret_cast<float4*>(o + row * HDV + 4 * (sub + SPLIT * u)) =
           make_float4(acc[4 * u] / den, acc[4 * u + 1] / den,
                       acc[4 * u + 2] / den, acc[4 * u + 3] / den);
   }
 }
 
-template <int HD>
+template <int HDQ, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KV, int causal, int window,
                int q_offset, cudaStream_t stream) {
   const int g = H / KV;
   const int bq = kRows / g;
   const dim3 grid((Sq + bq - 1) / bq, KV, B);
-  constexpr int smem = f32_smem_bytes<HD>();
+  constexpr int smem = f32_smem_bytes<HDQ, HDV>();
   static int smem_set[kMaxDevices];
-  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<HD>, smem, smem_set);
+  const cudaError_t err =
+      allow_smem(flash_fwd_f32_kernel<HDQ, HDV>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_f32_kernel<HD><<<grid, kRows * kSplit<HD>, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      causal, window, q_offset, 1.0f / sqrtf((float)HD));
+  flash_fwd_f32_kernel<HDQ, HDV>
+      <<<grid, kRows * kSplit<HDQ, HDV>, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H,
+          KV, causal, window, q_offset, 1.0f / sqrtf((float)HDQ));
   return (int)cudaGetLastError();
 }
 
@@ -618,42 +655,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q [B, Sq, H, hd], k/v [B, Sk, KV, hd] -> o [B, Sq, H, hd], all of one
-// dtype (0 = float32: the FMA kernel; 1 = bfloat16: the tensor-core
-// kernel), contiguous, 16-byte aligned.  hd in {32, 64, 128, 160};
-// H % KV == 0 with H / KV <= 128.  Returns the cudaError_t of the launch
-// (0 = success).
+// q [B, Sq, H, hd], k [B, Sk, KV, hd], v [B, Sk, KV, hd_v] -> o [B, Sq, H,
+// hd_v], all of one dtype (0 = float32: the FMA kernel; 1 = bfloat16: the
+// tensor-core kernel), contiguous, 16-byte aligned.  (hd, hd_v) in {(32,
+// 32), (64, 64), (128, 128), (160, 160), (96, 64)}; H % KV == 0 with H / KV
+// <= 128.  Returns the cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KV, int hd, int dtype,
-                     int causal, int window, int q_offset, void* stream) {
+                     int B, int Sq, int Sk, int H, int KV, int hd, int hd_v,
+                     int dtype, int causal, int window, int q_offset,
+                     void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > kRows || B > 65535 || KV > 65535)
+      H / KV > kRows || B > 65535 || KV > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 64)
-    return launch_f32<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, s);
-  if (dtype == 0 && hd == 32)
-    return launch_f32<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, s);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, s);
-  if (dtype == 1 && hd == 32)
-    return launch_bf16<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, s);
-  if (dtype == 0 && hd == 128)
-    return launch_f32<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, s);
-  if (dtype == 0 && hd == 160)
-    return launch_f32<160>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, s);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            q_offset, s);
-  if (dtype == 1 && hd == 160)
-    return launch_bf16<160>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            q_offset, s);
+#define FLASH_CASE(HDQ, HDV)                                                \
+  if (hd == HDQ && hd_v == HDV)                                             \
+    return dtype == 0 ? launch_f32<HDQ, HDV>(q, k, v, o, B, Sq, Sk, H, KV,  \
+                                             causal, window, q_offset, s)   \
+                      : launch_bf16<HDQ, HDV>(q, k, v, o, B, Sq, Sk, H, KV, \
+                                              causal, window, q_offset, s);
+  FLASH_CASE(64, 64)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(160, 160)
+  FLASH_CASE(96, 64)
+#undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }
 

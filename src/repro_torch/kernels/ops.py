@@ -93,7 +93,7 @@ _SIGNATURES = {
         "scatter_add_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_fwd": {
-        "flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 10 + [_P], _I),
+        "flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 11 + [_P], _I),
         "flash_fwd_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd_fwd": {
@@ -593,16 +593,20 @@ def zen_commit_pull_unfused(words: torch.Tensor, cap_server: int,
 # ---------------------------------------------------------------------------
 
 FLASH_HEAD_DIMS = (32, 64, 128, 160)
+# (q/k head dim, v head dim) pairs the kernel takes: k = v at each of
+# FLASH_HEAD_DIMS, and MLA's q/k of 96 (64 + rope 32) with v of 64
+FLASH_HEAD_PAIRS = tuple((hd, hd) for hd in FLASH_HEAD_DIMS) + ((96, 64),)
 
 
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: int = 0,
                  q_offset: int = 0) -> torch.Tensor:
-    """GQA attention with an online softmax in f32: q [B, Sq, H, hd], k/v
-    [B, Sk, KV, hd] -> [B, Sq, H, hd] in q's dtype (``ref.flash_fwd_ref``
-    says which keys each query row keeps).  The kernel takes bfloat16 (on
-    the tensor cores) or float32 (on the FMA units), hd in
-    ``FLASH_HEAD_DIMS`` and H / KV <= 128."""
+    """GQA attention with an online softmax in f32: q [B, Sq, H, hd], k
+    [B, Sk, KV, hd], v [B, Sk, KV, hd_v] -> [B, Sq, H, hd_v] in q's dtype
+    (``ref.flash_fwd_ref`` says which keys each query row keeps).  The
+    kernel takes bfloat16 (on the tensor cores) or float32 (on the FMA
+    units), (hd, hd_v) in ``FLASH_HEAD_PAIRS`` and H / KV <= 128; any
+    other pair raises ``ValueError``."""
     if not q.is_cuda:
         PLAIN_CALLS["flash_fwd"] += 1
         return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
@@ -613,22 +617,24 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, q.dtype, 4, f"flash_fwd {what}")
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if not (q.device == k.device == v.device) or v.shape != k.shape \
-            or k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV \
-            or H // KV > 128 or hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: need q [B, Sq, H, hd] and k = v "
-                         f"[B, Sk, KV, hd] on one device, H % KV == 0, "
-                         f"H / KV <= 128, hd in {FLASH_HEAD_DIMS}; got "
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    if not (q.device == k.device == v.device) \
+            or v.shape[:3] != k.shape[:3] or k.shape[0] != B \
+            or k.shape[3] != hd or KV == 0 or H % KV or H // KV > 128 \
+            or (hd, hd_v) not in FLASH_HEAD_PAIRS:
+        raise ValueError(f"flash_fwd: need q [B, Sq, H, hd], k [B, Sk, KV, "
+                         f"hd] and v [B, Sk, KV, hd_v] on one device, H % KV "
+                         f"== 0, H / KV <= 128, hd in {FLASH_HEAD_DIMS} with "
+                         f"hd_v = hd or (hd, hd_v) = (96, 64); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, hd_v))
     if out.numel() == 0:
         return out
     _aligned(q, k, v)
     lib = _lib("flash_fwd")
     rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, Sq, Sk, H, KV, hd,
+                              out.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
                               _DTYPE_CODE[q.dtype], int(causal), int(window),
                               int(q_offset), _stream(q))
     _check(lib, "flash_fwd", rc, "flash_fwd launch")

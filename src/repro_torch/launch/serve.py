@@ -11,12 +11,13 @@ prompt (attention on the ``flash_fwd`` kernel, the Mamba2 scan on
 ``ssd_fwd``; zamba2 runs both, MoE models route each layer's tokens to
 their experts; whisper encodes its batch's stub frames on ``flash_fwd``
 and cross-attends to them, pixtral puts its stub patches before the
-prompt; ``--backend torch`` takes the plain versions) and its cache
-is carried over to decode: the first new token is the argmax of prefill's
-last-position logits, and each of the ``--gen - 1`` decode steps feeds the
-last token and takes the next (whisper's cross-attention one ``flash_fwd``
-a layer a step).  (The reference example instead replays the prompt
-through decode and feeds its last token twice.)
+prompt, minicpm3's MLA attends on ``flash_fwd`` at q/k 96 and v 64 and
+keeps the latent cache; ``--backend torch`` takes the plain versions) and
+its cache is carried over to decode: the first new token is the argmax of
+prefill's last-position logits, and each of the ``--gen - 1`` decode
+steps feeds the last token and takes the next (whisper's cross-attention
+one ``flash_fwd`` a layer a step).  (The reference example instead
+replays the prompt through decode and feeds its last token twice.)
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.train.build import Program, attach_serve, build_program
 
 ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b",
          "zamba2-1.2b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
-         "whisper-medium", "pixtral-12b")
+         "whisper-medium", "pixtral-12b", "minicpm3-4b")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -72,22 +73,24 @@ def handoff(prog: Program, cache: dict) -> dict:
     """The decode cache continuing a prefill ``cache``: a
     ``make_cache(B, S + gen)`` cache with ``t = S`` (a VLM's S counts its
     patch prefix) whose attention entries hold the prompt's S K/V slots
-    and positions, and an encoder-decoder layer's entry the prefill's
-    cross cache; a Mamba2 entry (SSD state and conv tail) is the decode
-    cache already and is taken as it is.  The entries are in execution
-    order (the hybrid's attention applications among its Mamba2
-    layers)."""
+    (MLA's latent c and kr) and positions, and an encoder-decoder layer's
+    entry the prefill's cross cache; a Mamba2 entry (SSD state and conv
+    tail) is the decode cache already and is taken as it is.  The entries
+    are in execution order (the hybrid's attention applications among its
+    Mamba2 layers)."""
     dec = prog.fresh_cache()
     S = cache["t"]
     for i, (new, old) in enumerate(zip(dec["layers"], cache["layers"])):
-        if "k" not in new:
+        if "pos" not in new:
             dec["layers"][i] = old
             continue
-        new["k"][:, :S] = old["k"]
-        new["v"][:, :S] = old["v"]
-        new["pos"][:S] = old["pos"]
-        if "cross" in old:
-            new["cross"] = old["cross"]
+        for key, val in old.items():
+            if key == "cross":
+                new[key] = val
+            elif key == "pos":
+                new[key][:S] = val
+            else:
+                new[key][:, :S] = val
     dec["t"] = S
     return dec
 

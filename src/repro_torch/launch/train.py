@@ -26,8 +26,10 @@ then across the nodes (``core/topology.py``; ``--sync auto`` prices the
 plans on the α-β topology, whose defaults, or ``--alpha-beta``'s values,
 are planning constants, not measurements).  Flags the port does not run
 yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
-``--no-zero1`` is accepted: the port always runs the full update, which
-gives the same numbers as ZeRO-1.
+The optimizer runs ZeRO-1, as the reference's does: each of the P x D
+ranks updates its flat chunk of every leaf and keeps only that chunk's
+moments, and the chunks are all-gathered back; ``--no-zero1`` runs the
+full update on every rank instead (the same parameters, bit for bit).
 ``--no-fused-commit`` runs Zen's commit through the pre-fusion chain of
 kernels (scatter-add, bitmap pack and unpack) instead of the push and pull
 megakernels, with the same results.  ``--bucket-bytes N`` fuses
@@ -53,7 +55,8 @@ decoders, whose router stats (``moe/aux_loss``, ``moe/dropped``,
 ``moe/skew``) are logged beside the loss; ``whisper-medium`` the
 encoder-decoder (its batches carry f32 stub ``frames``) and
 ``pixtral-12b`` the VLM backbone (f32 stub ``patches``, a prefix whose
-positions take no loss).  The plan GradSync runs is printed at start.
+positions take no loss); ``minicpm3-4b`` the dense decoder with MLA.
+The plan GradSync runs is printed at start.
 """
 from __future__ import annotations
 
@@ -130,8 +133,9 @@ def main(argv=None) -> dict:
     bucket), each logged step's words by level on a two-level topology
     (``intra_words``, ``inter_words``), an MoE model's router stats at
     each logged step (``moe``: ``{"moe/aux_loss": [...], ...}``, group
-    means) and the kernels' launches and plain calls in the run, summed
-    over the group."""
+    means), the bytes of the optimizer moments this process holds
+    (``moment_bytes``: under ZeRO-1 its ranks' chunks) and the kernels'
+    launches and plain calls in the run, summed over the group."""
     args = parse_args(argv)
     if args.dist is None:
         return _train(args, None, args.device)
@@ -153,7 +157,7 @@ def _train(args, group, device) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     tcfg = TrainerConfig(
-        opt=OptConfig(lr=args.lr),
+        opt=OptConfig(lr=args.lr), zero1=not args.no_zero1,
         sync=SyncConfig(scheme=args.sync, density_budget=args.density_budget,
                         bucket_bytes=args.bucket_bytes, compress=args.compress,
                         alpha_beta=args.alpha_beta, calib_file=args.calib_file,
@@ -272,6 +276,9 @@ def _train(args, group, device) -> dict:
            "dense_words": dwords, "replans": replans, **levels,
            **({"moe": moe} if moe else {}),
            "plan": prog.gradsync.describe(),
+           "moment_bytes": sum(m.numel() * m.element_size()
+                               for st in prog.opt_state()["leaves"].values()
+                               for m in st.values()),
            "buckets": [{"kind": b.kind, "nbytes": b.nbytes,
                         "leaves": len(b.slots),
                         "dtype": str(b.slots[0].dtype).replace("torch.", "")}

@@ -1,7 +1,9 @@
-"""GQA attention with QKV bias and RoPE, and the encoder's and the
-cross-attention's variants (port of ``repro.models.attention``:
-``gqa_train``, ``gqa_make_cache``, ``gqa_prefill_cache``, ``gqa_decode``,
-``gqa_make_cross_cache`` and ``gqa_cross_decode``).
+"""GQA attention with QKV bias and RoPE, the encoder's and the
+cross-attention's variants, and MLA, multi-head latent attention (port of
+``repro.models.attention``: ``gqa_train``, ``gqa_make_cache``,
+``gqa_prefill_cache``, ``gqa_decode``, ``gqa_make_cross_cache``,
+``gqa_cross_decode``, ``init_mla``, ``_mla_qkv``, ``mla_train``,
+``mla_make_cache`` and ``mla_decode``).
 
 :meth:`GQA.forward` is the trainer's: plain PyTorch with autograd --
 scores by matmul in f32, the causal mask (when ``causal``), an f32 softmax
@@ -26,6 +28,19 @@ every decode step attend to that cache.  In f32 this is the reference's
 arithmetic; in bf16 it rounds the cross K/V once where the reference
 keeps them in f32 (``tests/test_torch_whisper.py`` holds the bf16 model
 to the reference at a stated tolerance).
+
+:class:`MLA` (minicpm3) splits its work the same way.  q comes from a
+rank-``mla_q_rank`` latent (``q_down``, ``q_norm``, ``q_up``) as
+``hd`` "nope" columns and ``mla_rope_dim`` RoPE columns a head; K/V from
+a rank-``mla_kv_rank`` latent ``c`` (``kv_down``, ``kv_norm``) and one
+shared RoPE key ``kr`` a position (the last ``mla_rope_dim`` columns of
+``kv_down``), ``kv_up`` giving each head's nope key and its value of
+``mla_v_dim``.  So q/k are ``hd + mla_rope_dim`` wide (96 for minicpm3)
+and v ``mla_v_dim`` (64), and the softmax scale is that of q/k's width.
+The trainer's attention is plain; the prefill's is ``flash_fwd`` at that
+(96, 64) pair; the decode cache is the latent one (``c``, ``kr`` and
+``pos``: no per-head K/V), and decode attends to it with ``kv_up``
+absorbed into q and the output (the reference's f32 einsums, no kernel).
 """
 from __future__ import annotations
 
@@ -35,9 +50,27 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import (NEG, Linear, cache_write,
+from repro_torch.models.layers import (NEG, Linear, RMSNorm, cache_write,
                                        decode_attention, flash_attention,
                                        rope)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """The trainer's attention under autograd: q [B, S, H, hd], k [B, Sk,
+    KV, hd], v [B, Sk, KV, hd_v] -> [B, S, H * hd_v] in q's dtype; scores
+    by matmul in f32 at scale 1/sqrt(hd), the causal mask (when
+    ``causal``), an f32 softmax and the weighted sum."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(hd))).view(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.float())
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
+    return o.reshape(B, S, H * v.shape[-1]).to(q.dtype)
 
 
 def gqa_make_cache(cfg: ArchConfig, batch: int, seq: int, *,
@@ -84,21 +117,12 @@ class GQA(nn.Module):
                 kv_src: torch.Tensor | None = None) -> torch.Tensor:
         """The trainer's attention over x [B, S, d]; with ``kv_src`` [B, Sk,
         d] the cross-attention (no RoPE, no mask)."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        H, hd, KV = cfg.n_heads, cfg.hd, cfg.n_kv
-        g = H // KV
+        S = x.shape[1]
         rot = use_rope and kv_src is None
         q, k, v = self._qkv(x, torch.arange(S, device=x.device) if rot
                             else None, kv_src)
-        qf = (q.float() * (1.0 / math.sqrt(hd))).view(B, S, KV, g, hd)
-        s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.float())
-        if causal and kv_src is None:
-            mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-            s = torch.where(mask, s, torch.full_like(s, NEG))
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
-        return self.o(o.reshape(B, S, H * hd).to(x.dtype))
+        return self.o(plain_attention(q, k, v,
+                                      causal=causal and kv_src is None))
 
     def prefill(self, x: torch.Tensor, *, backend: str = "cuda",
                 causal: bool = True, use_rope: bool = True,
@@ -153,3 +177,115 @@ class GQA(nn.Module):
         o = flash_attention(q, cross["k"], cross["v"], causal=False,
                             backend=backend)
         return self.o(o.reshape(B, -1))
+
+
+def mla_make_cache(cfg: ArchConfig, batch: int, seq: int, *,
+                   device=None) -> dict:
+    """One MLA layer's empty latent cache: c [batch, seq, mla_kv_rank] and
+    kr [batch, seq, mla_rope_dim] zeros in the model's dtype, pos [seq] =
+    -1 (never written)."""
+    kw = dict(dtype=cfg.dtype, device=device)
+    return {"c": torch.zeros((batch, seq, cfg.mla_kv_rank), **kw),
+            "kr": torch.zeros((batch, seq, cfg.mla_rope_dim), **kw),
+            "pos": torch.full((seq,), -1, dtype=torch.int32, device=device)}
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention (minicpm3): see the module docstring."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        d, H = cfg.d_model, cfg.n_heads
+        hd, rd, vd = cfg.hd, cfg.mla_rope_dim, cfg.mla_v_dim
+        qr, kvr = cfg.mla_q_rank, cfg.mla_kv_rank
+        kw = dict(dtype=cfg.dtype, device=device, gen=gen)
+        self.q_down = Linear(d, qr, **kw)
+        self.q_up = Linear(qr, H * (hd + rd), **kw)
+        self.kv_down = Linear(d, kvr + rd, **kw)
+        self.kv_up = Linear(kvr, H * (hd + vd), **kw)
+        self.o = Linear(H * vd, d, **kw)
+        self.q_norm = RMSNorm(qr, device=device)
+        self.kv_norm = RMSNorm(kvr, device=device)
+
+    def _qkv(self, x: torch.Tensor, pos: torch.Tensor):
+        """(q [B, S, H, hd + rd] with RoPE on its last rd columns, the latent
+        c [B, S, kvr], the shared RoPE key kr [B, S, rd]) of x [B, S, d] at
+        positions ``pos`` [S] (the reference's ``_mla_qkv``)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, kvr = cfg.hd, cfg.mla_kv_rank
+        q = self.q_up(self.q_norm(self.q_down(x))).view(
+            B, S, cfg.n_heads, hd + cfg.mla_rope_dim)
+        kv_c = self.kv_down(x)
+        c = self.kv_norm(kv_c[..., :kvr])
+        kr = rope(kv_c[:, :, None, kvr:], pos, cfg.rope_theta)[:, :, 0]
+        q = torch.cat([q[..., :hd], rope(q[..., hd:], pos, cfg.rope_theta)],
+                      dim=-1)
+        return q, c, kr
+
+    def _kv(self, c: torch.Tensor, kr: torch.Tensor):
+        """Per-head k [B, S, H, hd + rd] (each head's nope key, then the
+        shared RoPE key) and v [B, S, H, vd] from the latent, contiguous."""
+        cfg = self.cfg
+        B, S, _ = c.shape
+        H, hd = cfg.n_heads, cfg.hd
+        kv = self.kv_up(c).view(B, S, H, hd + cfg.mla_v_dim)
+        k = torch.cat([kv[..., :hd], kr[:, :, None, :].expand(
+            B, S, H, cfg.mla_rope_dim)], dim=-1)
+        return k, kv[..., hd:].contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The trainer's causal attention over x [B, S, d] (plain, under
+        autograd; the reference's ``mla_train``)."""
+        S = x.shape[1]
+        q, c, kr = self._qkv(x, torch.arange(S, device=x.device))
+        k, v = self._kv(c, kr)
+        return self.o(plain_attention(q, k, v, causal=True))
+
+    def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
+        """Causal attention over a prompt x [B, S, d] on ``flash_fwd`` at
+        (hd + rd, vd) -> (out [B, S, d], this layer's latent cache: c and
+        kr of the S prompt positions, pos = 0..S-1)."""
+        B, S, _ = x.shape
+        pos = torch.arange(S, device=x.device)
+        q, c, kr = self._qkv(x, pos)
+        k, v = self._kv(c, kr)
+        o = flash_attention(q, k, v, causal=True, backend=backend)
+        cache = {"c": c, "kr": kr, "pos": pos.to(torch.int32)}
+        return self.o(o.reshape(B, S, -1)), cache
+
+    def decode(self, x: torch.Tensor, cache: dict, t: int, *,
+               window: int = 0) -> torch.Tensor:
+        """One token x [B, d] at position ``t`` (the reference's
+        ``mla_decode``): its latent and RoPE key go into ``cache`` (IN
+        PLACE), then q's nope part, through ``kv_up``'s key half, scores
+        against the latent and its RoPE part against kr, in f32 at scale
+        1/sqrt(hd + rd); the softmax-weighted latent goes through
+        ``kv_up``'s value half.  Returns [B, d]."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, hd, kvr = cfg.n_heads, cfg.hd, cfg.mla_kv_rank
+        q, c_new, kr_new = self._qkv(x[:, None],
+                                     torch.full((1,), t, device=x.device))
+        q = q[:, 0]
+        w_up = self.kv_up.w.view(kvr, H, hd + cfg.mla_v_dim).float()
+        q_lat = torch.einsum("bhd,khd->bhk", q[..., :hd].float(),
+                             w_up[..., :hd])                  # [B, H, kvr]
+        cache_write(cache["c"][:, :, None], cache["kr"][:, :, None],
+                    cache["pos"], c_new, kr_new, t)
+        cc, krc, pos = cache["c"].float(), cache["kr"].float(), cache["pos"]
+        s = (torch.einsum("bhk,bsk->bhs", q_lat, cc)
+             + torch.einsum("bhr,bsr->bhs", q[..., hd:].float(), krc)) \
+            * (1.0 / math.sqrt(hd + cfg.mla_rope_dim))
+        valid = (pos >= 0) & (pos <= t)
+        if window > 0:
+            valid &= pos > t - window
+        s = torch.where(valid, s, NEG)
+        p = torch.where(valid, torch.exp(s - s.max(-1, keepdim=True).values),
+                        0.0)
+        ctx = torch.einsum("bhs,bsk->bhk", p, cc) \
+            / p.sum(-1).clamp(min=1e-30)[..., None]
+        out = torch.einsum("bhk,khv->bhv", ctx, w_up[..., hd:]).to(x.dtype)
+        return self.o(out.reshape(B, -1))

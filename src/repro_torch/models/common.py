@@ -1,12 +1,10 @@
 """Architecture config of the PyTorch port.
 
 Own copy of ``repro.models.common.ArchConfig`` (the dense-decoder, MoE,
-Mamba2, hybrid, encoder-decoder and VLM fields the port runs, and the MLA
-fields, which ``Model`` refuses until MLA is ported): ``dtype`` is a
-torch dtype, ``reduced()``
-gives the same smoke-test shapes as the reference, and ``vocab_padded``
-rounds the vocab up to a fixed multiple of ``VOCAB_PAD`` that does not
-depend on the mesh.
+Mamba2, hybrid, encoder-decoder, VLM and MLA fields the port runs):
+``dtype`` is a torch dtype, ``reduced()`` gives the same smoke-test shapes
+as the reference, and ``vocab_padded`` rounds the vocab up to a fixed
+multiple of ``VOCAB_PAD`` that does not depend on the mesh.
 """
 from __future__ import annotations
 
@@ -48,7 +46,7 @@ class ArchConfig:
     ssm_chunk: int = 64
     # --- hybrid (zamba2-style shared attention block) ---
     shared_attn_every: int = 0     # apply shared attn block every k ssm layers
-    # --- MLA (minicpm3; not ported: ROADMAP queue 1, item 9) ---
+    # --- MLA (minicpm3) ---
     mla_q_rank: int = 0            # 0 -> standard GQA
     mla_kv_rank: int = 0
     mla_rope_dim: int = 32

@@ -111,8 +111,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     backend: str = "cuda") -> torch.Tensor:
-    """Prefill attention, GQA: q [B, Sq, H, hd], k/v [B, Sk, KV, hd] ->
-    [B, Sq, H, hd] in q's dtype, online softmax in f32.
+    """Prefill attention, GQA: q [B, Sq, H, hd], k [B, Sk, KV, hd], v [B,
+    Sk, KV, hd_v] -> [B, Sq, H, hd_v] in q's dtype, online softmax in f32
+    (``hd_v`` differs from ``hd`` for MLA: 96 and 64).
 
     ``backend="cuda"`` goes through ``ops.flash_fwd_op``: the hand-written
     kernel for CUDA tensors (or an error), the plain version for CPU

@@ -8,7 +8,9 @@ synchronizes (DESIGN.md §4).  Layers are per-layer modules instead of the
 reference's stacked ``lax.scan`` arrays; :meth:`Model.load_reference_params`
 carries a reference parameter pytree over.
 
-* ``dense``: pre-norm GQA + SwiGLU decoder layers;
+* ``dense``: pre-norm GQA + SwiGLU decoder layers; with ``mla_q_rank``
+  set (minicpm3) the attention is MLA (``models/attention.py``), whose
+  decode cache is the latent one;
 * ``moe``: the same layers with the MoE FFN (``models/moe.py``) in place of
   the SwiGLU;
 * ``ssm``: Mamba2 layers;
@@ -28,14 +30,13 @@ carries a reference parameter pytree over.
 * ``vlm`` (pixtral): a dense decoder whose input is the batch's stub
   ``patches`` [B, P, d] through ``vis_proj`` (no bias), cast to the
   model's dtype, then the token embeddings, at positions 0..P+S-1; the
-  patch positions are dropped before the head.  A config with
-  ``mla_kv_rank`` set (minicpm3's MLA) raises: MLA is ROADMAP queue 1,
-  item 9, and is never built as GQA.
+  patch positions are dropped before the head.
 
 Every path runs the layers in execution order (``Model.exec_layers``: for
 the hybrid, the shared layer once per group), and the decode cache holds
 one entry per application in that order: K/V for an attention
-application, the SSD state and conv tail for a Mamba2 layer.
+application (MLA's latent c and RoPE key kr), the SSD state and conv tail
+for a Mamba2 layer.
 
 Training: :meth:`Model.train_loss` returns ``(loss, metrics)``: ``loss``
 is the differentiated loss (for MoE the LM loss plus ``AUX_LOSS_W`` times
@@ -66,7 +67,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core.hashing import check_backend
-from repro_torch.models.attention import GQA, gqa_make_cache
+from repro_torch.models.attention import (GQA, MLA, gqa_make_cache,
+                                          mla_make_cache)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (Embedding, GeluMLP, Linear, RMSNorm,
                                        SwiGLU, cross_entropy,
@@ -115,16 +117,17 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     """Pre-norm block: x + attn(ln1 x), for ``kind="enc_dec"`` then +
-    xattn(lnx x) over the encoder output, then + ffn(ln2 x); the FFN is a
-    SwiGLU, the MoE FFN for ``kind="moe"`` or the GELU MLP for
-    ``"enc_dec"``."""
+    xattn(lnx x) over the encoder output, then + ffn(ln2 x); the attention
+    is GQA, or MLA when ``mla_q_rank`` is set; the FFN is a SwiGLU, the MoE
+    FFN for ``kind="moe"`` or the GELU MLP for ``"enc_dec"``."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = GQA(cfg, device=device, gen=gen)
+        self.attn = (MLA if cfg.mla_q_rank else GQA)(cfg, device=device,
+                                                     gen=gen)
         self.cross = cfg.kind == "enc_dec"
         if self.cross:
             self.lnx = RMSNorm(cfg.d_model, device=device)
@@ -156,10 +159,12 @@ class DecoderLayer(nn.Module):
         return x + y, stats
 
     def make_cache(self, batch: int, cache_len: int) -> dict:
-        """K/V slots (``gqa_make_cache``); an enc_dec layer's also a zero
-        cross cache of ``enc_len`` frames in the model's dtype."""
+        """K/V slots (``gqa_make_cache``; MLA's latent slots,
+        ``mla_make_cache``); an enc_dec layer's also a zero cross cache of
+        ``enc_len`` frames in the model's dtype."""
         cfg, dev = self.cfg, self.ln1.scale.device
-        cache = gqa_make_cache(cfg, batch, cache_len, device=dev)
+        make = mla_make_cache if cfg.mla_q_rank else gqa_make_cache
+        cache = make(cfg, batch, cache_len, device=dev)
         if self.cross:
             shape = (batch, cfg.enc_len, cfg.n_kv, cfg.hd)
             cache["cross"] = {n: torch.zeros(shape, dtype=cfg.dtype,
@@ -234,12 +239,6 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
                 f"1, item 9); the port runs {KINDS}")
-        if cfg.mla_kv_rank or cfg.mla_q_rank:
-            raise NotImplementedError(
-                f"config {cfg.name!r} sets MLA (mla_q_rank "
-                f"{cfg.mla_q_rank}, mla_kv_rank {cfg.mla_kv_rank}): MLA is "
-                f"not ported yet (ROADMAP queue 1, item 9) and is never "
-                f"built as GQA")
         check_backend(backend)
         self.cfg, self.backend = cfg, backend
         device = resolve_device(device)
@@ -342,8 +341,8 @@ class Model(nn.Module):
     def make_cache(self, batch: int, cache_len: int) -> dict:
         """An empty decode cache: ``t = 0`` and, per layer application in
         execution order, zero K/V with every slot's position -1 (attention,
-        ``cache_len`` slots; an enc_dec layer's also a zero cross cache) or
-        a zero SSD state and conv tail (Mamba2)."""
+        ``cache_len`` slots, MLA's latent c and kr; an enc_dec layer's also
+        a zero cross cache) or a zero SSD state and conv tail (Mamba2)."""
         return {"t": 0, "layers": [ly.make_cache(batch, cache_len)
                                    for ly in self.exec_layers]}
 
@@ -402,7 +401,8 @@ class Model(nn.Module):
         ``groups/inner`` stacked [groups, every, ...], ``tail`` [n_tail,
         ...] and ``shared`` unstacked; whisper's ``enc_layers`` stacked,
         ``ln_enc``, and each decoder layer's ``lnx`` and ``xattn``;
-        pixtral's ``vis_proj_w``) into this model."""
+        pixtral's ``vis_proj_w``; MLA's five projections and two norms)
+        into this model."""
         def put(p: torch.Tensor, x) -> None:
             a = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
             if tuple(a.shape) != tuple(p.shape):
@@ -429,7 +429,13 @@ class Model(nn.Module):
         def put_decoder(layer: DecoderLayer | EncoderLayer, ly, at) -> None:
             put(layer.ln1.scale, at(ly["ln1"]))
             put(layer.ln2.scale, at(ly["ln2"]))
-            put_linears(layer.attn, "qkvo", ly["attn"], at)
+            if isinstance(layer.attn, MLA):
+                put_linears(layer.attn, ("q_down", "q_up", "kv_down",
+                                         "kv_up", "o"), ly["attn"], at)
+                for name in ("q_norm", "kv_norm"):
+                    put(getattr(layer.attn, name).scale, at(ly["attn"][name]))
+            else:
+                put_linears(layer.attn, "qkvo", ly["attn"], at)
             if getattr(layer, "cross", False):
                 put(layer.lnx.scale, at(ly["lnx"]))
                 put_linears(layer.xattn, "qkvo", ly["xattn"], at)

@@ -1,8 +1,9 @@
 """AdamW and SGD on parameter tensors (port of ``repro.optim.optimizers``).
 
-The updates run elementwise in f32 on the full leaf, in place; the
-reference's ZeRO-1 applies the same update to a flat chunk per rank, so the
-numbers agree with its ``--no-zero1`` and its ZeRO-1 runs alike.  The EF
+The updates run elementwise in f32, in place, on whatever they are given:
+the full leaf (``--no-zero1``) or, under ZeRO-1 (``train/steps.py``), each
+rank's flat f32 chunk of it, so both give the same numbers, as in the
+reference.  The EF
 residual (``core/sparsify.py``) is optimizer state too:
 :func:`ef_residual_init` makes it.
 """

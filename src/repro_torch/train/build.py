@@ -62,6 +62,7 @@ class Program:
 
     def opt_state(self) -> dict:
         """The trainer's optimizer state (``train_step.state``: moments,
+        under ZeRO-1 this process's ``[local, c]`` chunks of each leaf's,
         step and, with EF compression, the residuals), what a checkpoint
         holds beside the parameters."""
         if self.train_step is None:

@@ -23,12 +23,22 @@ One step, for each rank ``w`` this process holds:
      each bucket's plan runs inside each node, then across nodes; with
      pods the pods' results are averaged;
   3. global-norm clip and the AdamW or SGD update of the (replicated)
-     parameters, on every process alike.
+     parameters: under ZeRO-1 (``TrainerConfig.zero1``, the default, as
+     the reference's) each of the ``world = P x D`` ranks (pod-major)
+     updates its flat chunk of every leaf and the new values are
+     all-gathered back; with ``zero1=False`` every process updates whole
+     leaves.
 
 The optimizer state, ``step_fn.state``, is the reference's: ``{"leaves":
 {name: moments}, "step": int}`` plus ``"residual"`` (the EF residuals,
-``[local, S]`` f32 per compressed bucket) when the sync keeps one; it is
-updated in place and can be checkpointed as it is.
+``[local, S]`` f32 per compressed bucket, never chunked) when the sync
+keeps one; it is updated in place and can be checkpointed as it is.
+Under ZeRO-1 a leaf of ``n`` elements has f32 moments ``[local, c]``, c =
+``opt_chunk_size(n, world)``: row ``i`` is rank ``ranks[i]``'s chunk
+``[r c, (r + 1) c)`` of the flat leaf zero-padded to ``world x c`` (the
+rows of the reference's ``[world, c]`` this process holds: all of them on
+``SimGroup``, its own one on ``DistGroup``, so a process there keeps
+1 / world of the moments).  Otherwise the moments have the leaf's shape.
 
 ``loss`` and the ``sync/*`` metrics are means over the whole group, the
 same on every rank.  ``loss`` is the LM loss (``Model.train_loss``'s
@@ -37,9 +47,11 @@ load-balance loss, and its ``moe/*`` stats (each a mean over the layers)
 join the metrics as group means too, as the reference's step merges
 ``train_loss``'s metrics.
 
-Tensor parallelism and ZeRO-1 raise ``NotImplementedError``; ZeRO-1 is a
-layout of the same elementwise update, so the full update here gives the
-numbers of the reference's ZeRO-1 and ``--no-zero1`` runs alike.
+ZeRO-1 is a layout of the same elementwise update: its parameters and
+moments are bitwise those of the full update.  Each chunk is gathered
+after its cast to the parameter's dtype (elementwise, so the bits of the
+reference's f32 gather followed by its cast, at half the bytes for bf16).
+Tensor parallelism is not ported (``train/build.py`` raises for M > 1).
 """
 from __future__ import annotations
 
@@ -62,7 +74,21 @@ MODEL_INPUTS = ("frames", "patches")
 class TrainerConfig:
     opt: OptConfig = OptConfig()
     sync: SyncConfig = SyncConfig()
-    zero1: bool = False
+    zero1: bool = True
+
+
+def opt_chunk_size(local_size: int, world: int) -> int:
+    """Elements of each rank's ZeRO-1 chunk of a leaf of ``local_size``."""
+    return -(-local_size // world)
+
+
+def _flat_chunk(t: torch.Tensor, lo: int, size: int) -> torch.Tensor:
+    """Elements [lo, lo + size) of ``t`` flattened, as a new f32 tensor,
+    zero past the end of ``t``."""
+    out = torch.zeros(size, dtype=torch.float32, device=t.device)
+    part = t.reshape(-1)[lo:lo + size]
+    out[:part.numel()] = part
+    return out
 
 
 def make_gradsync(model: Model, tcfg: TrainerConfig, n_data: int,
@@ -107,10 +133,6 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     ``grad_norm``, the ``sync/*`` counters and an MoE model's ``moe/*``).  ``state`` continues an
     earlier step function's optimizer state (a replan: bucket keys and
     residual shapes do not depend on schemes)."""
-    if tcfg.zero1:
-        raise NotImplementedError(
-            "ZeRO-1 sharded optimizer state is not ported (ROADMAP queue 1, "
-            "item 9); the full update gives the same numbers: zero1=False")
     if tcfg.opt.kind not in UPDATES:
         raise ValueError(f"optimizer kind must be one of {tuple(UPDATES)}, "
                          f"got {tcfg.opt.kind!r}")
@@ -119,10 +141,37 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         gradsync = make_gradsync(model, tcfg, n_data, SimGroup(n_data))
     group = gradsync.group
     ranks = tuple(group.ranks)
+    # ZeRO-1: the world's P x D ranks (pod-major); this process's ranks are
+    # contiguous on both groups, its chunks rows [r0, r0 + local) of each
+    # leaf's [world, c]
+    world, r0, local = group.n, ranks[0], len(ranks)
     leaves = model.named_leaves()
     dev = leaves[0][1].device
+
+    def moments_like(p: torch.Tensor) -> torch.Tensor:
+        """What a leaf's moments are shaped after: the leaf itself, or under
+        ZeRO-1 this process's [local, c] rows of its chunks."""
+        if not tcfg.zero1:
+            return p
+        return torch.empty((local, opt_chunk_size(p.numel(), world)),
+                           dtype=torch.float32, device=p.device)
+
+    @torch.no_grad()
+    def zero1_update(cfg: OptConfig, p: torch.Tensor, g: torch.Tensor,
+                     st: dict, step: int) -> None:
+        """This process's ranks update their chunks of leaf ``p`` (moments
+        ``st`` [local, c]); the chunks, cast to p's dtype, are gathered over
+        the group into p."""
+        c = opt_chunk_size(p.numel(), world)
+        p_my = _flat_chunk(p, r0 * c, local * c).view(local, c)
+        update(cfg, p_my, _flat_chunk(g, r0 * c, local * c).view(local, c),
+               st, step)
+        full = group.all_gather(p_my.to(p.dtype))              # [world, c]
+        p.copy_(full.reshape(-1)[:p.numel()].view(p.shape))
+
     if state is None:
-        state = {"leaves": {name: init(p) for name, p in leaves}, "step": 0}
+        state = {"leaves": {name: init(moments_like(p))
+                            for name, p in leaves}, "step": 0}
         if gradsync.has_compression and gradsync.compress.ef:
             state["residual"] = gradsync.init_residual(dev)
     # this process's per-rank gradients, stacked: [local, ...] per leaf,
@@ -168,9 +217,10 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
             scale = torch.clamp(tcfg.opt.grad_clip / (gn + 1e-9), max=1.0)
             grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
             metrics["grad_norm"] = gn
+        apply = zero1_update if tcfg.zero1 else update
         for name, p in leaves:
-            update(tcfg.opt, p, grads[name], state["leaves"][name],
-                   state["step"])
+            apply(tcfg.opt, p, grads[name], state["leaves"][name],
+                  state["step"])
         state["step"] += 1
         metrics.update(group.mean({**{k: torch.stack(v)
                                       for k, v in stats.items()},

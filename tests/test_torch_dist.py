@@ -29,7 +29,11 @@ outputs back the same way.  The JAX reference runs here, while they run.
 * the reduced f32 qwen2 trainer with the reference's parameters: at 4x1
   within 1e-3 of the reference's (1,1) run with no overflow, each rank
   calling the fused route's wrappers once a step; at 2x1 the in-process
-  ``SimGroup`` 2x1 trainer's losses and parameters bit for bit;
+  ``SimGroup`` 2x1 trainer's losses and parameters bit for bit; under
+  ZeRO-1 (the ``zero1`` job, 2 ranks) each process holds only its own
+  ``[1, c]`` row of every leaf's moments, half the in-process run's
+  ``[2, c]`` bytes, and the losses, words and parameters equal the
+  in-process ZeRO-1 run's and the full update's bit for bit;
 * on a two-level topology (nodes of 2 ranks, every level's group of 2
   ranks) at 4 ranks: GradSync per leaf and bucketed, each rank's synced
   leaves and metrics (``sync/intra_words``, ``sync/inter_words``) bitwise
@@ -270,7 +274,8 @@ def groups(tmp_path_factory):
     out = {"ref_params": ref_params, "batch": batch}
     for n, jobs in ((4, ["zen", "schemes", "dense", "gradsync",
                          "broadcast", "trainer", "hier"]),
-                    (2, ["dense", "gradsync", "compress", "trainer"])):
+                    (2, ["dense", "gradsync", "compress", "trainer",
+                         "zero1"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
         inp = {**common, **_grad_inputs(n, seed=n), "n": n,
                "gs_bucket_bytes": BUCKET_BYTES}
@@ -538,6 +543,26 @@ def test_trainer_2x1_processes_equal_in_process_2x1(groups):
             np.testing.assert_array_equal(r[f"trainer/{k}"],
                                           sim[f"simgroup/{k}"],
                                           err_msg=f"{k} rank {w}")
+
+
+def test_zero1_trainer_2_ranks_equal_in_process_zero1(groups):
+    ranks = groups[2]["ranks"].results()
+    sim = ranks[0]
+    assert sim["zsim/moment_rows"].tolist() == [2]
+    # the full update's moments: two f32 tensors the size of the parameters
+    full_bytes = 2 * 4 * sim["trainer/params"].size
+    assert full_bytes <= sim["zsim/moment_bytes"] < full_bytes * 1.01
+    for w, r in enumerate(ranks):
+        assert r["zero1/moment_rows"].tolist() == [1]
+        assert 2 * r["zero1/moment_bytes"] == sim["zsim/moment_bytes"]
+        for k in ("loss", "sync/overflow", "sync/sparse_sent_words",
+                  "params"):
+            np.testing.assert_array_equal(r[f"zero1/{k}"], sim[f"zsim/{k}"],
+                                          err_msg=f"{k} rank {w}")
+        np.testing.assert_array_equal(r["zero1/params"], r["trainer/params"],
+                                      err_msg=f"full update, rank {w}")
+    assert np.isfinite(sim["zsim/loss"]).all()
+    assert sim["zsim/sync/overflow"].tolist() == [0.0] * STEPS
 
 
 @pytest.mark.parametrize("key", ["hgs", "hgsb"])

@@ -9,7 +9,8 @@ on the same numpy inputs: the four shapes of
 64, KV = H, KV = 1), a ragged Sq, a decode-style q_offset, the wide
 head dims (160 with GQA, 128 with g = 3 and a window), and whisper's and
 pixtral's serve shapes (non-causal with Sq != Sk and Sk = 1500, Sq = 1,
-the encoder's 1500 x 1500; hd 160 at S 768).
+the encoder's 1500 x 1500; hd 160 at S 768), and MLA's q/k of 96 with v
+of 64 (minicpm3), causal, windowed and after a cache (q_offset).
 Tolerances: f32 to the reference test's 2e-5; bf16 to one bf16 ulp of the
 reference's output (plus 1e-6 for values near zero), since both round the
 same f32 result once.  The kernel itself is held against the plain version
@@ -51,16 +52,31 @@ SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (2, 1, 1500, 4, 4, 64, False, 0, 0),
     (1, 1500, 1500, 1, 1, 64, False, 0, 0),
     (1, 768, 768, 4, 1, 160, True, 0, 0),       # pixtral: 256 + 512, hd 160
+    # MLA (minicpm3): q/k 96 (64 + rope 32), v 64, KV = H
+    (1, 128, 128, 4, 4, (96, 64), True, 0, 0),
+    (1, 100, 100, 4, 4, (96, 64), True, 32, 0),  # ragged, window
+    (1, 20, 150, 2, 2, (96, 64), True, 0, 130),  # queries after a cache
 ]
+
+
+def _hd(hd) -> tuple[int, int]:
+    """(q/k head dim, v head dim) of a SHAPES entry: an int is both."""
+    return (hd, hd) if isinstance(hd, int) else tuple(hd)
+
+
 IDS = [f"B{s[0]}-Sq{s[1]}-Sk{s[2]}-H{s[3]}-KV{s[4]}-hd{s[5]}-"
+       f"{'causal' if s[6] else 'full'}-w{s[7]}-off{s[8]}"
+       if isinstance(s[5], int) else
+       f"B{s[0]}-Sq{s[1]}-Sk{s[2]}-H{s[3]}-KV{s[4]}-hd{s[5][0]}v{s[5][1]}-"
        f"{'causal' if s[6] else 'full'}-w{s[7]}-off{s[8]}" for s in SHAPES]
 
 
 def _inputs(B, Sq, Sk, H, KV, hd, seed=0):
+    hd, hd_v = _hd(hd)
     rng = np.random.default_rng(seed + Sq + H)
     q = rng.standard_normal((B, Sq, H, hd), dtype=np.float32)
     k = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
-    v = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd_v), dtype=np.float32)
     return q, k, v
 
 
@@ -82,7 +98,8 @@ def test_flash_attention_matches_reference_f32(B, Sq, Sk, H, KV, hd, causal,
     for backend in ("cuda", "torch"):    # "cuda" on CPU tensors: plain route
         got = flash_attention(tq, tk, tv, causal=causal, window=win,
                               q_offset=off, backend=backend)
-        assert got.dtype == torch.float32 and got.shape == (B, Sq, H, hd)
+        assert got.dtype == torch.float32 and got.shape == (B, Sq, H,
+                                                             _hd(hd)[1])
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
     # the CPU tensor took the kernel's plain version, and launched nothing
     assert ops.PLAIN_CALLS["flash_fwd"] == 1 and ops.LAUNCHES["flash_fwd"] == 0
@@ -146,7 +163,8 @@ def _mma_tile_emulation(q, k, v, *, causal, window, q_offset, how="exact3"):
     """The bf16 kernel's arithmetic in plain PyTorch: 64-key tiles, bf16
     operands (exact products) with f32 sums, the online softmax on unscaled
     scores with p = 2^(s c - m c), p = 0 on invalid keys, and P fed to P.V
-    in the bf16 parts of ``_split_p``.  Returns bf16 [B, Sq, H, hd]."""
+    in the bf16 parts of ``_split_p``; the scale is that of q/k's width.
+    Returns bf16 [B, Sq, H, hd_v]."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -158,7 +176,7 @@ def _mma_tile_emulation(q, k, v, *, causal, window, q_offset, how="exact3"):
     pos = q_offset + torch.arange(Sq)[:, None]
     m = torch.full((B, H, Sq, 1), neg)
     l = torch.zeros((B, H, Sq, 1))
-    o = torch.zeros((B, H, Sq, hd))
+    o = torch.zeros((B, H, Sq, v.shape[-1]))
     for t0 in range(0, Sk, 64):
         j = t0 + torch.arange(min(64, Sk - t0))[None, :]
         valid = torch.ones((Sq, j.shape[1]), dtype=torch.bool)
@@ -200,7 +218,8 @@ def test_mma_tile_arithmetic_holds_the_bf16_gate(B, Sq, Sk, H, KV, hd, causal,
     q, k, v = _bf16_case(B, Sq, Sk, H, KV, hd)
     kw = dict(causal=causal, window=win, q_offset=off)
     got = _mma_tile_emulation(q, k, v, **kw)
-    assert got.shape == (B, Sq, H, hd) and torch.isfinite(got.float()).all()
+    assert got.shape == (B, Sq, H, _hd(hd)[1])
+    assert torch.isfinite(got.float()).all()
     assert _outside_gate(got, ref.flash_fwd_ref(q, k, v, **kw)) == 0
 
 

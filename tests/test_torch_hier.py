@@ -18,7 +18,9 @@ GradSync on a ``--node-size`` topology, pod meshes) against the reference.
 * the two-stream schedule with its ``intra`` hook bitwise ``run_in_order``;
 * a ``2x4x1`` pod mesh's GradSync against the reference's with
   ``pod_axis`` (nested ``jax.vmap`` over pod and data), flat and
-  node-split, and the launcher's ``--mesh 2x4x1 --node-size 2``.
+  node-split.
+
+The launcher's two-level runs are in tests/test_torch_hier_launch.py.
 
 Gradients are numpy draws from a seed, dyadic (multiples of 1/8 up to 4 or
 of 1/256), so every sum is exact whatever its order.
@@ -40,7 +42,6 @@ from repro.core.zen import SyncConfig as RefSyncConfig
 from repro_torch.core import schemes as TS
 from repro_torch.core import topology as TT
 from repro_torch.core.zen import GradSync, SyncConfig
-from repro_torch.launch import train
 from repro_torch.train import schedule
 
 N, M = 8, 2048
@@ -439,37 +440,3 @@ def test_pod_mesh_gradsync_bitwise_vs_reference(node_size, scheme):
         assert set(st) == set(r_st)
         for k in r_st:
             _equal(st[k], r_st[k], f"step {step} {k}")
-
-
-def test_launcher_runs_pods_and_node_size():
-    """``--mesh 2x4x1 --node-size 2`` trains and reports each level's
-    words; a node size that does not divide D raises the reference's
-    message."""
-    base = ["--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
-            "--seq-len", "16", "--global-batch", "8", "--log-every", "1",
-            "--device", "cpu"]
-    out = train.main(base + ["--mesh", "2x4x1", "--node-size", "2",
-                             "--alpha-beta", "1,4e-5,10,4e-4"])
-    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
-    assert len(out["intra_words"]) == 2 and out["intra_words"][0] > 0
-    assert out["inter_words"][0] > 0 and out["overflow"] == 0
-    assert out["plan"][0].startswith("topology: dp_inter[2]")
-    with pytest.raises(ValueError, match="does not divide the data axis"):
-        train.main(base + ["--mesh", "8x1", "--node-size", "3"])
-
-
-def test_launcher_replans_on_a_two_level_topology():
-    """``--replan-every`` with ``--sync auto --compress``: the density
-    controller prices the measured densities on the two-level topology
-    (threshold:0 keeps every element, so the large compressed buckets
-    flip to two-level dense) and the plan is rebuilt at step 2."""
-    out = train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "4x1",
-                      "--node-size", "2", "--sync", "auto", "--compress",
-                      "threshold:0", "--replan-every", "2", "--steps", "3",
-                      "--seq-len", "16", "--global-batch", "4",
-                      "--log-every", "1", "--device", "cpu"])
-    assert out["replans"] == [2]
-    plans = [ln for ln in out["plan"] if "compress=" in ln]
-    assert any("plan=[dense@dp_intra[2] ; dense@dp_inter[2]]" in ln
-               for ln in plans)
-    assert np.isfinite(out["losses"]).all() and len(out["inter_words"]) == 3

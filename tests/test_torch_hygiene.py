@@ -17,6 +17,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import train
+from repro_torch.models.attention import MLA
 from repro_torch.models.model import Model
 from repro_torch.train.build import build_program, parse_mesh
 
@@ -76,9 +77,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_gpu):
 
 
 def test_unported_meshes_and_flags_raise():
-    """Tensor parallelism (M > 1, with or without pods) and the configs
-    the port lacks raise naming their ROADMAP item; pod meshes and
-    ``--node-size`` run (tests/test_torch_hier.py)."""
+    """Tensor parallelism (M > 1, with or without pods) raises naming its
+    ROADMAP item; pod meshes and ``--node-size`` run
+    (tests/test_torch_hier.py); minicpm3-4b, the last config the port
+    lacked, builds with the reference's fields (read from its source, so
+    that this module imports no JAX) and an unknown arch raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_mesh("2x2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -88,16 +91,24 @@ def test_unported_meshes_and_flags_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x2",
                     "--device", "cpu"])
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("minicpm3-4b")
+    ref = ast.parse((ROOT / "src" / "repro" / "configs" /
+                     "minicpm3_4b.py").read_text())
+    call = next(n for n in ast.walk(ref) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", "") == "ArchConfig")
+    cfg = get_config("minicpm3-4b")
+    assert len(call.keywords) == 14
+    for kw in call.keywords:
+        assert getattr(cfg, kw.arg) == ast.literal_eval(kw.value), kw.arg
+    with pytest.raises(KeyError, match="minicpm3-4b"):
+        get_config("minicpm3")
 
 
 def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     """The Mamba2 trainer is the plain-scan trainer the reference runs: a
     train loss raises nothing, its backward is the plain chunked scan's
     gradient (one recompute a layer, never a gradient through the SSD
-    kernel), and a config the port lacks (MLA: ``mla_kv_rank`` set) still
-    raises naming its ROADMAP item."""
+    kernel); a dense config with ``mla_kv_rank`` set builds MLA, never
+    GQA."""
     cfg = get_config("mamba2-370m").reduced()
     model = Model(cfg, device="cpu")
     tok = torch.zeros((1, 16), dtype=torch.long)
@@ -106,9 +117,9 @@ def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     assert ops.PLAIN_CALLS["ssd_fwd"] == cfg.n_layers
     assert ops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
     assert model.embed.table.grad is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        Model(dataclasses.replace(cfg, kind="dense", mla_q_rank=64,
-                                  mla_kv_rank=32), device="cpu")
+    mla = Model(dataclasses.replace(cfg, kind="dense", mla_q_rank=64,
+                                    mla_kv_rank=32), device="cpu")
+    assert all(isinstance(ly.attn, MLA) for ly in mla.layers)
 
 
 def test_cuda_sources_name_the_kernel_they_replace():

@@ -11,10 +11,12 @@ installed:
 Every case is marked ``cuda`` and skips without a CUDA GPU (the kernels
 have no CPU mode; their plain versions are held against the reference by
 ``tests/test_torch_flash.py`` and ``tests/test_torch_ssd.py``).
-Tolerances: ``flash_fwd`` in f32 to 2e-5 and in bf16 to one bf16 ulp (plus
-1e-6 near zero); ``ssd_fwd`` to 2e-4 (atol and rtol) -- both sum in
-another order than their plain versions; ``coo_scatter_add`` and the
-push bitwise (they keep the stream order of every target's adds);
+Tolerances: ``flash_fwd`` (k = v at hd 32 / 64 / 128 / 160, and MLA's
+q/k 96 with v 64) in f32 to 2e-5 and in bf16 to one bf16 ulp (plus 1e-6
+near zero); an unsupported (hd, hd_v) pair raises; ``ssd_fwd`` to 2e-4
+(atol and rtol) -- both sum in another order than their plain versions;
+``coo_scatter_add`` and the push bitwise (they keep the stream order of
+every target's adds);
 ``zen_encode``, the pull, the hash stage, the row compaction and the
 bitmap pair bitwise.
 """
@@ -55,6 +57,13 @@ FLASH_SHAPES = [  # B, Sq, Sk, H, KV, hd, causal, window, q_offset
     (8, 1, 1500, 16, 16, 64, False, 0, 0),
     (1, 1500, 1500, 16, 16, 64, False, 0, 0),
     (1, 768, 768, 32, 8, 160, True, 0, 0),
+    # MLA (minicpm3): q/k 96, v 64 (hd is the pair): its prefill at B 1,
+    # ragged Sq, a window, a q_offset, and GQA without a mask
+    (1, 512, 512, 40, 40, (96, 64), True, 0, 0),
+    (2, 130, 130, 8, 8, (96, 64), True, 0, 0),
+    (1, 200, 200, 8, 8, (96, 64), True, 64, 0),
+    (1, 65, 127, 4, 4, (96, 64), True, 0, 62),
+    (1, 100, 300, 4, 2, (96, 64), False, 0, 0),
 ]
 SSD_SHAPES = [  # B, S, H, hd, N, chunk
     (2, 128, 4, 32, 16, 64), (1, 96, 3, 64, 128, 32), (2, 64, 2, 64, 128, 16),
@@ -132,9 +141,10 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def test_flash_kernel_matches_plain(gpu, dtype, B, Sq, Sk, H, KV, hd, causal,
                                     win, off):
     rng = np.random.default_rng(Sq + H)
+    hd, hd_v = (hd, hd) if isinstance(hd, int) else hd
     q, k, v = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32),
                                device=gpu).to(dtype)
-               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd_v)))
     n0 = ops.LAUNCHES["flash_fwd"]
     got = ops.flash_fwd_op(q, k, v, causal=causal, window=win, q_offset=off)
     want = ref.flash_fwd_ref(q, k, v, causal=causal, window=win, q_offset=off)
@@ -227,6 +237,12 @@ def test_kernels_reject_what_they_do_not_take(gpu):
     q = torch.zeros((1, 8, 4, 48), device=gpu)          # hd 48: not built
     with pytest.raises(ValueError, match="hd in"):
         ops.flash_fwd_op(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    for hd, hd_v in ((96, 96), (64, 32), (96, 32), (128, 64)):  # no kernel
+        for dt in (torch.float32, torch.bfloat16):
+            qk = torch.zeros((1, 8, 4, hd), device=gpu, dtype=dt)
+            with pytest.raises(ValueError, match="hd_v"):
+                ops.flash_fwd_op(qk, qk, torch.zeros((1, 8, 4, hd_v),
+                                                     device=gpu, dtype=dt))
     x = torch.zeros((1, 20, 2, 8), device=gpu)
     with pytest.raises(ValueError, match="S % Q"):
         ops.ssd_fwd_op(x, torch.zeros((1, 20, 2), device=gpu),

@@ -2,9 +2,8 @@
 
 * the port's configs equal the reference's field for field, ``source``
   included (and so do this slice's whisper-medium and pixtral-12b, with
-  their encoder, patch and MLA fields); phi4-mini's vocab of 200064 is a
-  multiple of the 128-row pad; minicpm3-4b, whose MLA is not ported, is
-  no arch of the port;
+  their encoder, patch and MLA fields, and minicpm3-4b's with its MLA
+  ranks); phi4-mini's vocab of 200064 is a multiple of the 128-row pad;
 * each at reduced depth and width (2 layers, d_model 256, vocab 512) that
   keeps what defines it: its q and KV head counts (GQA groups 8 and 3),
   the explicit head_dim 128, QKV bias on (qwen2.5-3b) or off
@@ -87,8 +86,13 @@ def test_configs_match_reference():
                            get_config(arch).reduced())):
             for f in NEW_FIELDS:
                 assert getattr(ref, f) == getattr(port, f), (arch, f)
-    with pytest.raises(KeyError, match="ROADMAP queue 1, item 9"):
-        get_config("minicpm3-4b")
+    arch = "minicpm3-4b"
+    assert arch in ALL_ARCHS
+    for ref, port in ((ref_get_config(arch), get_config(arch)),
+                      (ref_get_config(arch).reduced(),
+                       get_config(arch).reduced())):
+        for f in NEW_FIELDS:
+            assert getattr(ref, f) == getattr(port, f), (arch, f)
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -28,8 +28,14 @@ Jobs:
   broadcast ``build_program`` from seed ``w`` on rank ``w``: every rank
             must then hold rank 0's parameters;
   trainer   the reduced qwen2 trainer on ``<n>x1`` from the reference's
-            parameters; on a 2-rank group rank 0 then runs the in-process
-            ``SimGroup`` 2x1 trainer on the same inputs;
+            parameters, full update (``zero1=False``); on a 2-rank group
+            rank 0 then runs the in-process ``SimGroup`` 2x1 trainer on the
+            same inputs;
+  zero1     the same trainer under ZeRO-1 (each process updating its own
+            chunk of every leaf, its moments ``[1, c]``), with the bytes of
+            the moments this process holds; rank 0 then runs the
+            in-process ``SimGroup`` trainer under ZeRO-1 (moments ``[n,
+            c]``) on the same inputs;
   hier      on a two-level topology of nodes of 2 ranks (``--node-size
             2``, the level groups made by ``launch.mesh.make_level_groups``):
             the ``gradsync`` job's two GradSyncs, then the ``trainer`` job,
@@ -199,14 +205,17 @@ def _reference_tree(inp) -> dict:
     return tree
 
 
-def _train(inp, group, out: dict, prefix: str, node_size: int = 1) -> None:
+def _train(inp, group, out: dict, prefix: str, node_size: int = 1,
+           zero1: bool = False) -> None:
     """STEPS steps of the reduced f32 qwen2 trainer on ``group`` (None:
-    the in-process SimGroup) from the reference's parameters."""
+    the in-process SimGroup) from the reference's parameters, the full
+    update or ``zero1``."""
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               dtype=torch.float32)
     n = int(inp["n"])
     prog = build_program(cfg, f"{n}x1",
-                         TrainerConfig(sync=SyncConfig(scheme="zen")),
+                         TrainerConfig(sync=SyncConfig(scheme="zen"),
+                                       zero1=zero1),
                          device="cpu", group=group, node_size=node_size)
     prog.model.load_reference_params(_reference_tree(inp))
     attach_train(prog)
@@ -219,6 +228,14 @@ def _train(inp, group, out: dict, prefix: str, node_size: int = 1) -> None:
     out[f"{prefix}/plain"] = np.array([K.PLAIN_CALLS[k] for k in K.KERNELS])
     out[f"{prefix}/launches"] = np.array([K.LAUNCHES[k] for k in K.KERNELS])
     out[f"{prefix}/embed"] = prog.model.embed.table.detach().numpy()
+    out[f"{prefix}/params"] = torch.cat([p.detach().reshape(-1) for p in
+                                         prog.model.parameters()]).numpy()
+    moments = [m for st in prog.opt_state()["leaves"].values()
+               for m in st.values()]
+    out[f"{prefix}/moment_bytes"] = np.array(
+        sum(m.numel() * m.element_size() for m in moments))
+    out[f"{prefix}/moment_rows"] = np.array(sorted({m.shape[0]
+                                                    for m in moments}))
 
 
 def main(work: Path, jobs: list[str]) -> None:
@@ -236,6 +253,8 @@ def main(work: Path, jobs: list[str]) -> None:
                 fn(inp, w, group, out)
         if "trainer" in jobs:
             _train(inp, group, out, "trainer")
+        if "zero1" in jobs:
+            _train(inp, group, out, "zero1", zero1=True)
         if "hier" in jobs:
             _hier_gradsync(inp, w, group, out)
             _train(inp, group, out, "htrainer", node_size=HIER_NODE)
@@ -243,6 +262,8 @@ def main(work: Path, jobs: list[str]) -> None:
         dist.destroy_process_group()
     if "trainer" in jobs and group.n == 2 and w == 0:
         _train(inp, None, out, "simgroup")
+    if "zero1" in jobs and w == 0:
+        _train(inp, None, out, "zsim", zero1=True)
     if "hier" in jobs and w == 0:
         _train(inp, None, out, "hsim", node_size=HIER_NODE)
     np.savez(work / f"rank{os.environ['RANK']}.npz", **out)
