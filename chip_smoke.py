@@ -104,15 +104,16 @@ Phases (any failure exits non-zero; nothing is caught):
      layers, so no check asks it to fall); step time, tok/s, peak memory
      and one profiled step (``ssd_fwd``'s device ms, idle share).
   7c. compress: EF compression on the qwen2-0.5b 8x1 trainer at full
-     width and depth, 25 MiB buckets, ``--sync zen --compress topk:0.01``
-     (98 compressed dense buckets and the embedding, all on Zen's fused
-     kernels), 4 steps: finite losses, every fused kernel launched 8 x 99
+     width and 4 of its 24 layers (``COMPRESS_LAYERS``), 25 MiB buckets,
+     ``--sync zen --compress topk:0.01`` (18 compressed dense buckets,
+     ``lm_head/w`` among them, and the embedding, all on Zen's fused
+     kernels), 4 steps: finite losses, every fused kernel launched 8 x 19
      times a step, nothing plain, words under 10 % of the dense buckets'
      uncompressed words; at step 0 the EF invariant bitwise for every
      bucket, and Zen on each bucket's sent payload against its psum
      (within the summation bound, or zero where Zen's capacity dropped a
      slot, which only the 896-element norm-scale buckets may do); the
-     plain route (``--backend torch``, 1 step, about a minute): losses,
+     plain route (``--backend torch``, 1 step): losses,
      words, overflow and residual digests bitwise; ``--sync dense --compress topk:0.01``:
      the same step-0 loss and residual digest; step time, tok/s, peak
      memory and one profiled step.
@@ -134,9 +135,9 @@ Phases (any failure exits non-zero; nothing is caught):
      plain, overflow 0).
   7e. hier: the qwen2-0.5b 8x1 trainer of phase 4 on two-level
      topologies: ``--node-size 4`` and ``2``, each with ``--sync zen`` and
-     ``--sync auto``, and ``--node-size 2 --bucket-bytes 26214400``: 4
+     ``--sync auto``, and ``--node-size 2 --bucket-bytes 26214400``: 2
      steps on the kernels beside 2 on the plain route (``--backend
-     torch``): losses, grad norm, words at each level
+     torch``; 4 on the kernels until phase 8b came): losses, grad norm, words at each level
      (``sync/intra_words``, ``sync/inter_words``) and overflow bitwise,
      the step-0 loss the flat run's bits and later losses within 5e-3 of
      its (the psums add in another order, in bf16), the Zen kernels launched at
@@ -240,7 +241,7 @@ Phases (any failure exits non-zero; nothing is caught):
      digest (words by level included) bitwise its ``simulate_hier`` row
      (``--only dist_sync`` runs this part alone); then
      ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
-     width and depth (4 steps; 4 ranks, as a rank takes about 12 GB), per
+     width and depth (2 steps; 4 ranks, as a rank takes about 12 GB), per
      leaf, with 25 MiB buckets and with ``--node-size 2`` (``--only
      dist_hier`` runs this one alone), against the in-process 4x1 trainer
      on the same topology: losses finite,
@@ -248,13 +249,40 @@ Phases (any failure exits non-zero; nothing is caught):
      ``zen_encode``, ``zen_commit_push`` and ``zen_commit_pull`` launched
      once a step on every rank (twice on nodes of 2: once a level), no
      plain call, the words at each level the in-process run's; the runs'
-     step times and tok/s are logged.  Not in the default run: ``--only dist_parts`` logs
+     step times and tok/s are logged.  The three trainer runs are one
+     ``torchrun`` of 4 ranks (``--dist-rank gloo4``) that goes on to run
+     phase 8b's work (``train.train`` on the groups, as ``launch/train.py``
+     runs after joining them).  Not in the default run: ``--only dist_parts`` logs
      where each one's step goes on the host's clock, per leaf and with 25
      MiB buckets (``step_parts``:
      forward and backward, Zen's sync and the whole GradSync, the last two
      on zero gradients; rank 0 of 4 gloo ranks, and the in-process run),
      and ``--only dist_nccl``, on four cards, runs the same trainer check
      with ``--dist nccl``, a rank a card.
+  8b. tp (right after dist): tensor parallelism, 4 gloo ranks on this card
+     under ``torchrun`` (``--dist-rank gloo4``, phase 8's processes when
+     it runs, else their own), one program: the launcher's
+     ``--mesh 2x2 --dist gloo`` qwen2-0.5b trainer at full size (bf16,
+     ZeRO-1, 8 x 512 tokens, Zen on each model rank's [75968, 896] table
+     shard; 4 steps on the kernels, 2 on the plain route: losses, words,
+     grad norm bitwise; overflow 0; the three Zen kernels once a step on
+     every process, nothing plain; step s, tok/s and peak GiB a process
+     logged); in f32 at 2 of 24 layers the 2x2 run against a 2x1 run on
+     the ranks of model index 0 (step 0 within 1e-5, 4 steps within
+     1e-3, the step-0 grad norm within 1e-4 relative: the true gradient);
+     olmoe-1b-7b at 2x2 and 2 of 16 layers, ``moe_ffn_a2a`` and the
+     replicated dispatch, each route bitwise the other (losses, grad norm,
+     words, overflow, ``moe/*``), and in f32 at 1 layer with the capacity
+     factor at E / K (no pair can drop) a2a within 1e-4 of replicated at
+     step 0; qwen2.5-3b served by ``launch/serve.py --mesh 1x2`` on two
+     ranks (36 ``flash_fwd`` a prefill on each at 8 / 1 heads of 128, none
+     in decode, nothing plain; rank r's cache the positions r, r + 2, ...;
+     in f32 the gathered prefill logits within 1e-3 of the 1x1 serve's and
+     the same 128 tokens; bf16 prefill ms and decode tok/s beside 1x1's).
+     Then the fused Zen kernels at the two trainers' table shards (n 2;
+     rows 1m-3m, 1n-3n) and ``flash_fwd`` at 7 / 1 heads of 64 and 8 / 1
+     of 128 (rows 9m, 9n, beside SDPA), against their plain versions,
+     timed.
   9. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
@@ -678,6 +706,12 @@ def phase_kernels(dev) -> dict:
 
 
 COMPRESS = "topk:0.01"
+# phase 7c's depth: 4 of qwen2-0.5b's 24 layers, at full width (its plan:
+# 19 buckets, 18 of them compressed, lm_head/w among them; at full depth
+# 99 and 98, and the phase took 178.4 s on one H100, 62 s of it the plain
+# route's one step; at 8 layers 35 and 34, 102.3 s)
+COMPRESS_LAYERS = 4
+COMPRESS_PLAN = (19, 18)
 # the compressed path's widest buckets at n = 8: a 25 MiB bf16 bucket of
 # qwen2-0.5b's ffn leaves (three [896, 4864] leaves) and its lm_head/w
 WIDE = {"c": ("25 MiB ffn bucket", 13_074_432),
@@ -1365,8 +1399,8 @@ def phase_buckets(smi: str, steps: int = 4) -> dict:
 
 
 def compress_program(scheme: str = "zen", backend: str = "cuda"):
-    """The qwen2-0.5b 8x1 trainer at full width and depth with 25 MiB
-    buckets and ``--compress COMPRESS``, built through ``build_program`` +
+    """The qwen2-0.5b 8x1 trainer at full width and ``COMPRESS_LAYERS``
+    deep with 25 MiB buckets and ``--compress COMPRESS``, built through ``build_program`` +
     ``attach_train`` (as ``launch/train.py --sync SCHEME --compress
     COMPRESS --bucket-bytes 26214400`` builds it), so the EF residuals in
     its optimizer state can be read."""
@@ -1381,8 +1415,10 @@ def compress_program(scheme: str = "zen", backend: str = "cuda"):
                              scheme=scheme, density_budget=0.25,
                              bucket_bytes=BUCKET_BYTES, compress=COMPRESS,
                              backend=backend))
-    prog = build_program(get_config("qwen2-0.5b"), "8x1", tcfg,
-                         device="cuda", seed=0, backend=backend)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              n_layers=COMPRESS_LAYERS)
+    prog = build_program(cfg, "8x1", tcfg, device="cuda", seed=0,
+                         backend=backend)
     attach_train(prog)
     return prog
 
@@ -1508,9 +1544,10 @@ def compress_steps(prog, batches: list, tag: str) -> dict:
 
 
 def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
-    """EF compression on the full-width qwen2-0.5b 8x1 trainer with 25 MiB
-    buckets: ``--sync zen --compress topk:0.01`` on the kernels (98
-    compressed dense buckets and the embedding, all on Zen's fused kernels,
+    """EF compression on the full-width qwen2-0.5b 8x1 trainer at
+    ``COMPRESS_LAYERS`` layers with 25 MiB buckets: ``--sync zen --compress
+    topk:0.01`` on the kernels (``COMPRESS_PLAN``'s compressed dense
+    buckets and the embedding, all on Zen's fused kernels,
     ``steps`` steps, counts from 0 around them), against its plain route
     (``--backend torch``, ``plain_steps`` steps: losses, words and residual
     digests bitwise) and ``--sync dense --compress topk:0.01`` (1 step: the
@@ -1541,10 +1578,12 @@ def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
         f"{len(gs._layouts)} zen layouts; compressed elements "
         f"{sum(b.size for b in comp)}, largest {max(b.size for b in comp)}; "
         f"built in {time.time() - t0:.1f}s")
-    if len(plan) != 99 or len(comp) != 98 or len(gs._layouts) != 99 \
+    n_plan, n_comp = COMPRESS_PLAN
+    if len(plan) != n_plan or len(comp) != n_comp \
+            or len(gs._layouts) != n_plan \
             or any(b.scheme != "zen" for b in plan):
-        raise AssertionError("compressed plan is not 98 compressed zen "
-                             "buckets and the zen embedding")
+        raise AssertionError(f"compressed plan is not {n_comp} compressed "
+                             f"zen buckets and the zen embedding")
     checks = step0_checks(prog, batches[0])
     K.reset_counts()
     run = compress_steps(prog, batches, "zen, kernels")
@@ -1592,7 +1631,8 @@ def phase_compress(smi: str, steps: int = 4, plain_steps: int = 1) -> dict:
            "wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
            "zen_ms": zen_ms, "plain_step_s": plain_run["step_s"],
            "dense_step_s": dense_run["step_s"], **checks}
-    log(f"[compress] 8x1 {COMPRESS} 25 MiB buckets: cuda == torch route "
+    log(f"[compress] 8x1 at {COMPRESS_LAYERS} of 24 layers, {COMPRESS} 25 "
+        f"MiB buckets: cuda == torch route "
         f"bitwise ({plain_steps} steps: losses, words, residual digests); "
         f"dense step-0 residual digest == zen's; words {share:.4f} of "
         f"dense; median step s after the first {res['median_step_s']}, "
@@ -1997,7 +2037,7 @@ HIER_RUNS = ((4, "zen"), (4, "auto"), (2, "zen"), (2, "auto"),
 # 'auto''s plan for embed/table at 8 ranks (the reference's cost model)
 HIER_AUTO = {4: "hier(sparcml@intra,dense@inter)",
              2: "hier(agsparse@intra,zen@inter)"}
-HIER_STEPS, HIER_PLAIN_STEPS = 4, 2
+HIER_STEPS, HIER_PLAIN_STEPS = 2, 2
 # two levels add each psum's terms in another order (node sums first), in
 # bf16: the step-0 loss is the flat run's bits, later ones move as the dist
 # trainer's do when gloo reorders its 4-rank psum (DIST_LOSS_TOL)
@@ -2031,8 +2071,8 @@ def hier_launches(ns: int, sync: str, steps: int) -> dict:
 
 def phase_hier(smi: str, flat: dict | None = None) -> dict:
     """The full-size qwen2-0.5b 8x1 trainer on two-level topologies
-    (``HIER_RUNS``): the kernel route (4 steps) bitwise its ``--backend
-    torch`` route over the plain route's 2 steps (losses, grad norm, words
+    (``HIER_RUNS``): the kernel route (``HIER_STEPS``) bitwise its
+    ``--backend torch`` route over the plain route's steps (losses, grad norm, words
     at each level, overflow 0), the step-0 loss bitwise the flat Zen run's
     and later ones within ``HIER_LOSS_TOL`` (``flat``: the trainer phase's
     run), the Zen kernels at both levels
@@ -2112,6 +2152,9 @@ ROUTES = ((True, True), (False, True), (True, False), (False, False))
 DIST_ZEN_RANKS = 8         # zen_sync at the slice's n, every rank on cuda:0
 DIST_TRAIN_RANKS = 4       # about 12 GB a full-width trainer rank
 DIST_TIMEOUT_S = 600
+# the dist trainers' steps (4 until phase 8b came: the three gloo runs and
+# the in-process runs then took 145 s of the phase's 196.3 s on one H100)
+DIST_STEPS = 2
 # the gloo trainer's losses against the in-process run's: gloo adds a
 # 4-rank psum in its own order (bf16), which moves later steps' losses
 DIST_LOSS_TOL = 5e-3
@@ -2129,12 +2172,14 @@ def sync_digest(out: torch.Tensor, sent: torch.Tensor,
     return h.hexdigest()
 
 
-def run_ranks(n: int, args: list[str], tag: str) -> str:
+def run_ranks(n: int, args: list[str], tag: str,
+              env: dict | None = None) -> str:
     """``torchrun --standalone --nproc-per-node n`` on ``args`` with
-    ``src`` on the path, in its own session so that a timeout stops every
-    rank; returns its stdout, raises on a non-zero exit."""
+    ``src`` on the path (and ``env`` set), in its own session so that a
+    timeout stops every rank; returns its stdout, raises on a non-zero
+    exit."""
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), **(env or {}))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), *args]
     t0 = time.time()
@@ -2457,17 +2502,22 @@ def dist_zen_sync(dev) -> None:
             f"host s per rank {secs}")
 
 
-def phase_dist(dev, smi: str) -> None:
+def phase_dist(dev, smi: str, tp: bool = False) -> list[dict]:
     """The per-rank data-parallel path over a gloo group on this one card:
     zen_sync at the slice shapes on 8 ranks (and two-level plans over
     nodes of 4 and 2), then the full-width trainer on 4 ranks, per leaf,
     with 25 MiB buckets and on nodes of 2 ranks, against the in-process
-    4x1 trainer on the same topology."""
+    4x1 trainer on the same topology.  The 4 ranks are one torchrun
+    (``gloo4_ranks``) that also runs phase tp's work when ``tp`` is set
+    (a start of 4 processes costs about 20 s); their results return."""
     torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
         f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
     dist_zen_sync(dev)
-    dist_trainer("gloo", smi, variants=DIST_VARIANTS)
+    ranks = gloo4_ranks(DIST_VARIANTS, tp)
+    dist_trainer("gloo", smi, variants=DIST_VARIANTS,
+                 runs=gloo4_dist_runs(ranks, DIST_VARIANTS))
+    return ranks
 
 
 # the dist trainer's variants: (tag, extra launcher flags)
@@ -2477,14 +2527,17 @@ DIST_VARIANTS = (("per-leaf", ()),
                  ("node_size 2", ("--node-size", "2")))
 
 
-def dist_trainer(backend: str, smi: str, steps: int = 4,
-                 variants=DIST_VARIANTS[:1]) -> None:
+def dist_trainer(backend: str, smi: str, steps: int = DIST_STEPS,
+                 variants=DIST_VARIANTS[:1], runs: dict | None = None
+                 ) -> None:
     """``torchrun ... launch.train --mesh 4x1 --dist <backend>`` at full
     width, once for each of ``variants`` (a bucket a leaf, 25 MiB buckets,
     nodes of 2 ranks), against the in-process 4x1 trainer on the same
     topology (on this process's card).  ``nccl`` needs a card a rank
     (``--only dist_nccl`` on four cards); gloo runs every rank on one
-    card."""
+    card.  ``runs`` ({tag: the launcher's ``dist result``}) are runs
+    already made by ``gloo4_ranks``; else each variant is a torchrun of
+    its own."""
     from repro_torch.kernels import ops as K
     from repro_torch.launch import train
 
@@ -2492,20 +2545,21 @@ def dist_trainer(backend: str, smi: str, steps: int = 4,
     if backend == "nccl" and torch.cuda.device_count() < n:
         raise AssertionError(f"dist_nccl needs {n} cards, a rank a card; "
                              f"{torch.cuda.device_count()} here")
-    runs, extras = {}, {}
-    for name, extra in variants:
-        tag = f"{backend} {name}"
-        extras[tag] = list(extra)
-        torch.cuda.empty_cache()
-        out = run_ranks(n, ["-m", "repro_torch.launch.train",
-                            *qwen_argv(n, steps, *extra), "--dist", backend],
-                        f"dist trainer {tag}")
-        lines = [ln for ln in out.splitlines()
-                 if ln.startswith("dist result ")]
-        if len(lines) != 1:
-            raise AssertionError(f"dist trainer printed {len(lines)} result "
-                                 f"lines:\n{out[-4000:]}")
-        runs[tag] = json.loads(lines[0][len("dist result "):])
+    extras = {f"{backend} {name}": list(extra) for name, extra in variants}
+    if runs is None:
+        runs = {}
+        for name, extra in variants:
+            tag = f"{backend} {name}"
+            torch.cuda.empty_cache()
+            out = run_ranks(n, ["-m", "repro_torch.launch.train",
+                                *qwen_argv(n, steps, *extra), "--dist",
+                                backend], f"dist trainer {tag}")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("dist result ")]
+            if len(lines) != 1:
+                raise AssertionError(f"dist trainer printed {len(lines)} "
+                                     f"result lines:\n{out[-4000:]}")
+            runs[tag] = json.loads(lines[0][len("dist result "):])
     locals_ = {}
     for node in sorted({"--node-size" in e for e in extras.values()}):
         K.reset_counts()
@@ -2885,14 +2939,20 @@ ZOO_PEAK_GIB = 70.0
 
 
 def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
-                 backend: str = "cuda", zero1: bool = False) -> dict:
+                 backend: str = "cuda", zero1: bool = False, *,
+                 mesh: str | None = None, group=None, model_group=None,
+                 moe_a2a: bool = False) -> dict:
     """``cfg`` (cut to a depth, say) trained as ``launch/train.py`` would
     (``build_program`` + ``attach_train``, mesh ``n`` x 1 in this process,
     Zen, SyntheticLM batches of ``batch`` x ``seq`` tokens from seed 0) for
     ``steps`` steps on the ``backend`` route, with the full update (the
     runs before ZeRO-1 came) or ``zero1``: losses, grad norms, words,
     overflow, an MoE model's ``moe/*`` stats, step seconds (host clock
-    after a sync), tok/s, the kernel counts, parameters and peak memory."""
+    after a sync), tok/s, the kernel counts, parameters and peak memory.
+    A process of a process group passes its ``mesh``, ``group`` and (M >
+    1) ``model_group`` (and ``moe_a2a``): then the words of its own model
+    rank (``rank_words``) join the result and ``params`` counts its
+    shards."""
     from repro_torch.core.zen import SyncConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops as K
@@ -2901,14 +2961,15 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prog = build_program(cfg, f"{n}x1", TrainerConfig(
+    prog = build_program(cfg, mesh or f"{n}x1", TrainerConfig(
         zero1=zero1, sync=SyncConfig(scheme="zen", backend=backend)),
-        device="cuda", seed=0, backend=backend)
+        device="cuda", seed=0, backend=backend, group=group,
+        model_group=model_group, moe_a2a=moe_a2a)
     attach_train(prog)
     params = sum(p.numel() for p in prog.model.parameters())
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=seq, batch=batch)))
     out = {k: [] for k in ("losses", "grad_norm", "sparse_words_by_step",
-                           "overflow", "step_s")}
+                           "overflow", "step_s", "rank_words")}
     K.reset_counts()
     t0 = time.time()
     for _ in range(steps):
@@ -2928,6 +2989,8 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
             out[k].append(float(m[key]))
         for key in sorted(k for k in m if k.startswith("moe/")):
             out.setdefault(key, []).append(float(m[key]))
+        out["rank_words"].append(float(
+            prog.train_step.rank_metrics["sync/sparse_sent_words"]))
     out.update(launches=dict(K.LAUNCHES), plain=dict(K.PLAIN_CALLS),
                recompute=dict(K.RECOMPUTE_CALLS), params=params,
                tok_per_s=steps * batch * seq / (time.time() - t0),
@@ -3705,6 +3768,433 @@ def phase_mla_zero1(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: the 2x2 trainers and the 1x2 server, a process a rank
+# ---------------------------------------------------------------------------
+
+# the launcher's 2x2 trainer: 4 steps on the kernels, 2 on the plain
+# route (held bitwise to the kernels' first 2)
+TP = dict(ranks=4, mesh="2x2", steps=4, plain_steps=2, batch=8, seq=512)
+# the f32 mesh-invariance runs: qwen2-0.5b at 2 of its 24 layers (with 8,
+# and olmoe at 6, the phase took 306.5 s on one H100; at 4, and olmoe at
+# 3, 179.8 s, and the whole smoke 1055.6 s), 2x2 against 2x1; step 0
+# within 1e-5, the 4 steps within 1e-3 (the reference's MATRIX_TOL for
+# qwen2), grad_norm within 1e-4 relative
+TP_F32_LAYERS = 2
+TP_F32_TOL = dict(step0=1e-5, steps=1e-3, grad_norm=1e-4)
+# olmoe-1b-7b at 2 of 16 layers, 2 steps (the zoo's rule for the experts
+# of four processes on one card gives 6: 16.7 GiB a process and 10-13 s a
+# step on one H100, cut for the run's time limit); its f32
+# a2a-vs-replicated check at 1 layer, within 1e-4 at step 0, with the
+# capacity factor at E / K = 8, where no (token, k) pair can drop: at 4.0
+# the random-init router's skew (7.4 of a possible 8) drops pairs, at
+# other boundaries in the two dispatches (2.74e-3 apart on one H100)
+TP_MOE = dict(layers=2, steps=2, f32_layers=1)
+TP_A2A_TOL = 1e-4
+TP_SERVE = "qwen2.5-3b"
+# the fused Zen kernels at the TP trainers' table shards (n 2): qwen2-0.5b
+# at M = 2 and olmoe-1b-7b at M = 2 (rows 1m-3m, 1n-3n); flash_fwd at the
+# TP prefills' per-rank heads (rows 9m, 9n)
+TP_ZEN_SHAPES = (("m", "qwen2-0.5b 2x2 table shard", 75968, 896),
+                 ("n", "olmoe-1b-7b 2x2 table shard", 25152, 2048))
+ZEN_ROW = {"zen_encode": "1", "zen_commit_push": "2", "zen_commit_pull": "3"}
+TP_FLASH = (("9m", "qwen2-0.5b TP prefill", dict(B=8, S=512, H=7, KV=1,
+                                                 hd=64)),
+            ("9n", "qwen2.5-3b TP prefill", dict(B=8, S=512, H=8, KV=1,
+                                                 hd=128)))
+
+
+def tp_argv(backend: str, steps: int) -> list[str]:
+    """``launch/train.py``'s flags for the 2x2 qwen2-0.5b trainer at full
+    size: Zen, ZeRO-1 (the default), global batch 8 x 512."""
+    return ["--arch", "qwen2-0.5b", "--mesh", TP["mesh"], "--sync", "zen",
+            "--global-batch", str(TP["batch"]), "--seq-len", str(TP["seq"]),
+            "--steps", str(steps), "--log-every", "1", "--backend",
+            backend, "--dist", "gloo"]
+
+
+def tp_serve_argv(mesh: str, dtype: str) -> list[str]:
+    return ["--arch", TP_SERVE, "--batch", str(SERVE["batch"]),
+            "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
+            "--mesh", mesh, "--dtype", dtype]
+
+
+def gloo4_rank(work: Path) -> None:
+    """One of the 4 gloo ranks on this card that phases dist and tp share
+    (torchrun; ``work/job.json`` says what to run): the dist phase's
+    launcher runs at 4x1 on the whole world (``dist``: [name, flags] a
+    variant, ``dist_steps`` steps each), then every run of phase tp on
+    the 2x2 mesh's groups (``tp``); each rank's results to
+    ``work/rank<r>.json``, the parent checks them."""
+    import torch.distributed as dist
+
+    from repro_torch.core.schemes import DistGroup
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_groups
+
+    job = json.loads((work / "job.json").read_text())
+    group, mgroup, dev = make_mesh_groups("gloo", 2)
+    world = DistGroup()
+    rank = world.ranks[0]
+    out: dict = {"rank": rank, "data_rank": group.ranks[0],
+                 "model_rank": mgroup.ranks[0], "seconds": {}, "dist": {}}
+    t0 = [time.time()]
+
+    def done(name: str) -> None:
+        free_card()
+        dist.barrier()
+        out["seconds"][name] = time.time() - t0[0]
+        t0[0] = time.time()
+
+    try:
+        for name, extra in job["dist"]:
+            K.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            res = train.train(train.parse_args(
+                [*qwen_argv(world.n, job["dist_steps"], *extra), "--dist",
+                 "gloo"]), world, None, dev)
+            out["dist"][name] = {"res": res, "launches": dict(K.LAUNCHES)}
+            done(f"dist {name}")
+        if job["tp"]:
+            tp_runs(group, mgroup, dev, out, done)
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def gloo4_ranks(dist_variants, tp: bool) -> list[dict]:
+    """``gloo4_rank`` on 4 ranks of this card: the dist phase's
+    ``dist_variants`` (``DIST_STEPS`` steps each) and, if ``tp``, phase
+    tp's runs; the ranks' results, by rank."""
+    work = Path(tempfile.mkdtemp(prefix="gloo4_", dir=Path(__file__)
+                                 .resolve().parent / "build"))
+    (work / "job.json").write_text(json.dumps(
+        {"dist": [[name, list(extra)] for name, extra in dist_variants],
+         "dist_steps": DIST_STEPS, "tp": tp}))
+    run_ranks(TP["ranks"], [str(Path(__file__).resolve()), "--dist-rank",
+                            "gloo4", str(work)], "gloo4",
+              env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks = sorted((json.loads((work / f"rank{r}.json").read_text())
+                    for r in range(TP["ranks"])), key=lambda r: r["rank"])
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[gloo4] seconds by run (rank 0): {ranks[0]['seconds']}")
+    return ranks
+
+
+def gloo4_dist_runs(ranks: list[dict], variants) -> dict:
+    """The dist trainer's runs out of ``gloo4_ranks``' results, as
+    ``dist_trainer`` takes them: rank 0's ``dist result`` with each
+    rank's launches (``launches_by_rank``)."""
+    from repro_torch.kernels import ops as K
+
+    return {f"gloo {name}": {
+        **ranks[0]["dist"][name]["res"],
+        "launches_by_rank": {k: [r["dist"][name]["launches"][k]
+                                 for r in ranks] for k in K.KERNELS}}
+        for name, _ in variants}
+
+
+def tp_runs(group, mgroup, dev, out: dict, done) -> None:
+    """Every run of phase tp on one rank of the 2x2 mesh (``group`` its
+    data group, ``mgroup`` its model group), each into ``out``, ``done``
+    after each."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve, train
+
+    rank = out["rank"]
+    # the launcher's own run, both routes
+    for backend, steps in (("cuda", TP["steps"]),
+                           ("torch", TP["plain_steps"])):
+        K.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.train(train.parse_args(tp_argv(backend, steps)),
+                          group, mgroup, dev)
+        out[f"qwen/{backend}"] = {
+            **{k: res[k] for k in ("losses", "sparse_words_by_step",
+                                   "overflow", "grad_norm", "step_s",
+                                   "tok_per_s", "peak_gib_by_rank",
+                                   "moment_bytes")},
+            "launches": dict(K.LAUNCHES), "plain": dict(K.PLAIN_CALLS)}
+        done(f"qwen {backend}")
+    # mesh invariance in f32 at a depth cut: 2x2, then 2x1 on the
+    # ranks of model index 0 (their data group)
+    cfg32 = serve_cfg("qwen2-0.5b", TP_F32_LAYERS, dtype=torch.float32)
+    kw = dict(zero1=True, mesh=TP["mesh"], group=group,
+              model_group=mgroup)
+    out["qwen/f32/2x2"] = direct_train(cfg32, 2, TP["batch"], TP["seq"],
+                                       TP["steps"], **kw)
+    done("qwen f32 2x2")
+    if mgroup.ranks[0] == 0:
+        out["qwen/f32/2x1"] = direct_train(
+            cfg32, 2, TP["batch"], TP["seq"], TP["steps"], zero1=True,
+            group=group)
+    done("qwen f32 2x1")
+    # olmoe, both dispatches, both routes
+    cfg = serve_cfg("olmoe-1b-7b", TP_MOE["layers"])
+    for a2a in (True, False):
+        for backend in ("cuda", "torch"):
+            out[f"moe/{int(a2a)}/{backend}"] = direct_train(
+                cfg, 2, TP["batch"], TP["seq"], TP_MOE["steps"], backend,
+                moe_a2a=a2a, **kw)
+            done(f"olmoe a2a={a2a} {backend}")
+    cfg = serve_cfg("olmoe-1b-7b", TP_MOE["f32_layers"],
+                    dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                              / cfg.top_k)
+    for a2a in (True, False):
+        out[f"moe32/{int(a2a)}"] = direct_train(
+            cfg, 2, TP["batch"], TP["seq"], 1, moe_a2a=a2a, **kw)
+        done(f"olmoe f32 a2a={a2a}")
+    # the server: 1x2 on the ranks of data index 0, then 1x1 on rank 0
+    # (each f32 run warms up the bf16 run timed after it)
+    served = {}
+    for mesh, dtype in (("1x2", "float32"), ("1x2", "bfloat16"),
+                        ("1x1", "float32"), ("1x1", "bfloat16")):
+        if (mesh == "1x2" and group.ranks[0] == 0) or rank == 0:
+            K.reset_counts()
+            res = serve.serve(serve.parse_args(tp_serve_argv(
+                mesh, dtype)), mgroup if mesh == "1x2" else None, dev)
+            served.setdefault((mesh, dtype), []).append(res)
+            out.setdefault("serve", {}).setdefault(f"{mesh}/{dtype}", [])
+            out["serve"][f"{mesh}/{dtype}"].append({
+                "prefill_ms": res["prefill_ms"],
+                "decode_tok_per_s": res["decode_tok_per_s"],
+                "launches": res["launches"],
+                "decode_launches": res["decode_launches"],
+                "plain": res["plain_calls"],
+                "cache_pos": res["cache_pos"].tolist(),
+                "finite": bool(np.isfinite(res["logit_max"]).all())})
+        if mesh == "1x2":
+            done(f"serve 1x2 {dtype}")
+    if rank == 0:
+        a, b = served["1x2", "float32"][0], served["1x1", "float32"][0]
+        out["serve_f32"] = {
+            "logits_max_abs": float((a["prefill_logits"]
+                                     - b["prefill_logits"]).abs().max()),
+            "tokens_equal": int((a["tokens"] == b["tokens"]).sum()),
+            "tokens": int(a["tokens"].size)}
+    done("serve 1x1")
+
+
+def tp_kernel_rows(smi: str) -> dict:
+    """The kernels at the shapes the TP paths give them: the fused Zen
+    kernels at the 2x2 trainers' table shards (n 2; ``TP_ZEN_SHAPES``),
+    bitwise their plain versions twice in a row, and ``flash_fwd`` at the
+    TP prefills' per-rank heads (``TP_FLASH``, bf16, causal) within one
+    bf16 ulp of its plain version; each timed beside its bound (and SDPA
+    for flash)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import schemes as S_
+    from repro_torch.kernels import ops as K, ref as R
+
+    err = {k: 0.0 for k in K.KERNELS}
+    rows = []
+    rng = np.random.default_rng(11)
+    for tag, what, M, d in TP_ZEN_SHAPES:
+        g = zipf_rows(rng, 2, M, SLICE["tokens"], d, torch.bfloat16, "cuda")
+        lo = S_.make_zen_layout(M, 2, density_budget=0.25)
+        inp = kernel_inputs(g, lo)
+        del g
+        calls = zen_rows(inp, lo, d)
+        for name, (kern, plain, nbytes, nops) in calls.items():
+            want = plain()
+            for call in (1, 2):
+                err[name] = max(err[name], same(
+                    kern(), want, f"[tp] {name} {what} call {call}"))
+            row = time_row(f"{name} ({what}, M {M}, d {d}, n 2)", kern,
+                           plain, None, nbytes, nops, OPS_PER_S, smi,
+                           plain_iters=5)
+            rows.append({**row, "kernel": name,
+                         "row": f"{ZEN_ROW[name]}{tag}"})
+        log(f"[tp] {what} [{M}, {d}], n 2: the fused Zen kernels equal "
+            f"their plain versions, twice")
+        del inp, calls
+        torch.cuda.empty_cache()
+    for tag, what, shp in TP_FLASH:
+        q, k, v = flash_inputs(torch.bfloat16, **shp)
+        got = K.flash_fwd_op(q, k, v)
+        same([K.flash_fwd_op(q, k, v)], [got], f"[tp] flash_fwd {what}")
+        want = R.flash_fwd_ref(q, k, v)
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= bf16_ulp(want) + 1e-6).all()):
+            raise AssertionError(f"[tp] flash_fwd {what} {shp}: {diff.max()} "
+                                 f"from the plain version, over one ulp")
+        err["flash_fwd"] = max(err["flash_fwd"], float(diff.max()))
+        B, S, H, hd = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = B * H * S * (S + 1) // 2
+        row = time_row(
+            f"flash_fwd ({what}, {H} / {k.shape[2]} heads of {hd}, bf16)",
+            lambda: K.flash_fwd_op(q, k, v), lambda: R.flash_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * pairs * hd, BF16_OPS_PER_S, smi)
+        rows.append({**row, "kernel": "flash_fwd", "row": tag})
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"err": err, "rows": rows}
+
+
+def tp_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
+    """Tensor parallelism on this card, 4 gloo ranks under torchrun
+    (``tp_runs``; ``ranks``: their results, when phase dist's torchrun ran
+    them): the launcher's 2x2 qwen2-0.5b trainer at full size, its
+    kernel route bitwise its plain route (losses, words), overflow 0, the
+    Zen kernels once a step on every process and nothing plain; the f32
+    2x2 run against 2x1 at ``TP_F32_LAYERS`` layers; olmoe-1b-7b at 2x2,
+    both dispatches, each route bitwise the other (losses, grad norm,
+    words, overflow, ``moe/*``), and in f32 a2a within ``TP_A2A_TOL`` of
+    replicated at step 0; qwen2.5-3b served at 1x2 (36 ``flash_fwd`` a
+    prefill on every process, none plain; each rank's cache the positions
+    r, r + 2, ...; in f32 the logits within 1e-3 of the 1x1 serve's and
+    the same 128 tokens); then the kernels at the TP shapes."""
+    from repro_torch.kernels import ops as K
+
+    free_card()
+    log(f"[tp] this process holds {torch.cuda.memory_reserved()} B of the "
+        f"card ({torch.cuda.memory_allocated()} B allocated)")
+    if ranks is None:
+        ranks = gloo4_ranks((), True)
+    else:
+        tp_s = sum(v for k, v in ranks[0]["seconds"].items()
+                   if not k.startswith("dist "))
+        log(f"[tp] its runs took {tp_s:.1f} s of phase dist's torchrun "
+            f"(rank 0)")
+    steps = TP["steps"]
+    zen = {k: steps for k in ZEN_KERNELS}
+    # the launcher's 2x2 trainer
+    for r in ranks:
+        run, plain = r["qwen/cuda"], r["qwen/torch"]
+        for key in ("losses", "sparse_words_by_step", "grad_norm"):
+            if run[key][:TP["plain_steps"]] != plain[key]:
+                raise AssertionError(f"[tp] 2x2 trainer {key}: kernels "
+                                     f"{run[key]} != plain {plain[key]}")
+        check_launches(f"[tp] 2x2 trainer rank {r['rank']}", run["launches"],
+                       run["plain"], zen)
+        if any(plain["launches"].values()) or run["overflow"] \
+                or plain["overflow"] or not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"[tp] 2x2 trainer: {run}")
+    q = ranks[0]["qwen/cuda"]
+    log(f"[tp] qwen2-0.5b 2x2 (launch/train.py --mesh 2x2 --dist gloo, 4 "
+        f"processes on this card, full size, ZeRO-1): losses {q['losses']} "
+        f"words {q['sparse_words_by_step']} grad_norm {q['grad_norm']} "
+        f"overflow {q['overflow']}, the plain route's {TP['plain_steps']} "
+        f"steps bitwise; Zen's three "
+        f"kernels {steps} times a process, nothing plain; step_s "
+        f"{q['step_s']} (plain route {ranks[0]['qwen/torch']['step_s']}) "
+        f"tok/s {q['tok_per_s']:.1f}; peak GiB by process "
+        f"{q['peak_gib_by_rank']}; moments a process {q['moment_bytes']} B "
+        f"| {smi}")
+    # f32 mesh invariance
+    a, b = ranks[0]["qwen/f32/2x2"], ranks[0]["qwen/f32/2x1"]
+    d0 = abs(a["losses"][0] - b["losses"][0])
+    dn = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    gn = tp_rel(a["grad_norm"][0], b["grad_norm"][0])
+    log(f"[tp] f32 qwen2-0.5b at {TP_F32_LAYERS} of 24 layers: 2x2 losses "
+        f"{a['losses']} grad_norm {a['grad_norm']}; 2x1 {b['losses']} "
+        f"{b['grad_norm']}: step 0 {d0:.3e} (gate {TP_F32_TOL['step0']}), "
+        f"steps {dn:.3e} ({TP_F32_TOL['steps']}), step-0 grad_norm "
+        f"{gn:.3e} relative ({TP_F32_TOL['grad_norm']}): the true gradient "
+        f"| {smi}")
+    if d0 > TP_F32_TOL["step0"] or dn > TP_F32_TOL["steps"] \
+            or gn > TP_F32_TOL["grad_norm"]:
+        raise AssertionError("[tp] the 2x2 f32 run is not the 2x1 run's")
+    # olmoe
+    for a2a in (1, 0):
+        for r in ranks:
+            run, plain = r[f"moe/{a2a}/cuda"], r[f"moe/{a2a}/torch"]
+            for key in ("losses", "grad_norm", "sparse_words_by_step",
+                        "overflow", *MOE_STATS):
+                if run[key] != plain[key]:
+                    raise AssertionError(f"[tp] olmoe a2a={a2a} {key}: "
+                                         f"{run[key]} != {plain[key]}")
+            check_launches(f"[tp] olmoe a2a={a2a} rank {r['rank']}",
+                           run["launches"], run["plain"],
+                           {k: TP_MOE["steps"] for k in ZEN_KERNELS})
+            if any(run["overflow"]) or not np.isfinite(run["losses"]).all():
+                raise AssertionError(f"[tp] olmoe a2a={a2a}: {run}")
+        run = ranks[0][f"moe/{a2a}/cuda"]
+        log(f"[tp] olmoe-1b-7b 2x2, {TP_MOE['layers']} of 16 layers "
+            f"({run['params'] / 1e9:.3f} B parameters a process), "
+            f"{'moe_ffn_a2a' if a2a else 'replicated dispatch'}: losses "
+            f"{run['losses']} grad_norm {run['grad_norm']} words "
+            f"{run['sparse_words_by_step']} "
+            + " ".join(f"{k}={run[k]}" for k in MOE_STATS)
+            + f", the plain route bitwise; step_s {run['step_s']} peak "
+            f"{[r[f'moe/{a2a}/cuda']['peak_gib'] for r in ranks]} GiB | "
+            f"{smi}")
+    a2a, rep = ranks[0]["moe32/1"], ranks[0]["moe32/0"]
+    gap = abs(a2a["losses"][0] - rep["losses"][0])
+    log(f"[tp] olmoe f32, {TP_MOE['f32_layers']} layers, capacity factor "
+        f"E / K = 8: a2a {a2a['losses'][0]} replicated {rep['losses'][0]}: "
+        f"{gap:.3e} (gate {TP_A2A_TOL}); dropped {a2a['moe/dropped']} / "
+        f"{rep['moe/dropped']}, skew {a2a['moe/skew']} / {rep['moe/skew']}")
+    if gap > TP_A2A_TOL or a2a["moe/dropped"][0] or rep["moe/dropped"][0]:
+        raise AssertionError("[tp] moe_ffn_a2a is not the replicated MoE")
+    # the server
+    cfg = serve_cfg(TP_SERVE)
+    want = {"flash_fwd": cfg.n_layers}
+    for r in ranks[:2]:
+        for key, runs in r["serve"].items():
+            mesh = key.split("/")[0]
+            if mesh == "1x1" and r["rank"] != 0:
+                continue
+            for res in runs:
+                pre = {k: res["launches"][k] - res["decode_launches"][k]
+                       for k in res["launches"]}
+                if pre != {k: want.get(k, 0) for k in pre} \
+                        or any(res["plain"].values()) \
+                        or any(res["decode_launches"].values()) \
+                        or not res["finite"]:
+                    raise AssertionError(f"[tp] serve {key} rank "
+                                         f"{r['rank']}: {res}")
+        pos = [p for p in r["serve"]["1x2/float32"][0]["cache_pos"]
+               if p >= 0]
+        held = list(range(r["model_rank"], SERVE["prompt"] + SERVE["gen"] - 1,
+                          2))
+        if pos != held:
+            raise AssertionError(f"[tp] rank {r['rank']}'s cache holds "
+                                 f"{pos[:6]}..., not {held[:6]}...")
+    f32 = ranks[0]["serve_f32"]
+    s = ranks[0]["serve"]
+    log(f"[tp] {TP_SERVE} served at 1x2 (launch/serve.py, full size, 8 x 512 "
+        f"+ 16): {cfg.n_layers} flash_fwd a prefill on each process at "
+        f"{cfg.n_heads // 2} / 1 heads of {cfg.hd}, none in decode, nothing "
+        f"plain; rank r's cache holds positions r, r + 2, ...; f32 logits "
+        f"{f32['logits_max_abs']:.3e} from the 1x1 serve's (gate "
+        f"{SERVE_LOGIT_TOL['qwen2-0.5b']}), {f32['tokens_equal']} of "
+        f"{f32['tokens']} tokens equal; bf16 prefill ms 1x2 "
+        f"{[x['prefill_ms'] for x in s['1x2/bfloat16']]} 1x1 "
+        f"{[x['prefill_ms'] for x in s['1x1/bfloat16']]} (after an f32 run "
+        f"each), decode tok/s 1x2 "
+        f"{[x['decode_tok_per_s'] for x in s['1x2/bfloat16']]} 1x1 "
+        f"{[x['decode_tok_per_s'] for x in s['1x1/bfloat16']]} | {smi}")
+    if f32["logits_max_abs"] > 1e-3 or f32["tokens_equal"] != f32["tokens"]:
+        raise AssertionError("[tp] the 1x2 server is not the 1x1 server")
+    kern = tp_kernel_rows(smi)
+    free_card()
+    log(f"[tp] after the kernel rows this process holds "
+        f"{torch.cuda.memory_reserved()} B ({torch.cuda.memory_allocated()} "
+        f"B allocated)")
+    by_path = {"trainer 2x2 qwen2-0.5b (tp)": [r["qwen/cuda"] for r in ranks],
+               **{f"trainer 2x2 olmoe-1b-7b (tp, "
+                  f"{'a2a' if a else 'replicated'})":
+                  [r[f"moe/{a}/cuda"] for r in ranks] for a in (1, 0)}}
+    launches = {p: {k: sum(r["launches"][k] for r in rs) for k in K.KERNELS}
+                for p, rs in by_path.items()}
+    launches[f"serve {TP_SERVE} 1x2 (tp)"] = {
+        k: sum(r["serve"]["1x2/float32"][0]["launches"].get(k, 0)
+               for r in ranks[:2]) for k in K.KERNELS}
+    return {**kern, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # the Mamba2 trainer: ssd_fwd under autograd
 # ---------------------------------------------------------------------------
 
@@ -4252,7 +4742,7 @@ def main(argv=None) -> None:
                          "all: kernels (with kernels_wide and new_shapes),"
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
-                         "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,"
+                         "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,tp,"
                          "times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
@@ -4266,7 +4756,11 @@ def main(argv=None) -> None:
                     help=argparse.SUPPRESS)   # one rank of phase 8 (torchrun)
     args = ap.parse_args(argv)
     if args.dist_rank:
-        dist_rank(args.dist_rank[0], Path(args.dist_rank[1]))
+        job, work = args.dist_rank[0], Path(args.dist_rank[1])
+        if job == "gloo4":
+            gloo4_rank(work)
+        else:
+            dist_rank(job, work)
         return
     only = set(filter(None, args.only.split(",")))
     want = (lambda p: not only or p in only)
@@ -4287,8 +4781,10 @@ def main(argv=None) -> None:
     _build.build(verbose=True)   # every kernel, one nvcc per source at once
     log(f"[build] {len(_build.SOURCES)} libraries in {time.time() - t0:.1f}s")
     phase_done("build")
+    ranks4 = None
     if want("dist"):   # first: four full-width ranks share this card
-        phase_dist(dev, dev_info["smi"])
+        # (its 4 gloo processes also run phase tp's work)
+        ranks4 = phase_dist(dev, dev_info["smi"], tp=want("tp"))
         phase_done("dist")
     else:
         if "dist_sync" in only:
@@ -4297,6 +4793,9 @@ def main(argv=None) -> None:
         if "dist_hier" in only:
             dist_trainer("gloo", dev_info["smi"], variants=DIST_VARIANTS[2:])
             phase_done("dist_hier")
+    # tp next, as dist: four processes of trainers fill most of the card
+    tp = phase_tp(dev_info["smi"], ranks4) if want("tp") else None
+    phase_done("tp")
     # zoo next: its trainers fill most of the card, before other phases
     # leave kernel scratch and cached blocks behind
     zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
@@ -4385,6 +4884,8 @@ def main(argv=None) -> None:
                         for a, v in (part or {}).get("models", {}).items()})
     if mla:
         by_path["trainer --zero1 (8x1)"] = mla["zero1_8x1"]["zero1"]
+    if tp:   # summed over the four processes
+        by_path.update({p: {"launches": n} for p, n in tp["launches"].items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
@@ -4397,12 +4898,12 @@ def main(argv=None) -> None:
                 if n:
                     path_launches[k][f"serve {a}"] = n
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for part in (wide, shapes, hybrid_moe, edv, mla):
+    for part in (wide, shapes, hybrid_moe, edv, mla, tp):
         for k, e in (part["err"] if part else {}).items():
             errs[k] = max(errs.get(k, 0.0), e)
-    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec, vlm and MLA
-    # paths' shapes
-    new_rows = [r for part in (shapes, hybrid_moe, edv, mla) if part
+    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec, vlm, MLA and
+    # TP paths' shapes
+    new_rows = [r for part in (shapes, hybrid_moe, edv, mla, tp) if part
                 for r in part["rows"]]
     table = []
     for row in times:

@@ -8,6 +8,15 @@ stored as a uint16 view, as the reference stores them (npz has no bf16);
 an int leaf is stored as a 0-d int64 array and comes back an int.  No
 pickle is written or read.  Tensors are copied to the host to be written:
 one process writes (rank 0 on a process group).
+
+Under tensor parallelism the checkpoint is host-gathered, as DESIGN.md §5
+has it: :func:`gather_params` gathers each model-sharded leaf over the
+model group into its global shape (every process calls it; rank 0
+writes), :func:`load_params` slices a global leaf back to this rank's
+shard, and :func:`gather_state` / :func:`scatter_state` stack every
+process's optimizer state over the world's ranks and hand each process
+its own row back, so that a restore on the same mesh continues bit for
+bit.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.schemes import DistGroup
 
 _BF16 = "bfloat16"
 _INT = "int"
@@ -86,3 +96,50 @@ def restore(path, device=None) -> dict:
                 node = node.setdefault(k, {})
             node[leaf["path"][-1]] = val
     return out
+
+
+@torch.no_grad()
+def gather_params(model) -> dict:
+    """{leaf name: the GLOBAL leaf}: each model-sharded leaf all-gathered
+    over the model group along its sharded dim (a collective: every
+    process of the group calls it), the others as they are."""
+    ctx, out = model.ctx, {}
+    dims = model.shard_dims() if ctx.tp > 1 else {}
+    for name, p in model.named_leaves():
+        dim = dims.get(name)
+        out[name] = (p if dim is None else
+                     ctx.all_gather_tp(p.movedim(dim, 0)).movedim(0, dim))
+    return out
+
+
+@torch.no_grad()
+def load_params(model, params: dict) -> None:
+    """Copy GLOBAL leaves (:func:`gather_params`' tree) into ``model``,
+    each sliced to this rank's shard."""
+    dims = model.shard_dims() if model.ctx.tp > 1 else {}
+    for name, p in model.named_leaves():
+        p.copy_(model.ctx.shard(params[name], dims.get(name)))
+
+
+def gather_state(state, world: DistGroup):
+    """An optimizer state (``Program.opt_state()``) with every tensor
+    stacked over the world's processes in rank order ([world, ...]); ints
+    as they are (a collective)."""
+    if isinstance(state, dict):
+        return {k: gather_state(v, world) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return world.all_gather(state[None])
+    return state
+
+
+@torch.no_grad()
+def scatter_state(state: dict, tree: dict, world: DistGroup) -> None:
+    """Load :func:`gather_state`'s ``tree`` into ``state`` IN PLACE: this
+    process's row of every tensor; the ints as they are."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            scatter_state(state[k], v, world)
+        elif isinstance(v, torch.Tensor):
+            state[k].copy_(v[world.ranks[0]])
+        else:
+            state[k] = v

@@ -19,6 +19,12 @@ CONSECUTIVE (the reference's ``launch/mesh.py`` grouping):
 :func:`make_level_groups` makes one ``torch.distributed`` group per node
 (ranks ``[j*k, ..., j*k + k - 1]``), per cross-node column (``[i, i + k,
 ...]``) and per pod column, every rank making every group in one order.
+
+Tensor parallelism (``--mesh DxM``, M > 1) lays the world out as the
+reference's mesh ``(data, model)``, model innermost: rank ``d M + m``.
+:func:`make_mesh_groups` makes the model groups (M consecutive ranks)
+and the data groups (the D ranks that share a model index), every rank
+making every group in one order, model groups first.
 """
 from __future__ import annotations
 
@@ -64,6 +70,29 @@ def make_level_groups(group, topology, pods: int = 1) -> None:
     for axis, size in enumerate(sizes):
         if size > 1:
             group.split(sizes, axis)
+
+
+def make_mesh_groups(backend: str, tp: int, device: str | None = None
+                     ) -> tuple[DistGroup, DistGroup | None, torch.device]:
+    """Join torchrun's world as a ``DxM`` mesh with ``tp`` = M: ``(data
+    group, model group, device)``.  At M = 1 the data group is the world
+    and there is no model group (:func:`make_data_group`).  Call
+    ``dist.destroy_process_group()`` when done."""
+    world, dev = make_data_group(backend, device)
+    if tp == 1:
+        return world, None, dev
+    if world.n % tp:
+        dist.destroy_process_group()
+        raise ValueError(f"{world.n} processes do not make a mesh with "
+                         f"M={tp} model ranks")
+    rank, groups = world.ranks[0], {}
+    for kind, members in (
+            [("model", list(range(b, b + tp))) for b in range(0, world.n, tp)]
+            + [("data", list(range(m, world.n, tp))) for m in range(tp)]):
+        pg = dist.new_group(members)
+        if rank in members:
+            groups[kind] = DistGroup(pg)
+    return groups["data"], groups["model"], dev
 
 
 def make_data_group(backend: str, device: str | None = None

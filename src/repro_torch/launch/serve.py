@@ -18,6 +18,14 @@ prefill's last-position logits, and each of the ``--gen - 1`` decode
 steps feeds the last token and takes the next (whisper's cross-attention
 one ``flash_fwd`` a layer a step).  (The reference example instead
 replays the prompt through decode and feeds its last token twice.)
+
+``--mesh 1xM --dist {gloo,nccl}`` under ``torchrun --nproc-per-node M``
+serves the dense and MoE models tensor-parallel over the model group:
+each rank's prefill runs ``flash_fwd`` on its own heads and keeps its
+round-robin share of the prompt's K/V (positions r, r + M, ...), decode
+attends over the sequence-sharded cache, and the first token is the
+argmax of the gathered last-position logits (``--pad-heads`` and
+``--moe-a2a`` as in ``launch/train.py``).  Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -27,13 +35,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import BACKENDS, make_mesh_groups
 from repro_torch.train import steps as st
 from repro_torch.train.steps import MODEL_INPUTS
-from repro_torch.train.build import Program, attach_serve, build_program
+from repro_torch.train.build import (Program, attach_serve, build_program,
+                                     parse_mesh)
 
 ARCHS = ("qwen2-0.5b", "mamba2-370m", "qwen2.5-3b", "phi4-mini-3.8b",
          "zamba2-1.2b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
@@ -60,7 +71,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="1x1",
+                    help="1xM: M tensor-parallel ranks (with --dist)")
+    ap.add_argument("--dist", default=None, choices=BACKENDS,
+                    help="one rank per process under torchrun, over this "
+                         "torch.distributed backend")
+    ap.add_argument("--pad-heads", action="store_true",
+                    help="pad the q heads to a multiple of M so that they "
+                         "shard over the model axis")
+    ap.add_argument("--moe-a2a", action="store_true",
+                    help="MoE: the token-sharded all-to-all dispatch over "
+                         "the model axis (M > 1)")
     args = ap.parse_args(argv)
+    pods, dp, _ = parse_mesh(args.mesh)
+    if pods * dp != 1:
+        ap.error(f"--mesh {args.mesh}: the server runs 1xM meshes")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1 \
             or (args.layers is not None and args.layers < 1):
         ap.error("--gen, --prompt-len, --batch and --layers must be "
@@ -79,29 +104,44 @@ def handoff(prog: Program, cache: dict) -> dict:
     are in execution order (the hybrid's attention applications among its
     Mamba2 layers)."""
     dec = prog.fresh_cache()
-    S = cache["t"]
     for i, (new, old) in enumerate(zip(dec["layers"], cache["layers"])):
         if "pos" not in new:
             dec["layers"][i] = old
             continue
+        n = old["pos"].shape[0]   # the prompt's slots (this rank's share)
         for key, val in old.items():
             if key == "cross":
                 new[key] = val
             elif key == "pos":
-                new[key][:S] = val
+                new[key][:n] = val
             else:
-                new[key][:, :S] = val
-    dec["t"] = S
+                new[key][:, :n] = val
+    dec["t"] = cache["t"]
     return dec
 
 
 def main(argv=None) -> dict:
     """Serve one batch; returns the prompt, the generated tokens [B, gen],
-    prefill's last-position logits (f32, CPU), per-step max logits and
-    top-2 gaps, prefill ms, decode tok/s (host clock after a device sync)
-    and the model kernels' launch and plain-call counters (and the
-    launches of the decode steps alone: whisper's cross-attention)."""
+    prefill's last-position logits (f32, CPU, every vocab shard), per-step
+    max logits and top-2 gaps, prefill ms, decode tok/s (host clock after
+    a device sync), the positions the first layer's decode cache holds
+    at the end (``cache_pos``: this rank's share) and this process's
+    model kernels' launch and plain-call counters (and the launches of
+    the decode steps alone: whisper's cross-attention)."""
     args = parse_args(argv)
+    if args.dist is None:
+        return serve(args, None, args.device)
+    _, model_group, dev = make_mesh_groups(args.dist,
+                                           parse_mesh(args.mesh)[2],
+                                           args.device)
+    try:
+        return serve(args, model_group, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve(args, model_group, device) -> dict:
+    """``main``'s run on a model group already joined (None at M = 1)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -109,11 +149,14 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=DTYPES[args.dtype])
-    prog = build_program(cfg, "1x1", device=args.device, seed=args.seed,
-                         backend=args.backend)
+    prog = build_program(cfg, args.mesh, device=device, seed=args.seed,
+                         backend=args.backend, model_group=model_group,
+                         pad_heads=args.pad_heads, moe_a2a=args.moe_a2a)
     dev = prog.device
     B, S = args.batch, args.prompt_len
-    print(f"arch={cfg.name} params="
+    root = prog.model.ctx.tp_rank() == 0
+    log = print if root else (lambda *a, **k: None)   # rank 0 prints
+    log(f"arch={cfg.name} mesh={args.mesh} params="
           f"{sum(p.numel() for p in prog.model.parameters()) / 1e6:.1f}M "
           f"batch={B} prompt={S} gen={args.gen} backend={args.backend} "
           f"device={dev} dtype={str(cfg.dtype).replace('torch.', '')}",
@@ -139,7 +182,7 @@ def main(argv=None) -> dict:
     attach_serve(prog, seq_len=S + args.gen, global_batch=B, mode="decode")
     decode = st.make_decode_step(prog.model, prog.cache_specs["window"],
                                  return_gap=True)
-    lf = logits.float()
+    lf = prog.model.gather_vocab(logits).float()
     top = lf.topk(2, dim=-1).values
     tok = lf.argmax(-1)[:, None]
     out, lmax, gaps = [tok], [top[:, 0]], [top[:, 0] - top[:, 1]]
@@ -161,17 +204,19 @@ def main(argv=None) -> dict:
     counts = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
     plain = {k: ops.PLAIN_CALLS[k] for k in ops.MODEL_KERNELS}
     in_decode = {k: counts[k] - in_prefill[k] for k in counts}
-    print(f"prefill: {prefill_ms:.1f} ms | decode: {args.gen - 1} steps "
-          f"{decode_s * 1e3:.1f} ms, {tok_s:,.0f} tok/s | launches {counts} "
-          f"(in decode {in_decode}) "
-          f"plain calls {plain}", flush=True)
-    print("sample token ids:", gen[0][:16].tolist())
+    log(f"prefill: {prefill_ms:.1f} ms | decode: {args.gen - 1} steps "
+        f"{decode_s * 1e3:.1f} ms, {tok_s:,.0f} tok/s | launches {counts} "
+        f"(in decode {in_decode}) "
+        f"plain calls {plain}", flush=True)
+    log("sample token ids:", gen[0][:16].tolist())
+    attn = next((c for c in cache["layers"] if "pos" in c), None)
     return {"prompt": b["tokens"], "tokens": gen,
             "prefill_logits": lf.cpu(), "logit_max": lmax_np,
             "top2_gap": torch.stack(gaps).float().cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_s": decode_s,
             "decode_tok_per_s": tok_s, "launches": counts,
             "decode_launches": in_decode,
+            "cache_pos": None if attn is None else attn["pos"].cpu().numpy(),
             "plain_calls": plain}
 
 

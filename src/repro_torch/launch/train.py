@@ -20,6 +20,22 @@ its D ranks, then the pods' results are averaged) run in one of two modes
   ``--device cpu``); nccl needs a GPU per rank.  Only rank 0 prints, and
   ``main`` returns the same dict on every rank.
 
+``--mesh DxM`` with M > 1 is tensor parallelism (the dense and MoE
+models), one process per (data, model) rank, rank ``d M + m``, so it
+needs ``--dist``:
+
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+          -m repro_torch.launch.train --arch qwen2-0.5b --mesh 2x2 \
+          --dist gloo --sync zen --global-batch 8 --seq-len 512 --steps 4
+
+Each model rank holds its shards (``models/common.py``) and runs Zen on
+its ``[Vp/M, d]`` shard of ``embed/table`` over the D ranks of its data
+group.  ``--pad-heads`` pads the q heads to a multiple of M so that they
+shard (the reference's ``pad_heads``), ``--moe-a2a`` takes the
+token-sharded MoE dispatch (``moe_ffn_a2a``).  The gradient is the true
+one, the 1x1 run's, so ``grad_norm`` is the 1x1 run's too, where the
+reference reports M times it (ROADMAP queue 3).
+
 ``--node-size k`` (a divisor of D) makes the data-parallel world two-level:
 nodes of k consecutive ranks, every bucket's plan run inside each node and
 then across the nodes (``core/topology.py``; ``--sync auto`` prices the
@@ -39,7 +55,8 @@ topk:0.01`` (or ``randk:D``, ``threshold:T``, ``:noef`` for no error
 feedback) EF-sparsifies every dense bucket before the sync
 (core/sparsify.py); ``--ckpt-dir DIR`` saves ``{"params", "step"}`` to
 ``DIR/final`` (and ``DIR/step_<k>`` every ``--ckpt-every`` steps) with
-``checkpoint/io.py``, rank 0 writing.  ``--sync`` takes every executable
+``checkpoint/io.py``, rank 0 writing (the model-sharded leaves gathered
+over the model group first).  ``--sync`` takes every executable
 scheme of the registry (``core/registry.py``) or ``auto``, the cost
 model's per-bucket choice (``core/costmodel.py``).  ``--replan-every N``
 with ``--sync auto`` and ``--compress`` runs the density controller
@@ -69,17 +86,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint.io import save
+from repro_torch.checkpoint.io import gather_params, save
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.registry import cli_scheme_choices
 from repro_torch.core.sparsify import DensityController
 from repro_torch.core.zen import SyncConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import (BACKENDS, make_data_group,
-                                     make_level_groups)
+from repro_torch.core.schemes import DistGroup
+from repro_torch.launch.mesh import (BACKENDS, make_level_groups,
+                                     make_mesh_groups)
 from repro_torch.optim.optimizers import OptConfig
-from repro_torch.train.build import attach_train, build_program
+from repro_torch.train.build import attach_train, build_program, parse_mesh
 from repro_torch.train.steps import TrainerConfig
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,8 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM, e.g. 8x1 "
-                    "or 2x4x1 (M must be 1)")
+    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM, e.g. 8x1, "
+                    "2x4x1 or 2x2 (M > 1: tensor parallelism, with --dist)")
     ap.add_argument("--sync", default="zen", choices=cli_scheme_choices())
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--density-budget", type=float, default=0.25)
@@ -108,6 +126,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-fused-commit", action="store_true")
     ap.add_argument("--replan-every", type=int, default=0)
     ap.add_argument("--no-zero1", action="store_true")
+    ap.add_argument("--pad-heads", action="store_true",
+                    help="pad the q heads to a multiple of M so that they "
+                         "shard over the model axis")
+    ap.add_argument("--moe-a2a", action="store_true",
+                    help="MoE: the token-sharded all-to-all dispatch over "
+                         "the model axis (M > 1)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
@@ -134,14 +158,17 @@ def main(argv=None) -> dict:
     (``intra_words``, ``inter_words``), an MoE model's router stats at
     each logged step (``moe``: ``{"moe/aux_loss": [...], ...}``, group
     means), the bytes of the optimizer moments this process holds
-    (``moment_bytes``: under ZeRO-1 its ranks' chunks) and the kernels'
-    launches and plain calls in the run, summed over the group."""
+    (``moment_bytes``: under ZeRO-1 its ranks' chunks), each process's
+    peak device memory (``peak_gib_by_rank``, GiB; 0 on the CPU) and the
+    kernels' launches and plain calls in the run, summed over the
+    processes."""
     args = parse_args(argv)
     if args.dist is None:
-        return _train(args, None, args.device)
-    group, dev = make_data_group(args.dist, args.device)
+        return train(args, None, None, args.device)
+    group, model_group, dev = make_mesh_groups(
+        args.dist, parse_mesh(args.mesh)[2], args.device)
     try:
-        return _train(args, group, dev)
+        return train(args, group, model_group, dev)
     finally:
         dist.destroy_process_group()
 
@@ -152,7 +179,10 @@ def _counts() -> torch.Tensor:
                          for c in (kops.LAUNCHES, kops.PLAIN_CALLS)])
 
 
-def _train(args, group, device) -> dict:
+def train(args, group, model_group, device) -> dict:
+    """``main``'s run on groups already joined: ``group`` the data group
+    (None: all ranks in this process), ``model_group`` the model group
+    (None at M = 1), both from ``launch/mesh.make_mesh_groups``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -165,12 +195,15 @@ def _train(args, group, device) -> dict:
                         backend=args.backend, seed=args.seed))
     prog = build_program(cfg, args.mesh, tcfg, device=device,
                          seed=args.seed, backend=args.backend, group=group,
-                         node_size=args.node_size)
+                         node_size=args.node_size, model_group=model_group,
+                         pad_heads=args.pad_heads, moe_a2a=args.moe_a2a)
     attach_train(prog)
     topo = prog.gradsync.topology
     make_level_groups(prog.group, topo, prog.pods)
     dev = prog.device
-    log = print if prog.group.ranks[0] == 0 else _quiet   # rank 0 prints
+    world = DistGroup() if group is not None else None   # every process
+    root = world is None or world.ranks[0] == 0
+    log = print if root else _quiet   # rank 0 prints
     n_params = sum(p.numel() for p in prog.model.parameters())
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
         f"sync={args.sync} compress={args.compress} backend={args.backend} "
@@ -200,9 +233,11 @@ def _train(args, group, device) -> dict:
             torch.cuda.synchronize(dev)
 
     def checkpoint(name: str, step: int) -> None:
-        if args.ckpt_dir and prog.group.ranks[0] == 0:   # rank 0 writes
-            save(Path(args.ckpt_dir) / name,
-                 {"params": dict(prog.model.named_leaves()), "step": step})
+        if not args.ckpt_dir:
+            return
+        params = gather_params(prog.model)
+        if root:   # rank 0 writes
+            save(Path(args.ckpt_dir) / name, {"params": params, "step": step})
 
     data = iter(SyntheticLM(cfg, DataConfig(
         seq_len=args.seq_len, batch=args.global_batch, seed=args.seed)))
@@ -262,11 +297,14 @@ def _train(args, group, device) -> dict:
     dt = time.time() - t0
     log("done")
     counts = (_counts() - counts0)[None].to(dev)   # [1 process, 2, kernels]
-    if group is not None:
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else 0.0], device=dev)
+    if world is not None:
         # every rank returns rank 0's clock
         clock = torch.tensor([[dt, *step_s]], dtype=torch.float64, device=dev)
-        dt, *step_s = group.all_gather(clock)[0].tolist()
-        counts = group.all_gather(counts)            # [ranks, 2, kernels]
+        dt, *step_s = world.all_gather(clock)[0].tolist()
+        counts = world.all_gather(counts)            # [ranks, 2, kernels]
+        peak = world.all_gather(peak[None])[:, 0]
     total = counts.sum(0).tolist()
     out = {"losses": losses, "tok_per_s": tokens_done / dt,
            "sparse_words": words[-1] if words else 0.0,
@@ -283,9 +321,10 @@ def _train(args, group, device) -> dict:
                         "leaves": len(b.slots),
                         "dtype": str(b.slots[0].dtype).replace("torch.", "")}
                        for b in prog.gradsync.plan.buckets],
+           "peak_gib_by_rank": peak.tolist(),
            "launches": dict(zip(kops.KERNELS, total[0])),
            "plain_calls": dict(zip(kops.KERNELS, total[1]))}
-    if group is not None:
+    if world is not None:
         by_rank = {k: counts[:, 0, i].tolist()
                    for i, k in enumerate(kops.KERNELS)}
         log(f"dist result {json.dumps({**out, 'launches_by_rank': by_rank})}")

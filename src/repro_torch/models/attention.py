@@ -41,6 +41,22 @@ The trainer's attention is plain; the prefill's is ``flash_fwd`` at that
 (96, 64) pair; the decode cache is the latent one (``c``, ``kr`` and
 ``pos``: no per-head K/V), and decode attends to it with ``kv_up``
 absorbed into q and the output (the reference's f32 einsums, no kernel).
+
+Tensor parallelism (GQA; MLA at tp > 1 waits for a later slice, ROADMAP
+queue 1): with ``ctx.shard_heads`` q is column-parallel (this rank's
+``Hl = H / tp`` heads) and o row-parallel; the K/V projections stay
+replicated, and each rank attends with the KV heads its q heads use
+(:meth:`GQA._kv_slice`: at qwen2-0.5b's 14 / 2 heads and tp = 2, 7 q
+heads and 1 KV head a rank).  Otherwise every rank computes every head.
+``ctx.h_pad`` pads the q heads to a multiple of tp with zero q columns
+and zero o rows.  Decode's cache holds every KV head, sequence-sharded:
+rank r holds positions r, r + tp, ... (prefill keeps those of the prompt,
+decode writes position t on rank t % tp).  A decode step all-gathers the
+token's q heads, so that every rank attends with EVERY head over its own
+positions and the ranks' partial softmaxes combine head by head; each
+rank then keeps its own heads' output for o.  (The reference's
+``gqa_decode`` combines the partials of different heads when the q heads
+are sharded, ROADMAP queue 3.)
 """
 from __future__ import annotations
 
@@ -49,7 +65,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, ShardCtx
 from repro_torch.models.layers import (NEG, Linear, RMSNorm, cache_write,
                                        decode_attention, flash_attention,
                                        rope)
@@ -73,39 +89,102 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, S, H * v.shape[-1]).to(q.dtype)
 
 
+def local_slots(seq: int, ctx: ShardCtx) -> int:
+    """Decode-cache slots a rank holds for ``seq`` positions: ``ceil(seq /
+    tp)`` (at least 1)."""
+    return max(1, -(-seq // ctx.tp))
+
+
 def gqa_make_cache(cfg: ArchConfig, batch: int, seq: int, *,
-                   device=None) -> dict:
-    """One layer's empty decode cache: k/v [batch, seq, KV, hd] zeros in
-    the model's dtype, pos [seq] = -1 (never written)."""
-    shape = (batch, seq, cfg.n_kv, cfg.hd)
+                   device=None, ctx: ShardCtx = ShardCtx()) -> dict:
+    """One layer's empty decode cache, this rank's ``Sl =``
+    :func:`local_slots` slots: k/v [batch, Sl, KV, hd] zeros in the
+    model's dtype, pos [Sl] = -1 (never written)."""
+    sl = local_slots(seq, ctx)
+    shape = (batch, sl, cfg.n_kv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": torch.full((seq,), -1, dtype=torch.int32, device=device)}
+            "pos": torch.full((sl,), -1, dtype=torch.int32, device=device)}
+
+
+def prefill_slots(kv: dict, ctx: ShardCtx) -> dict:
+    """This rank's round-robin share of a prompt's cache entries ({name:
+    [B, S, ...]} and ``pos`` [S]): positions r, r + tp, ... in slots 0, 1,
+    ...; a slot past the prompt holds zeros and position -1 (the
+    reference's ``gqa_prefill_cache``)."""
+    if ctx.tp == 1:
+        return kv
+    S = kv["pos"].shape[0]
+    slots = (torch.arange(local_slots(S, ctx), device=kv["pos"].device)
+             * ctx.tp + ctx.tp_rank())
+    ok = slots < S
+    safe = slots.clamp(max=S - 1)
+    out = {}
+    for name, val in kv.items():
+        if name == "pos":
+            out[name] = torch.where(ok, slots, -1).to(val.dtype)
+        else:
+            keep = ok.view(1, -1, *([1] * (val.ndim - 2)))
+            out[name] = torch.where(keep, val[:, safe], 0).to(val.dtype)
+    return out
 
 
 class GQA(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
-        self.cfg = cfg
-        d, H, hd, kv = cfg.d_model, cfg.n_heads, cfg.hd, cfg.n_kv
-        kw = dict(dtype=cfg.dtype, device=device, gen=gen)
-        self.q = Linear(d, H * hd, bias=cfg.qkv_bias, **kw)
+        self.cfg, self.ctx = cfg, ctx
+        # the decode cache's sharding: over the model axis, or whole on
+        # every rank (``decode_seq_shard`` off: no collective in decode
+        # attention)
+        self.cache_ctx = ctx if ctx.decode_seq_shard else ShardCtx()
+        d, hd, kv = cfg.d_model, cfg.hd, cfg.n_kv
+        H = ctx.h_pad or cfg.n_heads
+        self.shard = ctx.shard_heads and ctx.tp > 1
+        self.heads = H // ctx.tp if self.shard else H
+        kw = dict(dtype=cfg.dtype, device=device, gen=gen, ctx=ctx)
+        self.q = Linear(d, H * hd, bias=cfg.qkv_bias,
+                        mode="col" if self.shard else "rep", **kw)
         self.k = Linear(d, kv * hd, bias=cfg.qkv_bias, **kw)
         self.v = Linear(d, kv * hd, bias=cfg.qkv_bias, **kw)
-        self.o = Linear(H * hd, d, **kw)
+        self.o = Linear(H * hd, d, mode="row" if self.shard else "rep", **kw)
+        if ctx.h_pad:   # padded heads: zero q columns, zero o rows
+            with torch.no_grad():
+                real = cfg.n_heads * hd - ctx.tp_rank() * self.heads * hd
+                self.q.w[:, max(real, 0):] = 0
+                if self.q.b is not None:
+                    self.q.b[max(real, 0):] = 0
+                self.o.w[max(real, 0):] = 0
+
+    def _kv_slice(self, k: torch.Tensor, v: torch.Tensor):
+        """The KV heads (dim 2) this rank's q heads attend with: local q
+        heads ``[r Hl, (r + 1) Hl)`` use KV heads from ``r Hl // g`` on
+        (g = H / KV), ``Hl / g`` of them or 1 when ``g`` is a multiple of
+        ``Hl`` (the reference's ``_kv_slice``).  The projections are
+        replicated and each rank uses a part, so their gradients are
+        summed over the model group (``copy_tp``)."""
+        if not self.shard:
+            return k, v
+        H = self.ctx.h_pad or self.cfg.n_heads
+        Hl, g = self.heads, H // self.cfg.n_kv
+        count = Hl // g if Hl >= g else 1
+        start = self.ctx.tp_rank() * Hl // g
+        return tuple(self.ctx.copy_tp(t)[:, :, start:start + count]
+                     for t in (k, v))
 
     def _qkv(self, x: torch.Tensor, pos: torch.Tensor | None,
              kv_src: torch.Tensor | None = None):
-        """q [B, S, H, hd] from x and k, v [B, Sk, KV, hd] from ``kv_src``
-        (default x), RoPE on q and k at ``pos`` [S] unless ``pos`` is
-        None."""
+        """q [B, S, Hl, hd] (this rank's heads) from x and k, v [B, Sk,
+        KV, hd] (every KV head) from ``kv_src`` (default x), RoPE on q and
+        k at ``pos`` [S] unless ``pos`` is None."""
         cfg = self.cfg
         src = x if kv_src is None else kv_src
         B, S, _ = x.shape
         Sk = src.shape[1]
-        H, hd, KV = cfg.n_heads, cfg.hd, cfg.n_kv
-        q = self.q(x).view(B, S, H, hd)
+        hd, KV = cfg.hd, cfg.n_kv
+        q = self.q(self.ctx.copy_tp(x) if self.shard else x).view(
+            B, S, self.heads, hd)
         k = self.k(src).view(B, Sk, KV, hd)
         if pos is not None:
             q = rope(q, pos, cfg.rope_theta)
@@ -121,6 +200,7 @@ class GQA(nn.Module):
         rot = use_rope and kv_src is None
         q, k, v = self._qkv(x, torch.arange(S, device=x.device) if rot
                             else None, kv_src)
+        k, v = self._kv_slice(k, v)
         return self.o(plain_attention(q, k, v,
                                       causal=causal and kv_src is None))
 
@@ -133,7 +213,9 @@ class GQA(nn.Module):
         [B, S, KV, hd] after RoPE, pos = 0..S-1; the encoder's
         (``causal=False, use_rope=False``) the same without RoPE; with
         ``kv_src`` the cross cache (:meth:`make_cross_cache`), which the
-        prompt attends to without a mask."""
+        prompt attends to without a mask.  Under tensor parallelism the
+        self-attention's cache is this rank's round-robin share
+        (:func:`prefill_slots`)."""
         B, S, _ = x.shape
         if kv_src is not None:
             cache = self.make_cross_cache(kv_src)
@@ -143,8 +225,11 @@ class GQA(nn.Module):
             return self.o(o.reshape(B, S, -1)), cache
         pos = torch.arange(S, device=x.device)
         q, k, v = self._qkv(x, pos if use_rope else None)
-        o = flash_attention(q, k, v, causal=causal, backend=backend)
-        cache = {"k": k, "v": v, "pos": pos.to(torch.int32)}
+        ku, vu = self._kv_slice(k, v)
+        o = flash_attention(q, ku.contiguous(), vu.contiguous(),
+                            causal=causal, backend=backend)
+        cache = prefill_slots({"k": k, "v": v, "pos": pos.to(torch.int32)},
+                              self.cache_ctx)
         return self.o(o.reshape(B, S, -1)), cache
 
     def make_cross_cache(self, enc_out: torch.Tensor) -> dict:
@@ -160,12 +245,18 @@ class GQA(nn.Module):
                window: int = 0) -> torch.Tensor:
         """One token x [B, d] at position ``t``: its K/V go into ``cache``
         (IN PLACE), then it attends to the cache.  Returns [B, d]."""
-        B = x.shape[0]
+        B, ctx = x.shape[0], self.ctx
         pos = torch.full((1,), t, device=x.device)
         q, k, v = self._qkv(x[:, None], pos)
-        cache_write(cache["k"], cache["v"], cache["pos"], k[:, 0], v[:, 0], t)
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], cache["pos"], t,
-                             window=window)
+        cache_write(cache["k"], cache["v"], cache["pos"], k[:, 0], v[:, 0], t,
+                    self.cache_ctx)
+        q = q[:, 0]
+        if self.shard:   # every head, [B, H, hd], on every rank
+            q = ctx.all_gather_tp(q.transpose(0, 1)).transpose(0, 1)
+        o = decode_attention(q, cache["k"], cache["v"], cache["pos"], t,
+                             window=window, ctx=self.cache_ctx)
+        if self.shard:
+            o = o[:, ctx.tp_rank() * self.heads:][:, :self.heads]
         return self.o(o.reshape(B, -1))
 
     def cross_decode(self, x: torch.Tensor, cross: dict, *,

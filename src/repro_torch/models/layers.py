@@ -3,9 +3,15 @@
 RMSNorm (plain and over the SSM's d_inner), RoPE, the SwiGLU and GELU
 MLPs, the untied input embedding, the LM head with its cross-entropy, prefill
 attention (:func:`flash_attention`, on the ``flash_fwd`` kernel) and
-decode attention over a KV cache.  Tensor parallelism is not ported
-(ROADMAP queue 1, item 9), so there are no collectives here and the cache
-is not sequence-sharded.  Numerics follow the reference: norms and the
+decode attention over a KV cache.  Under tensor parallelism (a
+``ShardCtx`` with tp > 1, ``models/common.py``) these are the reference's
+Megatron-style layers: ``Linear`` in the col (output features sharded),
+row (input features sharded, a ``psum_tp`` before the bias) and rep
+modes, the vocab-parallel embedding and cross-entropy, decode attention
+over the sequence-sharded cache (slot ``(t // tp) % Sl`` of rank ``t %
+tp`` holds position t) and the SwiGLU column -> row.  A sharded leaf is
+drawn whole from the generator and sliced, so every mesh holds slices of
+the parameters the 1x1 build draws.  Numerics follow the reference: norms and the
 softmax run in f32, matmuls in the parameters' dtype.  A linear layer
 given activations of another dtype promotes as JAX does: f32 activations
 on bf16 weights (whisper's f32 encoder frames) run in f32.
@@ -20,6 +26,7 @@ from torch import nn
 
 from repro_torch.core.hashing import check_backend
 from repro_torch.kernels import ops
+from repro_torch.models.common import ShardCtx
 from repro_torch.kernels.ref import NEG, flash_fwd_ref
 
 
@@ -46,27 +53,47 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm_sharded(scale: torch.Tensor, x: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
-    """The reference's RMSNorm over a model-sharded feature dim at tp = 1
-    (the Mamba2 gated norm over d_inner): ``sum(x^2) / d`` in f32."""
+                    eps: float = 1e-5, ctx: ShardCtx = ShardCtx()
+                    ) -> torch.Tensor:
+    """The reference's RMSNorm over a model-sharded feature dim (the
+    Mamba2 gated norm over d_inner): ``sum(x^2)`` over the whole dim (a
+    model psum) ``/ d`` in f32; ``scale`` and ``x`` are this rank's
+    slices.  Each rank uses the variance on its own features, so its
+    gradient is summed over the ranks (``copy_tp``)."""
     xf = x.float()
-    var = (xf * xf).sum(-1, keepdim=True) / x.shape[-1]
+    full = x.shape[-1] * ctx.tp
+    var = ctx.copy_tp(ctx.psum_tp((xf * xf).sum(-1, keepdim=True))) / full
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+LINEAR_DIMS = {"col": (1, 0), "row": (0, None), "rep": (None, None)}
 
 
 class Linear(nn.Module):
     """``x @ w (+ b)`` with ``w`` stored [d_in, d_out] as in the reference;
     init ``normal * 1/sqrt(d_in)``, zero bias.  Mixed dtypes promote as
-    ``jnp.matmul`` does (f32 @ bf16 runs in f32)."""
+    ``jnp.matmul`` does (f32 @ bf16 runs in f32).
+
+    ``mode`` (the reference's ``init_linear``): ``"col"`` keeps this
+    rank's slice of the output features (w's and b's), ``"row"`` its
+    slice of the input features, the partial products summed over the
+    model group (``psum_tp``) before the (replicated) bias; ``"rep"``
+    holds the whole leaf.  No collective guards a col layer's input: the
+    caller copies it (``ShardCtx.copy_tp``) once for all the col layers
+    that read it."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype=torch.bfloat16, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None, mode: str = "rep",
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
-        self.w = nn.Parameter(_normal(gen, (d_in, d_out), 1 / math.sqrt(d_in),
-                                      dtype, device))
-        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
-                  if bias else None)
+        self.mode, self.ctx = mode, ctx
+        w_dim, b_dim = LINEAR_DIMS[mode]
+        w = _normal(gen, (d_in, d_out), 1 / math.sqrt(d_in), dtype, device)
+        self.w = nn.Parameter(ctx.shard(w, w_dim).clone())
+        self.b = (nn.Parameter(ctx.shard(torch.zeros(
+            d_out, dtype=dtype, device=device), b_dim).clone())
+            if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.w
@@ -74,6 +101,8 @@ class Linear(nn.Module):
             dt = torch.promote_types(x.dtype, w.dtype)
             x, w = x.to(dt), w.to(dt)
         y = x @ w
+        if self.mode == "row":
+            y = self.ctx.psum_tp(y)
         return y + self.b if self.b is not None else y
 
 
@@ -82,18 +111,31 @@ class Embedding(nn.Module):
 
     Its gradient is the row-sparse tensor Zen synchronizes (leaf
     ``embed/table``).  Padding rows [vocab:) are zero and are never looked
-    up, so their gradient is exactly zero."""
+    up, so their gradient is exactly zero.  Under tensor parallelism the
+    table is vocab-sharded: rank r holds rows ``[r Vp/tp, (r + 1)
+    Vp/tp)`` (the padding rows on the last shard), looks up the tokens
+    that fall in them, zeroes the others and sums over the model group
+    (the reference's ``embed_lookup``)."""
 
     def __init__(self, vocab: int, vocab_padded: int, d: int, *,
                  dtype=torch.bfloat16, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
+        self.ctx = ctx
         t = _normal(gen, (vocab_padded, d), 0.02, dtype, device)
         t[vocab:] = 0
-        self.table = nn.Parameter(t)
+        self.table = nn.Parameter(ctx.shard(t, 0).clone())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.table)
+        ctx = self.ctx
+        if ctx.tp == 1:
+            return F.embedding(tokens, self.table)
+        v_local = self.table.shape[0]
+        local = tokens - ctx.tp_rank() * v_local
+        ok = (local >= 0) & (local < v_local)
+        out = F.embedding(local.clamp(0, v_local - 1), self.table)
+        return ctx.psum_tp(out * ok[..., None].to(out.dtype))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -127,13 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor, t: int, *,
-                     window: int = 0) -> torch.Tensor:
-    """One-token attention against a KV cache (the reference's at tp = 1).
+                     pos: torch.Tensor, t: int, *, window: int = 0,
+                     ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """One-token attention against a KV cache, sequence-sharded over the
+    model axis (the reference's ``decode_attention``).
 
-    q [B, H, hd]; k/v [B, Sl, KV, hd]; pos [Sl] the position each slot
-    holds (-1 = never written).  Attends to slots with 0 <= pos <= t (and
-    pos > t - window); the current token is in the cache already."""
+    q [B, H, hd]; k/v [B, Sl, KV, hd]: this rank's slots; pos [Sl] the
+    position each slot holds (-1 = never written).  Attends to slots with
+    0 <= pos <= t (and pos > t - window); the current token is in the
+    cache already.  The ranks' partial softmaxes are combined by a model
+    pmax of the maxima and psums of the sums and the weighted values."""
     B, H, hd = q.shape
     KV = k.shape[2]
     qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, H // KV, hd)
@@ -142,33 +187,44 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window > 0:
         valid &= pos > t - window
     s = torch.where(valid, s, NEG)
-    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    p = torch.exp(s - ctx.pmax_tp(s.max(-1, keepdim=True).values))
     p = torch.where(valid, p, 0.0)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
-    out = o / p.sum(-1).clamp(min=1e-30)[..., None]
+    o = ctx.psum_tp(torch.einsum("bkgs,bskh->bkgh", p, v.float()))
+    out = o / ctx.psum_tp(p.sum(-1)).clamp(min=1e-30)[..., None]
     return out.reshape(B, H, v.shape[-1]).to(q.dtype)
 
 
 def cache_write(k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-                k_new: torch.Tensor, v_new: torch.Tensor, t: int) -> None:
-    """Write one token's K/V [B, KV, hd] at position ``t`` IN PLACE, into
-    slot ``t % Sl`` (a ring when a sliding window bounds the cache)."""
-    slot = t % k.shape[1]
+                k_new: torch.Tensor, v_new: torch.Tensor, t: int,
+                ctx: ShardCtx = ShardCtx()) -> None:
+    """Write one token's K/V [B, KV, hd] at position ``t`` IN PLACE on the
+    rank that owns it: rank ``t % tp``, slot ``(t // tp) % Sl`` (a ring
+    when a sliding window bounds the cache); the other ranks write
+    nothing."""
+    if t % ctx.tp != ctx.tp_rank():
+        return
+    slot = (t // ctx.tp) % k.shape[1]
     k[:, slot] = k_new.to(k.dtype)
     v[:, slot] = v_new.to(v.dtype)
     pos[slot] = t
 
 
 class SwiGLU(nn.Module):
+    """``down(silu(gate x) * up x)``: gate and up column-parallel, down
+    row-parallel over the model axis."""
+
     def __init__(self, d: int, d_ff: int, *, dtype=torch.bfloat16,
-                 device=None, gen: torch.Generator | None = None):
+                 device=None, gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
-        kw = dict(dtype=dtype, device=device, gen=gen)
-        self.gate = Linear(d, d_ff, **kw)
-        self.up = Linear(d, d_ff, **kw)
-        self.down = Linear(d_ff, d, **kw)
+        kw = dict(dtype=dtype, device=device, gen=gen, ctx=ctx)
+        self.ctx = ctx
+        self.gate = Linear(d, d_ff, mode="col", **kw)
+        self.up = Linear(d, d_ff, mode="col", **kw)
+        self.down = Linear(d_ff, d, mode="row", **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ctx.copy_tp(x)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
@@ -187,21 +243,32 @@ class GeluMLP(nn.Module):
         return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
-def mask_padded_logits(lf: torch.Tensor, valid_vocab: int) -> torch.Tensor:
-    """Padded vocab columns (id >= ``valid_vocab``) to ``NEG``: they vanish
-    from the logsumexp and carry zero gradient."""
-    ok = torch.arange(lf.shape[-1], device=lf.device) < valid_vocab
+def mask_padded_logits(lf: torch.Tensor, valid_vocab: int,
+                       offset: int = 0) -> torch.Tensor:
+    """Padded vocab columns (global id ``offset + column >= valid_vocab``;
+    ``offset``: the first id of a vocab shard) to ``NEG``: they vanish
+    from the logsumexp and the argmax and carry zero gradient."""
+    ok = offset + torch.arange(lf.shape[-1], device=lf.device) < valid_vocab
     return torch.where(ok, lf, torch.full_like(lf, NEG))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  valid_vocab: int) -> torch.Tensor:
+                  valid_vocab: int, ctx: ShardCtx = ShardCtx()
+                  ) -> torch.Tensor:
     """Mean next-token cross-entropy over labels >= 0, in f32, with padded
-    vocab columns masked out (``layers.cross_entropy_parts``)."""
-    lf = mask_padded_logits(logits.float(), valid_vocab)
-    m = lf.max(-1).values.detach()
-    lse = torch.log(torch.exp(lf - m[..., None]).sum(-1)) + m
+    vocab columns masked out, over vocab-sharded logits [..., Vp/tp]
+    (``layers.cross_entropy_parts``): a model pmax of the row maxima, a
+    psum of the exp-sums and of the label's logit, which one rank
+    holds."""
+    v_local = logits.shape[-1]
+    off = ctx.tp_rank() * v_local
+    lf = mask_padded_logits(logits.float(), valid_vocab, off)
+    m = ctx.pmax_tp(lf.max(-1).values)
+    lse = torch.log(ctx.psum_tp(torch.exp(lf - m[..., None]).sum(-1))) + m
     mask = labels >= 0
-    picked = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    loc = labels - off
+    picked = torch.gather(lf, -1, loc.clamp(0, v_local - 1)[..., None])[..., 0]
+    if ctx.tp > 1:
+        picked = ctx.psum_tp(picked * ((loc >= 0) & (loc < v_local)).float())
     mf = mask.float()
     return ((lse - picked) * mf).sum() / mf.sum().clamp(min=1.0)

@@ -55,6 +55,17 @@ takes one greedy step (an enc_dec layer's cross-attention is one
 runs every kind; a Mamba2 layer's scan is ``ssd_fwd`` under autograd
 (``ops.SSDScan``), whose gradient is the plain chunked scan's, as the
 reference trains by autodiff through that scan.
+
+Tensor parallelism (``ctx``, a ``ShardCtx`` with tp > 1; the dense and MoE
+kinds): each process holds its rank's shard of every model-sharded leaf
+and the whole of every replicated one (:meth:`Model.shard_dims`, the
+counterpart of the reference's ``PartitionSpec`` tree).  The embedding,
+the LM head (column-parallel) and the loss are vocab-sharded; prefill
+returns this rank's vocab shard of the last-position logits
+(:meth:`Model.gather_vocab` makes them whole), greedy decode takes the
+argmax over the shards with the reference's tie-break, and the decode
+cache holds ``ceil(S / tp)`` slots a layer.  Other kinds, and MLA, raise
+``NotImplementedError`` at tp > 1 (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -69,7 +80,7 @@ from repro_torch import resolve_device
 from repro_torch.core.hashing import check_backend
 from repro_torch.models.attention import (GQA, MLA, gqa_make_cache,
                                           mla_make_cache)
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, ShardCtx, tp_dim
 from repro_torch.models.layers import (Embedding, GeluMLP, Linear, RMSNorm,
                                        SwiGLU, cross_entropy,
                                        mask_padded_logits)
@@ -77,7 +88,19 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 
 KINDS = ("dense", "moe", "ssm", "hybrid", "enc_dec", "vlm")
+TP_KINDS = ("dense", "moe")   # the kinds that run at tp > 1 (not MLA)
 AUX_LOSS_W = 0.01     # the MoE load-balance loss's weight in the train loss
+
+
+def check_tp_kind(cfg: ArchConfig, tp: int) -> None:
+    """Tensor parallelism runs the dense and MoE kinds without MLA; the
+    rest raises naming its ROADMAP item."""
+    if tp > 1 and (cfg.kind not in TP_KINDS or cfg.mla_q_rank):
+        what = "MLA" if cfg.mla_q_rank else f"kind {cfg.kind!r}"
+        raise NotImplementedError(
+            f"tensor parallelism (M={tp}) for {cfg.name} ({what}) is not "
+            f"ported yet (ROADMAP queue 1, item 9: the next TP slice); M > "
+            f"1 runs the kinds {TP_KINDS} without MLA")
 
 
 def sinusoid_table(T: int, d: int, device=None) -> torch.Tensor:
@@ -122,12 +145,13 @@ class DecoderLayer(nn.Module):
     FFN for ``kind="moe"`` or the GELU MLP for ``"enc_dec"``."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = (MLA if cfg.mla_q_rank else GQA)(cfg, device=device,
-                                                     gen=gen)
+        self.attn = (MLA(cfg, device=device, gen=gen) if cfg.mla_q_rank
+                     else GQA(cfg, device=device, gen=gen, ctx=ctx))
         self.cross = cfg.kind == "enc_dec"
         if self.cross:
             self.lnx = RMSNorm(cfg.d_model, device=device)
@@ -135,11 +159,11 @@ class DecoderLayer(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, device=device)
         kw = dict(dtype=cfg.dtype, device=device, gen=gen)
         if cfg.kind == "moe":
-            self.ffn = MoE(cfg, device=device, gen=gen)
+            self.ffn = MoE(cfg, device=device, gen=gen, ctx=ctx)
         elif self.cross:
             self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
         else:
-            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, ctx=ctx, **kw)
 
     def _ffn(self, x: torch.Tensor):
         """(ffn(x), the MoE stats or {})."""
@@ -159,12 +183,16 @@ class DecoderLayer(nn.Module):
         return x + y, stats
 
     def make_cache(self, batch: int, cache_len: int) -> dict:
-        """K/V slots (``gqa_make_cache``; MLA's latent slots,
-        ``mla_make_cache``); an enc_dec layer's also a zero cross cache of
-        ``enc_len`` frames in the model's dtype."""
+        """K/V slots (``gqa_make_cache``: this rank's share under tensor
+        parallelism; MLA's latent slots, ``mla_make_cache``); an enc_dec
+        layer's also a zero cross cache of ``enc_len`` frames in the
+        model's dtype."""
         cfg, dev = self.cfg, self.ln1.scale.device
-        make = mla_make_cache if cfg.mla_q_rank else gqa_make_cache
-        cache = make(cfg, batch, cache_len, device=dev)
+        if cfg.mla_q_rank:
+            cache = mla_make_cache(cfg, batch, cache_len, device=dev)
+        else:
+            cache = gqa_make_cache(cfg, batch, cache_len, device=dev,
+                                   ctx=self.attn.cache_ctx)
         if self.cross:
             shape = (batch, cfg.enc_len, cfg.n_kv, cfg.hd)
             cache["cross"] = {n: torch.zeros(shape, dtype=cfg.dtype,
@@ -228,24 +256,27 @@ class Model(nn.Module):
     picks the model kernels' route (prefill, and the Mamba2 scan in the
     train loss): ``"cuda"`` (the hand-written kernels for CUDA tensors,
     their plain versions for CPU ones) or ``"torch"`` (the plain
-    versions)."""
+    versions).  ``ctx`` (default: tp = 1) is the shard context: at tp > 1
+    this process builds its model rank's shards, drawing each sharded leaf
+    whole and keeping its slice."""
 
     sparse_paths = ("embed/table",)
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
-                 backend: str = "cuda"):
+                 backend: str = "cuda", ctx: ShardCtx = ShardCtx()):
         super().__init__()
         if cfg.kind not in KINDS:
             raise NotImplementedError(
                 f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
                 f"1, item 9); the port runs {KINDS}")
+        check_tp_kind(cfg, ctx.tp)
         check_backend(backend)
-        self.cfg, self.backend = cfg, backend
+        self.cfg, self.backend, self.ctx = cfg, backend, ctx
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         vp = cfg.vocab_padded
         self.embed = Embedding(cfg.vocab, vp, cfg.d_model, dtype=cfg.dtype,
-                               device=device, gen=gen)
+                               device=device, gen=gen, ctx=ctx)
         kw = dict(device=device, gen=gen)
         if cfg.kind == "hybrid":
             every = cfg.shared_attn_every
@@ -266,18 +297,23 @@ class Model(nn.Module):
                 self.enc_layers = nn.ModuleList(
                     EncoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers))
                 self.ln_enc = RMSNorm(cfg.d_model, device=device)
-            layer = SSMLayer if cfg.kind == "ssm" else DecoderLayer
             self.layers = nn.ModuleList(
-                layer(cfg, **kw) for _ in range(cfg.n_layers))
+                SSMLayer(cfg, **kw) if cfg.kind == "ssm"
+                else DecoderLayer(cfg, ctx=ctx, **kw)
+                for _ in range(cfg.n_layers))
             self.exec_layers = list(self.layers)
         if cfg.kind == "vlm":
             self.vis_proj = Linear(cfg.d_model, cfg.d_model, **kw,
                                    dtype=cfg.dtype)
         self.ln_f = RMSNorm(cfg.d_model, device=device)
         self.lm_head = Linear(cfg.d_model, vp, dtype=cfg.dtype, device=device,
-                              gen=gen)
+                              gen=gen, mode="col", ctx=ctx)
         with torch.no_grad():   # padded vocab columns start (and stay) zero
-            self.lm_head.w[:, cfg.vocab:] = 0
+            self.lm_head.w[:, max(cfg.vocab - self._vocab_offset(), 0):] = 0
+
+    def _vocab_offset(self) -> int:
+        """The first vocab id of this rank's shard."""
+        return self.ctx.tp_rank() * (self.cfg.vocab_padded // self.ctx.tp)
 
     def encode(self, frames: torch.Tensor, *,
                backend: str | None = None) -> torch.Tensor:
@@ -317,8 +353,9 @@ class Model(nn.Module):
             x, st = layer(x, backend=self.backend, **kw)
             if st:
                 stats.append(st)
-        logits = self.lm_head(self.ln_f(x[:, x.shape[1] - tokens.shape[1]:]))
-        loss = cross_entropy(logits, labels, self.cfg.vocab)
+        h = self.ln_f(x[:, x.shape[1] - tokens.shape[1]:])
+        logits = self.lm_head(self.ctx.copy_tp(h))
+        loss = cross_entropy(logits, labels, self.cfg.vocab, self.ctx)
         metrics = {"loss": loss}
         if stats:
             metrics.update({k: torch.stack([s[k] for s in stats]).mean()
@@ -334,15 +371,25 @@ class Model(nn.Module):
     # ---- serving -----------------------------------------------------------
 
     def _head_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """LM-head logits with padded vocab columns masked to NEG."""
-        return mask_padded_logits(self.lm_head(self.ln_f(x)), self.cfg.vocab)
+        """LM-head logits (this rank's vocab shard) with padded vocab
+        columns masked to NEG."""
+        return mask_padded_logits(self.lm_head(self.ln_f(x)), self.cfg.vocab,
+                                  self._vocab_offset())
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """[..., Vp/tp] vocab shards -> [..., Vp] on every rank."""
+        if self.ctx.tp == 1:
+            return logits
+        lt = logits.movedim(-1, 0)
+        return self.ctx.all_gather_tp(lt).movedim(0, -1)
 
     @torch.inference_mode()
     def make_cache(self, batch: int, cache_len: int) -> dict:
         """An empty decode cache: ``t = 0`` and, per layer application in
         execution order, zero K/V with every slot's position -1 (attention,
-        ``cache_len`` slots, MLA's latent c and kr; an enc_dec layer's also
-        a zero cross cache) or a zero SSD state and conv tail (Mamba2)."""
+        ``cache_len`` slots, ``ceil(cache_len / tp)`` a rank under tensor
+        parallelism, MLA's latent c and kr; an enc_dec layer's also a zero
+        cross cache) or a zero SSD state and conv tail (Mamba2)."""
         return {"t": 0, "layers": [ly.make_cache(batch, cache_len)
                                    for ly in self.exec_layers]}
 
@@ -352,11 +399,12 @@ class Model(nn.Module):
                 patches: torch.Tensor | None = None):
         """Run the prompt tokens [B, S] (whisper: after encoding ``frames``;
         pixtral: after the ``patches`` prefix of P positions); returns
-        (last-position logits [B, vocab_padded] in the model's dtype,
-        padded columns masked, and the decode cache with ``t`` = S (P + S
-        for a VLM): per layer application the prompt's K/V and positions
-        0..t-1 (and an enc_dec layer's cross cache), or the final SSD state
-        and conv tail)."""
+        (last-position logits [B, vocab_padded / tp] in the model's dtype,
+        this rank's vocab shard, padded columns masked, and the decode
+        cache with ``t`` = S (P + S for a VLM): per layer application the
+        prompt's K/V and positions 0..t-1, this rank's round-robin share
+        of them under tensor parallelism (and an enc_dec layer's cross
+        cache), or the final SSD state and conv tail)."""
         x = self._inputs(tokens, patches)
         kw = ({"enc_out": self.encode(frames, backend=self.backend)}
               if self.cfg.kind == "enc_dec" else {})
@@ -383,9 +431,14 @@ class Model(nn.Module):
         cache["t"] = t + 1
         lf = self._head_logits(x).float()
         m, nxt = lf.max(-1)
+        ctx = self.ctx
+        if ctx.tp > 1:   # the reference's tie-break: the highest shard's
+            m_l, m = m, ctx.pmax_tp(m)
+            nxt = ctx.pmax_tp(torch.where(m_l >= m,
+                                          nxt + self._vocab_offset(), 0))
         if not return_gap:
             return nxt[:, None], m, cache
-        top = lf.topk(2, dim=-1).values
+        top = self.gather_vocab(lf).topk(2, dim=-1).values
         return nxt[:, None], m, cache, top[:, 0] - top[:, 1]
 
     def named_leaves(self) -> list[tuple[str, nn.Parameter]]:
@@ -394,78 +447,104 @@ class Model(nn.Module):
         one set of leaves (``shared/...``)."""
         return [(n.replace(".", "/"), p) for n, p in self.named_parameters()]
 
-    @torch.no_grad()
-    def load_reference_params(self, tree: Any) -> None:
-        """Copy the reference's parameter pytree (arrays or numpy arrays;
-        layers stacked [L, ...] by ``lax.scan``; the hybrid's
-        ``groups/inner`` stacked [groups, every, ...], ``tail`` [n_tail,
-        ...] and ``shared`` unstacked; whisper's ``enc_layers`` stacked,
-        ``ln_enc``, and each decoder layer's ``lnx`` and ``xattn``;
-        pixtral's ``vis_proj_w``; MLA's five projections and two norms)
-        into this model."""
-        def put(p: torch.Tensor, x) -> None:
-            a = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"reference leaf shape {tuple(a.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(a.to(p.dtype))
+    def reference_leaves(self) -> list[tuple[str, tuple, tuple]]:
+        """(leaf name, the reference's path of the leaf, the index into its
+        stacked dims) for every leaf: layers stacked [L, ...] by
+        ``lax.scan``; the hybrid's ``groups/inner`` stacked [groups,
+        every, ...], ``tail`` [n_tail, ...] and ``shared`` unstacked;
+        whisper's ``enc_layers`` stacked, ``ln_enc``, and each decoder
+        layer's ``lnx`` and ``xattn``; pixtral's ``vis_proj_w``; MLA's
+        five projections and two norms."""
+        out = []
 
-        def put_ssm(layer: SSMLayer, ly, at) -> None:
-            put(layer.ln1.scale, at(ly["ln1"]))
-            mx, mix = ly["mixer"], layer.mixer
-            for name in ("in_z", "in_x", "in_dt", "in_bc", "out"):
-                put(getattr(mix, name).w, at(mx[f"{name}_w"]))
-            for name in ("conv_w", "conv_b", "A_log", "dt_bias", "D",
-                         "norm"):
-                put(getattr(mix, name), at(mx[name]))
-
-        def put_linears(mod: nn.Module, names, tree, at) -> None:
+        def linears(mod: nn.Module, names, pre: tuple, idx: tuple) -> None:
             for name in names:
                 lin = getattr(mod, name)
-                put(lin.w, at(tree[f"{name}_w"]))
+                out.append((lin.w, (*pre, f"{name}_w"), idx))
                 if lin.b is not None:
-                    put(lin.b, at(tree[f"{name}_b"]))
+                    out.append((lin.b, (*pre, f"{name}_b"), idx))
 
-        def put_decoder(layer: DecoderLayer | EncoderLayer, ly, at) -> None:
-            put(layer.ln1.scale, at(ly["ln1"]))
-            put(layer.ln2.scale, at(ly["ln2"]))
+        def ssm(layer: SSMLayer, pre: tuple, idx: tuple) -> None:
+            out.append((layer.ln1.scale, (*pre, "ln1"), idx))
+            mix = (*pre, "mixer")
+            linears(layer.mixer, ("in_z", "in_x", "in_dt", "in_bc", "out"),
+                    mix, idx)
+            out.extend((getattr(layer.mixer, n), (*mix, n), idx)
+                       for n in ("conv_w", "conv_b", "A_log", "dt_bias", "D",
+                                 "norm"))
+
+        def decoder(layer: DecoderLayer | EncoderLayer, pre: tuple,
+                    idx: tuple) -> None:
+            out.extend((getattr(layer, n).scale, (*pre, n), idx)
+                       for n in ("ln1", "ln2"))
+            attn = (*pre, "attn")
             if isinstance(layer.attn, MLA):
-                put_linears(layer.attn, ("q_down", "q_up", "kv_down",
-                                         "kv_up", "o"), ly["attn"], at)
-                for name in ("q_norm", "kv_norm"):
-                    put(getattr(layer.attn, name).scale, at(ly["attn"][name]))
+                linears(layer.attn, ("q_down", "q_up", "kv_down", "kv_up",
+                                     "o"), attn, idx)
+                out.extend((getattr(layer.attn, n).scale, (*attn, n), idx)
+                           for n in ("q_norm", "kv_norm"))
             else:
-                put_linears(layer.attn, "qkvo", ly["attn"], at)
+                linears(layer.attn, "qkvo", attn, idx)
             if getattr(layer, "cross", False):
-                put(layer.lnx.scale, at(ly["lnx"]))
-                put_linears(layer.xattn, "qkvo", ly["xattn"], at)
+                out.append((layer.lnx.scale, (*pre, "lnx"), idx))
+                linears(layer.xattn, "qkvo", (*pre, "xattn"), idx)
             if isinstance(layer.ffn, MoE):
-                for name in ("router_w", "w_gate", "w_up", "w_down"):
-                    put(getattr(layer.ffn, name), at(ly["ffn"][name]))
-                return
-            names = (("up", "down") if isinstance(layer.ffn, GeluMLP)
-                     else ("gate", "up", "down"))
-            put_linears(layer.ffn, names, ly["ffn"], at)
+                out.extend((getattr(layer.ffn, n), (*pre, "ffn", n), idx)
+                           for n in ("router_w", "w_gate", "w_up", "w_down"))
+            else:
+                linears(layer.ffn, ("up", "down") if isinstance(
+                    layer.ffn, GeluMLP) else ("gate", "up", "down"),
+                    (*pre, "ffn"), idx)
 
-        put(self.embed.table, tree["embed"]["table"])
-        put(self.lm_head.w, tree["lm_head_w"])
-        put(self.ln_f.scale, tree["ln_f"])
+        out += [(self.embed.table, ("embed", "table"), ()),
+                (self.lm_head.w, ("lm_head_w",), ()),
+                (self.ln_f.scale, ("ln_f",), ())]
         if self.cfg.kind == "hybrid":
             for g, group in enumerate(self.groups):
                 for j, layer in enumerate(group):
-                    put_ssm(layer, tree["groups"]["inner"],
-                            lambda a, g=g, j=j: np.asarray(a)[g, j])
+                    ssm(layer, ("groups", "inner"), (g, j))
             for i, layer in enumerate(self.tail):
-                put_ssm(layer, tree["tail"], lambda a, i=i: np.asarray(a)[i])
-            put_decoder(self.shared, tree["shared"], lambda a: a)
-            return
-        if self.cfg.kind == "enc_dec":
-            for i, layer in enumerate(self.enc_layers):
-                put_decoder(layer, tree["enc_layers"],
-                            lambda a, i=i: np.asarray(a)[i])
-            put(self.ln_enc.scale, tree["ln_enc"])
-        if self.cfg.kind == "vlm":
-            put(self.vis_proj.w, tree["vis_proj_w"])
-        fill = put_ssm if self.cfg.kind == "ssm" else put_decoder
-        for i, layer in enumerate(self.layers):
-            fill(layer, tree["layers"], lambda a, i=i: np.asarray(a)[i])
+                ssm(layer, ("tail",), (i,))
+            decoder(self.shared, ("shared",), ())
+        else:
+            if self.cfg.kind == "enc_dec":
+                for i, layer in enumerate(self.enc_layers):
+                    decoder(layer, ("enc_layers",), (i,))
+                out.append((self.ln_enc.scale, ("ln_enc",), ()))
+            if self.cfg.kind == "vlm":
+                out.append((self.vis_proj.w, ("vis_proj_w",), ()))
+            for i, layer in enumerate(self.layers):
+                (ssm if self.cfg.kind == "ssm" else decoder)(
+                    layer, ("layers",), (i,))
+        names = {id(p): n for n, p in self.named_leaves()}
+        return [(names[id(p)], path, idx) for p, path, idx in out]
+
+    def shard_dims(self, ctx: ShardCtx | None = None) -> dict:
+        """{leaf name: its model-sharded dim, None if replicated} under
+        ``ctx`` (default the model's): the reference's ``PartitionSpec``
+        tree (``models/common.tp_dim``), per leaf."""
+        ctx = ctx or self.ctx
+        return {n: tp_dim(path, ctx) for n, path, _ in self.reference_leaves()}
+
+    @torch.no_grad()
+    def load_reference_params(self, tree: Any) -> None:
+        """Copy the reference's GLOBAL parameter pytree (arrays or numpy
+        arrays, :meth:`reference_leaves`' layout) into this model: each
+        leaf sliced to this rank's shard of its sharded dim."""
+        params, dims = dict(self.named_leaves()), self.shard_dims()
+        leaves = self.reference_leaves()
+        if len(leaves) != len(params):
+            raise ValueError(f"{len(params) - len(leaves)} leaves have no "
+                             f"reference path")
+        for name, path, idx in leaves:
+            node = tree
+            for key in path:
+                node = node[key]
+            a = np.asarray(node)[idx] if idx else node
+            a = torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
+            a = self.ctx.shard(a, dims[name])
+            p = params[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"reference leaf {'/'.join(path)} shard "
+                                 f"{tuple(a.shape)} != {tuple(p.shape)}")
+            p.copy_(a.to(p.dtype))

@@ -1,8 +1,11 @@
 """Glue: build a train or serve program for an architecture and a mesh
 (port of the parts of ``repro.train.build`` the trainer and the server
-need).  A mesh is ``Dx1`` or ``PxDx1`` (P pods of D data-parallel ranks);
-``node_size`` splits D into nodes (a two-level topology, ``launch/mesh.py``
-lays the ranks out).  Tensor parallelism (M > 1) raises."""
+need).  A mesh is ``DxM`` or ``PxDxM`` (P pods of D data-parallel ranks,
+M tensor-parallel ranks each); ``node_size`` splits D into nodes (a
+two-level topology, ``launch/mesh.py`` lays the ranks out).  M > 1 runs
+one process per rank (``launch/mesh.make_mesh_groups``) for the dense
+and MoE kinds, with P = 1 and node size 1; the rest raises naming ROADMAP
+queue 1, item 9."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,26 +16,48 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.schemes import DistGroup, SimGroup
 from repro_torch.launch.mesh import check_node_size
-from repro_torch.models.common import ArchConfig
-from repro_torch.models.model import Model
+from repro_torch.models.common import ArchConfig, make_ctx
+from repro_torch.models.model import Model, check_tp_kind
 from repro_torch.train import steps as st
 from repro_torch.train.steps import TrainerConfig
 
 
 def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int, int]:
     """'DxM' or 'PxDxM' (or a tuple) -> (pods P, data-parallel D,
-    tensor-parallel M), P = 1 for 'DxM'.  M > 1 is not ported yet."""
+    tensor-parallel M), P = 1 for 'DxM'."""
     dims = ([int(x) for x in mesh.split("x")] if isinstance(mesh, str)
             else [int(x) for x in mesh])
     if len(dims) not in (2, 3) or min(dims) < 1:
         raise ValueError(f"mesh must be DxM or PxDxM with positive sizes, "
                          f"got {mesh!r}")
     pods, dp, tp = [1] * (3 - len(dims)) + dims
-    if tp != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (mesh {mesh!r}, M={tp}): ROADMAP queue "
-            f"1, item 9; the port runs Dx1 and PxDx1 meshes")
     return pods, dp, tp
+
+
+def check_tp(cfg: ArchConfig, mesh, node_size: int = 1,
+             model_group=None) -> None:
+    """What M > 1 does not run raises ``NotImplementedError`` naming
+    ROADMAP queue 1, item 9: a kind other than dense or MoE (or MLA),
+    pods or nodes beside the model axis (their level groups need a
+    world-wide ``new_group`` order this slice does not build), and the
+    model axis held in one process (no model group)."""
+    pods, dp, tp = parse_mesh(mesh)
+    if tp == 1:
+        return
+    check_tp_kind(cfg, tp)
+    if pods > 1 or node_size > 1:
+        raise NotImplementedError(
+            f"tensor parallelism with pods or nodes (mesh {mesh!r}, node "
+            f"size {node_size}) is not ported yet (ROADMAP queue 1, item "
+            f"9): M > 1 runs DxM meshes with node size 1")
+    if model_group is None:
+        raise NotImplementedError(
+            f"tensor parallelism (mesh {mesh!r}, M={tp}) runs one process "
+            f"per rank: start it with `torchrun --standalone "
+            f"--nproc-per-node {dp * tp} -m repro_torch.launch.train --mesh "
+            f"{mesh} --dist gloo ...` (or nccl, a GPU a rank); holding the "
+            f"model axis in one process is not built (ROADMAP queue 1, "
+            f"item 9)")
 
 
 @dataclasses.dataclass
@@ -40,8 +65,10 @@ class Program:
     """A model and its trainer or server on one device.  ``group`` holds
     the mesh's P x D ranks (pod-major): all of them in this process
     (``SimGroup``), or this process's one rank of a ``torch.distributed``
-    group (``DistGroup``).  ``n_data`` is D, ``pods`` P, and ``node_size``
-    the ranks of a node (1: the flat topology)."""
+    group (``DistGroup``; under tensor parallelism the data group of the
+    ranks that share this rank's model index, and ``model.ctx.group`` its
+    model group).  ``n_data`` is D, ``pods`` P, and ``node_size`` the
+    ranks of a node (1: the flat topology)."""
 
     cfg: ArchConfig
     model: Model
@@ -59,6 +86,11 @@ class Program:
     cache_specs: Any = None
     # the measured profiles the train step's GradSync was planned from
     sparsity_profiles: Any = None
+
+    @property
+    def model_group(self) -> DistGroup | None:
+        """The model group (None at M = 1)."""
+        return self.model.ctx.group
 
     def opt_state(self) -> dict:
         """The trainer's optimizer state (``train_step.state``: moments,
@@ -86,21 +118,31 @@ class Program:
 def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
                   *, device=None, seed: int = 0, backend: str = "cuda",
                   group: SimGroup | DistGroup | None = None,
-                  node_size: int = 1) -> Program:
+                  node_size: int = 1, model_group: DistGroup | None = None,
+                  pad_heads: bool = False, moe_a2a: bool = False) -> Program:
     """Model (initialised from ``seed`` with a torch.Generator) on
     ``device`` (default ``cuda``; ``"cpu"`` must be asked for), its
     prefill kernels on the ``backend`` route (``Model``).  ``group``
     (default ``SimGroup(P x D)``) must have the mesh's P x D ranks; on a
     ``DistGroup`` every rank then takes rank 0's parameters, as DDP does.
-    ``node_size`` must divide D."""
-    pods, dp, _ = parse_mesh(mesh)
+    ``node_size`` must divide D.  A mesh with M > 1 needs ``model_group``
+    (the M ranks of this rank's model group, ``make_mesh_groups``) and
+    builds this rank's shards under the reference's ``make_ctx``
+    (``pad_heads``, ``moe_a2a``)."""
+    pods, dp, tp = parse_mesh(mesh)
     check_node_size(dp, node_size)
+    check_tp(cfg, mesh, node_size, model_group)
     if group is not None and group.n != pods * dp:
         pods_ = f" in each of {pods} pods" if pods > 1 else ""
         raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks"
                          f"{pods_} but the process group has {group.n}")
+    if tp > 1 and model_group.n != tp:
+        raise ValueError(f"mesh {mesh!r} has M={tp} model ranks but the "
+                         f"model group has {model_group.n}")
+    ctx = make_ctx(cfg, tp, dp, pods, pad_heads=pad_heads, moe_a2a=moe_a2a,
+                   node_size=node_size, group=model_group)
     dev = resolve_device(device)
-    model = Model(cfg, device=dev, seed=seed, backend=backend)
+    model = Model(cfg, device=dev, seed=seed, backend=backend, ctx=ctx)
     group = group or SimGroup(pods * dp)
     group.broadcast_(list(model.parameters()))
     return Program(cfg=cfg, model=model, tcfg=tcfg or TrainerConfig(),

@@ -51,7 +51,21 @@ ZeRO-1 is a layout of the same elementwise update: its parameters and
 moments are bitwise those of the full update.  Each chunk is gathered
 after its cast to the parameter's dtype (elementwise, so the bits of the
 reference's f32 gather followed by its cast, at half the bytes for bf16).
-Tensor parallelism is not ported (``train/build.py`` raises for M > 1).
+
+Under tensor parallelism (``model.ctx.tp`` = M > 1, one process a rank,
+``group`` the ranks that share this rank's model index) the step is the
+reference's on this rank's shards.  The batch rows go by data index, the
+same rows on every model rank.  The gradients of the model-replicated
+leaves come out of backward already complete on every model rank: the
+layers' ``copy_tp`` sums each one's partial gradients over the model
+group, Megatron's placement (``models/common.py``).  So the step
+computes the true gradient, equal to the 1x1 run's, where the
+reference's psum of those leaves gives M times it (ROADMAP queue 3).
+GradSync and ZeRO-1 run over ``group`` on the local shapes (Zen on this
+rank's ``[Vp/M, d]`` shard of ``embed/table``); the global-norm clip
+counts each sharded leaf's squares over the model group and each
+replicated leaf once; the metrics are means over the whole mesh (the
+data group's, then the model group's).
 """
 from __future__ import annotations
 
@@ -129,8 +143,11 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     the model's device (and whisper's f32 ``frames`` or pixtral's f32
     ``patches``, which each rank's ``train_loss`` takes with its rows); the group of ``gradsync`` (by default one over
     ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
-    are f32 scalars averaged over the group's ranks (``loss``,
-    ``grad_norm``, the ``sync/*`` counters and an MoE model's ``moe/*``).  ``state`` continues an
+    are f32 scalars averaged over the group's ranks and the model group's
+    (``loss``, ``grad_norm``, the ``sync/*`` counters and an MoE model's
+    ``moe/*``); ``step_fn.rank_metrics`` keeps the last step's before the
+    model group's mean (a model rank's own ``sync/*`` words, the
+    reference's per-device values).  ``state`` continues an
     earlier step function's optimizer state (a replan: bucket keys and
     residual shapes do not depend on schemes)."""
     if tcfg.opt.kind not in UPDATES:
@@ -147,6 +164,9 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     world, r0, local = group.n, ranks[0], len(ranks)
     leaves = model.named_leaves()
     dev = leaves[0][1].device
+    ctx = model.ctx
+    sharded = ({n for n, d in model.shard_dims().items() if d is not None}
+               if ctx.tp > 1 else set())
 
     def moments_like(p: torch.Tensor) -> torch.Tensor:
         """What a leaf's moments are shaped after: the leaf itself, or under
@@ -178,6 +198,10 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     # reused every step
     stacks = {name: torch.empty((len(ranks), *p.shape), dtype=p.dtype,
                                 device=p.device) for name, p in leaves}
+    # the last step's metrics before the model group's mean (a dict the
+    # step refills: no reference from the step to itself, which would keep
+    # the model and the state alive past the program)
+    rank_metrics: dict = {}
 
     def step_fn(batch: dict) -> dict:
         stats: dict[str, list] = {}   # per rank: loss (LM) and moe/*
@@ -211,8 +235,15 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         metrics = {}
         if tcfg.opt.grad_clip > 0:
             sq = torch.zeros((), dtype=torch.float32, device=dev)
+            sq_sharded = torch.zeros_like(sq)
             for name, _ in leaves:
-                sq = sq + (grads[name].float() ** 2).sum()
+                s2 = (grads[name].float() ** 2).sum()
+                if name in sharded:
+                    sq_sharded = sq_sharded + s2
+                else:
+                    sq = sq + s2
+            if sharded:
+                sq = sq + ctx.psum_tp(sq_sharded)
             gn = torch.sqrt(sq)
             scale = torch.clamp(tcfg.opt.grad_clip / (gn + 1e-9), max=1.0)
             grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
@@ -225,10 +256,13 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
         metrics.update(group.mean({**{k: torch.stack(v)
                                       for k, v in stats.items()},
                                    **sync_stats}))
-        return metrics
+        rank_metrics.clear()
+        rank_metrics.update(metrics)
+        return ctx.mean_tp(metrics)
 
     step_fn.gradsync = gradsync
     step_fn.state = state
+    step_fn.rank_metrics = rank_metrics
     return step_fn
 
 

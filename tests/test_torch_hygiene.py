@@ -77,20 +77,32 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_gpu):
 
 
 def test_unported_meshes_and_flags_raise():
-    """Tensor parallelism (M > 1, with or without pods) raises naming its
-    ROADMAP item; pod meshes and ``--node-size`` run
+    """What tensor parallelism (M > 1) does not run raises naming its
+    ROADMAP item: M > 1 without ``--dist`` (the model axis is one process
+    a rank), the ssm, hybrid, MLA, enc_dec and vlm kinds, and pods or
+    ``--node-size > 1`` beside the model axis; the dense and MoE kinds
+    run (tests/test_torch_tp.py), as do pod meshes and ``--node-size``
     (tests/test_torch_hier.py); minicpm3-4b, the last config the port
     lacked, builds with the reference's fields (read from its source, so
     that this module imports no JAX) and an unknown arch raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_mesh("2x2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_mesh("2x4x2")
+    assert parse_mesh("2x2") == (1, 2, 2)
+    assert parse_mesh("2x4x2") == (2, 4, 2)
     assert parse_mesh("8x1") == (1, 8, 1)
     assert parse_mesh("2x4x1") == (2, 4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*torchrun|"
+                       "torchrun.*ROADMAP"):
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", "2x2",
                     "--device", "cpu"])
+    for arch in ("mamba2-370m", "zamba2-1.2b", "minicpm3-4b",
+                 "whisper-medium", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
+                           "item 9"):
+            build_program(get_config(arch).reduced(), "1x2", device="cpu")
+    qwen = get_config("qwen2-0.5b").reduced()
+    for mesh, node_size in (("2x2x2", 1), ("4x2", 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
+                           "item 9"):
+            build_program(qwen, mesh, device="cpu", node_size=node_size)
     ref = ast.parse((ROOT / "src" / "repro" / "configs" /
                      "minicpm3_4b.py").read_text())
     call = next(n for n in ast.walk(ref) if isinstance(n, ast.Call)

@@ -1,0 +1,156 @@
+"""The JAX reference's tensor-parallel runs for ``tests/test_torch_tp.py``
+and ``tests/test_torch_tp_moe.py``, in a process of its own with 4 forced
+host devices (its XLA flags must be set before JAX is imported).
+
+    python tests/torch_tp_reference.py OUT.npz dense|moe
+
+All in f32 on the reduced configs, from the 1-device init of seed 0
+(the parameters the tests give the port), with the tests' batch
+(``SyntheticLM``, 4 x 32 tokens) and prompt (2 x 16 tokens).  ``dense``
+(qwen2-0.5b): one AdamW step (clip 1.0) at (1, 1) and (1, 2): the loss and ``grad_norm``;
+every parameter of the (2, 2) mesh's own init, gathered and as each
+device's shard; 4
+AdamW steps with Zen at (2, 2): the losses and each device's
+``sync/sparse_sent_words`` and ``sync/overflow`` (its own, before
+``shard_map`` returns device 0's); the prefill at (1, 2): the gathered
+last-position logits and each model rank's cache shard; at (1, 2) and
+(1, 1) 8 greedy tokens by replaying the prompt through decode.  ``moe`` (olmoe-1b-7b,
+``capacity_factor=4.0``): 2 AdamW steps with dense sync at (2, 2) for each
+dispatch, the losses and ``moe/*``.  Keys are '/'-joined; a device is
+named by its mesh coordinates ``d<d>m<m>``.
+"""
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config  # noqa: E402
+from repro.core.zen import SyncConfig  # noqa: E402
+from repro.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro.launch.mesh import make_mesh  # noqa: E402
+from repro.models.common import make_ctx  # noqa: E402
+from repro.models.model import build_model  # noqa: E402
+from repro.train.build import (attach_serve, attach_train,  # noqa: E402
+                               build_program)
+from repro.train.steps import TrainerConfig  # noqa: E402
+
+SEQ, BATCH, STEPS = 32, 4, 4
+PROMPT, PROMPT_BATCH, GEN = 16, 2, 8
+
+
+def cfg_of(arch: str):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=jnp.float32)
+    if cfg.kind == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=4.0)
+    return cfg
+
+
+def batch_of(cfg, seq: int, batch: int) -> dict:
+    b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=seq, batch=batch))))
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def coords(mesh, device) -> str:
+    d, m = (int(i) for i in np.argwhere(mesh.devices == device)[0])
+    return f"d{d}m{m}"
+
+
+def shards(mesh, arr) -> dict:
+    """{device coords: that device's shard} of a global array."""
+    return {coords(mesh, s.device): np.asarray(s.data)
+            for s in arr.addressable_shards}
+
+
+def placed(cfg, prog):
+    """The 1-device init from seed 0 (the parameters the tests give the
+    port), placed on ``prog``'s mesh: the mesh's own init differs from it
+    by an ulp in places."""
+    params = build_model(cfg, make_ctx(cfg, 1, 1)).init(
+        jax.random.PRNGKey(0))[0]
+    specs = jax.tree.map(lambda s: jax.sharding.NamedSharding(prog.mesh, s),
+                         prog.param_specs, is_leaf=lambda x: isinstance(
+                             x, jax.sharding.PartitionSpec))
+    return jax.device_put(params, specs)
+
+
+def train(cfg, shape, scheme: str, steps: int, **kw):
+    mesh = make_mesh(shape, ("data", "model"))
+    prog = build_program(cfg, mesh, TrainerConfig(
+        sync=SyncConfig(scheme=scheme)), **kw)
+    attach_train(prog, seq_len=SEQ, global_batch=BATCH)
+    params = placed(cfg, prog)
+    opt = prog.init_opt(params)
+    batch = batch_of(cfg, SEQ, BATCH)
+    metrics = []
+    for _ in range(steps):
+        params, opt, m = prog.train_step(params, opt, batch)
+        metrics.append(m)
+    return mesh, prog, metrics
+
+
+def dense(out: dict) -> None:
+    cfg = cfg_of("qwen2-0.5b")
+    for shape in ((1, 1), (1, 2)):
+        _, _, (m,) = train(cfg, shape, "dense", 1)
+        tag = f"{shape[0]}x{shape[1]}"
+        out[f"loss0/{tag}"] = float(m["loss"])
+        out[f"grad_norm/{tag}"] = float(m["grad_norm"])
+    mesh, prog, ms = train(cfg, (2, 2), "zen", STEPS)
+    out["t22/loss"] = np.array([float(m["loss"]) for m in ms])
+    for k in ("sync/sparse_sent_words", "sync/overflow"):
+        for m in ms:
+            for dev, v in shards(mesh, m[k]).items():
+                out.setdefault(f"t22/{k}/{dev}", []).append(float(v))
+    params = prog.init_params(0)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        name = "/".join(str(k.key) for k in path)
+        out[f"p22/{name}"] = np.asarray(jax.device_get(leaf))
+        for dev, v in shards(mesh, leaf).items():
+            out[f"shard/{name}/{dev}"] = v
+    # serve at (1, 2), and decode at (1, 1)
+    prompt = batch_of(cfg, PROMPT, PROMPT_BATCH)["tokens"]
+    for shape in ((1, 2), (1, 1)):
+        mesh = make_mesh(shape, ("data", "model"))
+        prog = build_program(cfg, mesh)
+        params = placed(cfg, prog)
+        tag = f"{shape[0]}x{shape[1]}"
+        if shape == (1, 2):
+            attach_serve(prog, seq_len=PROMPT, global_batch=PROMPT_BATCH,
+                         mode="prefill")
+            logits, cache = prog.prefill_step(params, {"tokens": prompt})
+            out["serve/logits"] = np.asarray(logits)
+            for k, v in cache["layers"].items():
+                for dev, s in shards(mesh, v).items():
+                    out[f"serve/cache/{k}/{dev}"] = s
+        attach_serve(prog, seq_len=PROMPT + GEN, global_batch=PROMPT_BATCH,
+                     mode="decode")
+        cache = prog.fresh_cache()
+        for t in range(PROMPT):
+            nxt, _, cache = prog.decode_step(params, cache,
+                                             prompt[:, t:t + 1])
+        toks = [nxt]
+        for _ in range(GEN - 1):
+            nxt, _, cache = prog.decode_step(params, cache, nxt)
+            toks.append(nxt)
+        out[f"serve/tokens/{tag}"] = np.concatenate(
+            [np.asarray(t) for t in toks], 1)
+
+
+def moe(out: dict) -> None:
+    cfg = cfg_of("olmoe-1b-7b")
+    for a2a in (False, True):
+        _, _, ms = train(cfg, (2, 2), "dense", 2, moe_a2a=a2a)
+        for k in ("loss", "moe/aux_loss", "moe/dropped", "moe/skew"):
+            out[f"moe/{int(a2a)}/{k}"] = np.array([float(m[k]) for m in ms])
+
+
+if __name__ == "__main__":
+    res: dict = {}
+    {"dense": dense, "moe": moe}[sys.argv[2]](res)
+    np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in res.items()})
