@@ -3239,72 +3239,107 @@ def leaf_grad_gaps(cfg) -> dict:
 
 
 def hybrid_moe_kernel_shapes(smi: str) -> dict:
-    """``flash_fwd`` (bf16) at the three models' prefill heads and
-    ``ssd_fwd`` (f32) at zamba2's Mamba2 layer: two kernel calls bitwise
-    equal, each within its stated tolerance of the plain version (one
-    bf16 ulp; ``SSD_TOL``), then timed beside SDPA and the bound (rows
-    9d-9f, 10b)."""
+    """``flash_fwd`` (bf16, causal) at the three models' prefill heads
+    (``flash_row``) and ``ssd_fwd`` (f32) at zamba2's Mamba2 layer
+    (``ssd_row``): rows 9d-9f, 10b."""
+    err, rows = {"flash_fwd": 0.0}, []
+    for (arch, shp), tag in zip(HM_FLASH.items(), "def"):
+        row, worst = flash_row(f"9{tag}", arch, torch.bfloat16, shp, True,
+                               smi, "hybrid_moe")
+        rows.append(row)
+        err["flash_fwd"] = max(err["flash_fwd"], worst)
+    row, err["ssd_fwd"] = ssd_row("10b", "zamba2-1.2b", HM_SSD, smi,
+                                  "hybrid_moe")
+    rows.append(row)
+    return {"err": err, "rows": rows}
+
+
+def flash_row(tag: str, what: str, dtype, shp: dict, causal: bool,
+              smi: str, phase: str) -> tuple[dict, float]:
+    """``flash_fwd`` at one shape (``flash_inputs``' ``shp``): two kernel
+    calls bitwise equal, within one bf16 ulp / ``FLASH_F32_TOL`` of the
+    plain version, then timed beside SDPA (``is_causal`` as the kernel)
+    and the bound (each input read and the output written once; two
+    multiply-adds a (query, key) pair a q/k and a v column): (row ``tag``,
+    max abs error)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as K, ref as R
 
-    err = {"flash_fwd": 0.0, "ssd_fwd": 0.0}
-    rows = []
-    for (arch, shp), tag in zip(HM_FLASH.items(), "def"):
-        q, k, v = flash_inputs(torch.bfloat16, **shp)
-        got = K.flash_fwd_op(q, k, v)
-        same([K.flash_fwd_op(q, k, v)], [got],
-             f"flash_fwd {arch}: second call")
-        want = R.flash_fwd_ref(q, k, v)
-        diff = (got.float() - want.float()).abs()
-        worst = float(diff.max())
-        if not bool((diff <= bf16_ulp(want) + 1e-6).all()):
-            raise AssertionError(f"flash_fwd {arch} {shp}: differs from the "
-                                 f"plain version by more than one bf16 ulp "
-                                 f"(max abs {worst})")
-        err["flash_fwd"] = max(err["flash_fwd"], worst)
-        log(f"[hybrid_moe] flash_fwd {arch} {shp}: two calls bitwise equal, "
-            f"max abs {worst} from the plain version, within one bf16 ulp")
-        B, S, H, hd = q.shape
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        row = time_row(
-            f"flash_fwd ({arch}, {H} / {k.shape[2]} heads of {hd})",
-            lambda: K.flash_fwd_op(q, k, v),
-            lambda: R.flash_fwd_ref(q, k, v),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-            q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            4 * (B * H * S * (S + 1) // 2) * hd, BF16_OPS_PER_S, smi)
-        rows.append({**row, "kernel": "flash_fwd", "row": f"9{tag}"})
-        del q, k, v, qt, kt, vt, got, want
-    c = HM_SSD
+    q, k, v = flash_inputs(dtype, **shp)
+    got = K.flash_fwd_op(q, k, v, causal=causal)
+    same([K.flash_fwd_op(q, k, v, causal=causal)], [got],
+         f"flash_fwd {what}: second call")
+    want = R.flash_fwd_ref(q, k, v, causal=causal)
+    diff = (got.float() - want.float()).abs()
+    bf16 = dtype == torch.bfloat16
+    tol = bf16_ulp(want) + 1e-6 if bf16 else FLASH_F32_TOL
+    worst = float(diff.max())
+    if got.shape != want.shape or not bool((diff <= tol).all()):
+        raise AssertionError(f"flash_fwd {what} {shp} {dtype}: differs "
+                             f"from the plain version (max abs {worst}, "
+                             f"shape {tuple(got.shape)})")
+    log(f"[{phase}] flash_fwd {what} {shp} {dtype}, causal {causal}: two "
+        f"calls bitwise equal, max abs {worst} from the plain version, "
+        f"within {'one bf16 ulp' if bf16 else FLASH_F32_TOL}")
+    B, Sq, H, hd = q.shape
+    Sk, hd_v = k.shape[1], v.shape[-1]
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row = time_row(
+        f"flash_fwd ({what}, {H} / {k.shape[2]} heads of {hd}"
+        + (f", v {hd_v}" if hd_v != hd else "")
+        + f", Sq {Sq}, Sk {Sk}, {str(dtype).replace('torch.', '')})",
+        lambda: K.flash_fwd_op(q, k, v, causal=causal),
+        lambda: R.flash_fwd_ref(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=k.shape[2] != H),
+        q.element_size() * (q.numel() + k.numel() + v.numel()
+                            + B * Sq * H * hd_v),
+        2 * pairs * (hd + hd_v), BF16_OPS_PER_S if bf16 else OPS_PER_S, smi,
+        plain_iters=5)
+    del q, k, v, qt, kt, vt, got, want, diff
+    torch.cuda.empty_cache()
+    return {**row, "kernel": "flash_fwd", "row": tag}, worst
+
+
+def ssd_row(tag: str, what: str, c: dict, smi: str,
+            phase: str) -> tuple[dict, float]:
+    """``ssd_fwd`` (f32) at one shape (``c``: B, S, H, hd, N, Q): two
+    kernel calls bitwise equal, within ``SSD_TOL`` of the plain version,
+    then timed beside the bound (at the f32 FMA rate; the split TF32
+    rate's as ``bound_split_ms``): (row ``tag``, max abs error)."""
+    from repro_torch.kernels import ops as K, ref as R
+
     x, dA, Bm, Cm = ssd_scan_inputs(*ssd_inputs(c["B"], c["S"], c["H"],
                                                 c["hd"], c["N"])[:5])
-    got = K.ssd_fwd_op(x, dA, Bm, Cm, chunk=c["Q"])
-    same(K.ssd_fwd_op(x, dA, Bm, Cm, chunk=c["Q"]), got,
-         "ssd_fwd zamba2: second call")
-    want = R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=c["Q"])
+    Q = c["Q"]
+    got = K.ssd_fwd_op(x, dA, Bm, Cm, chunk=Q)
+    same(K.ssd_fwd_op(x, dA, Bm, Cm, chunk=Q), got,
+         f"ssd_fwd {what}: second call")
+    want = R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=Q)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=SSD_TOL, rtol=SSD_TOL)
-    err["ssd_fwd"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    log(f"[hybrid_moe] ssd_fwd zamba2 {c}: two calls bitwise equal, max abs "
-        f"{err['ssd_fwd']} from the plain version, within {SSD_TOL}")
-    Q, tri, nc = c["Q"], c["Q"] * (c["Q"] + 1) // 2, c["S"] // c["Q"]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    log(f"[{phase}] ssd_fwd {what} {c}: two calls bitwise equal, max abs "
+        f"{err} from the plain version, within {SSD_TOL}")
+    tri, nc = Q * (Q + 1) // 2, c["S"] // Q
     ssd_ops = c["B"] * nc * (2 * tri * c["N"] + c["H"] * (
         2 * tri * c["hd"] + 4 * Q * c["N"] * c["hd"]))
     nbytes = 4 * (2 * x.numel() + dA.numel() + Bm.numel() + Cm.numel()
                   + c["B"] * c["H"] * c["hd"] * c["N"])
     row = time_row(
-        f"ssd_fwd (zamba2-1.2b, {c['H']} heads of {c['hd']}, N {c['N']})",
+        f"ssd_fwd ({what}, {c['H']} heads of {c['hd']}, N {c['N']})",
         lambda: K.ssd_fwd_op(x, dA, Bm, Cm, chunk=Q),
         lambda: R.ssd_fwd_ref(x, dA, Bm, Cm, chunk=Q), None, nbytes, ssd_ops,
         OPS_PER_S, smi)
     row["bound_split_ms"] = bound(nbytes, ssd_ops, TF32_OPS_PER_S / 3)[0]
-    log(f"[hybrid_moe] ssd_fwd zamba2: bound at the split TF32 rate "
+    log(f"[{phase}] ssd_fwd {what}: bound at the split TF32 rate "
         f"{row['bound_split_ms']:.6f} ms, at the f32 FMA rate "
         f"{row['bound_ms']:.6f} ms")
-    rows.append({**row, "kernel": "ssd_fwd", "row": "10b"})
-    return {"err": err, "rows": rows}
+    del x, dA, Bm, Cm, got, want
+    torch.cuda.empty_cache()
+    return {**row, "kernel": "ssd_fwd", "row": tag}, err
 
 
 def phase_hybrid_moe(smi: str) -> dict:
@@ -3414,50 +3449,14 @@ def enc_dec_vlm_train(arch: str, layers: int, smi: str) -> dict:
 
 
 def enc_dec_vlm_kernel_shapes(smi: str) -> dict:
-    """``flash_fwd`` at ``EDV_FLASH``'s shapes: two kernel calls bitwise
-    equal, within one bf16 ulp / ``FLASH_F32_TOL`` of the plain version,
-    then timed beside SDPA (``is_causal`` as the kernel) and the bound
-    (rows 9g-9k)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ops as K, ref as R
-
+    """``flash_fwd`` at ``EDV_FLASH``'s shapes (``flash_row``: rows
+    9g-9k)."""
     err, rows = 0.0, []
     for tag, what, dtype, shp, causal in EDV_FLASH:
-        q, k, v = flash_inputs(dtype, **shp)
-        got = K.flash_fwd_op(q, k, v, causal=causal)
-        same([K.flash_fwd_op(q, k, v, causal=causal)], [got],
-             f"flash_fwd {what}: second call")
-        want = R.flash_fwd_ref(q, k, v, causal=causal)
-        diff = (got.float() - want.float()).abs()
-        bf16 = dtype == torch.bfloat16
-        tol = bf16_ulp(want) + 1e-6 if bf16 else FLASH_F32_TOL
-        worst = float(diff.max())
-        if not bool((diff <= tol).all()):
-            raise AssertionError(f"flash_fwd {what} {shp} {dtype}: differs "
-                                 f"from the plain version (max abs {worst})")
+        row, worst = flash_row(tag, what, dtype, shp, causal, smi,
+                               "enc_dec_vlm")
+        rows.append(row)
         err = max(err, worst)
-        log(f"[enc_dec_vlm] flash_fwd {what} {shp} {dtype}, causal "
-            f"{causal}: two calls bitwise equal, max abs {worst} from the "
-            f"plain version, within "
-            f"{'one bf16 ulp' if bf16 else FLASH_F32_TOL}")
-        B, Sq, H, hd = q.shape
-        Sk = k.shape[1]
-        pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        row = time_row(
-            f"flash_fwd ({what}, {H} / {k.shape[2]} heads of {hd}, Sq {Sq}, "
-            f"Sk {Sk}, {str(dtype).replace('torch.', '')})",
-            lambda: K.flash_fwd_op(q, k, v, causal=causal),
-            lambda: R.flash_fwd_ref(q, k, v, causal=causal),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True),
-            q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            4 * pairs * hd, BF16_OPS_PER_S if bf16 else OPS_PER_S, smi,
-            plain_iters=5)
-        rows.append({**row, "kernel": "flash_fwd", "row": tag})
-        del q, k, v, qt, kt, vt, got, want, diff
-        torch.cuda.empty_cache()
     return {"err": {"flash_fwd": err}, "rows": rows}
 
 
@@ -3771,36 +3770,87 @@ def phase_mla_zero1(smi: str) -> dict:
 # tensor parallelism: the 2x2 trainers and the 1x2 server, a process a rank
 # ---------------------------------------------------------------------------
 
-# the launcher's 2x2 trainer: 4 steps on the kernels, 2 on the plain
-# route (held bitwise to the kernels' first 2)
-TP = dict(ranks=4, mesh="2x2", steps=4, plain_steps=2, batch=8, seq=512)
+# the launcher's 2x2 trainer: 2 steps on the kernels, 1 on the plain
+# route (held bitwise to the kernels' first; cut from 4 and 2 for the
+# run's time limit when the phase took on five more configs)
+TP = dict(ranks=4, mesh="2x2", steps=2, plain_steps=1, batch=8, seq=512)
 # the f32 mesh-invariance runs: qwen2-0.5b at 2 of its 24 layers (with 8,
 # and olmoe at 6, the phase took 306.5 s on one H100; at 4, and olmoe at
 # 3, 179.8 s, and the whole smoke 1055.6 s), 2x2 against 2x1; step 0
-# within 1e-5, the 4 steps within 1e-3 (the reference's MATRIX_TOL for
-# qwen2), grad_norm within 1e-4 relative
+# within 1e-5, the TP["steps"] steps within 1e-3 (the reference's
+# MATRIX_TOL for qwen2), grad_norm within 1e-4 relative
 TP_F32_LAYERS = 2
 TP_F32_TOL = dict(step0=1e-5, steps=1e-3, grad_norm=1e-4)
-# olmoe-1b-7b at 2 of 16 layers, 2 steps (the zoo's rule for the experts
+# olmoe-1b-7b at 2 of 16 layers, 1 step (cut from 2 for the run's time
+# limit; the zoo's rule for the experts
 # of four processes on one card gives 6: 16.7 GiB a process and 10-13 s a
 # step on one H100, cut for the run's time limit); its f32
 # a2a-vs-replicated check at 1 layer, within 1e-4 at step 0, with the
 # capacity factor at E / K = 8, where no (token, k) pair can drop: at 4.0
 # the random-init router's skew (7.4 of a possible 8) drops pairs, at
 # other boundaries in the two dispatches (2.74e-3 apart on one H100)
-TP_MOE = dict(layers=2, steps=2, f32_layers=1)
+TP_MOE = dict(layers=2, steps=1, f32_layers=1)
 TP_A2A_TOL = 1e-4
-TP_SERVE = "qwen2.5-3b"
+# the 1x2 server: qwen2.5-3b at 12 of its 36 layers (cut for the run's
+# time limit)
+TP_SERVE, TP_SERVE_LAYERS = "qwen2.5-3b", 12
 # the fused Zen kernels at the TP trainers' table shards (n 2): qwen2-0.5b
 # at M = 2 and olmoe-1b-7b at M = 2 (rows 1m-3m, 1n-3n); flash_fwd at the
 # TP prefills' per-rank heads (rows 9m, 9n)
 TP_ZEN_SHAPES = (("m", "qwen2-0.5b 2x2 table shard", 75968, 896),
                  ("n", "olmoe-1b-7b 2x2 table shard", 25152, 2048))
 ZEN_ROW = {"zen_encode": "1", "zen_commit_push": "2", "zen_commit_pull": "3"}
-TP_FLASH = (("9m", "qwen2-0.5b TP prefill", dict(B=8, S=512, H=7, KV=1,
-                                                 hd=64)),
-            ("9n", "qwen2.5-3b TP prefill", dict(B=8, S=512, H=8, KV=1,
-                                                 hd=128)))
+# (row, what, dtype, flash_inputs' shape, causal)
+TP_FLASH = (("9m", "qwen2-0.5b TP prefill", torch.bfloat16,
+             dict(B=8, S=512, H=7, KV=1, hd=64), True),
+            ("9n", "qwen2.5-3b TP prefill", torch.bfloat16,
+             dict(B=8, S=512, H=8, KV=1, hd=128), True))
+# tensor parallelism of the SSM, hybrid, MLA, enc_dec and vlm
+# kinds, each at full width and at the least depth that has every layer
+# type of its kind (``launch/serve.py --layers``' cut: whisper's encoder
+# too): zamba2 one group of shared_attn_every = 6 Mamba2 layers after its
+# shared block, and a tail layer
+TP_KINDS = {"mamba2-370m": 2, "zamba2-1.2b": 7, "minicpm3-4b": 1,
+            "whisper-medium": 1, "pixtral-12b": 1}
+# the 2x2 bf16 trainers: steps on the kernels, then on the plain route
+TP_KIND_STEPS = dict(steps=2, plain_steps=1)
+# f32 1x2 vs 1x1 server: the gathered prefill logits
+TP_KIND_SERVE_TOL = 1e-4
+# zamba2 in f32: its 2x2 step-0 grad norm parted from 2x1's by 1.29e-3
+# relative on one H100 (the loss by 4.8e-7) and its 1x2 prefill logits
+# from 1x1's by 6.73e-4, past TP_F32_TOL's 1e-4 and TP_KIND_SERVE_TOL.
+# Its gates (relative for the norm, absolute for the logits) rest on a
+# control run beside them: the same comparisons on the plain route with
+# float64 weights and activations (the norms, the scan and the loss stay
+# f32) must part at least HYBRID_TP_F64_SHRINK times less, as rounding
+# carried through the Mamba2 layers does and a misplaced collective would
+# not (2090x less for the norm and 90x for the logits on one H100;
+# tests/test_torch_tp_ssm.py finds 34x for the gradient on the CPU)
+HYBRID_TP_TOL = 1e-2
+HYBRID_TP_F64_SHRINK = 4.0
+# the kernels at the per-rank shapes those paths give them (rows 1o-3s,
+# 9o-9u, 10c-10d): the Zen kernels at each model rank's table shard,
+# flash_fwd at each rank's heads, ssd_fwd at each rank's SSM heads
+TP_KIND_ZEN = "opqrs"
+TP_KIND_FLASH = (
+    ("9o", "minicpm3-4b TP prefill", torch.bfloat16,
+     dict(B=8, S=512, H=20, KV=20, hd=96, hd_v=64), True),
+    ("9p", "whisper-medium TP encoder", torch.float32,
+     dict(B=8, S=1500, H=8, KV=8, hd=64), False),
+    ("9q", "whisper-medium TP cross prefill", torch.bfloat16,
+     dict(B=8, S=512, Sk=1500, H=8, KV=8, hd=64), False),
+    ("9r", "whisper-medium TP cross decode", torch.bfloat16,
+     dict(B=8, S=1, Sk=1500, H=8, KV=8, hd=64), False),
+    ("9s", "pixtral-12b TP prefill, 256 patches + 512 tokens",
+     torch.bfloat16, dict(B=8, S=768, H=16, KV=4, hd=160), True),
+    ("9t", "zamba2-1.2b TP shared block", torch.bfloat16,
+     dict(B=8, S=512, H=16, KV=16, hd=64), True),
+    ("9u", "whisper-medium TP decoder self-attention", torch.bfloat16,
+     dict(B=8, S=512, H=8, KV=8, hd=64), True))
+TP_KIND_SSD = (("10c", "mamba2-370m TP", dict(B=8, S=512, H=16, hd=64,
+                                              N=128, Q=64)),
+               ("10d", "zamba2-1.2b TP", dict(B=8, S=512, H=32, hd=64, N=64,
+                                              Q=64)))
 
 
 def tp_argv(backend: str, steps: int) -> list[str]:
@@ -3813,9 +3863,10 @@ def tp_argv(backend: str, steps: int) -> list[str]:
 
 
 def tp_serve_argv(mesh: str, dtype: str) -> list[str]:
-    return ["--arch", TP_SERVE, "--batch", str(SERVE["batch"]),
-            "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
-            "--mesh", mesh, "--dtype", dtype]
+    return ["--arch", TP_SERVE, "--layers", str(TP_SERVE_LAYERS),
+            "--batch", str(SERVE["batch"]), "--prompt-len",
+            str(SERVE["prompt"]), "--gen", str(SERVE["gen"]), "--mesh", mesh,
+            "--dtype", dtype]
 
 
 def gloo4_rank(work: Path) -> None:
@@ -3974,24 +4025,199 @@ def tp_runs(group, mgroup, dev, out: dict, done) -> None:
             "tokens_equal": int((a["tokens"] == b["tokens"]).sum()),
             "tokens": int(a["tokens"].size)}
     done("serve 1x1")
+    tp_kind_runs(group, mgroup, dev, out, done)
+
+
+def kind_cfg(arch: str, **kw):
+    """``arch`` at full width, cut to its ``TP_KINDS`` depth (the encoder
+    too, as ``launch/serve.py --layers`` cuts it)."""
+    cfg = serve_cfg(arch, TP_KINDS[arch], **kw)
+    return dataclasses.replace(cfg, n_enc_layers=min(cfg.n_enc_layers,
+                                                     cfg.n_layers))
+
+
+def kind_serve_argv(arch: str, mesh: str, dtype: str) -> list[str]:
+    return ["--arch", arch, "--layers", str(TP_KINDS[arch]), "--batch",
+            str(SERVE["batch"]), "--prompt-len", str(SERVE["prompt"]),
+            "--gen", str(SERVE["gen"]), "--mesh", mesh, "--dtype", dtype]
+
+
+def kind_launches(cfg) -> tuple[dict, dict]:
+    """A ``TP_KINDS`` config's model-kernel launches a process: in one
+    prefill, and in one decode step (whisper's cross-attention)."""
+    if cfg.kind == "enc_dec":
+        pre, step = serve_launches(cfg)
+        return {"flash_fwd": pre}, {"flash_fwd": step}
+    if cfg.kind == "ssm":
+        return {"ssd_fwd": cfg.n_layers}, {}
+    return prefill_launches(cfg), {}
+
+
+def mesh_step0(cfg, mesh: str, backend: str, group, mgroup, dev) -> dict:
+    """The trainer's step-0 ``loss`` and ``grad_norm`` of ``cfg`` (seed 0)
+    at ``mesh`` without the optimizer's state: each data rank's forward
+    and backward on its rows of TP's first batch on the ``backend``
+    route, the gradients averaged over ``group`` (the data ranks, an
+    all-reduce), the sharded leaves' squares summed over the model group
+    (``mgroup``, None at M = 1).  Every process of the mesh calls it; the
+    same result on each.  (Through the trainer, its stacked, synced,
+    clipped and gathered copies took four f32 pixtral processes past the
+    card's memory.)"""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import build_program
+    from repro_torch.train.steps import MODEL_INPUTS
+
+    b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=TP["seq"],
+                                              batch=TP["batch"]))))
+    rows = TP["batch"] // group.n
+    lo = group.ranks[0] * rows
+    batch = {k: torch.as_tensor(b[k][lo:lo + rows], device=dev)
+             for k in ("tokens", "labels", *MODEL_INPUTS) if k in b}
+    for k in ("tokens", "labels"):
+        batch[k] = batch[k].long()
+    model = build_program(cfg, mesh, device=dev, seed=0, backend=backend,
+                          model_group=mgroup).model
+    loss = model(**batch)
+    loss.backward()
+    dims = model.shard_dims()
+    sq = torch.zeros(2, dtype=torch.float64, device=dev)
+    for name, p in model.named_leaves():
+        dist.all_reduce(p.grad, group=group.pg)
+        sq[int(dims[name] is None)] += (p.grad.double() / group.n).square(
+            ).sum()
+    sq[0] = model.ctx.psum_tp(sq[0])
+    loss = loss.detach().double()
+    dist.all_reduce(loss, group=group.pg)
+    out = {"loss": float(loss) / group.n, "grad_norm": float(sq.sum().sqrt())}
+    del model, loss
+    free_card()
+    return out
+
+
+def f64_logit_gap(arch: str, group, mgroup, dev) -> float | None:
+    """The serve batch's prefill on the plain route with float64 weights
+    and activations (the norms, the scan and the loss stay f32), at 1x2
+    on the ranks of data index 0 and at 1x1 on rank 0: on rank 0 the max
+    |difference| of the two meshes' gathered last-position logits,
+    elsewhere None."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.build import build_program
+
+    cfg = kind_cfg(arch, dtype=torch.float64)
+    prompt = torch.as_tensor(next(iter(SyntheticLM(cfg, DataConfig(
+        seq_len=SERVE["prompt"], batch=SERVE["batch"]))))["tokens"],
+        device=dev).long()
+    logits = {}
+    for mesh, mg in (("1x2", mgroup), ("1x1", None)):
+        if group.ranks[0] or (mg is None and mgroup.ranks[0]):
+            continue
+        model = build_program(cfg, mesh, device=dev, backend="torch",
+                              model_group=mg).model
+        logits[mesh] = model.gather_vocab(model.prefill(prompt)[0]).float()
+        del model
+        free_card()
+    if "1x1" not in logits:
+        return None
+    return float((logits["1x2"] - logits["1x1"]).abs().max())
+
+
+def tp_kind_runs(group, mgroup, dev, out: dict, done) -> None:
+    """Phase tp's runs of the ``TP_KINDS`` configs on one rank of the 2x2
+    mesh, each into ``out``, ``done`` after each: the 2x2 bf16 trainer
+    (``TP_KIND_STEPS``, both routes, ZeRO-1), in f32 one step at 2x2 and
+    at 2x1 (the ranks of model index 0: ``mesh_step0``; for the hybrid,
+    its control, the same in float64 on the plain route, and
+    ``f64_logit_gap``), and the server: f32 and bf16 at
+    1x2 on the ranks of data index 0, f32 at 1x1 on rank 0 (whose
+    logits, tokens and top-2 gaps it compares)."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve
+
+    rank = out["rank"]
+    kw = dict(zero1=True, mesh=TP["mesh"], group=group, model_group=mgroup)
+    for arch in TP_KINDS:
+        cfg = kind_cfg(arch)
+        for backend, steps in (("cuda", TP_KIND_STEPS["steps"]),
+                               ("torch", TP_KIND_STEPS["plain_steps"])):
+            out[f"{arch}/{backend}"] = direct_train(
+                cfg, 2, TP["batch"], TP["seq"], steps, backend, **kw)
+        done(f"{arch} bf16 2x2")
+        # step 0's loss and grad norm come before the update: SGD's one
+        # moment keeps pixtral's four f32 processes on the card (AdamW's
+        # two took them past its 80 GB)
+        # step 0 at 2x2 and at 2x1 (the ranks of model index 0), in f32 on
+        # the kernels; the hybrid's control in float64 on the plain route
+        for tag, backend in ((("f32", "cuda"), ("f64", "torch"))
+                             if cfg.kind == "hybrid" else (("f32", "cuda"),)):
+            cfgx = kind_cfg(arch, dtype=getattr(torch, f"float{tag[1:]}"))
+            out[f"{arch}/{tag}/2x2"] = mesh_step0(cfgx, TP["mesh"], backend,
+                                                  group, mgroup, dev)
+            if mgroup.ranks[0] == 0:
+                out[f"{arch}/{tag}/2x1"] = mesh_step0(cfgx, "2x1", backend,
+                                                      group, None, dev)
+            done(f"{arch} {tag} 2x2, 2x1")
+        if cfg.kind == "hybrid":
+            out[f"{arch}/f64_logits"] = f64_logit_gap(arch, group, mgroup,
+                                                      dev)
+        served = {}
+        for mesh, dtype in (("1x2", "float32"), ("1x2", "bfloat16"),
+                            ("1x1", "float32")):
+            if (group.ranks[0] == 0 if mesh == "1x2" else rank == 0):
+                K.reset_counts()
+                res = serve.serve(serve.parse_args(kind_serve_argv(
+                    arch, mesh, dtype)), mgroup if mesh == "1x2" else None,
+                    dev)
+                served[mesh, dtype] = res
+                out[f"{arch}/serve/{mesh}/{dtype}"] = {
+                    "prefill_ms": res["prefill_ms"],
+                    "decode_tok_per_s": res["decode_tok_per_s"],
+                    "launches": res["launches"],
+                    "decode_launches": res["decode_launches"],
+                    "plain": res["plain_calls"],
+                    "cache_pos": (None if res["cache_pos"] is None
+                                  else res["cache_pos"].tolist()),
+                    "finite": bool(np.isfinite(res["logit_max"]).all())}
+        if rank == 0:
+            a, b = served["1x2", "float32"], served["1x1", "float32"]
+            diff = a["tokens"] != b["tokens"]
+            parts = []
+            for seq in np.flatnonzero(diff.any(1)):
+                j = int(np.flatnonzero(diff[seq])[0])
+                parts.append({"sequence": int(seq), "token": j,
+                              "top2_gap": [float(a["top2_gap"][j, seq]),
+                                           float(b["top2_gap"][j, seq])]})
+            out[f"{arch}/serve_f32"] = {
+                "logits_max_abs": float((a["prefill_logits"]
+                                         - b["prefill_logits"]).abs().max()),
+                "tokens_equal": int((~diff).sum()),
+                "tokens": int(diff.size), "parts": parts,
+                "smallest_top2_gap": float(b["top2_gap"].min())}
+        done(f"{arch} serve")
 
 
 def tp_kernel_rows(smi: str) -> dict:
     """The kernels at the shapes the TP paths give them: the fused Zen
-    kernels at the 2x2 trainers' table shards (n 2; ``TP_ZEN_SHAPES``),
-    bitwise their plain versions twice in a row, and ``flash_fwd`` at the
-    TP prefills' per-rank heads (``TP_FLASH``, bf16, causal) within one
-    bf16 ulp of its plain version; each timed beside its bound (and SDPA
-    for flash)."""
-    import torch.nn.functional as F
-
+    kernels at the 2x2 trainers' table shards (n 2; ``TP_ZEN_SHAPES`` and
+    each ``TP_KINDS`` config's ``[Vp / 2, d]``), bitwise their plain
+    versions twice in a row; ``flash_fwd`` at each rank's heads
+    (``TP_FLASH``, ``TP_KIND_FLASH``) and ``ssd_fwd`` at each rank's SSM
+    heads (``TP_KIND_SSD``) within their tolerances of their plain
+    versions (``flash_row``, ``ssd_row``); each timed beside its bound
+    (and SDPA for flash)."""
+    from repro_torch.configs import get_config
     from repro_torch.core import schemes as S_
-    from repro_torch.kernels import ops as K, ref as R
+    from repro_torch.kernels import ops as K
 
     err = {k: 0.0 for k in K.KERNELS}
     rows = []
     rng = np.random.default_rng(11)
-    for tag, what, M, d in TP_ZEN_SHAPES:
+    shapes = [*TP_ZEN_SHAPES, *(
+        (tag, f"{arch} 2x2 table shard", get_config(arch).vocab_padded // 2,
+         get_config(arch).d_model)
+        for tag, arch in zip(TP_KIND_ZEN, TP_KINDS))]
+    for tag, what, M, d in shapes:
         g = zipf_rows(rng, 2, M, SLICE["tokens"], d, torch.bfloat16, "cuda")
         lo = S_.make_zen_layout(M, 2, density_budget=0.25)
         inp = kernel_inputs(g, lo)
@@ -4011,34 +4237,159 @@ def tp_kernel_rows(smi: str) -> dict:
             f"their plain versions, twice")
         del inp, calls
         torch.cuda.empty_cache()
-    for tag, what, shp in TP_FLASH:
-        q, k, v = flash_inputs(torch.bfloat16, **shp)
-        got = K.flash_fwd_op(q, k, v)
-        same([K.flash_fwd_op(q, k, v)], [got], f"[tp] flash_fwd {what}")
-        want = R.flash_fwd_ref(q, k, v)
-        diff = (got.float() - want.float()).abs()
-        if not bool((diff <= bf16_ulp(want) + 1e-6).all()):
-            raise AssertionError(f"[tp] flash_fwd {what} {shp}: {diff.max()} "
-                                 f"from the plain version, over one ulp")
-        err["flash_fwd"] = max(err["flash_fwd"], float(diff.max()))
-        B, S, H, hd = q.shape
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = B * H * S * (S + 1) // 2
-        row = time_row(
-            f"flash_fwd ({what}, {H} / {k.shape[2]} heads of {hd}, bf16)",
-            lambda: K.flash_fwd_op(q, k, v), lambda: R.flash_fwd_ref(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True),
-            q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            4 * pairs * hd, BF16_OPS_PER_S, smi)
-        rows.append({**row, "kernel": "flash_fwd", "row": tag})
-        del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    for tag, what, dtype, shp, causal in (*TP_FLASH, *TP_KIND_FLASH):
+        row, worst = flash_row(tag, what, dtype, shp, causal, smi, "tp")
+        rows.append(row)
+        err["flash_fwd"] = max(err["flash_fwd"], worst)
+    for tag, what, c in TP_KIND_SSD:
+        row, worst = ssd_row(tag, what, c, smi, "tp")
+        rows.append(row)
+        err["ssd_fwd"] = max(err["ssd_fwd"], worst)
     return {"err": err, "rows": rows}
 
 
 def tp_rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_tp_kind(arch: str, ranks: list[dict], smi: str) -> dict:
+    """Phase tp's checks of one ``TP_KINDS`` config (``tp_kind_runs``):
+    the 2x2 bf16 trainer's kernel route held to its plain route (bitwise
+    where the trainer's attention is plain on both routes, so only the
+    Zen kernels differ; mamba2's and zamba2's step-0 loss within
+    ``MAMBA_LOSS_TOL`` / ``HYBRID_LOSS_TOL``, their scans running
+    ``ssd_fwd`` on one route; the words and overflow bitwise), Zen's
+    kernels once a process a step, ``ssd_fwd`` once a Mamba2 layer a
+    process a step with as many plain recomputes, nothing plain, overflow
+    0; f32 2x2 against 2x1 within ``TP_F32_TOL`` (``mesh_step0``'s loss
+    and grad norm); the 1x2 server's prefill and decode launches on every process
+    (``kind_launches``), nothing plain, rank r's attention cache the
+    positions r, r + 2, ..., and in f32 its gathered logits within
+    ``TP_KIND_SERVE_TOL`` of the 1x1 server's with the same greedy tokens.
+    zamba2's grad norm and logits are held to ``HYBRID_TP_TOL`` and to its
+    float64 control (``HYBRID_TP_F64_SHRINK``), and its tokens may part
+    where both servers' top-2 gap is under that gate.  Returns
+    ``arch``'s paths' launches, summed over the processes."""
+    from repro_torch.kernels import ops as K
+
+    steps, plain_steps = TP_KIND_STEPS["steps"], TP_KIND_STEPS["plain_steps"]
+    cfg = kind_cfg(arch)
+    loss_tol = {"mamba2-370m": MAMBA_LOSS_TOL,
+                "zamba2-1.2b": HYBRID_LOSS_TOL}.get(arch)
+    scans = cfg.n_layers * steps if cfg.kind in ("ssm", "hybrid") else 0
+    want = {k: steps for k in ZEN_KERNELS}
+    if scans:
+        want["ssd_fwd"] = scans
+    for r in ranks:
+        run, plain = r[f"{arch}/cuda"], r[f"{arch}/torch"]
+        keys = ("sparse_words_by_step", "overflow") + (
+            () if loss_tol else ("losses", "grad_norm"))
+        for key in keys:
+            if run[key][:plain_steps] != plain[key]:
+                raise AssertionError(f"[tp] {arch} 2x2 trainer {key}: "
+                                     f"kernels {run[key]} != plain "
+                                     f"{plain[key]}")
+        gap = abs(run["losses"][0] - plain["losses"][0])
+        if loss_tol and not gap <= loss_tol:
+            raise AssertionError(f"[tp] {arch} 2x2 trainer step-0 loss "
+                                 f"{run['losses']} vs plain route "
+                                 f"{plain['losses']}")
+        check_launches(f"[tp] {arch} 2x2 trainer rank {r['rank']}",
+                       run["launches"], run["plain"], want)
+        if run["recompute"]["ssd_fwd"] != scans \
+                or any(plain["launches"].values()) \
+                or any(run["overflow"]) or any(plain["overflow"]) \
+                or not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"[tp] {arch} 2x2 trainer rank "
+                                 f"{r['rank']}: {run}; plain {plain}")
+    run = ranks[0][f"{arch}/cuda"]
+    log(f"[tp] {arch} 2x2 (4 processes on this card, full width, "
+        f"{cfg.n_layers} of {serve_cfg(arch).n_layers} layers"
+        + (f", {cfg.n_enc_layers} encoder layer" if cfg.n_enc_layers else "")
+        + f", {run['params'] / 1e9:.3f} B parameters a process, ZeRO-1,"
+        f" {TP['batch']} x {TP['seq']} tokens): losses {run['losses']} "
+        f"grad_norm {run['grad_norm']} words "
+        f"{run['sparse_words_by_step']} overflow {run['overflow']}; the "
+        f"plain route's step 0 "
+        + (f"within {loss_tol} ({ranks[0][f'{arch}/torch']['losses']})"
+           if loss_tol else "bitwise")
+        + f"; launches a process {run['launches']} recomputes "
+        f"{run['recompute']['ssd_fwd']}; step_s {run['step_s']} (plain "
+        f"route {ranks[0][f'{arch}/torch']['step_s']}) peak "
+        f"{[x[f'{arch}/cuda']['peak_gib'] for x in ranks]} GiB | {smi}")
+    hybrid = cfg.kind == "hybrid"
+    gaps = {}
+    for tag in ("f32", "f64") if hybrid else ("f32",):
+        a, b = ranks[0][f"{arch}/{tag}/2x2"], ranks[0][f"{arch}/{tag}/2x1"]
+        d0 = abs(a["loss"] - b["loss"])
+        gaps[tag] = tp_rel(a["grad_norm"], b["grad_norm"])
+        log(f"[tp] {arch} {tag} step 0, 2x2 vs 2x1"
+            + (" (plain route, the control)" if tag == "f64" else "")
+            + f": loss {a['loss']} / {b['loss']} ({d0:.3e}, gate "
+            f"{TP_F32_TOL['step0']}), grad_norm {a['grad_norm']} / "
+            f"{b['grad_norm']} ({gaps[tag]:.3e} relative) | {smi}")
+        if d0 > TP_F32_TOL["step0"]:
+            raise AssertionError(f"[tp] {arch}: the 2x2 {tag} loss is not "
+                                 f"the 2x1 one's")
+    gn_tol = HYBRID_TP_TOL if hybrid else TP_F32_TOL["grad_norm"]
+    if gaps["f32"] > gn_tol or (hybrid and not gaps["f64"]
+                                * HYBRID_TP_F64_SHRINK < gaps["f32"]):
+        raise AssertionError(f"[tp] {arch}: the 2x2 f32 grad norm parts "
+                             f"from 2x1's by {gaps} (gate {gn_tol}"
+                             + (f", float64 {HYBRID_TP_F64_SHRINK}x closer"
+                                if hybrid else "") + ")")
+    pre, step = kind_launches(cfg)
+    dec = {k: v * (SERVE["gen"] - 1) for k, v in step.items()}
+    t_all = SERVE["prompt"] + (cfg.n_patches if cfg.kind == "vlm" else 0)
+    for r in ranks[:2]:
+        for key in ("1x2/float32", "1x2/bfloat16") + (
+                ("1x1/float32",) if r["rank"] == 0 else ()):
+            res = r[f"{arch}/serve/{key}"]
+            got = {k: res["launches"][k] - res["decode_launches"][k]
+                   for k in res["launches"]}
+            if got != {k: pre.get(k, 0) for k in got} \
+                    or res["decode_launches"] != {
+                        k: dec.get(k, 0) for k in res["decode_launches"]} \
+                    or any(res["plain"].values()) or not res["finite"]:
+                raise AssertionError(f"[tp] {arch} serve {key} rank "
+                                     f"{r['rank']}: {res}")
+        pos = r[f"{arch}/serve/1x2/float32"]["cache_pos"]
+        held = list(range(r["model_rank"], t_all + SERVE["gen"] - 1, 2))
+        if pos is not None and [p for p in pos if p >= 0] != held:
+            raise AssertionError(f"[tp] {arch}: rank {r['rank']}'s cache "
+                                 f"holds {pos[:6]}..., not {held[:6]}...")
+    f32 = ranks[0][f"{arch}/serve_f32"]
+    tol, tie = ((HYBRID_TP_TOL, HYBRID_TP_TOL) if hybrid
+                else (TP_KIND_SERVE_TOL, None))
+    f64 = ranks[0].get(f"{arch}/f64_logits")
+    s = {k: [ranks[0][f"{arch}/serve/{k}"][x]
+             for x in ("prefill_ms", "decode_tok_per_s")]
+         for k in ("1x2/bfloat16", "1x2/float32", "1x1/float32")}
+    log(f"[tp] {arch} served at 1x2 (launch/serve.py, 8 x 512 + 16): "
+        f"{pre} a prefill and {step} a decode step on each process, "
+        f"nothing plain; f32 logits {f32['logits_max_abs']:.3e} from the "
+        f"1x1 server's (gate {tol}"
+        + (f"; float64 on the plain route, the control: {f64:.3e}"
+           if hybrid else "") + "), "
+        f"{f32['tokens_equal']} of {f32['tokens']} tokens equal, "
+        f"sequences that part (token, top-2 gaps 1x2 / 1x1): "
+        f"{f32['parts']}, smallest 1x1 top-2 gap "
+        f"{f32['smallest_top2_gap']}; [prefill ms, decode tok/s]: bf16 "
+        f"1x2 {s['1x2/bfloat16']}, f32 1x2 {s['1x2/float32']}, f32 1x1 "
+        f"{s['1x1/float32']} | {smi}")
+    if f32["logits_max_abs"] > tol or (hybrid and not f64
+                                       * HYBRID_TP_F64_SHRINK
+                                       < f32["logits_max_abs"]) or any(
+            tie is None or max(p["top2_gap"]) > tie
+            for p in f32["parts"]):
+        raise AssertionError(f"[tp] {arch}: the 1x2 server is not the "
+                             f"1x1 server")
+    train = {k: sum(r[f"{arch}/cuda"]["launches"][k] for r in ranks)
+             for k in K.KERNELS}
+    serve = {k: sum(r[f"{arch}/serve/1x2/float32"]["launches"].get(k, 0)
+                    for r in ranks[:2]) for k in K.KERNELS}
+    return {f"trainer 2x2 {arch} (tp)": train,
+            f"serve {arch} 1x2 (tp)": serve}
 
 
 def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
@@ -4050,10 +4401,14 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
     2x2 run against 2x1 at ``TP_F32_LAYERS`` layers; olmoe-1b-7b at 2x2,
     both dispatches, each route bitwise the other (losses, grad norm,
     words, overflow, ``moe/*``), and in f32 a2a within ``TP_A2A_TOL`` of
-    replicated at step 0; qwen2.5-3b served at 1x2 (36 ``flash_fwd`` a
-    prefill on every process, none plain; each rank's cache the positions
+    replicated at step 0; qwen2.5-3b served at 1x2 at
+    ``TP_SERVE_LAYERS`` layers (a ``flash_fwd`` a layer a prefill on every
+    process, none plain; each rank's cache the positions
     r, r + 2, ...; in f32 the logits within 1e-3 of the 1x1 serve's and
-    the same 128 tokens); then the kernels at the TP shapes."""
+    the same 128 tokens); the ``TP_KINDS`` configs (mamba2, zamba2,
+    minicpm3, whisper, pixtral at full width and cut depth:
+    ``check_tp_kind``, each config checked before a failure stops the
+    phase); then the kernels at the TP shapes."""
     from repro_torch.kernels import ops as K
 
     free_card()
@@ -4138,7 +4493,7 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
     if gap > TP_A2A_TOL or a2a["moe/dropped"][0] or rep["moe/dropped"][0]:
         raise AssertionError("[tp] moe_ffn_a2a is not the replicated MoE")
     # the server
-    cfg = serve_cfg(TP_SERVE)
+    cfg = serve_cfg(TP_SERVE, TP_SERVE_LAYERS)
     want = {"flash_fwd": cfg.n_layers}
     for r in ranks[:2]:
         for key, runs in r["serve"].items():
@@ -4163,8 +4518,9 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
                                  f"{pos[:6]}..., not {held[:6]}...")
     f32 = ranks[0]["serve_f32"]
     s = ranks[0]["serve"]
-    log(f"[tp] {TP_SERVE} served at 1x2 (launch/serve.py, full size, 8 x 512 "
-        f"+ 16): {cfg.n_layers} flash_fwd a prefill on each process at "
+    log(f"[tp] {TP_SERVE} served at 1x2 (launch/serve.py, full width, "
+        f"{cfg.n_layers} of 36 layers, 8 x 512 + 16): {cfg.n_layers} "
+        f"flash_fwd a prefill on each process at "
         f"{cfg.n_heads // 2} / 1 heads of {cfg.hd}, none in decode, nothing "
         f"plain; rank r's cache holds positions r, r + 2, ...; f32 logits "
         f"{f32['logits_max_abs']:.3e} from the 1x1 serve's (gate "
@@ -4177,7 +4533,16 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
         f"{[x['decode_tok_per_s'] for x in s['1x1/bfloat16']]} | {smi}")
     if f32["logits_max_abs"] > 1e-3 or f32["tokens_equal"] != f32["tokens"]:
         raise AssertionError("[tp] the 1x2 server is not the 1x1 server")
+    kinds, failed = {}, []
+    for arch in TP_KINDS:   # every config checked before a failure stops
+        try:
+            kinds.update(check_tp_kind(arch, ranks, smi))
+        except AssertionError as e:
+            log(f"[tp] FAILED: {e}")
+            failed.append(str(e))
     kern = tp_kernel_rows(smi)
+    if failed:
+        raise AssertionError(f"[tp] {len(failed)} config(s) failed: {failed}")
     free_card()
     log(f"[tp] after the kernel rows this process holds "
         f"{torch.cuda.memory_reserved()} B ({torch.cuda.memory_allocated()} "
@@ -4191,7 +4556,7 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
     launches[f"serve {TP_SERVE} 1x2 (tp)"] = {
         k: sum(r["serve"]["1x2/float32"][0]["launches"].get(k, 0)
                for r in ranks[:2]) for k in K.KERNELS}
-    return {**kern, "launches": launches}
+    return {**kern, "launches": {**launches, **kinds}}
 
 
 # ---------------------------------------------------------------------------
@@ -4202,6 +4567,8 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
 # whole smoke inside its time limit (the phase took 351 s at full depth,
 # 186 s at 24 layers and 90 s at 12, on one H100)
 MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=6)
+# its step-0 loss, kernel route (ssd_fwd) vs plain route (the plain scan)
+MAMBA_LOSS_TOL = 5e-3
 
 
 def mamba_cfg():
@@ -4346,7 +4713,7 @@ def phase_mamba2_train(smi: str, steps: int = 4) -> dict:
         f"route: "
         f"{list(zip(losses, plain['losses']))}; plain step_s="
         f"{plain['step_s']} tok/s={plain['tok_per_s']}")
-    if abs(losses[0] - plain["losses"][0]) > 5e-3:
+    if abs(losses[0] - plain["losses"][0]) > MAMBA_LOSS_TOL:
         raise AssertionError(f"mamba2 step-0 loss {losses[0]} vs plain "
                              f"route {plain['losses'][0]}")
     if res["sparse_words_by_step"] != plain["sparse_words_by_step"]:

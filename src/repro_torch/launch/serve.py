@@ -20,12 +20,15 @@ one ``flash_fwd`` a layer a step).  (The reference example instead
 replays the prompt through decode and feeds its last token twice.)
 
 ``--mesh 1xM --dist {gloo,nccl}`` under ``torchrun --nproc-per-node M``
-serves the dense and MoE models tensor-parallel over the model group:
-each rank's prefill runs ``flash_fwd`` on its own heads and keeps its
-round-robin share of the prompt's K/V (positions r, r + M, ...), decode
-attends over the sequence-sharded cache, and the first token is the
-argmax of the gathered last-position logits (``--pad-heads`` and
-``--moe-a2a`` as in ``launch/train.py``).  Only rank 0 prints.
+serves every model tensor-parallel over the model group: each rank's
+prefill runs ``flash_fwd`` on its own heads (the encoder's and the
+cross-attention's too) and ``ssd_fwd`` on its own SSM heads, and keeps
+its round-robin share of the prompt's K/V or MLA latent (positions r, r
++ M, ...) and its heads' SSD state; decode attends over the
+sequence-sharded cache (whisper's cross cache whole on every rank), and
+the first token is the argmax of the gathered last-position logits
+(``--pad-heads`` and ``--moe-a2a`` as in ``launch/train.py``).  Only rank
+0 prints.
 """
 from __future__ import annotations
 
@@ -62,7 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="keep the first N layers (a depth cut, for a "
-                         "model one card cannot hold)")
+                         "model one card cannot hold; an encoder-decoder's "
+                         "encoder too)")
     ap.add_argument("--dtype", default=None, choices=tuple(DTYPES),
                     help="override the config's dtype")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
@@ -146,7 +150,8 @@ def serve(args, model_group, device) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = dataclasses.replace(cfg, n_layers=args.layers, n_enc_layers=min(
+            cfg.n_enc_layers, args.layers))
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=DTYPES[args.dtype])
     prog = build_program(cfg, args.mesh, device=device, seed=args.seed,

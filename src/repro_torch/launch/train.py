@@ -20,17 +20,19 @@ its D ranks, then the pods' results are averaged) run in one of two modes
   ``--device cpu``); nccl needs a GPU per rank.  Only rank 0 prints, and
   ``main`` returns the same dict on every rank.
 
-``--mesh DxM`` with M > 1 is tensor parallelism (the dense and MoE
-models), one process per (data, model) rank, rank ``d M + m``, so it
-needs ``--dist``:
+``--mesh DxM`` with M > 1 is tensor parallelism (every model kind), one
+process per (data, model) rank, rank ``d M + m``, so it needs ``--dist``:
 
       PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
           -m repro_torch.launch.train --arch qwen2-0.5b --mesh 2x2 \
           --dist gloo --sync zen --global-batch 8 --seq-len 512 --steps 4
 
-Each model rank holds its shards (``models/common.py``) and runs Zen on
-its ``[Vp/M, d]`` shard of ``embed/table`` over the D ranks of its data
-group.  ``--pad-heads`` pads the q heads to a multiple of M so that they
+Each model rank holds its shards (``models/common.py``: the attention,
+MLP and Mamba2 heads over the model axis, as the reference shards them)
+and runs Zen on its ``[Vp/M, d]`` shard of ``embed/table`` over the D
+ranks of its data group; every process draws the same global batch
+(whisper's frames and pixtral's patches included) and keeps its data
+rank's rows.  ``--pad-heads`` pads the q heads to a multiple of M so that they
 shard (the reference's ``pad_heads``), ``--moe-a2a`` takes the
 token-sharded MoE dispatch (``moe_ffn_a2a``).  The gradient is the true
 one, the 1x1 run's, so ``grad_norm`` is the 1x1 run's too, where the

@@ -42,20 +42,25 @@ The trainer's attention is plain; the prefill's is ``flash_fwd`` at that
 ``pos``: no per-head K/V), and decode attends to it with ``kv_up``
 absorbed into q and the output (the reference's f32 einsums, no kernel).
 
-Tensor parallelism (GQA; MLA at tp > 1 waits for a later slice, ROADMAP
-queue 1): with ``ctx.shard_heads`` q is column-parallel (this rank's
-``Hl = H / tp`` heads) and o row-parallel; the K/V projections stay
-replicated, and each rank attends with the KV heads its q heads use
-(:meth:`GQA._kv_slice`: at qwen2-0.5b's 14 / 2 heads and tp = 2, 7 q
-heads and 1 KV head a rank).  Otherwise every rank computes every head.
-``ctx.h_pad`` pads the q heads to a multiple of tp with zero q columns
-and zero o rows.  Decode's cache holds every KV head, sequence-sharded:
-rank r holds positions r, r + tp, ... (prefill keeps those of the prompt,
-decode writes position t on rank t % tp).  A decode step all-gathers the
-token's q heads, so that every rank attends with EVERY head over its own
-positions and the ranks' partial softmaxes combine head by head; each
-rank then keeps its own heads' output for o.  (The reference's
-``gqa_decode`` combines the partials of different heads when the q heads
+Tensor parallelism: with ``ctx.shard_heads`` GQA's q is column-parallel
+(this rank's ``Hl = H / tp`` heads) and o row-parallel; the K/V
+projections stay replicated, and each rank attends with the KV heads its
+q heads use (:meth:`GQA._kv_slice`: at qwen2-0.5b's 14 / 2 heads and tp =
+2, 7 q heads and 1 KV head a rank).  Otherwise every rank computes every
+head.  ``ctx.h_pad`` pads the q heads to a multiple of tp with zero q
+columns and zero o rows.  The cross-attention's K/V come from the
+replicated ``k`` / ``v`` and the cross cache holds every KV head on every
+rank; each rank slices it to its heads.  MLA's down projections and
+norms are replicated, ``q_up`` and ``kv_up`` column-parallel (this
+rank's heads) and o row-parallel; its latent cache holds c and kr,
+which every head shares.  Decode's cache (GQA's K/V, MLA's latent) is
+sequence-sharded: rank r holds positions r, r + tp, ... (prefill keeps
+those of the prompt, decode writes position t on rank t % tp).  A decode
+step all-gathers the token's q heads (MLA's absorbed q), so that every
+rank attends with EVERY head over its own positions and the ranks'
+partial softmaxes combine head by head; each rank then keeps its own
+heads' output for o.  (The reference's ``gqa_decode`` and
+``mla_decode`` combine the partials of different heads when the q heads
 are sharded, ROADMAP queue 3.)
 """
 from __future__ import annotations
@@ -219,10 +224,7 @@ class GQA(nn.Module):
         B, S, _ = x.shape
         if kv_src is not None:
             cache = self.make_cross_cache(kv_src)
-            q = self.q(x).view(B, S, self.cfg.n_heads, self.cfg.hd)
-            o = flash_attention(q, cache["k"], cache["v"], causal=False,
-                                backend=backend)
-            return self.o(o.reshape(B, S, -1)), cache
+            return self._cross(x, cache, backend), cache
         pos = torch.arange(S, device=x.device)
         q, k, v = self._qkv(x, pos if use_rope else None)
         ku, vu = self._kv_slice(k, v)
@@ -259,56 +261,89 @@ class GQA(nn.Module):
             o = o[:, ctx.tp_rank() * self.heads:][:, :self.heads]
         return self.o(o.reshape(B, -1))
 
+    def _cross(self, x: torch.Tensor, cross: dict,
+               backend: str) -> torch.Tensor:
+        """x [B, S, d] attending to the cross cache (k/v [B, T, KV, hd],
+        every KV head) with no mask on ``flash_fwd``: this rank's q heads
+        with the KV heads they use (:meth:`_kv_slice`).  Returns [B, S,
+        d]."""
+        B, S, _ = x.shape
+        q = self.q(x).view(B, S, self.heads, self.cfg.hd)
+        k, v = self._kv_slice(cross["k"], cross["v"])
+        o = flash_attention(q, k.contiguous(), v.contiguous(), causal=False,
+                            backend=backend)
+        return self.o(o.reshape(B, S, -1))
+
     def cross_decode(self, x: torch.Tensor, cross: dict, *,
                      backend: str = "cuda") -> torch.Tensor:
-        """One token x [B, d] attending to the cross cache (k/v [B, T, KV,
-        hd]) with no mask: one ``flash_fwd`` at Sq = 1.  Returns [B, d]."""
-        B = x.shape[0]
-        q = self.q(x).view(B, 1, self.cfg.n_heads, self.cfg.hd)
-        o = flash_attention(q, cross["k"], cross["v"], causal=False,
-                            backend=backend)
-        return self.o(o.reshape(B, -1))
+        """One token x [B, d] attending to the cross cache with no mask:
+        one ``flash_fwd`` at Sq = 1.  Returns [B, d]."""
+        return self._cross(x[:, None], cross, backend)[:, 0]
 
 
 def mla_make_cache(cfg: ArchConfig, batch: int, seq: int, *,
-                   device=None) -> dict:
-    """One MLA layer's empty latent cache: c [batch, seq, mla_kv_rank] and
-    kr [batch, seq, mla_rope_dim] zeros in the model's dtype, pos [seq] =
-    -1 (never written)."""
+                   device=None, ctx: ShardCtx = ShardCtx()) -> dict:
+    """One MLA layer's empty latent cache, this rank's ``Sl =``
+    :func:`local_slots` slots: c [batch, Sl, mla_kv_rank] and kr [batch,
+    Sl, mla_rope_dim] zeros in the model's dtype, pos [Sl] = -1 (never
+    written)."""
+    sl = local_slots(seq, ctx)
     kw = dict(dtype=cfg.dtype, device=device)
-    return {"c": torch.zeros((batch, seq, cfg.mla_kv_rank), **kw),
-            "kr": torch.zeros((batch, seq, cfg.mla_rope_dim), **kw),
-            "pos": torch.full((seq,), -1, dtype=torch.int32, device=device)}
+    return {"c": torch.zeros((batch, sl, cfg.mla_kv_rank), **kw),
+            "kr": torch.zeros((batch, sl, cfg.mla_rope_dim), **kw),
+            "pos": torch.full((sl,), -1, dtype=torch.int32, device=device)}
 
 
 class MLA(nn.Module):
     """Multi-head latent attention (minicpm3): see the module docstring."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
-        self.cfg = cfg
-        d, H = cfg.d_model, cfg.n_heads
+        self.cfg, self.ctx = cfg, ctx
+        self.cache_ctx = ctx if ctx.decode_seq_shard else ShardCtx()
+        d, H = cfg.d_model, ctx.h_pad or cfg.n_heads
         hd, rd, vd = cfg.hd, cfg.mla_rope_dim, cfg.mla_v_dim
         qr, kvr = cfg.mla_q_rank, cfg.mla_kv_rank
-        kw = dict(dtype=cfg.dtype, device=device, gen=gen)
+        self.shard = ctx.shard_heads and ctx.tp > 1
+        self.heads = H // ctx.tp if self.shard else H
+        up, o = ("col", "row") if self.shard else ("rep", "rep")
+        kw = dict(dtype=cfg.dtype, device=device, gen=gen, ctx=ctx)
         self.q_down = Linear(d, qr, **kw)
-        self.q_up = Linear(qr, H * (hd + rd), **kw)
+        self.q_up = Linear(qr, H * (hd + rd), mode=up, **kw)
         self.kv_down = Linear(d, kvr + rd, **kw)
-        self.kv_up = Linear(kvr, H * (hd + vd), **kw)
-        self.o = Linear(H * vd, d, **kw)
+        self.kv_up = Linear(kvr, H * (hd + vd), mode=up, **kw)
+        self.o = Linear(H * vd, d, mode=o, **kw)
         self.q_norm = RMSNorm(qr, device=device)
         self.kv_norm = RMSNorm(kvr, device=device)
+        if ctx.h_pad:   # padded heads: zero up columns, zero o rows
+            first = ctx.tp_rank() * self.heads
+            with torch.no_grad():
+                for lin, w in ((self.q_up, hd + rd), (self.kv_up, hd + vd),
+                               (self.o, vd)):
+                    real = max((cfg.n_heads - first) * w, 0)
+                    if lin is self.o:
+                        lin.w[real:] = 0
+                    else:
+                        lin.w[:, real:] = 0
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering this rank's heads (``copy_tp``
+        when the heads are sharded)."""
+        return self.ctx.copy_tp(t) if self.shard else t
 
     def _qkv(self, x: torch.Tensor, pos: torch.Tensor):
-        """(q [B, S, H, hd + rd] with RoPE on its last rd columns, the latent
-        c [B, S, kvr], the shared RoPE key kr [B, S, rd]) of x [B, S, d] at
-        positions ``pos`` [S] (the reference's ``_mla_qkv``)."""
+        """(q [B, S, Hl, hd + rd] of this rank's heads with RoPE on its last
+        rd columns, the latent c [B, S, kvr], the shared RoPE key kr [B, S,
+        rd]) of x [B, S, d] at positions ``pos`` [S] (the reference's
+        ``_mla_qkv``).  The down projections and their norms are
+        replicated; q's latent enters ``q_up`` through ``copy_tp``."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd, kvr = cfg.hd, cfg.mla_kv_rank
-        q = self.q_up(self.q_norm(self.q_down(x))).view(
-            B, S, cfg.n_heads, hd + cfg.mla_rope_dim)
+        q = self.q_up(self._copy(self.q_norm(self.q_down(x)))).view(
+            B, S, self.heads, hd + cfg.mla_rope_dim)
         kv_c = self.kv_down(x)
         c = self.kv_norm(kv_c[..., :kvr])
         kr = rope(kv_c[:, :, None, kvr:], pos, cfg.rope_theta)[:, :, 0]
@@ -317,13 +352,15 @@ class MLA(nn.Module):
         return q, c, kr
 
     def _kv(self, c: torch.Tensor, kr: torch.Tensor):
-        """Per-head k [B, S, H, hd + rd] (each head's nope key, then the
-        shared RoPE key) and v [B, S, H, vd] from the latent, contiguous."""
+        """Per-head k [B, S, Hl, hd + rd] (each of this rank's heads' nope
+        key, then the shared RoPE key) and v [B, S, Hl, vd] from the
+        latent, contiguous; c and kr enter this rank's heads through
+        ``copy_tp``."""
         cfg = self.cfg
         B, S, _ = c.shape
-        H, hd = cfg.n_heads, cfg.hd
-        kv = self.kv_up(c).view(B, S, H, hd + cfg.mla_v_dim)
-        k = torch.cat([kv[..., :hd], kr[:, :, None, :].expand(
+        H, hd = self.heads, cfg.hd
+        kv = self.kv_up(self._copy(c)).view(B, S, H, hd + cfg.mla_v_dim)
+        k = torch.cat([kv[..., :hd], self._copy(kr)[:, :, None, :].expand(
             B, S, H, cfg.mla_rope_dim)], dim=-1)
         return k, kv[..., hd:].contiguous()
 
@@ -338,45 +375,60 @@ class MLA(nn.Module):
     def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
         """Causal attention over a prompt x [B, S, d] on ``flash_fwd`` at
         (hd + rd, vd) -> (out [B, S, d], this layer's latent cache: c and
-        kr of the S prompt positions, pos = 0..S-1)."""
+        kr of the S prompt positions, pos = 0..S-1; under tensor
+        parallelism this rank's round-robin share, :func:`prefill_slots`)."""
         B, S, _ = x.shape
         pos = torch.arange(S, device=x.device)
         q, c, kr = self._qkv(x, pos)
         k, v = self._kv(c, kr)
         o = flash_attention(q, k, v, causal=True, backend=backend)
-        cache = {"c": c, "kr": kr, "pos": pos.to(torch.int32)}
+        cache = prefill_slots({"c": c, "kr": kr, "pos": pos.to(torch.int32)},
+                              self.cache_ctx)
         return self.o(o.reshape(B, S, -1)), cache
 
     def decode(self, x: torch.Tensor, cache: dict, t: int, *,
                window: int = 0) -> torch.Tensor:
         """One token x [B, d] at position ``t`` (the reference's
         ``mla_decode``): its latent and RoPE key go into ``cache`` (IN
-        PLACE), then q's nope part, through ``kv_up``'s key half, scores
-        against the latent and its RoPE part against kr, in f32 at scale
-        1/sqrt(hd + rd); the softmax-weighted latent goes through
-        ``kv_up``'s value half.  Returns [B, d]."""
-        cfg = self.cfg
-        B = x.shape[0]
-        H, hd, kvr = cfg.n_heads, cfg.hd, cfg.mla_kv_rank
+        PLACE, on the rank that owns position t), then q's nope part,
+        through ``kv_up``'s key half, scores against the latent and its
+        RoPE part against kr, in f32 at scale 1/sqrt(hd + rd); the
+        softmax-weighted latent goes through ``kv_up``'s value half.  With
+        the heads and the cache sharded, the step's absorbed q of every
+        head is all-gathered, each rank scores every head over its own
+        positions, the partial softmaxes combine head by head over the
+        model group, and each rank keeps its own heads for ``kv_up``'s
+        value half and o.  Returns [B, d]."""
+        cfg, ctx, cctx = self.cfg, self.ctx, self.cache_ctx
+        B, Hl = x.shape[0], self.heads
+        hd, kvr = cfg.hd, cfg.mla_kv_rank
         q, c_new, kr_new = self._qkv(x[:, None],
                                      torch.full((1,), t, device=x.device))
         q = q[:, 0]
-        w_up = self.kv_up.w.view(kvr, H, hd + cfg.mla_v_dim).float()
+        w_up = self.kv_up.w.view(kvr, Hl, hd + cfg.mla_v_dim).float()
         q_lat = torch.einsum("bhd,khd->bhk", q[..., :hd].float(),
-                             w_up[..., :hd])                  # [B, H, kvr]
+                             w_up[..., :hd])                  # [B, Hl, kvr]
+        q_rope = q[..., hd:].float()
+        gather = self.shard and cctx.tp > 1
+        if gather:   # every head, [B, H, .], on every rank
+            q_lat, q_rope = (ctx.all_gather_tp(a.transpose(0, 1)
+                                               ).transpose(0, 1)
+                             for a in (q_lat, q_rope))
         cache_write(cache["c"][:, :, None], cache["kr"][:, :, None],
-                    cache["pos"], c_new, kr_new, t)
+                    cache["pos"], c_new, kr_new, t, cctx)
         cc, krc, pos = cache["c"].float(), cache["kr"].float(), cache["pos"]
         s = (torch.einsum("bhk,bsk->bhs", q_lat, cc)
-             + torch.einsum("bhr,bsr->bhs", q[..., hd:].float(), krc)) \
+             + torch.einsum("bhr,bsr->bhs", q_rope, krc)) \
             * (1.0 / math.sqrt(hd + cfg.mla_rope_dim))
         valid = (pos >= 0) & (pos <= t)
         if window > 0:
             valid &= pos > t - window
         s = torch.where(valid, s, NEG)
-        p = torch.where(valid, torch.exp(s - s.max(-1, keepdim=True).values),
-                        0.0)
-        ctx = torch.einsum("bhs,bsk->bhk", p, cc) \
-            / p.sum(-1).clamp(min=1e-30)[..., None]
-        out = torch.einsum("bhk,khv->bhv", ctx, w_up[..., hd:]).to(x.dtype)
+        p = torch.where(valid, torch.exp(
+            s - cctx.pmax_tp(s.max(-1, keepdim=True).values)), 0.0)
+        lat = cctx.psum_tp(torch.einsum("bhs,bsk->bhk", p, cc)) \
+            / cctx.psum_tp(p.sum(-1)).clamp(min=1e-30)[..., None]
+        if gather:
+            lat = lat[:, ctx.tp_rank() * Hl:][:, :Hl]
+        out = torch.einsum("bhk,khv->bhv", lat, w_up[..., hd:]).to(x.dtype)
         return self.o(out.reshape(B, -1))

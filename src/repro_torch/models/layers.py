@@ -9,9 +9,9 @@ Megatron-style layers: ``Linear`` in the col (output features sharded),
 row (input features sharded, a ``psum_tp`` before the bias) and rep
 modes, the vocab-parallel embedding and cross-entropy, decode attention
 over the sequence-sharded cache (slot ``(t // tp) % Sl`` of rank ``t %
-tp`` holds position t) and the SwiGLU column -> row.  A sharded leaf is
-drawn whole from the generator and sliced, so every mesh holds slices of
-the parameters the 1x1 build draws.  Numerics follow the reference: norms and the
+tp`` holds position t) and the SwiGLU and GELU MLPs column -> row.  A
+sharded leaf is drawn whole from the generator and sliced, so every mesh
+holds slices of the parameters the 1x1 build draws.  Numerics follow the reference: norms and the
 softmax run in f32, matmuls in the parameters' dtype.  A linear layer
 given activations of another dtype promotes as JAX does: f32 activations
 on bf16 weights (whisper's f32 encoder frames) run in f32.
@@ -230,17 +230,21 @@ class SwiGLU(nn.Module):
 
 class GeluMLP(nn.Module):
     """Whisper's MLP: ``down(gelu(up(x)))`` with biases; the GELU is the
-    tanh form, ``jax.nn.gelu``'s default."""
+    tanh form, ``jax.nn.gelu``'s default.  up column-parallel (its bias
+    too), down row-parallel over the model axis."""
 
     def __init__(self, d: int, d_ff: int, *, dtype=torch.bfloat16,
-                 device=None, gen: torch.Generator | None = None):
+                 device=None, gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
-        kw = dict(bias=True, dtype=dtype, device=device, gen=gen)
-        self.up = Linear(d, d_ff, **kw)
-        self.down = Linear(d_ff, d, **kw)
+        kw = dict(bias=True, dtype=dtype, device=device, gen=gen, ctx=ctx)
+        self.ctx = ctx
+        self.up = Linear(d, d_ff, mode="col", **kw)
+        self.down = Linear(d_ff, d, mode="row", **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        return self.down(F.gelu(self.up(self.ctx.copy_tp(x)),
+                                approximate="tanh"))
 
 
 def mask_padded_logits(lf: torch.Tensor, valid_vocab: int,

@@ -56,16 +56,19 @@ runs every kind; a Mamba2 layer's scan is ``ssd_fwd`` under autograd
 (``ops.SSDScan``), whose gradient is the plain chunked scan's, as the
 reference trains by autodiff through that scan.
 
-Tensor parallelism (``ctx``, a ``ShardCtx`` with tp > 1; the dense and MoE
-kinds): each process holds its rank's shard of every model-sharded leaf
-and the whole of every replicated one (:meth:`Model.shard_dims`, the
-counterpart of the reference's ``PartitionSpec`` tree).  The embedding,
-the LM head (column-parallel) and the loss are vocab-sharded; prefill
-returns this rank's vocab shard of the last-position logits
-(:meth:`Model.gather_vocab` makes them whole), greedy decode takes the
-argmax over the shards with the reference's tie-break, and the decode
-cache holds ``ceil(S / tp)`` slots a layer.  Other kinds, and MLA, raise
-``NotImplementedError`` at tp > 1 (ROADMAP queue 1, item 9).
+Tensor parallelism (``ctx``, a ``ShardCtx`` with tp > 1; every kind):
+each process holds its rank's shard of every model-sharded leaf and the
+whole of every replicated one (:meth:`Model.shard_dims`, the counterpart
+of the reference's ``PartitionSpec`` tree).  The embedding, the LM head
+(column-parallel) and the loss are vocab-sharded; prefill returns this
+rank's vocab shard of the last-position logits (:meth:`Model.gather_vocab`
+makes them whole), greedy decode takes the argmax over the shards with
+the reference's tie-break, and an attention layer's decode cache holds
+``ceil(S / tp)`` slots.  The attention heads (GQA and MLA, the encoder's,
+the cross-attention's and the hybrid's shared block's), the MLPs and the
+Mamba2 heads are sharded over the model axis as the reference shards
+them; the hybrid's shared block is the dense layer's TP, whisper's cross
+cache and pixtral's patch prefix (``vis_proj``) are replicated.
 """
 from __future__ import annotations
 
@@ -88,19 +91,7 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 
 KINDS = ("dense", "moe", "ssm", "hybrid", "enc_dec", "vlm")
-TP_KINDS = ("dense", "moe")   # the kinds that run at tp > 1 (not MLA)
 AUX_LOSS_W = 0.01     # the MoE load-balance loss's weight in the train loss
-
-
-def check_tp_kind(cfg: ArchConfig, tp: int) -> None:
-    """Tensor parallelism runs the dense and MoE kinds without MLA; the
-    rest raises naming its ROADMAP item."""
-    if tp > 1 and (cfg.kind not in TP_KINDS or cfg.mla_q_rank):
-        what = "MLA" if cfg.mla_q_rank else f"kind {cfg.kind!r}"
-        raise NotImplementedError(
-            f"tensor parallelism (M={tp}) for {cfg.name} ({what}) is not "
-            f"ported yet (ROADMAP queue 1, item 9: the next TP slice); M > "
-            f"1 runs the kinds {TP_KINDS} without MLA")
 
 
 def sinusoid_table(T: int, d: int, device=None) -> torch.Tensor:
@@ -118,13 +109,14 @@ class EncoderLayer(nn.Module):
     then + ffn(ln2 x) (GELU MLP)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = GQA(cfg, device=device, gen=gen)
+        self.attn = GQA(cfg, device=device, gen=gen, ctx=ctx)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
         self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
-                           device=device, gen=gen)
+                           device=device, gen=gen, ctx=ctx)
 
     def forward(self, x: torch.Tensor, *, backend: str | None = None):
         """x [B, T, d] -> [B, T, d]: the trainer's plain attention, or with
@@ -150,20 +142,20 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = (MLA(cfg, device=device, gen=gen) if cfg.mla_q_rank
-                     else GQA(cfg, device=device, gen=gen, ctx=ctx))
+        attn = MLA if cfg.mla_q_rank else GQA
+        self.attn = attn(cfg, device=device, gen=gen, ctx=ctx)
         self.cross = cfg.kind == "enc_dec"
         if self.cross:
             self.lnx = RMSNorm(cfg.d_model, device=device)
-            self.xattn = GQA(cfg, device=device, gen=gen)
+            self.xattn = GQA(cfg, device=device, gen=gen, ctx=ctx)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        kw = dict(dtype=cfg.dtype, device=device, gen=gen)
+        kw = dict(dtype=cfg.dtype, device=device, gen=gen, ctx=ctx)
         if cfg.kind == "moe":
             self.ffn = MoE(cfg, device=device, gen=gen, ctx=ctx)
         elif self.cross:
             self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
         else:
-            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, ctx=ctx, **kw)
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
     def _ffn(self, x: torch.Tensor):
         """(ffn(x), the MoE stats or {})."""
@@ -183,16 +175,14 @@ class DecoderLayer(nn.Module):
         return x + y, stats
 
     def make_cache(self, batch: int, cache_len: int) -> dict:
-        """K/V slots (``gqa_make_cache``: this rank's share under tensor
-        parallelism; MLA's latent slots, ``mla_make_cache``); an enc_dec
-        layer's also a zero cross cache of ``enc_len`` frames in the
-        model's dtype."""
+        """K/V slots (``gqa_make_cache``; MLA's latent slots,
+        ``mla_make_cache``: this rank's share under tensor parallelism);
+        an enc_dec layer's also a zero cross cache of ``enc_len`` frames
+        (every KV head) in the model's dtype."""
         cfg, dev = self.cfg, self.ln1.scale.device
-        if cfg.mla_q_rank:
-            cache = mla_make_cache(cfg, batch, cache_len, device=dev)
-        else:
-            cache = gqa_make_cache(cfg, batch, cache_len, device=dev,
-                                   ctx=self.attn.cache_ctx)
+        make = mla_make_cache if cfg.mla_q_rank else gqa_make_cache
+        cache = make(cfg, batch, cache_len, device=dev,
+                     ctx=self.attn.cache_ctx)
         if self.cross:
             shape = (batch, cfg.enc_len, cfg.n_kv, cfg.hd)
             cache["cross"] = {n: torch.zeros(shape, dtype=cfg.dtype,
@@ -223,10 +213,11 @@ class SSMLayer(nn.Module):
     """Pre-norm Mamba2 block: x + mixer(ln1 x)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 ctx: ShardCtx = ShardCtx()):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.mixer = Mamba2(cfg, device=device, gen=gen)
+        self.mixer = Mamba2(cfg, device=device, gen=gen, ctx=ctx)
 
     def forward(self, x: torch.Tensor, *, backend: str = "cuda"):
         """x [B, S, d] -> (x', {})."""
@@ -269,7 +260,6 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"model kind {cfg.kind!r} is not ported yet (ROADMAP queue "
                 f"1, item 9); the port runs {KINDS}")
-        check_tp_kind(cfg, ctx.tp)
         check_backend(backend)
         self.cfg, self.backend, self.ctx = cfg, backend, ctx
         device = resolve_device(device)
@@ -277,7 +267,7 @@ class Model(nn.Module):
         vp = cfg.vocab_padded
         self.embed = Embedding(cfg.vocab, vp, cfg.d_model, dtype=cfg.dtype,
                                device=device, gen=gen, ctx=ctx)
-        kw = dict(device=device, gen=gen)
+        kw = dict(device=device, gen=gen, ctx=ctx)
         if cfg.kind == "hybrid":
             every = cfg.shared_attn_every
             n_groups = cfg.n_layers // every
@@ -298,11 +288,10 @@ class Model(nn.Module):
                     EncoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers))
                 self.ln_enc = RMSNorm(cfg.d_model, device=device)
             self.layers = nn.ModuleList(
-                SSMLayer(cfg, **kw) if cfg.kind == "ssm"
-                else DecoderLayer(cfg, ctx=ctx, **kw)
+                (SSMLayer if cfg.kind == "ssm" else DecoderLayer)(cfg, **kw)
                 for _ in range(cfg.n_layers))
             self.exec_layers = list(self.layers)
-        if cfg.kind == "vlm":
+        if cfg.kind == "vlm":   # replicated, as every rank's patches
             self.vis_proj = Linear(cfg.d_model, cfg.d_model, **kw,
                                    dtype=cfg.dtype)
         self.ln_f = RMSNorm(cfg.d_model, device=device)

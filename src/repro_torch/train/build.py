@@ -3,9 +3,9 @@
 need).  A mesh is ``DxM`` or ``PxDxM`` (P pods of D data-parallel ranks,
 M tensor-parallel ranks each); ``node_size`` splits D into nodes (a
 two-level topology, ``launch/mesh.py`` lays the ranks out).  M > 1 runs
-one process per rank (``launch/mesh.make_mesh_groups``) for the dense
-and MoE kinds, with P = 1 and node size 1; the rest raises naming ROADMAP
-queue 1, item 9."""
+one process per rank (``launch/mesh.make_mesh_groups``) for every model
+kind, with P = 1 and node size 1; pods and nodes beside M > 1 raise
+naming ROADMAP queue 1, item 9."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ from repro_torch import resolve_device
 from repro_torch.core.schemes import DistGroup, SimGroup
 from repro_torch.launch.mesh import check_node_size
 from repro_torch.models.common import ArchConfig, make_ctx
-from repro_torch.models.model import Model, check_tp_kind
+from repro_torch.models.model import Model
 from repro_torch.train import steps as st
 from repro_torch.train.steps import TrainerConfig
 
@@ -34,17 +34,14 @@ def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int, int]:
     return pods, dp, tp
 
 
-def check_tp(cfg: ArchConfig, mesh, node_size: int = 1,
-             model_group=None) -> None:
+def check_tp(mesh, node_size: int = 1, model_group=None) -> None:
     """What M > 1 does not run raises ``NotImplementedError`` naming
-    ROADMAP queue 1, item 9: a kind other than dense or MoE (or MLA),
-    pods or nodes beside the model axis (their level groups need a
-    world-wide ``new_group`` order this slice does not build), and the
-    model axis held in one process (no model group)."""
+    ROADMAP queue 1, item 9: pods or nodes beside the model axis (their
+    level groups need a world-wide ``new_group`` order not built yet),
+    and the model axis held in one process (no model group)."""
     pods, dp, tp = parse_mesh(mesh)
     if tp == 1:
         return
-    check_tp_kind(cfg, tp)
     if pods > 1 or node_size > 1:
         raise NotImplementedError(
             f"tensor parallelism with pods or nodes (mesh {mesh!r}, node "
@@ -131,7 +128,7 @@ def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
     (``pad_heads``, ``moe_a2a``)."""
     pods, dp, tp = parse_mesh(mesh)
     check_node_size(dp, node_size)
-    check_tp(cfg, mesh, node_size, model_group)
+    check_tp(mesh, node_size, model_group)
     if group is not None and group.n != pods * dp:
         pods_ = f" in each of {pods} pods" if pods > 1 else ""
         raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks"

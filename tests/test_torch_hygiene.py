@@ -8,6 +8,7 @@
 """
 import ast
 import dataclasses
+import types
 from pathlib import Path
 
 import pytest
@@ -79,9 +80,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_gpu):
 def test_unported_meshes_and_flags_raise():
     """What tensor parallelism (M > 1) does not run raises naming its
     ROADMAP item: M > 1 without ``--dist`` (the model axis is one process
-    a rank), the ssm, hybrid, MLA, enc_dec and vlm kinds, and pods or
-    ``--node-size > 1`` beside the model axis; the dense and MoE kinds
-    run (tests/test_torch_tp.py), as do pod meshes and ``--node-size``
+    a rank), and pods or ``--node-size > 1`` beside the model axis; every
+    kind builds at 1x2 (the ssm, hybrid, MLA, enc_dec and vlm kinds here,
+    with a stand-in model group: a build runs no collective; all of them
+    run in tests/test_torch_tp*.py), as do pod meshes and ``--node-size``
     (tests/test_torch_hier.py); minicpm3-4b, the last config the port
     lacked, builds with the reference's fields (read from its source, so
     that this module imports no JAX) and an unknown arch raises."""
@@ -95,9 +97,16 @@ def test_unported_meshes_and_flags_raise():
                     "--device", "cpu"])
     for arch in ("mamba2-370m", "zamba2-1.2b", "minicpm3-4b",
                  "whisper-medium", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                           "item 9"):
-            build_program(get_config(arch).reduced(), "1x2", device="cpu")
+        cfg = get_config(arch).reduced()
+        for rank in (0, 1):
+            model = build_program(cfg, "1x2", device="cpu", model_group=(
+                types.SimpleNamespace(ranks=(rank,), n=2, pg=None))).model
+            whole = dict(Model(cfg, device="cpu").named_leaves())
+            for name, dim in model.shard_dims().items():
+                want = whole[name] if dim is None else whole[name].chunk(
+                    2, dim)[rank]
+                assert torch.equal(dict(model.named_leaves())[name], want), \
+                    (arch, name)
     qwen = get_config("qwen2-0.5b").reduced()
     for mesh, node_size in (("2x2x2", 1), ("4x2", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "

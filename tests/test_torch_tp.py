@@ -129,11 +129,12 @@ class RankGroup(_Procs):
 
 
 class Reference(_Procs):
-    """``torch_tp_reference.py`` in a process of its own."""
+    """``torch_tp_reference.py`` in a process of its own (``what``: its
+    arguments after the output file)."""
 
-    def __init__(self, work: Path, what: str):
+    def __init__(self, work: Path, *what: str):
         super().__init__(work, [([sys.executable, str(REF_MAIN),
-                                  str(work / "ref.npz"), what], _env())])
+                                  str(work / "ref.npz"), *what], _env())])
 
     def results(self) -> dict:
         if self.wait()[0]:
@@ -172,10 +173,10 @@ def start(arch: str, jobs4: list[str], jobs2: list[str], what: str,
     return out
 
 
-def zen_seeds() -> np.ndarray:
+def zen_seeds(arch: str = ARCH) -> np.ndarray:
     """The reference GradSync's hash seeds for ``embed/table``'s [Vp/2, d]
     shard at mesh (2, 2) (its layouts are built offline)."""
-    cfg = ref_cfg()
+    cfg = ref_cfg(arch)
     model = build_model(cfg, ref_make_ctx(cfg, 2, 2))
     shapes, specs = model.abstract()
     gs = ref_make_gradsync(model, RefTrainerConfig(

@@ -311,3 +311,15 @@ def test_entry_points_run_on_cpu():
                       "--log-every", "1", "--mesh", "2x1", "--device", "cpu"])
     assert np.isfinite(out["losses"]).all() and out["overflow"] == 0
     assert out["sparse_words"] > 0
+
+
+def test_serve_layers_cuts_the_encoder_too():
+    """``launch/serve.py --layers 1`` keeps one decoder and one encoder
+    layer: one plain ``flash_fwd`` each for the encoder, the self- and the
+    cross-attention a prefill, one cross-attention a decode step."""
+    ops.reset_counts()
+    res = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "10", "--gen", "3",
+                      "--layers", "1"])
+    assert res["plain_calls"]["flash_fwd"] == 3 + 2
+    assert np.isfinite(res["logit_max"]).all()

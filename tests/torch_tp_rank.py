@@ -1,23 +1,29 @@
-"""One rank of a tensor-parallel process group of ``tests/test_torch_tp.py``
-or ``tests/test_torch_tp_moe.py`` (CPU, gloo).
+"""One rank of a tensor-parallel process group of ``tests/test_torch_tp.py``,
+``test_torch_tp_moe.py``, ``test_torch_tp_ssm.py`` or
+``test_torch_tp_attn.py`` (CPU, gloo).
 
     python tests/torch_tp_rank.py DIR JOB [JOB ...]
 
 The test starts one such process per rank with torchrun's environment.
 Each rank reads ``DIR/inputs.npz`` (the reference's global f32 parameters
 of ``inputs["arch"]``'s reduced config under ``params/``, a batch, a
-prompt and the reference's Zen hash seeds), joins the mesh ``DxM`` with M
-= 2 and D = the process count / 2 through
+prompt and the reference's Zen hash seeds; or, with ``inputs["archs"]``,
+the same under ``<arch>/`` for each of several configs), joins the mesh
+``DxM`` with M = 2 and D = the process count / 2 through
 ``launch.mesh.make_mesh_groups("gloo", 2, "cpu")``, runs the JOBs and
-writes ``DIR/rank<r>.npz``.  It imports only torch, numpy and
-``repro_torch``: the JAX reference runs in the test's processes.
+writes ``DIR/rank<r>.npz`` (a config's results under ``<arch>/``, a JOB
+``ARCH:JOB`` running on that config alone).  It imports only torch, numpy
+and ``repro_torch``: the JAX reference runs in the test's processes.
 
 Jobs:
-  weights  a build from seed 0, gathered (``checkpoint.io.gather_params``);
+  weights  a build from seed 0, gathered (``checkpoint.io.gather_params``),
+           and whether a seed-1 build given those global leaves
+           (``checkpoint.io.load_params``) holds the seed-0 shards;
   grads    the step-0 loss and every leaf's gradient over the whole batch,
            gathered to its global shape (both MoE dispatches for an MoE
            config);
   sgd      2 SGD steps without a clip: the losses;
+  loss0    the step-0 loss of a dense-sync AdamW step;
   trainer  4 AdamW steps with Zen (the reference's hash seeds) under
            ZeRO-1 and under the full update: losses, grad norms, this
            model rank's ``sync/*`` words and overflow each step, the
@@ -27,10 +33,14 @@ Jobs:
            the losses and parameters of both;
   moe      2 AdamW steps, dense sync, of each MoE dispatch: losses and
            ``moe/*`` stats;
-  serve    prefill of the prompt (this rank's cache share of every layer,
-           the gathered last-position logits), then 7 greedy decode steps
-           from the handed-off cache: 8 tokens; again with the decode cache
-           whole on every rank (``decode_seq_shard`` off).
+  precision  the hybrid's gradient (every leaf, gathered) at 7 layers, one
+           group of 6 and a tail layer, from seed 0, in f32 and with float64
+           weights and activations;
+  serve    prefill of the prompt (and its frames or patches: this rank's
+           cache share of every layer, the gathered last-position logits),
+           then 7 greedy decode steps from the handed-off cache: 8 tokens;
+           again with the decode cache whole on every rank
+           (``decode_seq_shard`` off).
 """
 from __future__ import annotations
 
@@ -81,15 +91,26 @@ def reference_tree(inp) -> dict:
     return tree
 
 
+def torch_inputs(inp: dict, pre: str) -> dict:
+    """``inp``'s arrays under ``pre`` (``batch/``, ``serve/``) as tensors:
+    token ids int64, whisper's frames and pixtral's patches f32."""
+    out = {}
+    for key, val in inp.items():
+        if key.startswith(pre) and key[len(pre):] in (
+                "tokens", "labels", *st.MODEL_INPUTS):
+            t = torch.from_numpy(val)
+            out[key[len(pre):]] = t if t.is_floating_point() else t.long()
+    return out
+
+
 class Rank:
-    def __init__(self, inp: dict):
+    def __init__(self, inp: dict, groups):
         self.inp = inp
         self.cfg = cfg_of(inp)
-        self.group, self.mgroup, _ = make_mesh_groups("gloo", TP, "cpu")
+        self.group, self.mgroup, _ = groups
         self.world = DistGroup()
         self.mesh = f"{self.group.n}x{TP}"
-        self.batch = {k: torch.from_numpy(inp[f"batch/{k}"]).long()
-                      for k in ("tokens", "labels")}
+        self.batch = torch_inputs(inp, "batch/")
 
     def program(self, tcfg=None, *, seed=0, reference=True, **kw):
         prog = build_program(self.cfg, self.mesh, tcfg, device="cpu",
@@ -125,14 +146,21 @@ class Rank:
 
 
 def job_weights(r: Rank, out: dict) -> None:
-    for name, a in r.gathered(r.program(reference=False).model).items():
-        out[f"seed0/{name}"] = a
+    model = r.program(reference=False).model
+    full = io.gather_params(model)
+    for name, a in full.items():
+        out[f"seed0/{name}"] = a.detach().numpy()
+    other = r.program(seed=1, reference=False).model
+    io.load_params(other, full)
+    out["seed0/load_params_bitwise"] = np.array(all(
+        torch.equal(p, q) for (_, p), (_, q) in zip(model.named_leaves(),
+                                                    other.named_leaves())))
 
 
 def job_grads(r: Rank, out: dict) -> None:
     for a2a in ((False, True) if r.cfg.kind == "moe" else (False,)):
         model = r.program(moe_a2a=a2a).model
-        loss = model(r.batch["tokens"], r.batch["labels"])
+        loss = model(**r.batch)
         loss.backward()
         out[f"grads/{int(a2a)}/loss"] = np.array(loss.item())
         for name, g in r.gathered(model, grads=True).items():
@@ -144,6 +172,11 @@ def job_sgd(r: Rank, out: dict) -> None:
                                                  grad_clip=0.0)))
     out["sgd/losses"] = np.array([float(prog.train_step(r.batch)["loss"])
                                   for _ in range(2)])
+
+
+def job_loss0(r: Rank, out: dict) -> None:
+    prog = r.trainer(TrainerConfig(sync=SyncConfig(scheme="dense")))
+    out["loss0"] = np.array(float(prog.train_step(r.batch)["loss"]))
 
 
 def job_trainer(r: Rank, out: dict) -> None:
@@ -189,10 +222,11 @@ def job_ckpt(r: Rank, out: dict, work: Path) -> None:
     part.train_step(r.batch)
     tree = {"params": io.gather_params(part.model),
             "opt": io.gather_state(part.opt_state(), r.world)}
+    path = work / f"ck_{r.cfg.name}"
     if r.world.ranks[0] == 0:
-        io.save(work / "ck", tree)
+        io.save(path, tree)
     dist.barrier()
-    back = io.restore(work / "ck", device="cpu")
+    back = io.restore(path, device="cpu")
     fresh = r.trainer(tcfg, seed=1, reference=False)
     io.load_params(fresh.model, back["params"])
     io.scatter_state(fresh.opt_state(), back["opt"], r.world)
@@ -213,6 +247,17 @@ def job_moe(r: Rank, out: dict) -> None:
             out[f"moe/{int(a2a)}/{k}"] = np.array([float(m[k]) for m in ms])
 
 
+def job_precision(r: Rank, out: dict) -> None:
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        cfg = dataclasses.replace(r.cfg, n_layers=7, shared_attn_every=6,
+                                  dtype=dtype)
+        model = build_program(cfg, r.mesh, device="cpu", group=r.group,
+                              model_group=r.mgroup).model
+        model(**r.batch).backward()
+        for name, g in r.gathered(model, grads=True).items():
+            out[f"precision/{tag}/{name}"] = g
+
+
 def job_serve(r: Rank, out: dict) -> None:
     for whole in (False, True):
         prog = r.program()
@@ -221,13 +266,16 @@ def job_serve(r: Rank, out: dict) -> None:
             prog.model = Model(r.cfg, device="cpu", ctx=ctx)
             prog.model.load_reference_params(reference_tree(r.inp))
         pre = "serve" + ("_whole" if whole else "")
-        tokens = torch.from_numpy(r.inp["serve/tokens"]).long()
-        B, S = tokens.shape
+        prompt = torch_inputs(r.inp, "serve/")
+        B, S = prompt["tokens"].shape
         attach_serve(prog, seq_len=S, global_batch=B, mode="prefill")
-        logits, cache = prog.prefill_step({"tokens": tokens})
+        logits, cache = prog.prefill_step(prompt)
         for i, c in enumerate(cache["layers"]):
             for k, v in c.items():
-                out[f"{pre}/cache/{i}/{k}"] = v.numpy()
+                for kk, vv in (v.items() if isinstance(v, dict)
+                               else ((None, v),)):
+                    out["/".join(filter(None, (f"{pre}/cache/{i}/{k}",
+                                               kk)))] = vv.numpy()
         lf = prog.model.gather_vocab(logits).float()
         out[f"{pre}/logits"] = lf.numpy()
         attach_serve(prog, seq_len=S + GEN, global_batch=B, mode="decode")
@@ -239,20 +287,32 @@ def job_serve(r: Rank, out: dict) -> None:
             tok, _, cache = decode(cache, tok)
         toks.append(tok)
         out[f"{pre}/tokens"] = torch.cat(toks, 1).numpy()
-        out[f"{pre}/pos"] = cache["layers"][0]["pos"].numpy()
+        attn = [c for c in cache["layers"] if "pos" in c]
+        if attn:
+            out[f"{pre}/pos"] = attn[0]["pos"].numpy()
 
 
 def main(work: Path, jobs: list[str]) -> None:
     torch.set_num_threads(1)
     inp = dict(np.load(work / "inputs.npz"))
     out: dict = {}
-    r = Rank(inp)
+    groups = make_mesh_groups("gloo", TP, "cpu")
+    archs = [str(a) for a in inp["archs"]] if "archs" in inp else [""]
     try:
-        for job in jobs:
-            if job == "ckpt":
-                job_ckpt(r, out, work)
-            else:
-                globals()[f"job_{job}"](r, out)
+        for arch in archs:
+            pre = f"{arch}/" if arch else ""
+            r = Rank({k[len(pre):]: v for k, v in inp.items()
+                      if k.startswith(pre)}, groups)
+            res: dict = {}
+            for job in jobs:
+                want, _, job = job.rpartition(":")
+                if want and want != arch:
+                    continue
+                if job == "ckpt":
+                    job_ckpt(r, res, work)
+                else:
+                    globals()[f"job_{job}"](r, res)
+            out.update({pre + k: v for k, v in res.items()})
     finally:
         dist.destroy_process_group()
     np.savez(work / f"rank{os.environ['RANK']}.npz", **out)

@@ -3,6 +3,7 @@ and ``tests/test_torch_tp_moe.py``, in a process of its own with 4 forced
 host devices (its XLA flags must be set before JAX is imported).
 
     python tests/torch_tp_reference.py OUT.npz dense|moe
+    python tests/torch_tp_reference.py OUT.npz arch ARCH [zen]
 
 All in f32 on the reduced configs, from the 1-device init of seed 0
 (the parameters the tests give the port), with the tests' batch
@@ -16,8 +17,19 @@ AdamW steps with Zen at (2, 2): the losses and each device's
 last-position logits and each model rank's cache shard; at (1, 2) and
 (1, 1) 8 greedy tokens by replaying the prompt through decode.  ``moe`` (olmoe-1b-7b,
 ``capacity_factor=4.0``): 2 AdamW steps with dense sync at (2, 2) for each
-dispatch, the losses and ``moe/*``.  Keys are '/'-joined; a device is
-named by its mesh coordinates ``d<d>m<m>``.
+dispatch, the losses and ``moe/*``.  ``arch ARCH`` (the
+SSM, hybrid, MLA, enc_dec and vlm configs of ``tests/test_torch_tp_ssm.py``
+and ``tests/test_torch_tp_attn.py``): every parameter of the (2, 2)
+mesh's own init, gathered and as each device's shard; one AdamW step
+(dense sync) at (1, 2): the loss and ``grad_norm``; at (2, 2) the step-0
+loss of one such step, or with ``zen`` 4 AdamW steps with Zen: the losses
+and each device's ``sync/sparse_sent_words`` and ``sync/overflow``; the
+prefill at (1, 2) and (1, 1): the gathered last-position logits, and
+at (1, 2) each model rank's cache shard; at both 8 greedy tokens: the prefill's
+argmax, then 7 decode steps from the prefill's cache carried into the
+decode cache (each model rank's slots, as the port's
+``launch/serve.py::handoff`` carries them).  Keys are '/'-joined; a
+device is named by its mesh coordinates ``d<d>m<m>``.
 """
 import os
 import sys
@@ -150,7 +162,90 @@ def moe(out: dict) -> None:
             out[f"moe/{int(a2a)}/{k}"] = np.array([float(m[k]) for m in ms])
 
 
+def handoff(pf: dict, cache: dict, tp: int, t: int) -> dict:
+    """The decode ``cache`` (global, fresh) continuing the prefill cache
+    ``pf`` (global, numpy): each attention entry's prompt slots go to the
+    first slots of the same model rank's block along the sequence axis
+    (axis 2 of k, v, c and kr, axis 1 of pos: [layers, B, tp * Sl, ...]);
+    Mamba2 entries and the cross cache as they are; ``t``."""
+    out = dict(cache)
+    for group, val in pf.items():
+        if group == "t":
+            continue
+        if not (isinstance(val, dict) and "pos" in val):
+            out[group] = jax.tree.map(jnp.asarray, val)
+            continue
+        new = {}
+        for k, v in val.items():
+            ax = 1 if k == "pos" else 2
+            dst = np.moveaxis(np.array(cache[group][k]), ax, 0)
+            src = np.moveaxis(v, ax, 0)
+            sl, sl2 = src.shape[0] // tp, dst.shape[0] // tp
+            dst = dst.reshape(tp, sl2, *dst.shape[1:])
+            dst[:, :sl] = src.reshape(tp, sl, *src.shape[1:])
+            new[k] = jnp.asarray(np.moveaxis(
+                dst.reshape(tp * sl2, *dst.shape[2:]), 0, ax))
+        out[group] = new
+    out["t"] = jnp.asarray(t, jnp.int32)
+    return out
+
+
+def arch_runs(out: dict, arch: str, zen: bool) -> None:
+    cfg = cfg_of(arch)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    prog = build_program(cfg, mesh)
+    params = prog.init_params(0)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        name = "/".join(str(k.key) for k in path)
+        out[f"p22/{name}"] = np.asarray(jax.device_get(leaf))
+        for dev, v in shards(mesh, leaf).items():
+            out[f"shard/{name}/{dev}"] = v
+    _, _, (m,) = train(cfg, (1, 2), "dense", 1)
+    out["loss0/1x2"] = float(m["loss"])
+    out["grad_norm/1x2"] = float(m["grad_norm"])
+    mesh, _, ms = train(cfg, (2, 2), "zen" if zen else "dense",
+                        STEPS if zen else 1)
+    out["t22/loss"] = np.array([float(m["loss"]) for m in ms])
+    if zen:
+        for k in ("sync/sparse_sent_words", "sync/overflow"):
+            for m in ms:
+                for dev, v in shards(mesh, m[k]).items():
+                    out.setdefault(f"t22/{k}/{dev}", []).append(float(v))
+    b = batch_of(cfg, PROMPT, PROMPT_BATCH)
+    prompt = {k: v for k, v in b.items() if k != "labels"}
+    t = PROMPT + (cfg.n_patches if cfg.kind == "vlm" else 0)
+    for shape in ((1, 2), (1, 1)):
+        mesh = make_mesh(shape, ("data", "model"))
+        prog = build_program(cfg, mesh)
+        params = placed(cfg, prog)
+        tag = f"{shape[0]}x{shape[1]}"
+        attach_serve(prog, seq_len=PROMPT, global_batch=PROMPT_BATCH,
+                     mode="prefill")
+        logits, pf = prog.prefill_step(params, prompt)
+        out[f"serve/logits/{tag}"] = np.asarray(logits)
+        if shape == (1, 2):
+            for path, v in jax.tree_util.tree_flatten_with_path(pf)[0]:
+                name = "/".join(str(k.key) for k in path)
+                if name != "t":
+                    for dev, s in shards(mesh, v).items():
+                        out[f"serve/cache/{name}/{dev}"] = s
+        pf = jax.tree.map(np.asarray, pf)
+        attach_serve(prog, seq_len=PROMPT + GEN, global_batch=PROMPT_BATCH,
+                     mode="decode")
+        cache = handoff(pf, prog.fresh_cache(), shape[1], t)
+        nxt = jnp.argmax(logits.astype(jnp.float32), -1)[:, None]
+        toks = [nxt]
+        for _ in range(GEN - 1):
+            nxt, _, cache = prog.decode_step(params, cache, nxt)
+            toks.append(nxt)
+        out[f"serve/tokens/{tag}"] = np.concatenate(
+            [np.asarray(t) for t in toks], 1)
+
+
 if __name__ == "__main__":
     res: dict = {}
-    {"dense": dense, "moe": moe}[sys.argv[2]](res)
+    if sys.argv[2] == "arch":
+        arch_runs(res, sys.argv[3], sys.argv[4:] == ["zen"])
+    else:
+        {"dense": dense, "moe": moe}[sys.argv[2]](res)
     np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in res.items()})
