@@ -127,14 +127,15 @@ Phases (any failure exits non-zero; nothing is caught):
      dyadic streams every worker exactly the psum; ms a sync on both
      routes; ``coo_scatter_add`` timed at agsparse's reduce (row 8b: 8 x
      37984 EMPTY-padded rows into [151936, 896]) against ``index_add_``.
-     Then the full-size 8x1 trainer: ``--sync auto`` 4 steps (the plan
-     puts zen on ``embed/table``; losses and words bitwise ``--sync
-     zen``'s, the trainer phase's run), each scheme 2 steps on the
+     Then the 8x1 trainer at full width and ``CUT_LAYERS`` (8) of 24
+     layers: ``--sync auto`` 4 steps (the plan puts zen on
+     ``embed/table``; losses and words bitwise ``--sync zen``'s at the
+     same depth), each scheme 2 steps on the
      kernels (bitwise its ``--backend torch`` run; within 1e-3 of zen's
      losses; ``coo_scatter_add`` launched, the Zen kernels not, nothing
      plain, overflow 0).
-  7e. hier: the qwen2-0.5b 8x1 trainer of phase 4 on two-level
-     topologies: ``--node-size 4`` and ``2``, each with ``--sync zen`` and
+  7e. hier: the qwen2-0.5b 8x1 trainer of phase 4, at ``CUT_LAYERS`` of
+     its 24 layers, on two-level topologies: ``--node-size 4`` and ``2``, each with ``--sync zen`` and
      ``--sync auto``, and ``--node-size 2 --bucket-bytes 26214400``: 2
      steps on the kernels beside 2 on the plain route (``--backend
      torch``; 4 on the kernels until phase 8b came): losses, grad norm, words at each level
@@ -214,7 +215,7 @@ Phases (any failure exits non-zero; nothing is caught):
      nothing plain; f32 kernels vs the plain route within 1e-3 and the same
      greedy tokens; one profiled bf16 prefill), then trained under ZeRO-1
      at full width on 2x1 (2 x 512 tokens, Zen on ``embed/table``, 2
-     steps) at 38 of 62 layers (the peak under 70 GiB) on both routes:
+     steps) at 12 of 62 layers (cut from 38) on both routes:
      losses, grad norm, words and overflow bitwise, the Zen kernels once a
      rank a step, nothing plain.  ``flash_fwd`` at its prefill shape (B 8,
      S 512, 40 / 40 heads, q/k 96, v 64, causal) against the plain
@@ -241,7 +242,7 @@ Phases (any failure exits non-zero; nothing is caught):
      digest (words by level included) bitwise its ``simulate_hier`` row
      (``--only dist_sync`` runs this part alone); then
      ``launch/train.py --arch qwen2-0.5b --mesh 4x1 --dist gloo`` at full
-     width and depth (2 steps; 4 ranks, as a rank takes about 12 GB), per
+     width and ``CUT_LAYERS`` of 24 layers (2 steps; 4 ranks), per
      leaf, with 25 MiB buckets and with ``--node-size 2`` (``--only
      dist_hier`` runs this one alone), against the in-process 4x1 trainer
      on the same topology: losses finite,
@@ -262,7 +263,8 @@ Phases (any failure exits non-zero; nothing is caught):
   8b. tp (right after dist): tensor parallelism, 4 gloo ranks on this card
      under ``torchrun`` (``--dist-rank gloo4``, phase 8's processes when
      it runs, else their own), one program: the launcher's
-     ``--mesh 2x2 --dist gloo`` qwen2-0.5b trainer at full size (bf16,
+     ``--mesh 2x2 --dist gloo`` qwen2-0.5b trainer at full width and
+     ``CUT_LAYERS`` of 24 layers (bf16,
      ZeRO-1, 8 x 512 tokens, Zen on each model rank's [75968, 896] table
      shard; 4 steps on the kernels, 2 on the plain route: losses, words,
      grad norm bitwise; overflow 0; the three Zen kernels once a step on
@@ -283,6 +285,36 @@ Phases (any failure exits non-zero; nothing is caught):
      rows 1m-3m, 1n-3n) and ``flash_fwd`` at 7 / 1 heads of 64 and 8 / 1
      of 128 (rows 9m, 9n, beside SDPA), against their plain versions,
      timed.
+  8c. mesh3 (right after tp): the full ``PxDxM`` mesh, 8 gloo ranks on
+     this card under one ``torchrun`` (``--dist-rank mesh3``), one world
+     laid out in turn through new groups (``launch/mesh.mesh_groups``) as
+     ``2x2x2``, ``4x2 --node-size 2`` and the flat ``4x2``: qwen2-0.5b at
+     full width and 2 of 24 layers, bf16, ZeRO-1, 8 x 512 tokens, Zen on
+     each model rank's [75968, 896] table shard at each level (then the
+     pods' mean); 2 steps on the kernels, 1 on the plain route, bitwise
+     (losses, words, the words at each level, grad norm), overflow 0,
+     Zen's three kernels once a level a step on every process, nothing
+     plain; the step-0 loss bitwise the flat run's, the f32 step-0 grad
+     norm within 1e-5 relative of it; one ``--sync auto`` step on nodes
+     of 2 (its plan logged, ``coo_scatter_add`` counted where a baseline
+     is picked); then the fused Zen kernels at the level stages' shapes
+     (rows 1t-3u), timed.
+  8d. serve_dp (in 8c's processes): qwen2-0.5b served by
+     ``launch/serve.py --mesh 2x2`` on ranks 0-3 at full size (each data
+     rank 4 of the 8 prompts), the 1x1 f32 control on rank 4: a
+     ``flash_fwd`` a layer a prefill on each process, none in decode,
+     nothing plain; in f32 the gathered tokens the 1x1 server's, 128 of
+     128; bf16 prefill ms and decode tok/s logged.
+  8e. calib: ``CostCalibrator`` (n 8) on the kernels at the reference's
+     default points and at qwen2-0.5b's [151936, 896] table at its
+     step-0 row density, and on the plain versions at the default
+     points (the flip points logged; ``dense_us`` is the simulated
+     group's in-process sum and measures no link); the table round-trips
+     through its file; then the in-process 8x1 trainer (full width, 4 of
+     24 layers) with ``--sync auto --calib-file``, flat and on nodes of
+     4, 2 steps on each route, bitwise, each plan the host's
+     ``choose_scheme`` / ``choose_plan`` on the table, logged beside the
+     uncalibrated plan with the words at each level.
   9. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
@@ -316,6 +348,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import os
 import shutil
 import signal
@@ -1325,6 +1358,15 @@ BUCKET_BYTES = 26_214_400   # 25 MiB: PyTorch DDP's default bucket_cap_mb
 OVERLAP_REPEATS = 5
 
 
+# the depth of the earlier phases' launcher trainers whose checks do not
+# depend on it (the schemes', the two-level ones', the gloo and TP
+# trainers'), cut from 24 to keep the whole run's time: each step's host
+# work over 8 ranks and every layer is most of their time, and with them
+# at full depth the whole smoke took 1213.5 s on one H100 (700 W) whose
+# host ran the other phases about 25 % slower than usual
+CUT_LAYERS = 8
+
+
 def qwen_argv(n: int, steps: int, *extra: str) -> list[str]:
     """``launch/train.py``'s flags for the qwen2-0.5b smoke trainer on an
     ``n`` x 1 mesh: Zen, global batch 8 x 512 tokens, the full update
@@ -1945,8 +1987,9 @@ def scatter_agsparse_times(g: torch.Tensor, smi: str) -> dict:
 
 
 def scheme_argv(sync: str, steps: int, *extra: str) -> list[str]:
-    """``qwen_argv``'s 8x1 smoke trainer with ``--sync sync``."""
-    argv = qwen_argv(8, steps, *extra)
+    """``qwen_argv``'s 8x1 smoke trainer with ``--sync sync``, at
+    ``CUT_LAYERS``."""
+    argv = qwen_argv(8, steps, "--layers", str(CUT_LAYERS), *extra)
     argv[argv.index("--sync") + 1] = sync
     return argv
 
@@ -1965,14 +2008,14 @@ def scheme_trainer(sync: str, steps: int, *extra: str) -> dict:
     return res
 
 
-def scheme_trainers(smi: str, zen: dict | None) -> dict:
-    """The full-width 8x1 trainer under ``--sync auto`` (4 steps: the plan
+def scheme_trainers(smi: str) -> dict:
+    """The full-width 8x1 trainer at ``CUT_LAYERS`` (``scheme_argv``)
+    under ``--sync auto`` (4 steps: the plan
     puts zen on ``embed/table``; the losses bitwise ``--sync zen``'s) and
     under each scheme (2 steps on the kernels, bitwise its ``--backend
     torch`` run, within 1e-3 of zen's losses, ``coo_scatter_add`` launched
     and nothing plain)."""
-    if zen is None:
-        zen = scheme_trainer("zen", 4)
+    zen = scheme_trainer("zen", 4)
     out = {"zen": zen}
     auto = scheme_trainer("auto", 4)
     emb = [ln for ln in auto["plan"] if ln.endswith("embed/table")]
@@ -2017,13 +2060,12 @@ def scheme_trainers(smi: str, zen: dict | None) -> dict:
     return out
 
 
-def phase_schemes(smi: str, zen: dict | None = None) -> dict:
+def phase_schemes(smi: str) -> dict:
     """The baseline schemes at the slice's full width, then their trainers
-    and ``--sync auto``'s (``zen``: the trainer phase's fused run, when it
-    ran)."""
+    and ``--sync auto``'s beside ``--sync zen``'s."""
     dev = torch.device("cuda")
     syncs = scheme_syncs(dev, smi)
-    trainers = scheme_trainers(smi, zen)
+    trainers = scheme_trainers(smi)
     return {**syncs, "trainers": trainers}
 
 
@@ -2069,17 +2111,17 @@ def hier_launches(ns: int, sync: str, steps: int) -> dict:
     return {k: steps * per for k in ZEN_KERNELS}
 
 
-def phase_hier(smi: str, flat: dict | None = None) -> dict:
-    """The full-size qwen2-0.5b 8x1 trainer on two-level topologies
+def phase_hier(smi: str) -> dict:
+    """The qwen2-0.5b 8x1 trainer at full width and ``CUT_LAYERS`` on
+    two-level topologies
     (``HIER_RUNS``): the kernel route (``HIER_STEPS``) bitwise its
     ``--backend torch`` route over the plain route's steps (losses, grad norm, words
     at each level, overflow 0), the step-0 loss bitwise the flat Zen run's
-    and later ones within ``HIER_LOSS_TOL`` (``flat``: the trainer phase's
-    run), the Zen kernels at both levels
+    and later ones within ``HIER_LOSS_TOL`` (the flat run at the same
+    depth), the Zen kernels at both levels
     under ``zen`` and ``coo_scatter_add`` under ``auto``, nothing plain;
     the plans, words, step times and peak memory logged."""
-    if flat is None:
-        flat = scheme_trainer("zen", HIER_STEPS)
+    flat = scheme_trainer("zen", HIER_STEPS)
     out = {}
     for ns, sync, *extra in HIER_RUNS:
         tag = f"node_size {ns} --sync {sync}{' ' if extra else ''}" \
@@ -2387,18 +2429,22 @@ def dist_rank(job: str, work: Path) -> None:
     try:
         {"zen_sync": dist_zen_sync_rank,
          "breakdown": dist_breakdown_rank}[job](group, dev, work)
+        if job == "zen_sync" and (work / "job.json").exists():
+            mesh3_runs(group, dev, work)   # phases mesh3 and serve_dp
     finally:
         dist.destroy_process_group()
 
 
-def dist_zen_sync(dev) -> None:
+def dist_zen_sync(dev, mesh3: dict | None = None) -> list[dict] | None:
     """zen_sync at the slice shapes over an 8-rank gloo group, every rank
     on this card, against the in-process simulate on the card: each rank's
     output and stats bitwise row w of it (sha256 digests), on all four
     routes, with each route's kernels launched once per rank; then the
     five baseline schemes on the same ranks (sparcml's exchange an
     alltoallv), bitwise their in-process rows, ``coo_scatter_add``
-    launched on every rank and nothing plain."""
+    launched on every rank and nothing plain.  With a ``mesh3`` job
+    (``mesh3_job``) the same 8 processes go on to ``mesh3_runs``, whose
+    results return (a start of 8 processes costs about 25 s)."""
     from repro_torch.core import schemes as S
     from repro_torch.kernels import ops as K
 
@@ -2435,10 +2481,15 @@ def dist_zen_sync(dev) -> None:
                        work / f"in{w}.pt")
         del g
         torch.cuda.empty_cache()
+        if mesh3:
+            (work / "job.json").write_text(json.dumps(mesh3))
         run_ranks(n, [str(Path(__file__).resolve()), "--dist-rank",
-                      "zen_sync", str(work)], "dist zen_sync")
+                      "zen_sync", str(work)],
+                  "dist zen_sync" + (" + mesh3" if mesh3 else ""),
+                  env=MESH3_ENV if mesh3 else None)
         got = [json.loads((work / f"out{w}.json").read_text())
                for w in range(n)]
+        ranks8 = mesh3_results(work) if mesh3 else None
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name in SCHEMES:
@@ -2500,24 +2551,28 @@ def dist_zen_sync(dev) -> None:
         log(f"[dist] zen_sync (fused, fused_commit) = ({route}): {n} gloo "
             f"ranks bitwise the in-process rows, launches {path} per rank; "
             f"host s per rank {secs}")
+    return ranks8
 
 
-def phase_dist(dev, smi: str, tp: bool = False) -> list[dict]:
+def phase_dist(dev, smi: str, tp: bool = False, mesh3: dict | None = None
+               ) -> tuple[list[dict], list[dict] | None]:
     """The per-rank data-parallel path over a gloo group on this one card:
     zen_sync at the slice shapes on 8 ranks (and two-level plans over
     nodes of 4 and 2), then the full-width trainer on 4 ranks, per leaf,
     with 25 MiB buckets and on nodes of 2 ranks, against the in-process
     4x1 trainer on the same topology.  The 4 ranks are one torchrun
     (``gloo4_ranks``) that also runs phase tp's work when ``tp`` is set
-    (a start of 4 processes costs about 20 s); their results return."""
+    (a start of 4 processes costs about 20 s); the 8 zen_sync ranks run
+    phases mesh3 and serve_dp's work when ``mesh3`` (``mesh3_job``) is
+    given.  The 4 ranks' and the 8 ranks' results return."""
     torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
         f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
-    dist_zen_sync(dev)
+    ranks8 = dist_zen_sync(dev, mesh3)
     ranks = gloo4_ranks(DIST_VARIANTS, tp)
     dist_trainer("gloo", smi, variants=DIST_VARIANTS,
                  runs=gloo4_dist_runs(ranks, DIST_VARIANTS))
-    return ranks
+    return ranks, ranks8
 
 
 # the dist trainer's variants: (tag, extra launcher flags)
@@ -2525,6 +2580,11 @@ DIST_VARIANTS = (("per-leaf", ()),
                  (f"{BUCKET_BYTES} B buckets",
                   ("--bucket-bytes", str(BUCKET_BYTES))),
                  ("node_size 2", ("--node-size", "2")))
+
+
+def dist_argv(n: int, steps: int, *extra: str) -> list[str]:
+    """``qwen_argv``'s trainer on ``n`` ranks at ``CUT_LAYERS``."""
+    return qwen_argv(n, steps, "--layers", str(CUT_LAYERS), *extra)
 
 
 def dist_trainer(backend: str, smi: str, steps: int = DIST_STEPS,
@@ -2552,7 +2612,7 @@ def dist_trainer(backend: str, smi: str, steps: int = DIST_STEPS,
             tag = f"{backend} {name}"
             torch.cuda.empty_cache()
             out = run_ranks(n, ["-m", "repro_torch.launch.train",
-                                *qwen_argv(n, steps, *extra), "--dist",
+                                *dist_argv(n, steps, *extra), "--dist",
                                 backend], f"dist trainer {tag}")
             lines = [ln for ln in out.splitlines()
                      if ln.startswith("dist result ")]
@@ -2563,7 +2623,7 @@ def dist_trainer(backend: str, smi: str, steps: int = DIST_STEPS,
     locals_ = {}
     for node in sorted({"--node-size" in e for e in extras.values()}):
         K.reset_counts()
-        local = train.main(qwen_argv(n, steps, *(
+        local = train.main(dist_argv(n, steps, *(
             ("--node-size", "2") if node else ())))
         torch.cuda.empty_cache()
         if local["overflow"] != 0:
@@ -2932,8 +2992,9 @@ def serve_arch(arch: str, launches: dict, tol: float, bf16_runs: int = 2,
 # arch -> the trainer's depth on one card: about 22 bytes a parameter (bf16
 # weights and gradient 4, AdamW's f32 moments 8, two ranks' bf16 gradient
 # stacks 4, the synced sum, mean and clipped copies 6) plus one rank's
-# activations must stay under 70 GiB (PERF.md section 4)
-ZOO = {"qwen2.5-3b": 28, "phi4-mini-3.8b": 16}
+# activations must stay under 70 GiB (PERF.md section 4: 28 and 16 layers,
+# cut to 12 and 8 for the run's time)
+ZOO = {"qwen2.5-3b": 12, "phi4-mini-3.8b": 8}
 ZOO_TRAIN = dict(n=2, batch=2, seq=512, steps=2)
 ZOO_PEAK_GIB = 70.0
 
@@ -2941,7 +3002,8 @@ ZOO_PEAK_GIB = 70.0
 def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
                  backend: str = "cuda", zero1: bool = False, *,
                  mesh: str | None = None, group=None, model_group=None,
-                 moe_a2a: bool = False) -> dict:
+                 moe_a2a: bool = False, node_size: int = 1,
+                 sync: dict | None = None) -> dict:
     """``cfg`` (cut to a depth, say) trained as ``launch/train.py`` would
     (``build_program`` + ``attach_train``, mesh ``n`` x 1 in this process,
     Zen, SyntheticLM batches of ``batch`` x ``seq`` tokens from seed 0) for
@@ -2952,7 +3014,10 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
     A process of a process group passes its ``mesh``, ``group`` and (M >
     1) ``model_group`` (and ``moe_a2a``): then the words of its own model
     rank (``rank_words``) join the result and ``params`` counts its
-    shards."""
+    shards.  ``node_size`` splits the data ranks into nodes (the words
+    at each level join the result), ``sync`` sets other ``SyncConfig``
+    fields (``scheme="auto"``, ``calib_file``); the result has the plan
+    (``describe()``) and the sparse bucket's scheme."""
     from repro_torch.core.zen import SyncConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops as K
@@ -2962,9 +3027,10 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     prog = build_program(cfg, mesh or f"{n}x1", TrainerConfig(
-        zero1=zero1, sync=SyncConfig(scheme="zen", backend=backend)),
+        zero1=zero1, sync=SyncConfig(**{"scheme": "zen", "backend": backend,
+                                        **(sync or {})})),
         device="cuda", seed=0, backend=backend, group=group,
-        model_group=model_group, moe_a2a=moe_a2a)
+        model_group=model_group, moe_a2a=moe_a2a, node_size=node_size)
     attach_train(prog)
     params = sum(p.numel() for p in prog.model.parameters())
     data = iter(SyntheticLM(cfg, DataConfig(seq_len=seq, batch=batch)))
@@ -2987,10 +3053,14 @@ def direct_train(cfg, n: int, batch: int, seq: int, steps: int,
                        ("sparse_words_by_step", "sync/sparse_sent_words"),
                        ("overflow", "sync/overflow")):
             out[k].append(float(m[key]))
-        for key in sorted(k for k in m if k.startswith("moe/")):
+        for key in sorted(k for k in m if k.startswith("moe/")
+                          or k in ("sync/intra_words", "sync/inter_words")):
             out.setdefault(key, []).append(float(m[key]))
         out["rank_words"].append(float(
             prog.train_step.rank_metrics["sync/sparse_sent_words"]))
+    out.update(plan=prog.gradsync.describe(), sparse_scheme=next(
+        (b.scheme for b in prog.gradsync.plan.buckets if b.kind == "sparse"),
+        None))
     out.update(launches=dict(K.LAUNCHES), plain=dict(K.PLAIN_CALLS),
                recompute=dict(K.RECOMPUTE_CALLS), params=params,
                tok_per_s=steps * batch * seq / (time.time() - t0),
@@ -3069,8 +3139,10 @@ def phase_zoo(smi: str) -> dict:
 # of 32 layers (15.9B: 59.1 GiB in f32, one model resident at a time).  The
 # trainers keep ZOO's rule (about 22 bytes a parameter plus one rank's
 # activations under 70 GiB): olmoe 6 of 16 layers (2.72B), phi3.5-moe 2 of
-# 32 (2.86B).  The f32 serve gates: zamba2's from SERVE_LOGIT_TOL, the MoE
-# models' qwen2's.
+# 32 (2.86B); zamba2 38 (at 13 layers its bf16 routes part by 0.118 at
+# step 1, past HYBRID_LOSS_TOL: the random-init gradients' chaos, queue 3
+# of the ROADMAP, so its depth is not cut).  The f32 serve gates:
+# zamba2's from SERVE_LOGIT_TOL, the MoE models' qwen2's.
 HYBRID_MOE = {"zamba2-1.2b": (38, 38, SERVE_LOGIT_TOL["zamba2-1.2b"]),
               "olmoe-1b-7b": (16, 6, 1e-3),
               "phi3.5-moe-42b-a6.6b": (12, 2, 1e-3)}
@@ -3500,9 +3572,10 @@ def phase_enc_dec_vlm(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MLA_ARCH = "minicpm3-4b"
-# served at all 62 layers (8.5 GB of bf16 weights); trained on 2x1 at 38
-# of them, 2.76B parameters, by the zoo's rule (ZOO)
-MLA_TRAIN_LAYERS = 38
+# served at all 62 layers (8.5 GB of bf16 weights); trained on 2x1 at 12
+# of them (cut for the run's time from 38, 2.76B parameters, the zoo's
+# rule (ZOO))
+MLA_TRAIN_LAYERS = 12
 # flash_fwd at minicpm3's prefill: q/k 96 (64 + rope 32), v 64, 40 heads
 MLA_FLASH = dict(B=8, S=512, H=40, KV=40, hd=96, hd_v=64)
 # the 8x1 qwen2-0.5b trainer's losses on every route since PR 11, at the
@@ -3855,8 +3928,10 @@ TP_KIND_SSD = (("10c", "mamba2-370m TP", dict(B=8, S=512, H=16, hd=64,
 
 def tp_argv(backend: str, steps: int) -> list[str]:
     """``launch/train.py``'s flags for the 2x2 qwen2-0.5b trainer at full
-    size: Zen, ZeRO-1 (the default), global batch 8 x 512."""
-    return ["--arch", "qwen2-0.5b", "--mesh", TP["mesh"], "--sync", "zen",
+    width and ``CUT_LAYERS``: Zen, ZeRO-1 (the default), global batch 8 x
+    512."""
+    return ["--arch", "qwen2-0.5b", "--layers", str(CUT_LAYERS),
+            "--mesh", TP["mesh"], "--sync", "zen",
             "--global-batch", str(TP["batch"]), "--seq-len", str(TP["seq"]),
             "--steps", str(steps), "--log-every", "1", "--backend",
             backend, "--dist", "gloo"]
@@ -3902,7 +3977,7 @@ def gloo4_rank(work: Path) -> None:
             K.reset_counts()
             torch.cuda.reset_peak_memory_stats()
             res = train.train(train.parse_args(
-                [*qwen_argv(world.n, job["dist_steps"], *extra), "--dist",
+                [*dist_argv(world.n, job["dist_steps"], *extra), "--dist",
                  "gloo"]), world, None, dev)
             out["dist"][name] = {"res": res, "launches": dict(K.LAUNCHES)}
             done(f"dist {name}")
@@ -4004,7 +4079,7 @@ def tp_runs(group, mgroup, dev, out: dict, done) -> None:
         if (mesh == "1x2" and group.ranks[0] == 0) or rank == 0:
             K.reset_counts()
             res = serve.serve(serve.parse_args(tp_serve_argv(
-                mesh, dtype)), mgroup if mesh == "1x2" else None, dev)
+                mesh, dtype)), None, mgroup if mesh == "1x2" else None, dev)
             served.setdefault((mesh, dtype), []).append(res)
             out.setdefault("serve", {}).setdefault(f"{mesh}/{dtype}", [])
             out["serve"][f"{mesh}/{dtype}"].append({
@@ -4167,8 +4242,8 @@ def tp_kind_runs(group, mgroup, dev, out: dict, done) -> None:
             if (group.ranks[0] == 0 if mesh == "1x2" else rank == 0):
                 K.reset_counts()
                 res = serve.serve(serve.parse_args(kind_serve_argv(
-                    arch, mesh, dtype)), mgroup if mesh == "1x2" else None,
-                    dev)
+                    arch, mesh, dtype)), None,
+                    mgroup if mesh == "1x2" else None, dev)
                 served[mesh, dtype] = res
                 out[f"{arch}/serve/{mesh}/{dtype}"] = {
                     "prefill_ms": res["prefill_ms"],
@@ -4395,7 +4470,8 @@ def check_tp_kind(arch: str, ranks: list[dict], smi: str) -> dict:
 def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
     """Tensor parallelism on this card, 4 gloo ranks under torchrun
     (``tp_runs``; ``ranks``: their results, when phase dist's torchrun ran
-    them): the launcher's 2x2 qwen2-0.5b trainer at full size, its
+    them): the launcher's 2x2 qwen2-0.5b trainer at full width and
+    ``CUT_LAYERS``, its
     kernel route bitwise its plain route (losses, words), overflow 0, the
     Zen kernels once a step on every process and nothing plain; the f32
     2x2 run against 2x1 at ``TP_F32_LAYERS`` layers; olmoe-1b-7b at 2x2,
@@ -4557,6 +4633,490 @@ def phase_tp(smi: str, ranks: list[dict] | None = None) -> dict:
         k: sum(r["serve"]["1x2/float32"][0]["launches"].get(k, 0)
                for r in ranks[:2]) for k in K.KERNELS}
     return {**kern, "launches": {**launches, **kinds}}
+
+
+# ---------------------------------------------------------------------------
+# the full PxDxM mesh, the data-parallel server, measured-cost calibration
+# ---------------------------------------------------------------------------
+
+# phase mesh3: qwen2-0.5b at full width and 2 of 24 layers, bf16, ZeRO-1,
+# 8 x 512 tokens, on 8 gloo processes on this card, one world laid out in
+# turn as each (tag, mesh, node size): Zen on each model rank's [75968,
+# 896] table shard at every level, then the pods' mean
+MESH3 = dict(ranks=8, layers=2, steps=2, plain_steps=1, batch=8, seq=512)
+MESH3_LAYOUTS = (("2x2x2", "2x2x2", 1), ("4x2 nodes of 2", "4x2", 2),
+                 ("4x2", "4x2", 1))
+MESH3_FLAT = "4x2"
+# the f32 step-0 grad norm against the flat 4x2 run's, relative: Zen over
+# 2 ranks then the pods' mean (or Zen inside each node, then across) sums
+# the same four gradients in another order
+MESH3_GN_TOL = 1e-5
+# the Zen kernels at the level stages (n 2) on the [75968, 896] shard:
+# (row, what, ranks summed into a stage's input, capacity budget)
+MESH3_ZEN_SHAPES = (
+    ("t", "2x2x2 data stage and node-split intra stage", 1, 0.25),
+    ("u", "node-split inter stage (a node's 2 ranks summed)", 2, 0.5))
+# phase serve_dp: qwen2-0.5b served at 2x2 on ranks 0-3 of the same world
+# (each data rank 4 of the 8 sequences), the 1x1 f32 control on rank 4
+SERVE_DP_MESH = "2x2"
+# the allocator of the 8 ranks (as the gloo4 ranks')
+MESH3_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+# phase calib: the reference's default calibration points, and the
+# in-process 8x1 trainer with --sync auto --calib-file at full width and
+# 4 of 24 layers (the table's plan does not depend on depth)
+CALIB_POINTS = dict(sizes=(4096, 16384, 65536), densities=(0.01, 0.1))
+CALIB_TABLE = (151936, 896)   # qwen2-0.5b's embed/table, at its step-0 rows
+CALIB_TRAIN = dict(n=8, layers=4, steps=2, batch=8, seq=512)
+CALIB_NODE_SIZES = (1, 4)
+
+
+def mesh3_rank(work: Path) -> None:
+    """One of the 8 gloo ranks on this card (torchrun): ``mesh3_runs`` on
+    the world it joins."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_group
+
+    world, dev = make_data_group("gloo")
+    try:
+        mesh3_runs(world, dev, work)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh3_runs(world, dev, work: Path) -> None:
+    """One of the 8 gloo ranks on this card, its world joined
+    (``work/job.json`` says which phases): for ``mesh3`` the world is laid
+    out in turn as each ``MESH3_LAYOUTS`` mesh (``launch.mesh.mesh_groups``:
+    new groups in one world-wide order) and trains there, both routes and
+    an f32 step 0 (and ``--sync auto`` on nodes of 2); for ``serve_dp``
+    ranks 0-3 serve at ``SERVE_DP_MESH`` through ``launch.serve.serve``
+    and rank 4 serves the 1x1 f32 control.  Each rank's results to
+    ``work/rank<r>.json`` (an f32 server's logits to ``work/logits<r>.pt``).
+    """
+    import torch.distributed as dist
+
+    from repro_torch.core.schemes import DistGroup
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.train.build import parse_mesh
+
+    job = json.loads((work / "job.json").read_text())
+    rank = world.ranks[0]
+    out: dict = {"rank": rank, "seconds": {}}
+    t0 = [time.time()]
+
+    def done(name: str) -> None:
+        free_card()
+        dist.barrier()
+        out["seconds"][name] = time.time() - t0[0]
+        t0[0] = time.time()
+
+    m = MESH3
+    cfg = serve_cfg("qwen2-0.5b", m["layers"])
+    cfg32 = serve_cfg("qwen2-0.5b", m["layers"], dtype=torch.float32)
+    free_card()
+    dist.barrier()
+    for tag, mesh, ns in (MESH3_LAYOUTS if job["mesh3"] else ()):
+        group, mgroup = mesh_groups(world, 2, parse_mesh(mesh)[0], ns)
+        kw = dict(zero1=True, mesh=mesh, group=group, model_group=mgroup,
+                  node_size=ns)
+        for backend, steps in (("cuda", m["steps"]),
+                               ("torch", m["plain_steps"])):
+            out[f"{tag}/{backend}"] = direct_train(
+                cfg, 4, m["batch"], m["seq"], steps, backend, **kw)
+            done(f"{tag} {backend}")
+        out[f"{tag}/f32"] = direct_train(cfg32, 4, m["batch"], m["seq"],
+                                         1, **kw)
+        done(f"{tag} f32")
+        if ns > 1:
+            out["auto"] = direct_train(cfg, 4, m["batch"], m["seq"], 1,
+                                       sync={"scheme": "auto"}, **kw)
+            done(f"{tag} auto")
+    if job["serve_dp"]:
+        mine: dict = {}
+        # ranks 0-3 the 2x2 mesh (rank w M + m), every rank making
+        # every group in one order
+        for kind, members in (("model", [0, 1]), ("model", [2, 3]),
+                              ("data", [0, 2]), ("data", [1, 3])):
+            pg = dist.new_group(members)
+            if rank in members:
+                mine[kind] = DistGroup(pg)
+        argv = ["--arch", "qwen2-0.5b", "--batch", str(SERVE["batch"]),
+                "--prompt-len", str(SERVE["prompt"]), "--gen",
+                str(SERVE["gen"]), "--dist", "gloo"]
+        for dtype in ("float32", "bfloat16"):
+            res = None
+            torch.cuda.reset_peak_memory_stats()
+            if rank < 4:
+                K.reset_counts()
+                res = serve.serve(serve.parse_args(
+                    [*argv, "--mesh", SERVE_DP_MESH, "--dtype", dtype]),
+                    mine["data"], mine["model"], dev)
+            elif rank == 4 and dtype == "float32":
+                K.reset_counts()
+                res = serve.serve(serve.parse_args(
+                    [*argv, "--mesh", "1x1", "--dtype", dtype]), None,
+                    None, dev)
+            if res is not None:
+                out[f"serve_dp/{dtype}"] = {
+                    "tokens": res["tokens"].tolist(),
+                    "logits_digest": hashlib.sha256(
+                        res["prefill_logits"].numpy().tobytes()
+                    ).hexdigest(),
+                    "rows": list(res["rows"]),
+                    "prefill_ms": res["prefill_ms"],
+                    "decode_tok_per_s": res["decode_tok_per_s"],
+                    "launches": res["launches"],
+                    "decode_launches": res["decode_launches"],
+                    "plain": res["plain_calls"],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "finite": bool(np.isfinite(res["logit_max"]).all())}
+                if dtype == "float32":
+                    torch.save(res["prefill_logits"],
+                               work / f"logits{rank}.pt")
+            done(f"serve_dp {dtype}")
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def mesh3_results(work: Path) -> list[dict]:
+    """``mesh3_runs``' results by rank (an f32 server's prefill logits
+    under ``"logits"``)."""
+    ranks = []
+    for r in range(MESH3["ranks"]):
+        res = json.loads((work / f"rank{r}.json").read_text())
+        if (work / f"logits{r}.pt").exists():
+            res["logits"] = torch.load(work / f"logits{r}.pt")
+        ranks.append(res)
+    log(f"[mesh3] seconds by run (rank 0): {ranks[0]['seconds']}")
+    return ranks
+
+
+def mesh3_job(mesh3: bool, serve_dp: bool) -> dict | None:
+    return {"mesh3": mesh3, "serve_dp": serve_dp} \
+        if mesh3 or serve_dp else None
+
+
+def mesh3_ranks(job: dict) -> list[dict]:
+    """``mesh3_rank`` on 8 ranks of this card, a torchrun of their own
+    (phase dist's 8 ranks run them when it runs); the ranks' results."""
+    work = Path(tempfile.mkdtemp(prefix="mesh3_", dir=Path(__file__)
+                                 .resolve().parent / "build"))
+    try:
+        (work / "job.json").write_text(json.dumps(job))
+        run_ranks(MESH3["ranks"], [str(Path(__file__).resolve()),
+                                   "--dist-rank", "mesh3", str(work)],
+                  "mesh3", env=MESH3_ENV)
+        return mesh3_results(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def mesh3_kernel_rows(smi: str) -> dict:
+    """The fused Zen kernels at the level stages of the PxDxM trainers
+    (``MESH3_ZEN_SHAPES``: n 2 on the [75968, 896] shard), bitwise their
+    plain versions twice in a row, timed beside their bound."""
+    from repro_torch.core import schemes as S_
+    from repro_torch.kernels import ops as K
+
+    err = {k: 0.0 for k in K.KERNELS}
+    rows = []
+    rng = np.random.default_rng(13)
+    M, d = 151936 // 2, 896
+    for tag, what, per_node, budget in MESH3_ZEN_SHAPES:
+        g = zipf_rows(rng, 2 * per_node, M, SLICE["tokens"], d,
+                      torch.bfloat16, "cuda")
+        if per_node > 1:   # each node's sum of its ranks' rows
+            g = g.view(2, per_node, M, d).sum(1, dtype=torch.float32).to(
+                torch.bfloat16)
+        lo = S_.make_zen_layout(M, 2, density_budget=budget)
+        inp = kernel_inputs(g, lo)
+        del g
+        calls = zen_rows(inp, lo, d)
+        for name, (kern, plain, nbytes, nops) in calls.items():
+            want = plain()
+            for call in (1, 2):
+                err[name] = max(err[name], same(
+                    kern(), want, f"[mesh3] {name} {what} call {call}"))
+            row = time_row(f"{name} ({what}, M {M}, d {d}, n 2, budget "
+                           f"{budget})", kern, plain, None, nbytes, nops,
+                           OPS_PER_S, smi, plain_iters=5)
+            rows.append({**row, "kernel": name,
+                         "row": f"{ZEN_ROW[name]}{tag}"})
+        log(f"[mesh3] {what} [{M}, {d}], n 2, budget {budget}: the fused "
+            f"Zen kernels equal their plain versions, twice")
+        del inp, calls
+        torch.cuda.empty_cache()
+    return {"err": err, "rows": rows}
+
+
+def phase_mesh3(smi: str, ranks: list[dict]) -> dict:
+    """Check the PxDxM trainers of ``mesh3_rank``: each layout's kernel
+    route bitwise its plain route (losses, words, the words at each level,
+    grad norm), overflow 0, Zen's three kernels once a level a step on
+    every process and nothing plain; the step-0 loss bitwise the flat 4x2
+    run's and, in f32, the step-0 grad norm within ``MESH3_GN_TOL`` of
+    it; ``--sync auto`` on nodes of 2 on the kernels its plan names
+    (``coo_scatter_add`` where a baseline is picked); then the Zen
+    kernels at the level stages' shapes."""
+    from repro_torch.kernels import ops as K
+
+    m = MESH3
+    flat = ranks[0][f"{MESH3_FLAT}/cuda"]
+    flat32 = ranks[0][f"{MESH3_FLAT}/f32"]
+    launches = {}
+    for tag, mesh, ns in MESH3_LAYOUTS:
+        levels = 2 if ns > 1 else 1
+        zen = {k: m["steps"] * levels for k in ZEN_KERNELS}
+        keys = ["losses", "sparse_words_by_step", "grad_norm", "overflow"]
+        if ns > 1:
+            keys += ["sync/intra_words", "sync/inter_words"]
+        for r in ranks:
+            run, plain = r[f"{tag}/cuda"], r[f"{tag}/torch"]
+            for key in keys:
+                if run[key][:m["plain_steps"]] != plain[key]:
+                    raise AssertionError(f"[mesh3] {tag} {key}: kernels "
+                                         f"{run[key]} != plain {plain[key]}")
+            check_launches(f"[mesh3] {tag} rank {r['rank']}", run["launches"],
+                           run["plain"], zen)
+            if any(plain["launches"].values()) or any(run["overflow"]) \
+                    or any(plain["overflow"]) \
+                    or not np.isfinite(run["losses"]).all():
+                raise AssertionError(f"[mesh3] {tag}: {run}")
+            if run["losses"][0] != r[f"{MESH3_FLAT}/cuda"]["losses"][0]:
+                raise AssertionError(
+                    f"[mesh3] {tag} step-0 loss {run['losses'][0]} is not "
+                    f"the flat {MESH3_FLAT} run's "
+                    f"{r[f'{MESH3_FLAT}/cuda']['losses'][0]}")
+        q, q32 = ranks[0][f"{tag}/cuda"], ranks[0][f"{tag}/f32"]
+        gn = tp_rel(q32["grad_norm"][0], flat32["grad_norm"][0])
+        by_level = "".join(f" {k.split('/')[1]} {q[k]}" for k in
+                           ("sync/intra_words", "sync/inter_words") if k in q)
+        log(f"[mesh3] qwen2-0.5b {tag} (--mesh {mesh} --node-size {ns}, 8 "
+            f"processes on this card, full width, {m['layers']} of 24 "
+            f"layers, ZeRO-1): losses {q['losses']} words "
+            f"{q['sparse_words_by_step']}{by_level} grad_norm "
+            f"{q['grad_norm']} overflow 0, the plain route's "
+            f"{m['plain_steps']} step bitwise; step-0 loss bitwise the flat "
+            f"{MESH3_FLAT} run's ({flat['losses'][0]}); Zen's three kernels "
+            f"{levels} a step a process ({levels} level(s)), nothing plain; "
+            f"step_s {q['step_s']} (plain "
+            f"{ranks[0][f'{tag}/torch']['step_s']}); peak GiB a process "
+            f"{[round(r[f'{tag}/cuda']['peak_gib'], 3) for r in ranks]}; "
+            f"this model rank's words {q['rank_words']}, model rank 1's "
+            f"{ranks[1][f'{tag}/cuda']['rank_words']}; f32 step 0: loss "
+            f"{q32['losses'][0]} grad_norm {q32['grad_norm'][0]}, "
+            f"{gn:.3e} relative from {MESH3_FLAT}'s (gate {MESH3_GN_TOL}) "
+            f"| {smi}")
+        if gn > MESH3_GN_TOL:
+            raise AssertionError(f"[mesh3] {tag}: the f32 step-0 grad norm "
+                                 f"is not the flat run's")
+        launches[f"trainer {tag} qwen2-0.5b (mesh3)"] = {
+            k: sum(r[f"{tag}/cuda"]["launches"][k] for r in ranks)
+            for k in K.KERNELS}
+    a = ranks[0]["auto"]
+    plan = a["sparse_scheme"]
+    stages = plan[len("hier("):-1].split(",") if plan.startswith("hier(") \
+        else [f"{plan}@flat"]
+    schemes_ = [st_.split("@")[0] for st_ in stages]
+    want = {}
+    for sch in schemes_:
+        if sch == "zen":
+            for k in ZEN_KERNELS:
+                want[k] = want.get(k, 0) + 1
+    for r in ranks:
+        run = r["auto"]
+        if any(run["plain"].values()) or any(run["overflow"]) \
+                or not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"[mesh3] auto: {run}")
+        for k, n in want.items():
+            if run["launches"][k] != n:
+                raise AssertionError(f"[mesh3] auto {plan}: {k} launched "
+                                     f"{run['launches'][k]} times, not {n}")
+        if any(s not in ("zen", "dense") for s in schemes_) \
+                and not run["launches"]["coo_scatter_add"]:
+            raise AssertionError(f"[mesh3] auto {plan}: no coo_scatter_add")
+    log(f"[mesh3] --sync auto, 4x2 on nodes of 2, 1 step on the kernels: "
+        f"embed/table's plan {plan}; launches a process "
+        f"{ {k: v for k, v in a['launches'].items() if v} }, nothing "
+        f"plain; words {a['sparse_words_by_step']} intra "
+        f"{a.get('sync/intra_words')} inter {a.get('sync/inter_words')}; "
+        f"plan lines {[ln for ln in a['plan'] if 'embed/table' in ln]}")
+    launches["trainer 4x2 nodes of 2 --sync auto (mesh3)"] = {
+        k: sum(r["auto"]["launches"][k] for r in ranks) for k in K.KERNELS}
+    kern = mesh3_kernel_rows(smi)
+    return {**kern, "launches": launches}
+
+
+def phase_serve_dp(smi: str, ranks: list[dict]) -> dict:
+    """Check the data-parallel server of ``mesh3_rank``: each of the 4
+    processes of the 2x2 mesh prefills its 4 sequences with a
+    ``flash_fwd`` a layer at its heads (none in decode, nothing plain);
+    in f32 the gathered greedy tokens equal the 1x1 server's, 128 of
+    128, the gathered logits within the serve gate of its; bf16 prefill
+    ms and decode tok/s logged."""
+    from repro_torch.kernels import ops as K
+
+    layers = serve_cfg("qwen2-0.5b").n_layers
+    one = ranks[4]["serve_dp/float32"]
+    dp = [r["serve_dp/float32"] for r in ranks[:4]]
+    for r in ranks[:4]:
+        for dtype in ("float32", "bfloat16"):
+            res = r[f"serve_dp/{dtype}"]
+            pre = {k: res["launches"][k] - res["decode_launches"][k]
+                   for k in res["launches"]}
+            if pre.get("flash_fwd") != layers \
+                    or any(v for k, v in pre.items() if k != "flash_fwd") \
+                    or any(res["decode_launches"].values()) \
+                    or any(res["plain"].values()) or not res["finite"]:
+                raise AssertionError(f"[serve_dp] {dtype} rank "
+                                     f"{r['rank']}: {res}")
+        want = [r["rank"] // 2 * 4, r["rank"] // 2 * 4 + 4]
+        if r["serve_dp/float32"]["rows"] != want:
+            raise AssertionError(f"[serve_dp] rank {r['rank']} served rows "
+                                 f"{r['serve_dp/float32']['rows']}, not "
+                                 f"{want}")
+    gap = float((ranks[0]["logits"] - ranks[4]["logits"]).abs().max())
+    equal = int((np.array(dp[0]["tokens"]) == np.array(one["tokens"])).sum())
+    total = int(np.array(one["tokens"]).size)
+    bf = [r["serve_dp/bfloat16"] for r in ranks[:4]]
+    log(f"[serve_dp] qwen2-0.5b served by launch/serve.py --mesh "
+        f"{SERVE_DP_MESH} (4 processes on this card, full size, each data "
+        f"rank 4 of the 8 x 512 prompts + 16 greedy): {layers} flash_fwd a "
+        f"prefill on each process, none in decode, nothing plain; f32 "
+        f"gathered logits {gap:.3e} from the 1x1 server's (gate "
+        f"{SERVE_LOGIT_TOL['qwen2-0.5b']}), {equal} of {total} tokens "
+        f"equal; bf16 prefill ms {bf[0]['prefill_ms']:.1f} (the slowest "
+        f"data rank's), decode tok/s {bf[0]['decode_tok_per_s']:.1f} "
+        f"(f32 1x1 control: prefill {one['prefill_ms']:.1f} ms); peak GiB "
+        f"a process {[round(x['peak_gib'], 3) for x in bf]} | {smi}")
+    if gap > SERVE_LOGIT_TOL["qwen2-0.5b"] or equal != total \
+            or len({x["logits_digest"] for x in dp}) != 1 \
+            or any(x["tokens"] != dp[0]["tokens"] for x in dp):
+        raise AssertionError("[serve_dp] the 2x2 server is not the 1x1 "
+                             "server")
+    return {"launches": {f"serve qwen2-0.5b {SERVE_DP_MESH} (serve_dp)": {
+        k: sum(r["serve_dp/float32"]["launches"].get(k, 0)
+               for r in ranks[:4]) for k in K.KERNELS}}}
+
+
+def step0_row_density(n: int = 8) -> float:
+    """The mean share of qwen2-0.5b's table rows one of ``n`` ranks touches
+    at step 0 (the unique ids of its rows of the smoke's first batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    cfg = get_config("qwen2-0.5b")
+    tok = next(iter(SyntheticLM(cfg, DataConfig(seq_len=512, batch=8))))[
+        "tokens"]
+    per = tok.shape[0] // n
+    return float(np.mean([np.unique(tok[w * per:(w + 1) * per]).size
+                          for w in range(n)]) / cfg.vocab_padded)
+
+
+def phase_calib(smi: str) -> dict:
+    """Measured-cost calibration on this card: ``CostCalibrator`` on the
+    kernels (n 8) at the reference's default points and at qwen2-0.5b's
+    [151936, 896] table at its step-0 row density, and on the plain
+    versions at the default points; the table round-trips through its
+    file with every encode and commit time finite and positive; then
+    the in-process 8x1 trainer with ``--sync auto --calib-file``, flat
+    and on nodes of 4, 2 steps on each route: bitwise, each plan the
+    host's ``choose_scheme`` / ``choose_plan`` on the table, logged
+    beside the uncalibrated plan with the words at each level."""
+    from repro_torch.core import costmodel as C
+    from repro_torch.core.topology import build_topology
+
+    t0 = time.time()
+    d0 = step0_row_density()
+    cuda = C.CostCalibrator(backend="cuda", n=8, device="cuda",
+                            **CALIB_POINTS).measure()
+    table = C.CostCalibrator(backend="cuda", n=8, device="cuda",
+                             sizes=(CALIB_TABLE,), densities=(d0,)
+                             ).measure()
+    cuda.entries += table.entries
+    plain = C.CostCalibrator(backend="torch", n=8, device="cuda",
+                             **CALIB_POINTS).measure()
+    free_card()
+    calib_s = time.time() - t0
+    work = Path(tempfile.mkdtemp(prefix="calib_", dir=Path(__file__)
+                                 .resolve().parent / "build"))
+    path = work / "calib.json"
+    cuda.save(path)
+    back = C.CalibrationTable.load(path)
+    if back.entries != cuda.entries or back.meta != cuda.meta:
+        raise AssertionError("[calib] the table did not round-trip")
+    for e in [*back.entries, *plain.entries]:
+        for k in ("encode_us", "commit_us", "zen_us", "dense_us"):
+            if not (math.isfinite(e[k]) and e[k] > 0):
+                raise AssertionError(f"[calib] {k} of {e}")
+    log(f"[calib] CostCalibrator n 8 on {cuda.meta['device']} "
+        f"({cuda.meta.get('power_limit')}), {calib_s:.1f} s: the kernels "
+        f"(backend cuda) at {CALIB_POINTS} and the qwen2-0.5b table "
+        f"[151936, 896] at its step-0 row density {d0:.5f}; dense_us is "
+        f"the simulated group's in-process sum on one card and measures no "
+        f"link | {smi}")
+    for line in C.flip_lines(back):
+        log(f"[calib] cuda {line.strip()}")
+    for line in C.flip_lines(plain):
+        log(f"[calib] torch {line.strip()}")
+    for ec, et in zip(cuda.entries, plain.entries):
+        log(f"[calib] size {ec['size']} d {ec['density']}: the kernels' "
+            f"encode {ec['encode_us']:.1f} us / plain {et['encode_us']:.1f} "
+            f"us, commit {ec['commit_us']:.1f} / {et['commit_us']:.1f} us, "
+            f"zen_sync {ec['zen_us']:.1f} / {et['zen_us']:.1f} us")
+    c = CALIB_TRAIN
+    cfg = serve_cfg("qwen2-0.5b", c["layers"])
+    prof = C.worst_case_profile(cfg.vocab_padded, 0.25, vw=cfg.d_model)
+    out, launches = {}, {}
+    for ns in CALIB_NODE_SIZES:
+        topo = build_topology(c["n"], ns)
+        target = max(c["n"], 2) if topo.flat else topo
+        want = C.choose_scheme(prof, target, calib=back)
+        uncal = C.choose_scheme(prof, target)
+        runs = {b: direct_train(cfg, c["n"], c["batch"], c["seq"],
+                                c["steps"], b, node_size=ns,
+                                sync={"scheme": "auto",
+                                      "calib_file": str(path)})
+                for b in ("cuda", "torch")}
+        run, ref = runs["cuda"], runs["torch"]
+        keys = ["losses", "sparse_words_by_step", "grad_norm", "overflow",
+                *(k for k in ("sync/intra_words", "sync/inter_words")
+                  if k in run)]
+        for key in keys:
+            if run[key] != ref[key]:
+                raise AssertionError(f"[calib] node size {ns} {key}: "
+                                     f"kernels {run[key]} != plain "
+                                     f"{ref[key]}")
+        if run["sparse_scheme"] != want or any(run["plain"].values()) \
+                or any(run["overflow"]) \
+                or not any(ln.startswith("calibration: ")
+                           for ln in run["plan"]):
+            raise AssertionError(f"[calib] node size {ns}: plan "
+                                 f"{run['sparse_scheme']} (the host's "
+                                 f"{want}), {run}")
+        words = {k: run[k] for k in ("sparse_words_by_step",
+                                     "sync/intra_words", "sync/inter_words")
+                 if k in run}
+        uncal_words = words
+        if uncal != want:   # the uncalibrated plan's words, one step
+            u = direct_train(cfg, c["n"], c["batch"], c["seq"], 1,
+                             node_size=ns, sync={"scheme": "auto"})
+            uncal_words = {k: u[k] for k in words}
+        log(f"[calib] 8x1 trainer (full width, {c['layers']} of 24 layers) "
+            f"--sync auto --calib-file, node size {ns}: embed/table "
+            f"calibrated {want} (the host's choose on the table; the run's "
+            f"{run['sparse_scheme']}), words {words}; uncalibrated {uncal}, "
+            f"words {uncal_words}; routes bitwise over {c['steps']} steps, "
+            f"launches {({k: v for k, v in run['launches'].items() if v})}, "
+            f"step_s {run['step_s']} | {smi}")
+        out[ns] = {"calibrated": want, "uncalibrated": uncal,
+                   "words": words, "uncalibrated_words": uncal_words}
+        launches[f"trainer 8x1 --sync auto --calib-file node size {ns} "
+                 f"(calib)"] = run["launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    return {"plans": out, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -5110,7 +5670,7 @@ def main(argv=None) -> None:
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
                          "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,tp,"
-                         "times "
+                         "mesh3,serve_dp,calib,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -5126,6 +5686,8 @@ def main(argv=None) -> None:
         job, work = args.dist_rank[0], Path(args.dist_rank[1])
         if job == "gloo4":
             gloo4_rank(work)
+        elif job == "mesh3":
+            mesh3_rank(work)
         else:
             dist_rank(job, work)
         return
@@ -5148,10 +5710,13 @@ def main(argv=None) -> None:
     _build.build(verbose=True)   # every kernel, one nvcc per source at once
     log(f"[build] {len(_build.SOURCES)} libraries in {time.time() - t0:.1f}s")
     phase_done("build")
-    ranks4 = None
+    ranks4 = ranks8 = None
+    job8 = mesh3_job(want("mesh3"), want("serve_dp"))
     if want("dist"):   # first: four full-width ranks share this card
-        # (its 4 gloo processes also run phase tp's work)
-        ranks4 = phase_dist(dev, dev_info["smi"], tp=want("tp"))
+        # (its 4 gloo processes also run phase tp's work, its 8 phases
+        # mesh3 and serve_dp's)
+        ranks4, ranks8 = phase_dist(dev, dev_info["smi"], tp=want("tp"),
+                                    mesh3=job8)
         phase_done("dist")
     else:
         if "dist_sync" in only:
@@ -5163,6 +5728,24 @@ def main(argv=None) -> None:
     # tp next, as dist: four processes of trainers fill most of the card
     tp = phase_tp(dev_info["smi"], ranks4) if want("tp") else None
     phase_done("tp")
+    # then the PxDxM mesh and the data-parallel server: one torchrun of 8
+    # processes on this card runs both (phase dist's, when it ran)
+    mesh3 = served_dp = None
+    if job8:
+        if ranks8 is None:
+            ranks8 = mesh3_ranks(job8)
+        else:
+            log(f"[mesh3] its runs took "
+                f"{sum(ranks8[0]['seconds'].values()):.1f} s of phase "
+                f"dist's 8-rank torchrun (rank 0)")
+        if want("mesh3"):
+            mesh3 = phase_mesh3(dev_info["smi"], ranks8)
+            phase_done("mesh3")
+        if want("serve_dp"):
+            served_dp = phase_serve_dp(dev_info["smi"], ranks8)
+            phase_done("serve_dp")
+    calib = phase_calib(dev_info["smi"]) if want("calib") else None
+    phase_done("calib")
     # zoo next: its trainers fill most of the card, before other phases
     # leave kernel scratch and cached blocks behind
     zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
@@ -5210,10 +5793,10 @@ def main(argv=None) -> None:
     compressed = phase_compress(dev_info["smi"]) if want("compress") \
         else None
     phase_done("compress")
-    schemes = phase_schemes(dev_info["smi"], trainer) if want("schemes") \
+    schemes = phase_schemes(dev_info["smi"]) if want("schemes") \
         else None
     phase_done("schemes")
-    hier = phase_hier(dev_info["smi"], trainer) if want("hier") else None
+    hier = phase_hier(dev_info["smi"]) if want("hier") else None
     phase_done("hier")
     if "dist_parts" in only:
         dist_step_parts(DIST_TRAIN_RANKS, dev_info["smi"])
@@ -5239,8 +5822,8 @@ def main(argv=None) -> None:
     by_path = {"trainer": trainer, "buckets": bucketed, "mamba2_train": mamba,
                "compress": compressed}
     if schemes:
-        by_path.update({f"trainer --sync {k}": v
-                        for k, v in schemes["trainers"].items() if k != "zen"})
+        by_path.update({f"trainer --sync {k} ({CUT_LAYERS} layers)": v
+                        for k, v in schemes["trainers"].items()})
     if hier:
         by_path.update({f"trainer {k}": v for k, v in hier.items()})
     if zoo:
@@ -5253,6 +5836,9 @@ def main(argv=None) -> None:
         by_path["trainer --zero1 (8x1)"] = mla["zero1_8x1"]["zero1"]
     if tp:   # summed over the four processes
         by_path.update({p: {"launches": n} for p, n in tp["launches"].items()})
+    for part in (mesh3, served_dp, calib):   # summed over the processes
+        by_path.update({p: {"launches": n}
+                        for p, n in (part or {}).get("launches", {}).items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()
                          if r and r["launches"][k]} for k in SOURCES}
     if served:
@@ -5265,13 +5851,13 @@ def main(argv=None) -> None:
                 if n:
                     path_launches[k][f"serve {a}"] = n
     errs = {**(kern["err"] if kern else {}), **(skern["err"] if skern else {})}
-    for part in (wide, shapes, hybrid_moe, edv, mla, tp):
+    for part in (wide, shapes, hybrid_moe, edv, mla, tp, mesh3):
         for k, e in (part["err"] if part else {}).items():
             errs[k] = max(errs.get(k, 0.0), e)
-    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec, vlm, MLA and
-    # TP paths' shapes
-    new_rows = [r for part in (shapes, hybrid_moe, edv, mla, tp) if part
-                for r in part["rows"]]
+    # the kernels at the two-level, zoo, hybrid, MoE, enc_dec, vlm, MLA,
+    # TP and PxDxM paths' shapes
+    new_rows = [r for part in (shapes, hybrid_moe, edv, mla, tp, mesh3)
+                if part for r in part["rows"]]
     table = []
     for row in times:
         name = row["name"]

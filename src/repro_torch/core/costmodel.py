@@ -12,14 +12,22 @@ Conventions (matching Appendix B):
     (`profile_from_masks`) or an analytic overlap model.
   * ``s(i)`` is the skewness ratio with ``i`` partitions (Def. 5).
 
-The measured-time calibration (``CalibrationTable``, ``CostCalibrator``)
-is not ported: ROADMAP queue 1, item 7.  A ``calib`` argument other than
-None raises ``NotImplementedError`` naming it.
+The measured-time calibration (DESIGN.md §11) is ported beside it:
+``CalibrationTable`` (the reference's JSON format, version 2, and its
+lookups term for term) and ``CostCalibrator``, which times the port's
+own routes (backend ``"cuda"``: the kernels; ``"torch"``: their plain
+versions).  A table keyed by the reference's backends (``"xla"``,
+``"pallas"``) is refused on load, so that its times never price the
+port's plans.  ``python -m repro_torch.core.costmodel --calib-file F``
+writes a table and prints the flip points.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import subprocess
+import time
 from collections.abc import Mapping
 from typing import Callable
 
@@ -425,16 +433,9 @@ def worst_case_profile(M: int, density: float, vw: int = 1) -> SparsityProfile:
         M=M, d=lambda i: min(1.0, max(i, 1) * density), s=lambda n: 1.0, vw=vw)
 
 
-def _no_calib(calib) -> None:
-    if calib is not None:
-        raise NotImplementedError(
-            "measured-cost calibration (calib=) is not ported: ROADMAP "
-            "queue 1, item 7")
-
-
 def choose_plan(
     p: SparsityProfile, topo: Topology, *, threshold: float = 1.0,
-    calib=None,
+    calib: "CalibrationTable | None" = None,
 ) -> CommPlan:
     """argmin of the α-β plan times over the candidate set, biased toward
     dense: a non-dense plan wins only when its time beats the all-dense
@@ -442,11 +443,21 @@ def choose_plan(
     This is where densify-after-intra-aggregation falls out: when the
     merged density ``d(n_intra)`` crosses the dense/sparse break-even on
     the inter links, ``hier(zen@intra, dense@inter)`` (or all-dense)
-    times below ``hier(zen@intra, zen@inter)`` and wins.  ``calib`` must
-    be None (calibration: ROADMAP queue 1, item 7)."""
-    _no_calib(calib)
+    times below ``hier(zen@intra, zen@inter)`` and wins.
+
+    With a ``calib`` table (DESIGN.md §11) each candidate additionally
+    pays its *measured* per-stage encode overhead
+    (``plan_encode_overhead``); the identity table adds exactly 0.0, so
+    the decision degenerates bitwise to the analytic argmin."""
     cands = candidate_plans(topo, p.M)
-    times = {pl.tag(): plan_time(pl, p, topo) for pl in cands}
+
+    def t(pl: CommPlan) -> float:
+        tt = plan_time(pl, p, topo)
+        if calib is not None:
+            tt += plan_encode_overhead(calib, pl, p, topo)
+        return tt
+
+    times = {pl.tag(): t(pl) for pl in cands}
     dense_tag = cands[0].tag()
     best = min(cands, key=lambda pl: times[pl.tag()])
     if times[best.tag()] >= threshold * times[dense_tag]:
@@ -456,7 +467,7 @@ def choose_plan(
 
 def choose_scheme(
     p: SparsityProfile, n: "int | Topology", *, threshold: float = 1.0,
-    calib=None,
+    calib: "CalibrationTable | None" = None,
 ) -> str:
     """Per-tensor scheme choice from a (measured or worst-case) profile:
     'zen' iff its wire volume beats dense ring allreduce by ``threshold``.
@@ -467,22 +478,40 @@ def choose_scheme(
     With an ``int`` (or the degenerate flat topology) the decision is the
     historical volume comparison.  With a two-level ``Topology`` the
     returned tag is the α-β-optimal CommPlan's (``choose_plan``), e.g.
-    ``hier(zen@intra,dense@inter)``.  ``calib`` must be None
-    (calibration: ROADMAP queue 1, item 7)."""
-    _no_calib(calib)
+    ``hier(zen@intra,dense@inter)``.
+
+    ``calib`` adds measured per-stage encode overhead to each side of the
+    comparison: encode cost only ever flips zen -> dense (dense encodes
+    for free), and ``calib=None`` / the identity table keep the analytic
+    decision bit-identical."""
     if isinstance(n, Topology):
         topo = n
         if not topo.flat:
-            return choose_plan(p, topo, threshold=threshold).tag()
+            return choose_plan(p, topo, threshold=threshold,
+                               calib=calib).tag()
         lvl = topo.intra
         if lvl.size < 2:
             return "dense"
         zt = stage_time("zen", p, lvl)
         dt = stage_time("dense", p, lvl)
+        if calib is not None:
+            zt += (calib.encode_us("zen", p.M * p.vw, p.d(1))
+                   + calib.commit_us("zen", p.M * p.vw, p.d(1)))
+            dt += (calib.encode_us("dense", p.M * p.vw, p.d(1))
+                   + calib.commit_us("dense", p.M * p.vw, p.d(1)))
         return "zen" if zt < threshold * dt else "dense"
     if n < 2:
         return "dense"  # single worker: nothing to sync, dense psum is free
     z, de = zen(p, n), dense_allreduce(p, n)
+    if calib is not None:
+        # words -> µs at the measured dense rate, then add measured encode
+        # overhead; beta > 0 and identity (beta=1, encode=0) preserve the
+        # analytic order/threshold exactly.
+        b = calib.beta_us_per_word(p.M * p.vw)
+        z = z * b + (calib.encode_us("zen", p.M * p.vw, p.d(1))
+                     + calib.commit_us("zen", p.M * p.vw, p.d(1)))
+        de = de * b + (calib.encode_us("dense", p.M * p.vw, p.d(1))
+                       + calib.commit_us("dense", p.M * p.vw, p.d(1)))
     return "zen" if z < threshold * de else "dense"
 
 
@@ -497,3 +526,342 @@ def zen_beats_dense(
     """
     p = worst_case_profile(rows, density_budget, vw=max(d, 1))
     return choose_scheme(p, n, threshold=threshold) == "zen"
+
+
+# ---------------------------------------------------------------------------
+# Measured-time calibration (DESIGN.md §11)
+#
+# The analytic α-β model prices the *wire*; it cannot see that zen's encode
+# (hash + extract + pack) costs real device time while dense encodes for
+# free.  A CalibrationTable holds measured per-stage times keyed by
+# (backend, payload words, density); choose_scheme / choose_plan add the
+# measured encode overhead to each candidate so the decision flips to dense
+# exactly when encode cost eats the wire win.
+# ---------------------------------------------------------------------------
+
+# the reference's format: v2 measures commit_us directly (a commit-only
+# probe over pre-computed encodes, per-worker share); other versions are
+# rejected on load
+_CALIB_VERSION = 2
+# the port's routes: the CUDA kernels and their plain PyTorch versions.
+# The reference's tables ("xla", "pallas") time other code on other
+# hardware and are refused.
+CALIB_BACKENDS = ("cuda", "torch")
+
+# entry keys every table row carries:
+#   backend    "cuda" | "torch"        compute route measured
+#   size       int, payload FP32 words (M * vw)
+#   density    float, d(1) measured at
+#   n          int, sync-axis size of the measurement
+#   encode_us  float, one zen_encode of one worker's payload
+#   commit_us  float, one worker's zen_commit share, measured directly:
+#              zen_commit over n pre-encoded workers / n
+#   zen_us     float, full zen_sync end-to-end (n simulated workers)
+#   dense_us   float, dense allreduce end-to-end (same rig)
+# and, for a row-sparse point, rows and width (size = rows * width).
+
+
+@dataclasses.dataclass
+class CalibrationTable:
+    """Measured per-stage sync times, persisted as JSON (``--calib-file``).
+
+    Lookups are nearest-neighbor in (log size, log density) with encode
+    time scaled linearly in payload size (encode work is O(nnz) ⊆ O(M)).
+    The *identity* table (no entries) prices encode at 0 µs and the wire
+    at 1 µs/word — choose_scheme / choose_plan then degenerate bitwise to
+    the analytic α-β decision."""
+
+    entries: list = dataclasses.field(default_factory=list)
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def identity(cls) -> "CalibrationTable":
+        """Zero encode overhead, unit wire rate: the analytic model."""
+        return cls(entries=[], meta={"identity": True})
+
+    # --- persistence -------------------------------------------------------
+    def save(self, path) -> None:
+        blob = {"version": _CALIB_VERSION, "meta": self.meta,
+                "entries": self.entries}
+        with open(path, "w") as f:
+            json.dump(blob, f, indent=2, sort_keys=True)
+            f.write("\n")
+
+    @classmethod
+    def load(cls, path) -> "CalibrationTable":
+        """Read a table :meth:`save` wrote; a wrong version, or an entry
+        of a backend other than the port's, raises ``ValueError``."""
+        with open(path) as f:
+            blob = json.load(f)
+        if blob.get("version") != _CALIB_VERSION:
+            raise ValueError(
+                f"calibration table {path}: version {blob.get('version')!r}"
+                f" != {_CALIB_VERSION} (re-run the calibrator)")
+        for e in blob["entries"]:
+            if e.get("backend") not in CALIB_BACKENDS:
+                raise ValueError(
+                    f"calibration table {path}: an entry of backend "
+                    f"{e.get('backend')!r}; the port prices its plans only "
+                    f"from its own routes {CALIB_BACKENDS} (re-run "
+                    f"`python -m repro_torch.core.costmodel`)")
+        return cls(entries=blob["entries"], meta=blob.get("meta", {}))
+
+    # --- lookups -----------------------------------------------------------
+    def _nearest(self, size: float, density: float | None = None):
+        if not self.entries:
+            return None
+        size = max(float(size), 1.0)
+
+        def dist(e):
+            ds = abs(math.log(max(e["size"], 1) / size))
+            if density is None:
+                return ds
+            dd = abs(math.log(max(e["density"], 1e-9)
+                              / max(density, 1e-9)))
+            return ds + dd
+
+        return min(self.entries, key=dist)
+
+    def encode_us(self, scheme: str, size: float, density: float) -> float:
+        """Measured local-encode overhead (µs) of ``scheme`` on a payload
+        of ``size`` words at density ``density``.  Dense (a bare psum) and
+        any unmeasured scheme encode for free; zen pays the nearest
+        measurement scaled linearly in size."""
+        if scheme != "zen":
+            return 0.0
+        e = self._nearest(size, density)
+        if e is None:
+            return 0.0
+        return float(e["encode_us"]) * (max(float(size), 1.0)
+                                        / max(e["size"], 1))
+
+    def commit_us(self, scheme: str, size: float, density: float) -> float:
+        """Measured per-worker commit overhead (µs): push + server
+        aggregation + pull decode beyond the wire itself.  Dense commits
+        for free (the psum IS the wire); zen pays the nearest direct
+        commit-probe measurement scaled linearly in size."""
+        if scheme != "zen":
+            return 0.0
+        e = self._nearest(size, density)
+        if e is None:
+            return 0.0
+        return float(e.get("commit_us", 0.0)) * (max(float(size), 1.0)
+                                                 / max(e["size"], 1))
+
+    def beta_us_per_word(self, size: float) -> float:
+        """Measured wire rate (µs per FP32 word) from the dense-allreduce
+        measurement nearest in size; 1.0 (the analytic unit) when empty."""
+        e = self._nearest(size)
+        if e is None:
+            return 1.0
+        words = dense_allreduce(
+            worst_case_profile(int(e["size"]), 1.0), int(e["n"]))
+        return float(e["dense_us"]) / max(words, 1.0)
+
+
+def plan_encode_overhead(
+    calib: CalibrationTable, plan: CommPlan, p: SparsityProfile,
+    topo: Topology,
+) -> float:
+    """Measured compute overhead (µs) a CommPlan pays beyond the wire:
+    each non-trivial stage encodes its (merged) payload once before its
+    collectives and pays its per-worker commit (server aggregation + pull
+    decode) once after them."""
+    t, k = 0.0, 1
+    for stage in plan.stages:
+        lvl = topo.levels[stage.level]
+        if lvl.size > 1:
+            mp = merged_profile(p, k)
+            t += (calib.encode_us(stage.scheme, mp.M * mp.vw, mp.d(1))
+                  + calib.commit_us(stage.scheme, mp.M * mp.vw, mp.d(1)))
+        k *= lvl.size
+    return t
+
+
+def _power_limit() -> str:
+    """The card's power limit as ``nvidia-smi`` reads it, or
+    ``"not read"`` where it cannot be run."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        and out.stdout.strip() else "not read"
+
+
+class CostCalibrator:
+    """Measures the port's encode / commit / dense times on this machine
+    and returns a CalibrationTable (DESIGN.md §11).
+
+    Per (size, density) point it times, on ``device``:
+      * ``zen_encode`` of one worker's payload       -> encode_us
+      * ``zen_commit`` over n PRE-ENCODED workers    -> commit_us (per
+        worker: measured total / n — on a real mesh each device commits
+        its share concurrently)
+      * ``zen_sync`` over n workers on ``SimGroup``  -> zen_us
+      * ``dense_sync`` over n workers on ``SimGroup`` -> dense_us
+    each the min of ``iters`` runs after ``warmup``: CUDA events around
+    the call on a CUDA device (host work that the card waits for
+    included), the host clock on the CPU.  A size is a payload of that
+    many f32 words (element-sparse, as the reference's), or a ``(rows,
+    width)`` pair: a row-sparse table whose rows are live at the density
+    (the entry's size is ``rows * width``).  On one card ``dense_us`` is
+    the simulated group's in-process sum and measures no link.
+    ``backend`` is the route: ``"cuda"`` the kernels, ``"torch"`` their
+    plain versions."""
+
+    def __init__(self, *, backend: str = "cuda", n: int = 4,
+                 sizes: tuple = (1 << 12, 1 << 14, 1 << 16),
+                 densities: tuple = (0.01, 0.1),
+                 iters: int = 5, warmup: int = 2, seed: int = 0,
+                 device=None):
+        if n < 2:
+            raise ValueError("CostCalibrator needs n >= 2 (a sync axis)")
+        if backend not in CALIB_BACKENDS:
+            raise ValueError(f"backend must be one of {CALIB_BACKENDS}, "
+                             f"got {backend!r}")
+        from repro_torch import resolve_device
+
+        self.backend = backend
+        self.n = n
+        self.sizes = tuple(tuple(int(v) for v in s)
+                           if isinstance(s, (tuple, list)) else int(s)
+                           for s in sizes)
+        self.densities = tuple(float(d) for d in densities)
+        self.iters = iters
+        self.warmup = warmup
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def _time_us(self, fn, *args) -> float:
+        """min-of-iters time of ``fn(*args)`` in µs after ``warmup``
+        calls."""
+        cuda = self.device.type == "cuda"
+        for _ in range(self.warmup):
+            fn(*args)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        best = math.inf
+        for _ in range(self.iters):
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                fn(*args)
+                t1.record()
+                t1.synchronize()
+                best = min(best, t0.elapsed_time(t1) * 1e3)
+            else:
+                t0 = time.perf_counter()
+                fn(*args)
+                best = min(best, (time.perf_counter() - t0) * 1e6)
+        return best
+
+    def measure(self) -> CalibrationTable:
+        from repro_torch.core import schemes
+
+        entries = []
+        dev, n, be = self.device, self.n, self.backend
+        gen = torch.Generator(device=dev).manual_seed(self.seed)
+        for size in self.sizes:
+            rows, width = size if isinstance(size, tuple) else (size, 1)
+            for density in self.densities:
+                budget = min(0.5, max(4.0 * density, 8.0 / rows))
+                layout = schemes.make_zen_layout(rows, n,
+                                                 density_budget=budget)
+                # drawn on the device: a table's n payloads are GBs
+                live = torch.rand((n, rows), generator=gen, device=dev)
+                g = torch.randn((n, rows, width), generator=gen, device=dev)
+                g = g * (live < density)[..., None]
+                if width == 1:
+                    g = g[..., 0]
+                kw = dict(layout=layout, backend=be)
+                encode_us = self._time_us(
+                    lambda x: schemes.zen_encode(x, **kw), g[:1])
+                # commit-only probe: encodes are made OUTSIDE the timed
+                # function, so the measurement isolates push + aggregation
+                # + pull decode (direct, not a residual)
+                encs = schemes.zen_encode(g, **kw)
+                group = schemes.SimGroup(n)
+                commit_us = self._time_us(
+                    lambda e, x: schemes.zen_commit(e, x, group=group, **kw),
+                    encs, g) / n
+                zen_us = self._time_us(
+                    lambda x: schemes.zen_sync(x, group=group, **kw), g)
+                dense_us = self._time_us(
+                    lambda x: schemes.dense_sync(x, group=group), g)
+                entry = {"backend": be, "size": rows * width,
+                         "density": density, "n": n,
+                         "encode_us": encode_us, "commit_us": commit_us,
+                         "zen_us": zen_us, "dense_us": dense_us}
+                if width > 1:
+                    entry.update(rows=rows, width=width)
+                entries.append(entry)
+                del g, encs
+        meta = {"backend": be, "n": n, "torch": torch.__version__,
+                "device": (torch.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else "cpu")}
+        if dev.type == "cuda":
+            meta["power_limit"] = _power_limit()
+        return CalibrationTable(entries=entries, meta=meta)
+
+
+def flip_lines(table: CalibrationTable) -> list[str]:
+    """One line an entry: its times and the analytic and measured
+    decisions on the entry's worst-case profile, marked where they
+    differ (the flip points)."""
+    out = []
+    for e in table.entries:
+        p = worst_case_profile(e["size"], e["density"])
+        analytic = choose_scheme(p, e["n"])
+        measured = choose_scheme(p, e["n"], calib=table)
+        flip = "  <- FLIP" if analytic != measured else ""
+        out.append(f"  size={e['size']:>9} d={e['density']:<7.4g} "
+                   f"encode={e['encode_us']:>9.1f}us "
+                   f"commit={e['commit_us']:>9.1f}us "
+                   f"zen={e['zen_us']:>9.1f}us "
+                   f"dense={e['dense_us']:>9.1f}us analytic={analytic} "
+                   f"measured={measured}{flip}")
+    return out
+
+
+def _main(argv=None) -> None:
+    """``python -m repro_torch.core.costmodel``: run the calibrator,
+    persist the table, and print where the measured decision differs from
+    the analytic one (the flip points)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.core.costmodel",
+        description="CostCalibrator: measure per-stage encode/commit/dense "
+                    "times on this machine and write a --calib-file table "
+                    "for launch/train.py")
+    ap.add_argument("--calib-file", required=True)
+    ap.add_argument("--backend", default="cuda", choices=CALIB_BACKENDS)
+    ap.add_argument("--n", type=int, default=4)
+    ap.add_argument("--sizes", default="4096,16384,65536",
+                    help="comma-separated payload sizes (FP32 words)")
+    ap.add_argument("--densities", default="0.01,0.1")
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cal = CostCalibrator(
+        backend=args.backend, n=args.n,
+        sizes=tuple(int(s) for s in args.sizes.split(",")),
+        densities=tuple(float(d) for d in args.densities.split(",")),
+        iters=args.iters, device=args.device)
+    table = cal.measure()
+    table.save(args.calib_file)
+    print(f"wrote {len(table.entries)} entries -> {args.calib_file} "
+          f"(device: {table.meta['device']})")
+    for line in flip_lines(table):
+        print(line)
+
+
+if __name__ == "__main__":
+    _main()

@@ -178,11 +178,20 @@ class DistGroup:
               ) -> list[tuple[list[int], "DistGroup"]]:
         """This rank's group of level ``axis`` of the world laid out as
         ``sizes`` (:func:`level_rows` over this group's ranks):
-        ``[([0], DistGroup)]``.  The first call makes every group of the
-        level with ``dist.new_group``, on every rank in one order (a
-        collective call: every rank must split alike)."""
+        ``[([0], DistGroup)]``.  On the world group the first call makes
+        every group of the level with ``dist.new_group``, on every rank in
+        one order (a collective call: every rank must split alike); a
+        sub-group (a data group under a model axis) finds the groups
+        :meth:`adopt_level` gave it and raises for any other."""
         key = (tuple(sizes), axis)
         if key not in self._levels:
+            if self.pg is not None:
+                raise RuntimeError(
+                    f"level {key} of a data group was not made with the "
+                    f"mesh: under a model axis every rank makes every "
+                    f"level group in one order (launch/mesh.mesh_groups); "
+                    f"making them here on one data group's ranks alone "
+                    f"would deadlock the others")
             if math.prod(sizes) != self.n:
                 raise ValueError(f"level sizes {tuple(sizes)} do not cover "
                                  f"the group's {self.n} ranks")
@@ -193,6 +202,16 @@ class DistGroup:
                     mine = DistGroup(pg)
             self._levels[key] = mine
         return [([0], self._levels[key])]
+
+    def adopt_level(self, sizes: Sequence[int], axis: int,
+                    group: "DistGroup") -> None:
+        """Hand this group its group of level ``axis`` of ``sizes``, made
+        by the caller in the world's order (``launch/mesh.mesh_groups``),
+        for :meth:`split` to find."""
+        if math.prod(sizes) != self.n:
+            raise ValueError(f"level sizes {tuple(sizes)} do not cover the "
+                             f"group's {self.n} ranks")
+        self._levels[tuple(sizes), axis] = group
 
     def rank_ids(self, device) -> torch.Tensor:
         """int64 [1]: this process's rank, built on ``device`` (nothing

@@ -225,15 +225,14 @@ class DensityController:
         is the sync world size; ``threshold`` mirrors
         ``SyncConfig.auto_threshold``.  ``topology`` makes the decision
         one over CommPlan tags (``costmodel.choose_scheme``); ``calib``
-        must be None (calibration: ROADMAP queue 1, item 7)."""
-        if calib is not None:
-            raise NotImplementedError(
-                "DensityController(calib=): measured-cost calibration is "
-                "ROADMAP queue 1, item 7")
+        (a ``costmodel.CalibrationTable``, e.g. ``gradsync.calib``) makes
+        the re-run decision encode-cost-aware, priced as the live plan
+        was (DESIGN.md §11)."""
         self.sizes = dict(bucket_sizes)
         self.current = dict(schemes)
         self.n = max(n, 2)
         self.topology = topology
+        self.calib = calib
         self.ema = float(ema)
         self.threshold = float(threshold)
         self._d1: dict[str, float] = {}
@@ -273,7 +272,7 @@ class DensityController:
         target = self.topology if self.topology is not None else self.n
         for key, prof in self.profiles().items():
             out[key] = costmodel.choose_scheme(
-                prof, target, threshold=self.threshold)
+                prof, target, threshold=self.threshold, calib=self.calib)
         return out
 
     def drifted(self) -> dict[str, tuple[str, str]]:

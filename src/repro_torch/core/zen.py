@@ -35,8 +35,10 @@ each row-sparse leaf and each compressed bucket consults its
 budget) through ``costmodel.choose_scheme``, on the int world size over a
 flat topology and on the α-β topology over a two-level one.  Zen buckets
 run their encode in the pipeline's encode slot, every other scheme runs
-through ``schemes.stage_sync``.  Measured-cost calibration
-(``calib_file``) raises ``NotImplementedError`` naming its ROADMAP item.
+through ``schemes.stage_sync``.  ``calib_file`` names a measured-cost
+table (``costmodel.CalibrationTable``, DESIGN.md §11), loaded once at
+plan time: every ``auto`` decision then pays the measured encode and
+commit overhead (``GradSync.calib``).
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from repro_torch.train import schedule
 @dataclasses.dataclass(frozen=True)
 class SyncConfig:
     """How gradients are synchronized across the data-parallel group; the
-    reference's fields, of which the port runs a subset (see GradSync)."""
+    reference's fields."""
 
     scheme: str = "zen"           # a registry scheme (cli_scheme_choices()) | auto
     density_budget: float = 0.25  # capacity sizing for sparse buffers
@@ -92,13 +94,6 @@ class SyncConfig:
     # builds its topology (train/steps.make_gradsync), not here
     alpha_beta: str | None = None
     compress: str = "none"
-
-
-def _unsupported(cfg: SyncConfig) -> str | None:
-    """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.calib_file is not None:
-        return "measured-cost calibration: ROADMAP queue 1, item 7"
-    return None
 
 
 class GradSync:
@@ -135,9 +130,6 @@ class GradSync:
                  group: SimGroup | DistGroup | None = None,
                  profiles: dict | None = None,
                  topology: Topology | None = None, pods: int = 1):
-        why = _unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"GradSync: {why}")
         check_backend(cfg.backend)
         if group is not None and group.n != n_data * pods:
             raise ValueError(f"GradSync: {pods} pod(s) of n_data {n_data} "
@@ -161,13 +153,17 @@ class GradSync:
         # the world's mixed-radix layout, pod-major (schemes.level_rows)
         self._sizes = world_sizes(topo, pods)
         profiles = profiles or {}
+        # measured-time calibration (DESIGN.md §11): loaded once at plan
+        # time; every 'auto' decision below then prices encode overhead
+        self.calib = (costmodel.CalibrationTable.load(cfg.calib_file)
+                      if cfg.calib_file else None)
 
         def choose(prof) -> str:
             # what 'auto' prices: the int world size on a flat topology
             # (the historical picks), the α-β topology on a two-level one
             return costmodel.choose_scheme(
                 prof, max(n_data, 2) if topo.flat else topo,
-                threshold=cfg.auto_threshold)
+                threshold=cfg.auto_threshold, calib=self.calib)
 
         def resolve_scheme(name: str, shape: tuple) -> str:
             """Plan tag of one row-sparse leaf; 'auto' consults the leaf's
@@ -242,6 +238,11 @@ class GradSync:
         CommPlan over the topology, compressor, key."""
         topo = self.topology
         lines = [f"topology: {topo.describe()}"]
+        if self.calib is not None:
+            lines.append(
+                f"calibration: {len(self.calib.entries)} measured entries "
+                f"({self.calib.meta.get('device', '?')}) — 'auto' prices "
+                f"encode overhead")
         for b in self.plan.buckets:
             stages = " ; ".join(
                 f"{s.scheme}@{topo.levels[s.level].axis}"

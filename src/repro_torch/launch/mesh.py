@@ -20,11 +20,18 @@ CONSECUTIVE (the reference's ``launch/mesh.py`` grouping):
 (ranks ``[j*k, ..., j*k + k - 1]``), per cross-node column (``[i, i + k,
 ...]``) and per pod column, every rank making every group in one order.
 
-Tensor parallelism (``--mesh DxM``, M > 1) lays the world out as the
-reference's mesh ``(data, model)``, model innermost: rank ``d M + m``.
-:func:`make_mesh_groups` makes the model groups (M consecutive ranks)
-and the data groups (the D ranks that share a model index), every rank
-making every group in one order, model groups first.
+Tensor parallelism (``--mesh DxM`` or ``PxDxM``, M > 1) lays the world
+out as the reference's mesh ``(pod, dp_inter, dp_intra, model)``, model
+innermost: rank ``((p D/k + i) k + j) M + m`` with k the node size, that
+is ``w M + m`` for the data index ``w = p D + d`` (pod-major).
+:func:`mesh_groups` makes, on every rank and in one order, the model
+groups (M consecutive ranks), the data groups (the P x D ranks that share
+a model index) and then, for each model index in turn, every level group
+of its data group (the nodes, the cross-node columns and the pod columns
+of :func:`level_keys`), and hands each data group its level groups
+already made: ``DistGroup.split`` finds them there and never calls
+``new_group`` itself, which on one model index's ranks alone would
+deadlock the others.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.core.schemes import DistGroup, world_sizes
+from repro_torch.core.schemes import DistGroup, level_rows, world_sizes
+from repro_torch.core.topology import build_topology
 
 BACKENDS = ("gloo", "nccl")
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
@@ -64,35 +72,73 @@ def make_level_groups(group, topology, pods: int = 1) -> None:
     ``DistGroup`` this calls ``dist.new_group`` for every group on every
     rank in one order; on the in-process group it only checks the
     layout."""
+    for sizes, axis in level_keys(topology, pods):
+        group.split(sizes, axis)
+
+
+def level_keys(topology, pods: int = 1
+               ) -> list[tuple[tuple[int, ...], int]]:
+    """``[(sizes, axis), ...]``: the levels larger than one rank of a world
+    of ``pods`` x ``topology.n`` ranks, as GradSync splits it
+    (``world_sizes``), in the order every rank makes their groups; none
+    for the flat world without pods (the one group is the world)."""
     if topology.flat and pods == 1:
-        return   # the one flat group is the world itself
+        return []
     sizes = world_sizes(topology, pods)
-    for axis, size in enumerate(sizes):
-        if size > 1:
-            group.split(sizes, axis)
+    return [(sizes, axis) for axis, size in enumerate(sizes) if size > 1]
 
 
-def make_mesh_groups(backend: str, tp: int, device: str | None = None
-                     ) -> tuple[DistGroup, DistGroup | None, torch.device]:
-    """Join torchrun's world as a ``DxM`` mesh with ``tp`` = M: ``(data
-    group, model group, device)``.  At M = 1 the data group is the world
-    and there is no model group (:func:`make_data_group`).  Call
-    ``dist.destroy_process_group()`` when done."""
-    world, dev = make_data_group(backend, device)
-    if tp == 1:
-        return world, None, dev
-    if world.n % tp:
-        dist.destroy_process_group()
-        raise ValueError(f"{world.n} processes do not make a mesh with "
-                         f"M={tp} model ranks")
-    rank, groups = world.ranks[0], {}
+def mesh_groups(world: DistGroup, tp: int, pods: int = 1,
+                node_size: int = 1) -> tuple[DistGroup, DistGroup]:
+    """Lay the joined ``world`` out as a ``PxDxM`` mesh with ``tp`` = M > 1
+    (D = world / (P M), nodes of ``node_size`` data ranks): ``(data group,
+    model group)`` of this rank, its data group holding its level groups.
+    Every rank makes every group of the world in one fixed order (a
+    collective call: every rank must call it alike); calling it again
+    lays the same world out anew through new groups."""
+    n, rank = world.n, world.ranks[0]
+    if n % (tp * pods):
+        raise ValueError(f"{n} processes do not make a mesh of {pods} "
+                         f"pod(s) with M={tp} model ranks")
+    ndata = n // tp
+    check_node_size(ndata // pods, node_size)
+    groups = {}
     for kind, members in (
-            [("model", list(range(b, b + tp))) for b in range(0, world.n, tp)]
-            + [("data", list(range(m, world.n, tp))) for m in range(tp)]):
+            [("model", list(range(b, b + tp))) for b in range(0, n, tp)]
+            + [("data", list(range(m, n, tp))) for m in range(tp)]):
         pg = dist.new_group(members)
         if rank in members:
             groups[kind] = DistGroup(pg)
-    return groups["data"], groups["model"], dev
+    data = groups["data"]
+    keys = level_keys(build_topology(ndata // pods, node_size), pods)
+    for m in range(tp):
+        for sizes, axis in keys:
+            mine = None
+            for rows in level_rows(sizes, axis):
+                pg = dist.new_group([w * tp + m for w in rows])
+                if rank % tp == m and rank // tp in rows:
+                    mine = DistGroup(pg)
+            if mine is not None:
+                data.adopt_level(sizes, axis, mine)
+    return data, groups["model"]
+
+
+def make_mesh_groups(backend: str, tp: int, pods: int = 1,
+                     node_size: int = 1, device: str | None = None
+                     ) -> tuple[DistGroup, DistGroup | None, torch.device]:
+    """Join torchrun's world as a ``PxDxM`` mesh with ``tp`` = M: ``(data
+    group, model group, device)`` (:func:`mesh_groups`).  At M = 1 the
+    data group is the world and there is no model group
+    (:func:`make_data_group`; :func:`make_level_groups` makes its level
+    groups).  Call ``dist.destroy_process_group()`` when done."""
+    world, dev = make_data_group(backend, device)
+    if tp == 1:
+        return world, None, dev
+    try:
+        return (*mesh_groups(world, tp, pods, node_size), dev)
+    except ValueError:
+        dist.destroy_process_group()
+        raise
 
 
 def make_data_group(backend: str, device: str | None = None

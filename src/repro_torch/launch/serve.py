@@ -29,6 +29,15 @@ sequence-sharded cache (whisper's cross cache whole on every rank), and
 the first token is the argmax of the gathered last-position logits
 (``--pad-heads`` and ``--moe-a2a`` as in ``launch/train.py``).  Only rank
 0 prints.
+
+``--mesh DxM`` or ``PxDxM`` with P x D > 1 serves data-parallel under
+``torchrun --nproc-per-node P*D*M`` (M may be 1; rank ``w M + m``,
+``launch/mesh.py``): data rank ``w`` (pod-major) takes the batch's
+contiguous rows ``[w B / (P D), (w + 1) B / (P D))``, the reference's
+``batch_pspecs`` order, and serves them over its model group as above;
+the greedy tokens and the last-position logits are gathered over the
+data group in the batch's order.  A batch that P x D does not divide
+raises.
 """
 from __future__ import annotations
 
@@ -76,7 +85,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1x1",
-                    help="1xM: M tensor-parallel ranks (with --dist)")
+                    help="DxM or PxDxM: P x D data-parallel ranks of M "
+                         "tensor-parallel ranks each (P x D x M > 1: with "
+                         "--dist)")
     ap.add_argument("--dist", default=None, choices=BACKENDS,
                     help="one rank per process under torchrun, over this "
                          "torch.distributed backend")
@@ -88,8 +99,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the model axis (M > 1)")
     args = ap.parse_args(argv)
     pods, dp, _ = parse_mesh(args.mesh)
-    if pods * dp != 1:
-        ap.error(f"--mesh {args.mesh}: the server runs 1xM meshes")
+    if pods * dp > 1 and args.dist is None:
+        ap.error(f"--mesh {args.mesh}: a data-parallel server runs one "
+                 f"process a rank: start it under torchrun with --dist")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1 \
             or (args.layers is not None and args.layers < 1):
         ap.error("--gen, --prompt-len, --batch and --layers must be "
@@ -125,27 +137,30 @@ def handoff(prog: Program, cache: dict) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Serve one batch; returns the prompt, the generated tokens [B, gen],
-    prefill's last-position logits (f32, CPU, every vocab shard), per-step
-    max logits and top-2 gaps, prefill ms, decode tok/s (host clock after
-    a device sync), the positions the first layer's decode cache holds
+    """Serve one batch; returns the prompt, the generated tokens [B, gen]
+    and prefill's last-position logits (f32, CPU, every vocab shard), both
+    of the whole batch, the rows ``(lo, hi)`` this process served, its
+    per-step max logits and top-2 gaps, prefill ms, decode tok/s (host
+    clock after a device sync; the slowest data rank's), the positions the first layer's decode cache holds
     at the end (``cache_pos``: this rank's share) and this process's
     model kernels' launch and plain-call counters (and the launches of
     the decode steps alone: whisper's cross-attention)."""
     args = parse_args(argv)
     if args.dist is None:
-        return serve(args, None, args.device)
-    _, model_group, dev = make_mesh_groups(args.dist,
-                                           parse_mesh(args.mesh)[2],
-                                           args.device)
+        return serve(args, None, None, args.device)
+    pods, _, tp = parse_mesh(args.mesh)
+    group, model_group, dev = make_mesh_groups(args.dist, tp, pods,
+                                               device=args.device)
     try:
-        return serve(args, model_group, dev)
+        return serve(args, group, model_group, dev)
     finally:
         dist.destroy_process_group()
 
 
-def serve(args, model_group, device) -> dict:
-    """``main``'s run on a model group already joined (None at M = 1)."""
+def serve(args, group, model_group, device) -> dict:
+    """``main``'s run on groups already joined: ``group`` the data group of
+    the mesh's P x D ranks (None: one process serves the whole batch),
+    ``model_group`` the model group (None at M = 1)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -154,12 +169,20 @@ def serve(args, model_group, device) -> dict:
             cfg.n_enc_layers, args.layers))
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=DTYPES[args.dtype])
+    ndata = 1 if group is None else group.n
+    B, S = args.batch, args.prompt_len
+    if B % ndata:
+        raise ValueError(f"--batch {B} does not split over the mesh "
+                         f"{args.mesh}'s P x D = {ndata} data ranks")
+    w = 0 if group is None else group.ranks[0]
+    lo, hi = w * B // ndata, (w + 1) * B // ndata   # this rank's sequences
     prog = build_program(cfg, args.mesh, device=device, seed=args.seed,
                          backend=args.backend, model_group=model_group,
-                         pad_heads=args.pad_heads, moe_a2a=args.moe_a2a)
+                         group=group if ndata > 1 else None,
+                         pad_heads=args.pad_heads,
+                         moe_a2a=args.moe_a2a)
     dev = prog.device
-    B, S = args.batch, args.prompt_len
-    root = prog.model.ctx.tp_rank() == 0
+    root = prog.model.ctx.tp_rank() == 0 and w == 0
     log = print if root else (lambda *a, **k: None)   # rank 0 prints
     log(f"arch={cfg.name} mesh={args.mesh} params="
           f"{sum(p.numel() for p in prog.model.parameters()) / 1e6:.1f}M "
@@ -173,10 +196,10 @@ def serve(args, model_group, device) -> dict:
 
     b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=S, batch=B,
                                               seed=args.seed))))
-    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev).long(),
-             **{k: torch.as_tensor(b[k], device=dev)
+    batch = {"tokens": torch.as_tensor(b["tokens"][lo:hi], device=dev).long(),
+             **{k: torch.as_tensor(b[k][lo:hi], device=dev)
                 for k in MODEL_INPUTS if k in b}}
-    attach_serve(prog, seq_len=S, global_batch=B, mode="prefill")
+    attach_serve(prog, seq_len=S, global_batch=hi - lo, mode="prefill")
     sync()
     t0 = time.perf_counter()
     logits, cache = prog.prefill_step(batch)
@@ -184,7 +207,8 @@ def serve(args, model_group, device) -> dict:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     in_prefill = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
 
-    attach_serve(prog, seq_len=S + args.gen, global_batch=B, mode="decode")
+    attach_serve(prog, seq_len=S + args.gen, global_batch=hi - lo,
+                 mode="decode")
     decode = st.make_decode_step(prog.model, prog.cache_specs["window"],
                                  return_gap=True)
     lf = prog.model.gather_vocab(logits).float()
@@ -201,10 +225,19 @@ def serve(args, model_group, device) -> dict:
         gaps.append(gap)
     sync()
     decode_s = time.perf_counter() - t0
-    gen = torch.cat(out, dim=1).cpu().numpy()
     lmax_np = torch.stack(lmax).float().cpu().numpy()
     if not np.isfinite(lmax_np).all():
         raise FloatingPointError("non-finite logits while serving")
+    gen, lf_all = torch.cat(out, dim=1), lf
+    if ndata > 1:
+        # the data ranks' sequences in the batch's order; the slowest
+        # rank's clock
+        gen = group.all_gather(gen[None]).flatten(0, 1)
+        lf_all = group.all_gather(lf[None]).flatten(0, 1)
+        clock = torch.tensor([[prefill_ms, decode_s]], dtype=torch.float64,
+                             device=dev)
+        prefill_ms, decode_s = group.all_gather(clock).amax(0).tolist()
+    gen = gen.cpu().numpy()
     tok_s = B * (args.gen - 1) / decode_s if args.gen > 1 else 0.0
     counts = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
     plain = {k: ops.PLAIN_CALLS[k] for k in ops.MODEL_KERNELS}
@@ -215,8 +248,8 @@ def serve(args, model_group, device) -> dict:
         f"plain calls {plain}", flush=True)
     log("sample token ids:", gen[0][:16].tolist())
     attn = next((c for c in cache["layers"] if "pos" in c), None)
-    return {"prompt": b["tokens"], "tokens": gen,
-            "prefill_logits": lf.cpu(), "logit_max": lmax_np,
+    return {"prompt": b["tokens"], "tokens": gen, "rows": (lo, hi),
+            "prefill_logits": lf_all.cpu(), "logit_max": lmax_np,
             "top2_gap": torch.stack(gaps).float().cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_s": decode_s,
             "decode_tok_per_s": tok_s, "launches": counts,

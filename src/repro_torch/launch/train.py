@@ -20,17 +20,22 @@ its D ranks, then the pods' results are averaged) run in one of two modes
   ``--device cpu``); nccl needs a GPU per rank.  Only rank 0 prints, and
   ``main`` returns the same dict on every rank.
 
-``--mesh DxM`` with M > 1 is tensor parallelism (every model kind), one
-process per (data, model) rank, rank ``d M + m``, so it needs ``--dist``:
+``--mesh DxM`` or ``PxDxM`` with M > 1 is tensor parallelism (every
+model kind), one process per (pod, data, model) rank, rank ``(p D + d) M
++ m`` (``launch/mesh.py``: the reference's mesh ``(pod, dp_inter,
+dp_intra, model)``, model innermost), so it needs ``--dist``:
 
-      PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
-          -m repro_torch.launch.train --arch qwen2-0.5b --mesh 2x2 \
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+          -m repro_torch.launch.train --arch qwen2-0.5b --mesh 2x2x2 \
           --dist gloo --sync zen --global-batch 8 --seq-len 512 --steps 4
 
 Each model rank holds its shards (``models/common.py``: the attention,
 MLP and Mamba2 heads over the model axis, as the reference shards them)
-and runs Zen on its ``[Vp/M, d]`` shard of ``embed/table`` over the D
-ranks of its data group; every process draws the same global batch
+and runs Zen on its ``[Vp/M, d]`` shard of ``embed/table`` over the P x
+D ranks of its data group: inside each pod (or, with ``--node-size k``,
+inside each node of k data ranks and then across the nodes, each level's
+groups made on every rank in one order), then the pods' mean; ZeRO-1
+chunks over the same P x D ranks.  Every process draws the same global batch
 (whisper's frames and pixtral's patches included) and keeps its data
 rank's rows.  ``--pad-heads`` pads the q heads to a multiple of M so that they
 shard (the reference's ``pad_heads``), ``--moe-a2a`` takes the
@@ -42,8 +47,13 @@ reference reports M times it (ROADMAP queue 3).
 nodes of k consecutive ranks, every bucket's plan run inside each node and
 then across the nodes (``core/topology.py``; ``--sync auto`` prices the
 plans on the α-β topology, whose defaults, or ``--alpha-beta``'s values,
-are planning constants, not measurements).  Flags the port does not run
-yet raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+are planning constants, not measurements).  ``--calib-file F`` prices
+``auto``'s choices with measured encode and commit times
+(``core/costmodel.CalibrationTable``); where F is missing, the run first
+calibrates on its own device and route (``CostCalibrator``, n = max(D,
+2), 3 iterations; under ``--dist`` world rank 0 measures and writes, and
+every rank loads it after a barrier, so that all plan alike), as
+``python -m repro_torch.core.costmodel --calib-file F`` does.
 The optimizer runs ZeRO-1, as the reference's does: each of the P x D
 ranks updates its flat chunk of every leaf and keeps only that chunk's
 moments, and the chunks are all-gathered back; ``--no-zero1`` runs the
@@ -75,11 +85,14 @@ decoders, whose router stats (``moe/aux_loss``, ``moe/dropped``,
 encoder-decoder (its batches carry f32 stub ``frames``) and
 ``pixtral-12b`` the VLM backbone (f32 stub ``patches``, a prefix whose
 positions take no loss); ``minicpm3-4b`` the dense decoder with MLA.
-The plan GradSync runs is printed at start.
+``--layers N`` keeps the first N layers (a depth cut, as
+``launch/serve.py``'s: an encoder-decoder's encoder too).  The plan
+GradSync runs is printed at start.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -90,6 +103,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.io import gather_params, save
 from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.costmodel import CostCalibrator
 from repro_torch.core.registry import cli_scheme_choices
 from repro_torch.core.sparsify import DensityController
 from repro_torch.core.zen import SyncConfig
@@ -106,6 +120,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut, as "
+                         "launch/serve.py's; an encoder-decoder's encoder "
+                         "too)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -124,7 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "'a_intra,b_intra,a_inter,b_inter' (µs, µs per "
                          "f32 word) or 'a,b' for every level")
     ap.add_argument("--compress", default="none")
-    ap.add_argument("--calib-file", default=None)
+    ap.add_argument("--calib-file", default=None,
+                    help="measured-cost table for --sync auto (written "
+                         "first, on this device, where it is missing)")
     ap.add_argument("--no-fused-commit", action="store_true")
     ap.add_argument("--replan-every", type=int, default=0)
     ap.add_argument("--no-zero1", action="store_true")
@@ -167,8 +187,9 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.dist is None:
         return train(args, None, None, args.device)
+    pods, _, tp = parse_mesh(args.mesh)
     group, model_group, dev = make_mesh_groups(
-        args.dist, parse_mesh(args.mesh)[2], args.device)
+        args.dist, tp, pods, args.node_size, args.device)
     try:
         return train(args, group, model_group, dev)
     finally:
@@ -188,6 +209,14 @@ def train(args, group, model_group, device) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers, n_enc_layers=min(
+            cfg.n_enc_layers, args.layers))
+    world = DistGroup() if group is not None else None   # every process
+    root = world is None or world.ranks[0] == 0
+    log = print if root else _quiet   # rank 0 prints
+    if args.calib_file and not Path(args.calib_file).exists():
+        calibrate(args, device, root, log)
     tcfg = TrainerConfig(
         opt=OptConfig(lr=args.lr), zero1=not args.no_zero1,
         sync=SyncConfig(scheme=args.sync, density_budget=args.density_budget,
@@ -203,9 +232,6 @@ def train(args, group, model_group, device) -> dict:
     topo = prog.gradsync.topology
     make_level_groups(prog.group, topo, prog.pods)
     dev = prog.device
-    world = DistGroup() if group is not None else None   # every process
-    root = world is None or world.ranks[0] == 0
-    log = print if root else _quiet   # rank 0 prints
     n_params = sum(p.numel() for p in prog.model.parameters())
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
         f"sync={args.sync} compress={args.compress} backend={args.backend} "
@@ -228,7 +254,8 @@ def train(args, group, model_group, device) -> dict:
             prog.gradsync.compressed_buckets(),
             prog.gradsync.bucket_schemes(), n=prog.n_data,
             threshold=tcfg.sync.auto_threshold,
-            topology=None if topo.flat else topo)
+            topology=None if topo.flat else topo,
+            calib=prog.gradsync.calib)
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -331,6 +358,22 @@ def train(args, group, model_group, device) -> dict:
                    for i, k in enumerate(kops.KERNELS)}
         log(f"dist result {json.dumps({**out, 'launches_by_rank': by_rank})}")
     return out
+
+
+def calibrate(args, device, root: bool, log) -> None:
+    """Write ``args.calib_file`` before the plan is made: a
+    ``CostCalibrator`` on this run's device and route at n = max(D, 2),
+    3 iterations (the reference's first use).  Under a process group
+    world rank 0 measures and writes while the others wait at a barrier,
+    so that every rank loads the same table."""
+    if root:
+        n = max(parse_mesh(args.mesh)[1], 2)
+        log(f"calibrating encode/commit times -> {args.calib_file}",
+            flush=True)
+        CostCalibrator(backend=args.backend, n=n, iters=3,
+                       device=device).measure().save(args.calib_file)
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _quiet(*_args, **_kwargs) -> None:

@@ -4,8 +4,8 @@ need).  A mesh is ``DxM`` or ``PxDxM`` (P pods of D data-parallel ranks,
 M tensor-parallel ranks each); ``node_size`` splits D into nodes (a
 two-level topology, ``launch/mesh.py`` lays the ranks out).  M > 1 runs
 one process per rank (``launch/mesh.make_mesh_groups``) for every model
-kind, with P = 1 and node size 1; pods and nodes beside M > 1 raise
-naming ROADMAP queue 1, item 9."""
+kind, beside pods and nodes too; the model axis held in one process
+raises naming ROADMAP queue 1, item 9."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,27 +34,19 @@ def parse_mesh(mesh: str | Sequence[int]) -> tuple[int, int, int]:
     return pods, dp, tp
 
 
-def check_tp(mesh, node_size: int = 1, model_group=None) -> None:
+def check_tp(mesh, model_group=None) -> None:
     """What M > 1 does not run raises ``NotImplementedError`` naming
-    ROADMAP queue 1, item 9: pods or nodes beside the model axis (their
-    level groups need a world-wide ``new_group`` order not built yet),
-    and the model axis held in one process (no model group)."""
+    ROADMAP queue 1, item 9: the model axis held in one process (no model
+    group)."""
     pods, dp, tp = parse_mesh(mesh)
-    if tp == 1:
-        return
-    if pods > 1 or node_size > 1:
-        raise NotImplementedError(
-            f"tensor parallelism with pods or nodes (mesh {mesh!r}, node "
-            f"size {node_size}) is not ported yet (ROADMAP queue 1, item "
-            f"9): M > 1 runs DxM meshes with node size 1")
-    if model_group is None:
+    if tp > 1 and model_group is None:
         raise NotImplementedError(
             f"tensor parallelism (mesh {mesh!r}, M={tp}) runs one process "
             f"per rank: start it with `torchrun --standalone "
-            f"--nproc-per-node {dp * tp} -m repro_torch.launch.train --mesh "
-            f"{mesh} --dist gloo ...` (or nccl, a GPU a rank); holding the "
-            f"model axis in one process is not built (ROADMAP queue 1, "
-            f"item 9)")
+            f"--nproc-per-node {pods * dp * tp} -m repro_torch.launch.train "
+            f"--mesh {mesh} --dist gloo ...` (or nccl, a GPU a rank); "
+            f"holding the model axis in one process is not built (ROADMAP "
+            f"queue 1, item 9)")
 
 
 @dataclasses.dataclass
@@ -128,7 +120,7 @@ def build_program(cfg: ArchConfig, mesh, tcfg: TrainerConfig | None = None,
     (``pad_heads``, ``moe_a2a``)."""
     pods, dp, tp = parse_mesh(mesh)
     check_node_size(dp, node_size)
-    check_tp(mesh, node_size, model_group)
+    check_tp(mesh, model_group)
     if group is not None and group.n != pods * dp:
         pods_ = f" in each of {pods} pods" if pods > 1 else ""
         raise ValueError(f"mesh {mesh!r} has D={dp} data-parallel ranks"

@@ -332,11 +332,19 @@ def test_auto_picks_zen_at_the_qwen2_embedding_and_compressed_buckets():
         assert TC.choose_scheme(t, 8) == RC.choose_scheme(r, 8) == "zen"
 
 
-def test_calibration_raises_naming_its_item():
+def test_calibration_raises_naming_its_item(tmp_path):
+    """Calibration (ROADMAP queue 1, item 7) is ported: ``calib=`` takes a
+    table (the identity table keeps the analytic decision;
+    tests/test_torch_calibration.py holds the rest), and what it refuses,
+    a table of the reference's backends, raises naming the backend."""
     p = TC.worst_case_profile(1000, 0.1)
+    ident = TC.CalibrationTable.identity()
     for fn, target in ((TC.choose_scheme, 4),
                        (TC.choose_plan, TT.two_level_topology(2, 2))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(p, target, calib=object())
+        assert fn(p, target, calib=ident) == fn(p, target)
+    path = tmp_path / "xla.json"
+    RC.CalibrationTable(entries=[{"backend": "xla"}]).save(path)
+    with pytest.raises(ValueError, match="backend 'xla'"):
+        TC.CalibrationTable.load(path)
     assert math.isfinite(TC.plan_time(TT.flat_plan("zen"), p,
                                       TT.flat_topology(4)))

@@ -80,7 +80,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_gpu):
 def test_unported_meshes_and_flags_raise():
     """What tensor parallelism (M > 1) does not run raises naming its
     ROADMAP item: M > 1 without ``--dist`` (the model axis is one process
-    a rank), and pods or ``--node-size > 1`` beside the model axis; every
+    a rank), beside pods or ``--node-size > 1`` too, which build with a
+    model group (tests/test_torch_mesh3.py runs them); every
     kind builds at 1x2 (the ssm, hybrid, MLA, enc_dec and vlm kinds here,
     with a stand-in model group: a build runs no collective; all of them
     run in tests/test_torch_tp*.py), as do pod meshes and ``--node-size``
@@ -112,6 +113,10 @@ def test_unported_meshes_and_flags_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                            "item 9"):
             build_program(qwen, mesh, device="cpu", node_size=node_size)
+        prog = build_program(qwen, mesh, device="cpu", node_size=node_size,
+                             model_group=types.SimpleNamespace(
+                                 ranks=(0,), n=2, pg=None))
+        assert (prog.pods * prog.n_data, prog.node_size) == (4, node_size)
     ref = ast.parse((ROOT / "src" / "repro" / "configs" /
                      "minicpm3_4b.py").read_text())
     call = next(n for n in ast.walk(ref) if isinstance(n, ast.Call)

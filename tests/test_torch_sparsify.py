@@ -569,5 +569,10 @@ def test_controller_profiles_feed_gradsync_replan():
     assert others and set(others.values()) == {"zen"}
     assert gs1.compressed_buckets() == gs0.compressed_buckets()
     assert gs1.describe() == ref1.describe()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sp.DensityController({}, {}, 2, calib=object())
+    # calibration (ROADMAP queue 1, item 7): the identity table re-plans
+    # as no table does
+    ident = sp.DensityController(gs0.compressed_buckets(),
+                                 gs0.bucket_schemes(), 2, ema=0.0,
+                                 calib=TC.CalibrationTable.identity())
+    ident.observe(_stats_for(key0, 0.7, 1.0))
+    assert ident.schemes() == t.schemes()

@@ -154,13 +154,15 @@ def test_gradsync_matches_reference(scheme):
 
 
 def test_gradsync_rejects_unported_settings():
-    """Calibration (item 7) still raises; an α-β override is accepted
-    (the trainer's topology reads it: tests/test_torch_hier.py); every
-    registry scheme and 'auto' build and run."""
+    """Calibration (item 7) takes a table file, and one that is not there
+    raises (the launcher writes it first: tests/test_torch_calibration.py);
+    an α-β override is accepted (the trainer's topology reads it:
+    tests/test_torch_hier.py); every registry scheme and 'auto' build and
+    run."""
     leaves = [("embed/table", (64, 4), torch.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GradSync(SyncConfig(calib_file="calib.json"), ["embed/table"],
-                 leaves, 4)
+    with pytest.raises(FileNotFoundError):
+        GradSync(SyncConfig(calib_file="no-such-calib.json"),
+                 ["embed/table"], leaves, 4)
     assert GradSync(SyncConfig(alpha_beta="1,1"), ["embed/table"], leaves,
                     4).topology.flat
     g = torch.zeros((4, 64, 4))

@@ -10,7 +10,7 @@ of ``inputs["arch"]``'s reduced config under ``params/``, a batch, a
 prompt and the reference's Zen hash seeds; or, with ``inputs["archs"]``,
 the same under ``<arch>/`` for each of several configs), joins the mesh
 ``DxM`` with M = 2 and D = the process count / 2 through
-``launch.mesh.make_mesh_groups("gloo", 2, "cpu")``, runs the JOBs and
+``launch.mesh.make_mesh_groups("gloo", 2, device="cpu")``, runs the JOBs and
 writes ``DIR/rank<r>.npz`` (a config's results under ``<arch>/``, a JOB
 ``ARCH:JOB`` running on that config alone).  It imports only torch, numpy
 and ``repro_torch``: the JAX reference runs in the test's processes.
@@ -296,7 +296,7 @@ def main(work: Path, jobs: list[str]) -> None:
     torch.set_num_threads(1)
     inp = dict(np.load(work / "inputs.npz"))
     out: dict = {}
-    groups = make_mesh_groups("gloo", TP, "cpu")
+    groups = make_mesh_groups("gloo", TP, device="cpu")
     archs = [str(a) for a in inp["archs"]] if "archs" in inp else [""]
     try:
         for arch in archs:

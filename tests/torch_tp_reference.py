@@ -4,6 +4,7 @@ host devices (its XLA flags must be set before JAX is imported).
 
     python tests/torch_tp_reference.py OUT.npz dense|moe
     python tests/torch_tp_reference.py OUT.npz arch ARCH [zen]
+    python tests/torch_tp_reference.py OUT.npz mesh3 ARCH [ARCH ...]
 
 All in f32 on the reduced configs, from the 1-device init of seed 0
 (the parameters the tests give the port), with the tests' batch
@@ -30,11 +31,24 @@ argmax, then 7 decode steps from the prefill's cache carried into the
 decode cache (each model rank's slots, as the port's
 ``launch/serve.py::handoff`` carries them).  Keys are '/'-joined; a
 device is named by its mesh coordinates ``d<d>m<m>``.
+
+``mesh3`` (``tests/test_torch_mesh3.py``; 8 forced host devices) runs
+each ARCH (``olmoe-1b-7b`` with ``moe_a2a``) at the meshes ``(pod, data,
+model)`` = (2, 2, 2) and ``(data, model)`` = (4, 2) split into nodes of
+2 (``(dp_inter, dp_intra, model)``), from the 1-device init placed on
+each: every parameter's shard on each device, and 4 AdamW steps with Zen
+on the mesh3 batch (8 x 32 tokens): the losses and each device's
+``sync/sparse_sent_words``, ``sync/intra_words``, ``sync/inter_words``
+and ``sync/overflow``; for qwen2-0.5b also the prefill at (2, 2) of the
+mesh3 prompt (4 x 16 tokens): the gathered last-position logits.  Keys
+are ``<arch>/<layout>/...``, a device named ``r<rank>`` by its place in
+the mesh, model innermost (the port's world rank).
 """
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=" + (
+    "8" if sys.argv[2:3] == ["mesh3"] else "4")
 
 import dataclasses  # noqa: E402
 
@@ -242,9 +256,63 @@ def arch_runs(out: dict, arch: str, zen: bool) -> None:
             [np.asarray(t) for t in toks], 1)
 
 
+MESH3_BATCH, MESH3_PROMPT_BATCH = 8, 4
+MESH3_LAYOUTS = {"2x2x2": ((2, 2, 2), ("pod", "data", "model"), 1),
+                 "4x2n2": ((4, 2), ("data", "model"), 2)}
+
+
+def rank_of(mesh, device) -> str:
+    idx = np.argwhere(mesh.devices == device)[0]
+    return f"r{int(np.ravel_multi_index(tuple(idx), mesh.devices.shape))}"
+
+
+def mesh3(out: dict, archs: list[str]) -> None:
+    for arch in archs:
+        cfg = cfg_of(arch)
+        a2a = cfg.kind == "moe"
+        batch = batch_of(cfg, SEQ, MESH3_BATCH)
+        for tag, (shape, axes, ns) in MESH3_LAYOUTS.items():
+            pre = f"{arch}/{tag}"
+            mesh = make_mesh(shape, axes, node_size=ns)
+            prog = build_program(cfg, mesh, TrainerConfig(
+                sync=SyncConfig(scheme="zen")), moe_a2a=a2a)
+            attach_train(prog, seq_len=SEQ, global_batch=MESH3_BATCH)
+            params = placed(cfg, prog)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    params)[0]:
+                name = "/".join(str(k.key) for k in path)
+                for s in leaf.addressable_shards:
+                    out[f"{pre}/shard/{name}/{rank_of(mesh, s.device)}"] = \
+                        np.asarray(s.data)
+            opt = prog.init_opt(params)
+            losses = []
+            for _ in range(STEPS):
+                params, opt, m = prog.train_step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                for k in ("sync/sparse_sent_words", "sync/intra_words",
+                          "sync/inter_words", "sync/overflow"):
+                    if k in m:
+                        for s in m[k].addressable_shards:
+                            out.setdefault(
+                                f"{pre}/{k}/{rank_of(mesh, s.device)}",
+                                []).append(float(np.asarray(s.data)))
+            out[f"{pre}/loss"] = np.array(losses)
+        if arch == "qwen2-0.5b":
+            mesh = make_mesh((2, 2), ("data", "model"))
+            prog = build_program(cfg, mesh)
+            attach_serve(prog, seq_len=PROMPT,
+                         global_batch=MESH3_PROMPT_BATCH, mode="prefill")
+            prompt = batch_of(cfg, PROMPT, MESH3_PROMPT_BATCH)["tokens"]
+            logits, _ = prog.prefill_step(placed(cfg, prog),
+                                          {"tokens": prompt})
+            out[f"{arch}/serve22/logits"] = np.asarray(logits)
+
+
 if __name__ == "__main__":
     res: dict = {}
-    if sys.argv[2] == "arch":
+    if sys.argv[2] == "mesh3":
+        mesh3(res, sys.argv[3:])
+    elif sys.argv[2] == "arch":
         arch_runs(res, sys.argv[3], sys.argv[4:] == ["zen"])
     else:
         {"dense": dense, "moe": moe}[sys.argv[2]](res)
