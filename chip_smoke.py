@@ -89,10 +89,10 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill per model.
   7b. mamba2_train: the mamba2-370m trainer (``build_program`` +
      ``attach_train``, as ``launch/train.py --mesh 8x1`` builds it) at full
-     width and 6 of its 48 layers, so that the whole run stays inside its
+     width and 2 of its 48 layers, so that the whole run stays inside its
      time limit (24 layers until phase 7h came, 12 until phase 7i; global
      batch 8 x 512, Zen on ``embed/table``, 4 steps): finite loss, 0
-     overflow, ``ssd_fwd`` launched 6 x 8 x steps times under ``SSDScan``
+     overflow, ``ssd_fwd`` launched 2 x 8 x steps times under ``SSDScan``
      with as many plain
      recomputes
      in its backward, Zen's kernels 8 x steps times, nothing plain; the
@@ -104,10 +104,10 @@ Phases (any failure exits non-zero; nothing is caught):
      layers, so no check asks it to fall); step time, tok/s, peak memory
      and one profiled step (``ssd_fwd``'s device ms, idle share).
   7c. compress: EF compression on the qwen2-0.5b 8x1 trainer at full
-     width and 4 of its 24 layers (``COMPRESS_LAYERS``), 25 MiB buckets,
-     ``--sync zen --compress topk:0.01`` (18 compressed dense buckets,
+     width and 2 of its 24 layers (``COMPRESS_LAYERS``), 25 MiB buckets,
+     ``--sync zen --compress topk:0.01`` (10 compressed dense buckets,
      ``lm_head/w`` among them, and the embedding, all on Zen's fused
-     kernels), 4 steps: finite losses, every fused kernel launched 8 x 19
+     kernels), 4 steps: finite losses, every fused kernel launched 8 x 11
      times a step, nothing plain, words under 10 % of the dense buckets'
      uncompressed words; at step 0 the EF invariant bitwise for every
      bucket, and Zen on each bucket's sent payload against its psum
@@ -127,7 +127,7 @@ Phases (any failure exits non-zero; nothing is caught):
      dyadic streams every worker exactly the psum; ms a sync on both
      routes; ``coo_scatter_add`` timed at agsparse's reduce (row 8b: 8 x
      37984 EMPTY-padded rows into [151936, 896]) against ``index_add_``.
-     Then the 8x1 trainer at full width and ``CUT_LAYERS`` (8) of 24
+     Then the 8x1 trainer at full width and ``CUT_LAYERS`` (2) of 24
      layers: ``--sync auto`` 4 steps (the plan puts zen on
      ``embed/table``; losses and words bitwise ``--sync zen``'s at the
      same depth), each scheme 2 steps on the
@@ -152,7 +152,7 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill; f32 kernels vs plain within 1e-3 and the same tokens; one
      profiled prefill), then trained at full width on a 2x1 mesh (2 x 512
      tokens, Zen on ``embed/table``, 2 steps) at the depth ``ZOO`` sets
-     (28 and 16 layers: the peak must stay under 70 GiB), the kernel
+     (2 and 2 layers, to fit the run's time; the peak under 70 GiB), the kernel
      route bitwise its plain route, the peak memory logged.
   7g. hybrid_moe: zamba2-1.2b (38 Mamba2 layers and one shared attention
      block at the start of each of its 6 groups), olmoe-1b-7b (64 experts,
@@ -167,7 +167,7 @@ Phases (any failure exits non-zero; nothing is caught):
      top-2 gap is under 1e-1 on both routes), the smallest top-2 gap
      logged; one profiled bf16 prefill), then trained at full width on 2x1 (2 x 512
      tokens, Zen on ``embed/table``, 2 steps) at the depths ``HYBRID_MOE``
-     sets (38, 6 and 2 layers; the peak under 70 GiB) on both routes: the
+     sets (38, 2 and 2 layers; the peak under 70 GiB) on both routes: the
      MoE models' losses, grad norm, words, overflow and MoE stats
      (``moe/aux_loss``, ``moe/dropped``, ``moe/skew``) bitwise, zamba2's
      words and overflow bitwise and its losses within 5e-2 (its scan is
@@ -196,7 +196,8 @@ Phases (any failure exits non-zero; nothing is caught):
      greedy tokens, the smallest top-2 gap logged; one profiled bf16
      prefill), then trained at full width on 2x1 (2 x 512 tokens and each
      rank's frames or patches, Zen on ``embed/table``, 2 steps; whisper at
-     full depth, pixtral at 5 of 40 layers: the peak under 70 GiB) on both
+     6 of 24 encoder and decoder layers, pixtral at 2 of 40 (cut for the
+     run's time); the peak under 70 GiB) on both
      routes: losses, grad norm, words and overflow bitwise, overflow 0,
      the Zen kernels once a rank a step, nothing plain.  Then
      ``flash_fwd`` at the two models' shapes (``EDV_FLASH``: the encoder,
@@ -215,7 +216,7 @@ Phases (any failure exits non-zero; nothing is caught):
      nothing plain; f32 kernels vs the plain route within 1e-3 and the same
      greedy tokens; one profiled bf16 prefill), then trained under ZeRO-1
      at full width on 2x1 (2 x 512 tokens, Zen on ``embed/table``, 2
-     steps) at 12 of 62 layers (cut from 38) on both routes:
+     steps) at 2 of 62 layers (cut from 38) on both routes:
      losses, grad norm, words and overflow bitwise, the Zen kernels once a
      rank a step, nothing plain.  ``flash_fwd`` at its prefill shape (B 8,
      S 512, 40 / 40 heads, q/k 96, v 64, causal) against the plain
@@ -269,10 +270,10 @@ Phases (any failure exits non-zero; nothing is caught):
      shard; 4 steps on the kernels, 2 on the plain route: losses, words,
      grad norm bitwise; overflow 0; the three Zen kernels once a step on
      every process, nothing plain; step s, tok/s and peak GiB a process
-     logged); in f32 at 2 of 24 layers the 2x2 run against a 2x1 run on
+     logged); in f32 at 1 of 24 layers the 2x2 run against a 2x1 run on
      the ranks of model index 0 (step 0 within 1e-5, 4 steps within
      1e-3, the step-0 grad norm within 1e-4 relative: the true gradient);
-     olmoe-1b-7b at 2x2 and 2 of 16 layers, ``moe_ffn_a2a`` and the
+     olmoe-1b-7b at 2x2 and 1 of 16 layers, ``moe_ffn_a2a`` and the
      replicated dispatch, each route bitwise the other (losses, grad norm,
      words, overflow, ``moe/*``), and in f32 at 1 layer with the capacity
      factor at E / K (no pair can drop) a2a within 1e-4 of replicated at
@@ -315,6 +316,30 @@ Phases (any failure exits non-zero; nothing is caught):
      4, 2 steps on each route, bitwise, each plan the host's
      ``choose_scheme`` / ``choose_plan`` on the table, logged beside the
      uncalibrated plan with the words at each level.
+  8f. lint: zenlint (``repro_torch.analysis.lint``, every layer) on the
+     card: the AST rules and the registry coverage over the checkout, then
+     the trace sweep on the kernels (every executable scheme x {flat,
+     hier} x n in {2, 8} on ``SimGroup`` at M 4096, Zen's ``fused-commit``
+     and ``unfused`` routes, ``run_schedule`` with its encodes on a side
+     stream), each traced sync under ``torch.cuda.set_sync_debug_mode
+     ("error")``: no finding; ``zen_encode``, ``zen_commit_push``,
+     ``zen_commit_pull``, ``hash_stage``, ``row_compact``, ``bitmap_pack``,
+     ``bitmap_unpack`` and ``coo_scatter_add`` launched, none on its
+     plain version; the card's recorded bytes (``collective_wire``) equal,
+     case by case, the same sweep's on the plain versions (``--device
+     cpu``).  When phase 8 ran, its 4 gloo ranks also ran the sweep on
+     their ``DistGroup`` at n 4: no finding, and each rank's bytes those
+     of the in-process ``SimGroup(4)`` sweep on the card.
+  8g. examples: the port's four examples on the card:
+     ``examples/torch_quickstart.py`` (its asserts: Zen equals the dense
+     allreduce, balanced under full skew, EF top-k under 10 % of the
+     ring's words), ``torch_train_e2e.py`` (8 layers at d 512 with the
+     full vocabulary, 8 x 256 tokens, ``EXAMPLE_STEPS`` of its 200 steps:
+     the loss falls, the checkpoint restores bitwise),
+     ``torch_serve_batched.py`` (the reduced qwen2, 4 x 32 + 48: its
+     tokens ``launch/serve.py --reduced``'s on the same prompt) and
+     ``torch_analyze_sparsity.py`` (the row masks the batches' token sets);
+     ``flash_fwd`` launched.
   9. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
@@ -343,6 +368,7 @@ card's name and power limit (``nvidia-smi``), the last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -739,12 +765,13 @@ def phase_kernels(dev) -> dict:
 
 
 COMPRESS = "topk:0.01"
-# phase 7c's depth: 4 of qwen2-0.5b's 24 layers, at full width (its plan:
-# 19 buckets, 18 of them compressed, lm_head/w among them; at full depth
+# phase 7c's depth: 2 of qwen2-0.5b's 24 layers, at full width (its plan:
+# 11 buckets, 10 of them compressed, lm_head/w among them; at full depth
 # 99 and 98, and the phase took 178.4 s on one H100, 62 s of it the plain
-# route's one step; at 8 layers 35 and 34, 102.3 s)
-COMPRESS_LAYERS = 4
-COMPRESS_PLAN = (19, 18)
+# route's one step; at 8 layers 35 and 34, 102.3 s; at 4 layers 19 and 18,
+# 94.7 s, cut to 2 to make room for phases lint and examples)
+COMPRESS_LAYERS = 2
+COMPRESS_PLAN = (11, 10)
 # the compressed path's widest buckets at n = 8: a 25 MiB bf16 bucket of
 # qwen2-0.5b's ffn leaves (three [896, 4864] leaves) and its lm_head/w
 WIDE = {"c": ("25 MiB ffn bucket", 13_074_432),
@@ -1363,8 +1390,9 @@ OVERLAP_REPEATS = 5
 # trainers'), cut from 24 to keep the whole run's time: each step's host
 # work over 8 ranks and every layer is most of their time, and with them
 # at full depth the whole smoke took 1213.5 s on one H100 (700 W) whose
-# host ran the other phases about 25 % slower than usual
-CUT_LAYERS = 8
+# host ran the other phases about 25 % slower than usual; 8 layers until
+# phases lint and examples came, 2 since
+CUT_LAYERS = 2
 
 
 def qwen_argv(n: int, steps: int, *extra: str) -> list[str]:
@@ -2554,22 +2582,23 @@ def dist_zen_sync(dev, mesh3: dict | None = None) -> list[dict] | None:
     return ranks8
 
 
-def phase_dist(dev, smi: str, tp: bool = False, mesh3: dict | None = None
-               ) -> tuple[list[dict], list[dict] | None]:
+def phase_dist(dev, smi: str, tp: bool = False, mesh3: dict | None = None,
+               lint: bool = False) -> tuple[list[dict], list[dict] | None]:
     """The per-rank data-parallel path over a gloo group on this one card:
     zen_sync at the slice shapes on 8 ranks (and two-level plans over
     nodes of 4 and 2), then the full-width trainer on 4 ranks, per leaf,
     with 25 MiB buckets and on nodes of 2 ranks, against the in-process
     4x1 trainer on the same topology.  The 4 ranks are one torchrun
     (``gloo4_ranks``) that also runs phase tp's work when ``tp`` is set
-    (a start of 4 processes costs about 20 s); the 8 zen_sync ranks run
+    (a start of 4 processes costs about 20 s), and phase lint's sweep on
+    their ``DistGroup`` when ``lint`` is set; the 8 zen_sync ranks run
     phases mesh3 and serve_dp's work when ``mesh3`` (``mesh3_job``) is
     given.  The 4 ranks' and the 8 ranks' results return."""
     torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
         f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
     ranks8 = dist_zen_sync(dev, mesh3)
-    ranks = gloo4_ranks(DIST_VARIANTS, tp)
+    ranks = gloo4_ranks(DIST_VARIANTS, tp, lint)
     dist_trainer("gloo", smi, variants=DIST_VARIANTS,
                  runs=gloo4_dist_runs(ranks, DIST_VARIANTS))
     return ranks, ranks8
@@ -2993,8 +3022,9 @@ def serve_arch(arch: str, launches: dict, tol: float, bf16_runs: int = 2,
 # weights and gradient 4, AdamW's f32 moments 8, two ranks' bf16 gradient
 # stacks 4, the synced sum, mean and clipped copies 6) plus one rank's
 # activations must stay under 70 GiB (PERF.md section 4: 28 and 16 layers,
-# cut to 12 and 8 for the run's time)
-ZOO = {"qwen2.5-3b": 12, "phi4-mini-3.8b": 8}
+# cut to 12 and 8 for the run's time, and to 4 and 4 to make room for
+# phases lint and examples, then to 2 and 2)
+ZOO = {"qwen2.5-3b": 2, "phi4-mini-3.8b": 2}
 ZOO_TRAIN = dict(n=2, batch=2, seq=512, steps=2)
 ZOO_PEAK_GIB = 70.0
 
@@ -3138,13 +3168,13 @@ def phase_zoo(smi: str) -> dict:
 # phi3.5-moe's 41.9B do not fit it even in bf16, so it serves its first 12
 # of 32 layers (15.9B: 59.1 GiB in f32, one model resident at a time).  The
 # trainers keep ZOO's rule (about 22 bytes a parameter plus one rank's
-# activations under 70 GiB): olmoe 6 of 16 layers (2.72B), phi3.5-moe 2 of
-# 32 (2.86B); zamba2 38 (at 13 layers its bf16 routes part by 0.118 at
+# activations under 70 GiB): olmoe 6 of 16 layers (2.72B; cut to 2 for the
+# run's time), phi3.5-moe 2 of 32 (2.86B); zamba2 38 (at 13 layers its bf16 routes part by 0.118 at
 # step 1, past HYBRID_LOSS_TOL: the random-init gradients' chaos, queue 3
 # of the ROADMAP, so its depth is not cut).  The f32 serve gates:
 # zamba2's from SERVE_LOGIT_TOL, the MoE models' qwen2's.
 HYBRID_MOE = {"zamba2-1.2b": (38, 38, SERVE_LOGIT_TOL["zamba2-1.2b"]),
-              "olmoe-1b-7b": (16, 6, 1e-3),
+              "olmoe-1b-7b": (16, 2, 1e-3),
               "phi3.5-moe-42b-a6.6b": (12, 2, 1e-3)}
 MOE_STATS = ("moe/aux_loss", "moe/dropped", "moe/skew")
 # zamba2's trainer losses, kernel route vs plain route (bf16): its scan
@@ -3449,8 +3479,8 @@ def phase_hybrid_moe(smi: str) -> dict:
 # bytes a parameter plus one rank's activations under 70 GiB): whisper at
 # full depth (24 encoder and 24 decoder layers), pixtral at 5 of its 40
 # layers (1.368B of embedding, head and vis_proj plus 285.7M a layer:
-# 2.80B).
-ENC_DEC_VLM = {"whisper-medium": 24, "pixtral-12b": 5}
+# 2.80B); cut to 6 (encoder and decoder) and 2 for the run's time.
+ENC_DEC_VLM = {"whisper-medium": 6, "pixtral-12b": 2}
 # flash_fwd at the shapes the two models' serving gives it: (row, what,
 # dtype, flash_inputs' shape, causal).  whisper's frames are f32, so its
 # bf16 model's encoder attends in f32 (JAX's promotion, as the reference);
@@ -3484,10 +3514,13 @@ def enc_dec_vlm_train(arch: str, layers: int, smi: str) -> dict:
     both routes: the kernel route bitwise the plain route (losses, grad
     norm, words, overflow; the trainer's attention is plain on both, so only
     the Zen kernels differ), overflow 0, the Zen kernels once a rank a
-    step, nothing plain, the peak under ``ZOO_PEAK_GIB``."""
+    step, nothing plain, the peak under ``ZOO_PEAK_GIB``; an
+    encoder-decoder's encoder is cut to ``layers`` too."""
     from repro_torch.kernels import ops as K
 
     cfg = serve_cfg(arch, layers)
+    cfg = dataclasses.replace(cfg, n_enc_layers=min(cfg.n_enc_layers,
+                                                    layers))
     z = ZOO_TRAIN
     runs = {b: direct_train(cfg, z["n"], z["batch"], z["seq"], z["steps"], b)
             for b in ("cuda", "torch")}
@@ -3572,10 +3605,11 @@ def phase_enc_dec_vlm(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MLA_ARCH = "minicpm3-4b"
-# served at all 62 layers (8.5 GB of bf16 weights); trained on 2x1 at 12
+# served at all 62 layers (8.5 GB of bf16 weights); trained on 2x1 at 4
 # of them (cut for the run's time from 38, 2.76B parameters, the zoo's
-# rule (ZOO))
-MLA_TRAIN_LAYERS = 12
+# rule (ZOO), then to 12, then to 2 to make room for phases lint and
+# examples)
+MLA_TRAIN_LAYERS = 2
 # flash_fwd at minicpm3's prefill: q/k 96 (64 + rope 32), v 64, 40 heads
 MLA_FLASH = dict(B=8, S=512, H=40, KV=40, hd=96, hd_v=64)
 # the 8x1 qwen2-0.5b trainer's losses on every route since PR 11, at the
@@ -3851,8 +3885,9 @@ TP = dict(ranks=4, mesh="2x2", steps=2, plain_steps=1, batch=8, seq=512)
 # and olmoe at 6, the phase took 306.5 s on one H100; at 4, and olmoe at
 # 3, 179.8 s, and the whole smoke 1055.6 s), 2x2 against 2x1; step 0
 # within 1e-5, the TP["steps"] steps within 1e-3 (the reference's
-# MATRIX_TOL for qwen2), grad_norm within 1e-4 relative
-TP_F32_LAYERS = 2
+# MATRIX_TOL for qwen2), grad_norm within 1e-4 relative; 1 layer since
+# phases lint and examples came
+TP_F32_LAYERS = 1
 TP_F32_TOL = dict(step0=1e-5, steps=1e-3, grad_norm=1e-4)
 # olmoe-1b-7b at 2 of 16 layers, 1 step (cut from 2 for the run's time
 # limit; the zoo's rule for the experts
@@ -3861,8 +3896,9 @@ TP_F32_TOL = dict(step0=1e-5, steps=1e-3, grad_norm=1e-4)
 # a2a-vs-replicated check at 1 layer, within 1e-4 at step 0, with the
 # capacity factor at E / K = 8, where no (token, k) pair can drop: at 4.0
 # the random-init router's skew (7.4 of a possible 8) drops pairs, at
-# other boundaries in the two dispatches (2.74e-3 apart on one H100)
-TP_MOE = dict(layers=2, steps=1, f32_layers=1)
+# other boundaries in the two dispatches (2.74e-3 apart on one H100); its
+# trainer at 1 layer since phases lint and examples came
+TP_MOE = dict(layers=1, steps=1, f32_layers=1)
 TP_A2A_TOL = 1e-4
 # the 1x2 server: qwen2.5-3b at 12 of its 36 layers (cut for the run's
 # time limit)
@@ -3973,6 +4009,9 @@ def gloo4_rank(work: Path) -> None:
         t0[0] = time.time()
 
     try:
+        if job["lint"]:
+            lint_rank(world, out)
+            done("lint")
         for name, extra in job["dist"]:
             K.reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -3988,15 +4027,16 @@ def gloo4_rank(work: Path) -> None:
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
-def gloo4_ranks(dist_variants, tp: bool) -> list[dict]:
-    """``gloo4_rank`` on 4 ranks of this card: the dist phase's
-    ``dist_variants`` (``DIST_STEPS`` steps each) and, if ``tp``, phase
-    tp's runs; the ranks' results, by rank."""
+def gloo4_ranks(dist_variants, tp: bool, lint: bool = False) -> list[dict]:
+    """``gloo4_rank`` on 4 ranks of this card: if ``lint``, phase lint's
+    sweep on their ``DistGroup``, then the dist phase's ``dist_variants``
+    (``DIST_STEPS`` steps each) and, if ``tp``, phase tp's runs; the
+    ranks' results, by rank."""
     work = Path(tempfile.mkdtemp(prefix="gloo4_", dir=Path(__file__)
                                  .resolve().parent / "build"))
     (work / "job.json").write_text(json.dumps(
         {"dist": [[name, list(extra)] for name, extra in dist_variants],
-         "dist_steps": DIST_STEPS, "tp": tp}))
+         "dist_steps": DIST_STEPS, "tp": tp, "lint": lint}))
     run_ranks(TP["ranks"], [str(Path(__file__).resolve()), "--dist-rank",
                             "gloo4", str(work)], "gloo4",
               env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
@@ -5123,10 +5163,10 @@ def phase_calib(smi: str) -> dict:
 # the Mamba2 trainer: ssd_fwd under autograd
 # ---------------------------------------------------------------------------
 
-# mamba2-370m at full width, 8 x 512 tokens; 6 of its 48 layers keep the
+# mamba2-370m at full width, 8 x 512 tokens; 2 of its 48 layers keep the
 # whole smoke inside its time limit (the phase took 351 s at full depth,
-# 186 s at 24 layers and 90 s at 12, on one H100)
-MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=6)
+# 186 s at 24 layers, 90 s at 12 and 53.9 s at 6, on one H100)
+MAMBA_TRAIN = dict(n=8, batch=8, seq=512, layers=2)
 # its step-0 loss, kernel route (ssd_fwd) vs plain route (the plain scan)
 MAMBA_LOSS_TOL = 5e-3
 
@@ -5662,6 +5702,154 @@ def bitmap_times(streams: dict, smi: str) -> dict:
     return res
 
 
+LINT_NS = (2, 8)
+LINT_GLOO_N = 4            # phase 8's gloo ranks
+LINT_KERNELS = ("zen_encode", "zen_commit_push", "zen_commit_pull",
+                "hash_stage", "row_compact", "bitmap_pack", "bitmap_unpack",
+                "coo_scatter_add")
+
+
+def require(ok: bool, what: str) -> None:
+    """Fail the phase with ``what`` unless ``ok``."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def wire_table(wires: dict) -> dict:
+    """``run_trace_sweep``'s ``{case: {(kind, g): bytes}}`` with string
+    keys (JSON)."""
+    return {case: {f"{k}@{g}": b for (k, g), b in sorted(w.items())}
+            for case, w in wires.items()}
+
+
+def lint_rank(world, out: dict) -> None:
+    """The trace sweep on this gloo rank's ``DistGroup`` (phase 8f), on
+    the card."""
+    from repro_torch.analysis import lint
+
+    t0 = time.time()
+    findings, wires = lint.run_trace_sweep(ns=(world.n,), device="cuda",
+                                           group=world, verbose=False)
+    out["lint"] = {"findings": [str(f) for f in findings],
+                   "wires": wire_table(wires), "seconds": time.time() - t0}
+
+
+def phase_lint(ranks4: list[dict] | None) -> dict:
+    """zenlint on the card (phase 8f): every layer, no finding, the eight
+    Zen and scatter kernels launched, the card's bytes the plain
+    versions', and the gloo ranks' bytes the in-process group's."""
+    from repro_torch.analysis import ast_rules, lint
+    from repro_torch.kernels import ops as K
+
+    with contextlib.chdir(Path(__file__).resolve().parent):
+        findings = (ast_rules.run_tree("src/repro_torch")
+                    + lint.registry_findings("tests"))
+    K.reset_counts()
+    t0 = time.time()
+    card, wires = lint.run_trace_sweep(ns=LINT_NS, device="cuda")
+    t_card = time.time() - t0
+    launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    t0 = time.time()
+    host, host_wires = lint.run_trace_sweep(ns=LINT_NS, device="cpu",
+                                            verbose=False)
+    t_host = time.time() - t0
+    findings += card + host
+    for f in findings:
+        log(f"[lint] FINDING {f}")
+    require(not findings, f"zenlint: {len(findings)} finding(s)")
+    missing = [k for k in LINT_KERNELS if not launches[k]]
+    require(not missing, f"lint sweep launched no {missing}")
+    require(not any(plain[k] for k in LINT_KERNELS),
+            f"lint sweep on the card took plain versions: {plain}")
+    diff = [c for c in wires if wires[c] != host_wires.get(c)]
+    require(not diff and set(wires) == set(host_wires),
+            f"card and plain bytes differ: {diff}")
+    log(f"[lint] {len(wires)} cases clean on the card ({t_card:.1f} s; "
+        f"plain versions {t_host:.1f} s); launches "
+        f"{ {k: launches[k] for k in LINT_KERNELS} }; bytes equal the "
+        f"plain route's in every case")
+    out = {"launches": {"lint sweep (card)": launches}, "cases": len(wires),
+           "seconds": {"card": t_card, "plain": t_host}}
+    got = [r["lint"] for r in ranks4 or () if "lint" in r]
+    if got:
+        _, sim = lint.run_trace_sweep(ns=(LINT_GLOO_N,), device="cuda",
+                                      verbose=False)
+        want = wire_table(sim)
+        for r, res in enumerate(got):
+            require(not res["findings"],
+                    f"gloo rank {r}: findings {res['findings']}")
+            require(res["wires"] == want, f"gloo rank {r}: bytes differ")
+        log(f"[lint] {len(got)} gloo ranks x {len(want)} cases at n "
+            f"{LINT_GLOO_N}: clean, each rank's bytes the SimGroup's "
+            f"({got[0]['seconds']:.1f} s a rank)")
+        out["gloo_ranks"] = len(got)
+    return out
+
+
+EXAMPLE_STEPS = 20     # of torch_train_e2e.py's 200
+
+
+def run_example(name: str, argv: list[str]) -> dict:
+    """``examples/<name>.py``'s ``main(argv)``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.time()
+    res = mod.main(argv)
+    torch.cuda.synchronize()
+    log(f"[examples] {name}: {time.time() - t0:.1f} s")
+    return res
+
+
+def phase_examples() -> dict:
+    """The port's four examples on the card (phase 8g)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve
+
+    K.reset_counts()
+    qs = run_example("torch_quickstart", [])
+    require(qs["zen_err"] < 1e-5 and qs["zen_words"] < qs["dense_words"]
+            and qs["ef_wire"] < 0.10 * qs["ef_ring"],
+            f"quickstart: {qs['zen_err']}, {qs['zen_words']} words, "
+            f"EF {qs['ef_wire']}")
+    ckpt = tempfile.mkdtemp(prefix="e2e_", dir=Path(__file__).resolve()
+                            .parent / "build")
+    try:
+        tr = run_example("torch_train_e2e",
+                         ["--steps", str(EXAMPLE_STEPS), "--ckpt", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    require(tr["losses"][-1] < tr["losses"][0] and tr["restored_bitwise"],
+            f"train_e2e: losses {tr['losses']}, restored bitwise "
+            f"{tr['restored_bitwise']}")
+    sv = run_example("torch_serve_batched", [])
+    want = serve.main(["--reduced", "--batch", "4", "--prompt-len", "32",
+                       "--gen", "48"])
+    require(np.array_equal(sv["tokens"], want["tokens"]),
+            "serve_batched's tokens are not launch/serve.py's")
+    an = run_example("torch_analyze_sparsity", [])
+    cfg = dataclasses.replace(serve_cfg("qwen2-0.5b").reduced(), vocab=4096)
+    data = iter(SyntheticLM(cfg, DataConfig(seq_len=64, batch=2)))
+    masks = np.zeros(tuple(an["masks"].shape), bool)
+    for w in range(masks.shape[0]):
+        masks[w, next(data)["tokens"].reshape(-1)] = True
+    require(np.array_equal(an["masks"].numpy(), masks),
+            "analyze_sparsity's masks are not the batches' token sets")
+    launches = dict(K.LAUNCHES)
+    require(launches["flash_fwd"] > 0, f"examples: no flash_fwd {launches}")
+    log(f"[examples] train_e2e: {EXAMPLE_STEPS} steps, loss "
+        f"{tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}, "
+        f"{tr['tok_per_s']:,.0f} tok/s; serve tokens equal launch/serve.py's"
+        f"; sparsity d {an['density']:.4f}, skew {an['skewness']:.2f}; "
+        f"launches {launches}, plain {dict(K.PLAIN_CALLS)}")
+    return {"launches": {"examples": launches},
+            "train_losses": tr["losses"], "tok_per_s": tr["tok_per_s"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
@@ -5670,7 +5858,7 @@ def main(argv=None) -> None:
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
                          "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,tp,"
-                         "mesh3,serve_dp,calib,times "
+                         "mesh3,serve_dp,calib,lint,examples,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -5716,7 +5904,7 @@ def main(argv=None) -> None:
         # (its 4 gloo processes also run phase tp's work, its 8 phases
         # mesh3 and serve_dp's)
         ranks4, ranks8 = phase_dist(dev, dev_info["smi"], tp=want("tp"),
-                                    mesh3=job8)
+                                    mesh3=job8, lint=want("lint"))
         phase_done("dist")
     else:
         if "dist_sync" in only:
@@ -5746,6 +5934,10 @@ def main(argv=None) -> None:
             phase_done("serve_dp")
     calib = phase_calib(dev_info["smi"]) if want("calib") else None
     phase_done("calib")
+    linted = phase_lint(ranks4) if want("lint") else None
+    phase_done("lint")
+    examples = phase_examples() if want("examples") else None
+    phase_done("examples")
     # zoo next: its trainers fill most of the card, before other phases
     # leave kernel scratch and cached blocks behind
     zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
@@ -5836,7 +6028,8 @@ def main(argv=None) -> None:
         by_path["trainer --zero1 (8x1)"] = mla["zero1_8x1"]["zero1"]
     if tp:   # summed over the four processes
         by_path.update({p: {"launches": n} for p, n in tp["launches"].items()})
-    for part in (mesh3, served_dp, calib):   # summed over the processes
+    for part in (mesh3, served_dp, calib, linted, examples):
+        # (mesh3's, serve_dp's and calib's summed over the processes)
         by_path.update({p: {"launches": n}
                         for p, n in (part or {}).get("launches", {}).items()})
     path_launches = {k: {p: r["launches"][k] for p, r in by_path.items()

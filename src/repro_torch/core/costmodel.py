@@ -272,47 +272,77 @@ def _wire_balanced(M: int, n: int, kw: dict) -> float:
 # ``sync_fn`` strings resolve lazily on repro_torch.core.schemes.  The
 # aggregating schemes also consume ``backend``: their server aggregation
 # runs on the scatter-add kernel (``"cuda"``) or its plain version.
+#
+# The zenlint metadata is the reference's, scheme by scheme.
+# lint_caps_fn sizes a stage so a FULLY DENSE [*, M] payload exactly
+# saturates every buffer: that makes the SyncStats claim equal the wire
+# bytes (R2's ==) for lint_saturable schemes.  Zen's buffers are
+# r1_factor-overprovisioned by design (claim <= wire, never ==), so it is
+# not saturable and lints at its working density instead.
 
 _registry.register_scheme(
     "dense", "dense_sync", dense_allreduce, lambda n: 2.0 * (n - 1),
-    plan_candidate=True, wire_words_fn=_wire_dense)
+    plan_candidate=True,
+    wire_words_fn=_wire_dense, expected_collectives=("all-reduce",),
+    lint_saturable=True, lint_caps_fn=lambda M, n: {})
 _registry.register_scheme(
     "zen", "zen_sync", zen, lambda n: 2.0 * (n - 1),
     stage_args=("layout", "use_hash_bitmap", "backend", "interpret", "fused",
                 "fused_commit"),
     required_args=("layout",), plan_candidate=True,
-    wire_words_fn=_wire_zen)
+    wire_words_fn=_wire_zen,
+    expected_collectives=("all-to-all", "all-gather"),
+    lint_saturable=False, lint_density=0.25,
+    # the fused-commit kernels and the pre-fusion chain must satisfy the
+    # same R1-R5 invariants with the same wire words (the compute route
+    # may not change a single transmitted word)
+    lint_routes=(("fused-commit", (("backend", "cuda"), ("fused", True),
+                                   ("fused_commit", True))),
+                 ("unfused", (("backend", "cuda"), ("fused", False),
+                              ("fused_commit", False)))))
 _registry.register_scheme(
     "agsparse", "agsparse_sync", agsparse, lambda n: float(n - 1),
     stage_args=("capacity", "backend"), required_args=("capacity",),
-    plan_candidate=True, wire_words_fn=_wire_agsparse)
+    plan_candidate=True,
+    wire_words_fn=_wire_agsparse, expected_collectives=("all-gather",),
+    lint_saturable=True, lint_caps_fn=lambda M, n: {"capacity": M})
 _registry.register_scheme(
     "sparcml", "sparcml_sync", sparcml,
     lambda n: float(math.ceil(math.log2(max(n, 2)))),
     stage_args=("capacity", "backend"), required_args=("capacity",),
     needs_n=True, plan_candidate=True,
     feasible_fn=lambda n, M: n & (n - 1) == 0,
-    wire_words_fn=_wire_sparcml)
+    wire_words_fn=_wire_sparcml,
+    expected_collectives=("collective-permute",),
+    lint_saturable=True, lint_caps_fn=lambda M, n: {"capacity": M})
 _registry.register_scheme(
     "sparse_ps", "sparse_ps_sync", sparse_ps, lambda n: 2.0 * (n - 1),
     stage_args=("capacity", "cap_push", "cap_pull", "backend"),
     required_args=(("cap_push", "capacity"), ("cap_pull", "capacity")),
     arg_aliases=(("capacity", ("cap_push", "cap_pull")),),
     needs_n=True, feasible_fn=lambda n, M: M % n == 0,
-    wire_words_fn=_wire_sparse_ps)
+    wire_words_fn=_wire_sparse_ps,
+    expected_collectives=("all-to-all", "all-gather"),
+    lint_saturable=True, lint_caps_fn=lambda M, n: {"capacity": M // n})
 _registry.register_scheme(
     "omnireduce", "omnireduce_sync", omnireduce, lambda n: 2.0 * (n - 1),
     stage_args=("capacity", "cap_push", "cap_pull", "block", "backend"),
     required_args=(("cap_push", "capacity"), ("cap_pull", "capacity")),
     arg_aliases=(("capacity", ("cap_push", "cap_pull")),),
     arg_defaults=(("block", 8),), needs_n=True,
-    wire_words_fn=_wire_omnireduce)
+    wire_words_fn=_wire_omnireduce,
+    expected_collectives=("all-to-all", "all-gather"),
+    lint_saturable=True,
+    lint_caps_fn=lambda M, n: {"block": 8, "capacity": M // n // 8})
 _registry.register_scheme(
     "balanced", "balanced_sync", balanced, lambda n: 4.0 * (n - 1),
     stage_args=("capacity", "cap_push", "cap_pull", "bins", "backend"),
     required_args=(("cap_push", "capacity"),),
     arg_aliases=(("capacity", ("cap_push", "cap_pull")),),
-    needs_n=True, plan_candidate=True, wire_words_fn=_wire_balanced)
+    needs_n=True, plan_candidate=True,
+    wire_words_fn=_wire_balanced,
+    expected_collectives=("all-reduce", "all-to-all", "all-gather"),
+    lint_saturable=True, lint_caps_fn=lambda M, n: {"capacity": M // n})
 # analytic-only curves (no executable collective): Fig. 7's optimum and
 # the information-theoretic floor
 _registry.register_scheme(

@@ -18,11 +18,14 @@ This module is pure Python.  The registrations live at the bottom of
 executable sync functions are named, and resolved lazily from
 ``repro_torch.core.schemes`` at dispatch time.
 
-The reference's spec also carries metadata for its static checker of
-XLA's lowered collectives (``expected_collectives``, the ``lint_*`` fields
-and ``lint_routes``); nothing in the port lowers to HLO, so those fields
-are left out.  ``wire_words_fn``, each scheme's exact wire-word contract
-at its stage arguments, is kept.
+The spec also carries the metadata of the port's zenlint
+(``repro_torch.analysis``), with the reference's values: ``wire_words_fn``
+(each scheme's exact wire-word contract), ``expected_collectives`` (the
+collective kinds its sync may run, under the reference's names),
+``lint_saturable``, ``lint_density``, ``lint_caps_fn``, ``lint_exempt``
+and ``lint_routes`` (compute-route variants the sweep also certifies).
+The lint reads them on a trace of the sync's torch ops and of the
+collectives its group ran, not on a lowered program.
 """
 from __future__ import annotations
 
@@ -88,9 +91,29 @@ class SchemeSpec:
     needs_n: bool = False                     # sync_fn takes a static n kwarg
     plan_candidate: bool = False              # choose_plan may pick it
     feasible_fn: Callable[[int, int], bool] | None = None  # (n, M) -> bool
+
+    # -- zenlint metadata (repro_torch.analysis) ---------------------------
     # wire_words_fn(M, n, kw) -> exact per-worker wire words at the given
-    # stage kwargs (value width 1); kw is the stage_kwargs() output
+    # stage kwargs (value width 1); kw is the stage_kwargs() output.  None
+    # on an executable scheme is itself a lint finding.
     wire_words_fn: Callable | None = None
+    # collective kinds the sync may run ("all-reduce", "all-gather",
+    # "all-to-all", "collective-permute"): psum, all_gather, all_to_all and
+    # ppermute of the group
+    expected_collectives: tuple[str, ...] = ()
+    # saturable: a fully-dense payload at lint_caps_fn caps makes the
+    # SyncStats claim equal the wire exactly (R2 ==); zen's hash buffers
+    # are r1_factor over-provisioned by design, so it is not (claim <=)
+    lint_saturable: bool = False
+    lint_density: float = 1.0                 # payload density for the sweep
+    # lint_caps_fn(M, n) -> StageArgs kwargs that exactly saturate the
+    # scheme at that payload (schemes taking a layout build it in-driver)
+    lint_caps_fn: Callable | None = None
+    lint_exempt: tuple[str, ...] = ()         # waived rule ids, e.g. ("R5",)
+    # extra compute-route variants the lint sweep must also certify:
+    # ((label, ((StageArgs field, value), ...)), ...), each a flat sweep
+    # with those fields overridden and the same wire contract
+    lint_routes: tuple = ()
 
     @property
     def executable(self) -> bool:
@@ -133,6 +156,12 @@ def register_scheme(
     plan_candidate: bool = False,
     feasible_fn: Callable[[int, int], bool] | None = None,
     wire_words_fn: Callable | None = None,
+    expected_collectives: tuple[str, ...] = (),
+    lint_saturable: bool = False,
+    lint_density: float = 1.0,
+    lint_caps_fn: Callable | None = None,
+    lint_exempt: tuple[str, ...] = (),
+    lint_routes: tuple = (),
 ) -> SchemeSpec:
     """Register one scheme.  Re-registering a name replaces it (tests)."""
     valid = {f.name for f in dataclasses.fields(StageArgs)}
@@ -147,7 +176,11 @@ def register_scheme(
         required_args=tuple(required_args), arg_aliases=tuple(arg_aliases),
         arg_defaults=tuple(arg_defaults), needs_n=needs_n,
         plan_candidate=plan_candidate, feasible_fn=feasible_fn,
-        wire_words_fn=wire_words_fn)
+        wire_words_fn=wire_words_fn,
+        expected_collectives=tuple(expected_collectives),
+        lint_saturable=lint_saturable, lint_density=lint_density,
+        lint_caps_fn=lint_caps_fn, lint_exempt=tuple(lint_exempt),
+        lint_routes=tuple(lint_routes))
     _REGISTRY[name] = spec
     return spec
 

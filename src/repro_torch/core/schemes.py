@@ -346,8 +346,9 @@ def dense_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup):
     gradients."""
     n, local = group.n, dense.shape[0]
     out = group.psum(dense)
-    words = (torch.tensor(2 * (n - 1) / n, dtype=torch.float32)
-             * dense[0].numel()).to(dense.device)
+    # made on the device: a host tensor's copy would sync the host
+    words = torch.full((), 2 * (n - 1) / n, dtype=torch.float32,
+                       device=dense.device) * dense[0].numel()
     stats = SyncStats(sent_words=words.expand(local),
                       overflow=torch.zeros(local, dtype=torch.int32,
                                            device=dense.device))
@@ -564,12 +565,16 @@ def balanced_sync(dense: torch.Tensor, *, group: SimGroup | DistGroup,
     bin_of = torch.where(live, torch.where(live, idx, 0) // bw, B)
 
     # --- 2. global multiset histogram (f32 counts < 2^24: exact) -------------
-    local_hist = torch.stack([
-        torch.bincount(bin_of[w].to(torch.int64), minlength=B + 1)[:B]
-        for w in range(local)]).to(torch.float32)
+    # counted by a scatter-add into B + 1 bins (the last takes the EMPTY
+    # slots): bincount's output length depends on the data, a host sync
+    # on the card
+    b64 = bin_of.to(torch.int64)
+    local_hist = torch.zeros((local, B + 1), dtype=torch.int64, device=dev
+                             ).scatter_add_(1, b64, torch.ones_like(b64)
+                                            )[:, :B].to(torch.float32)
     hist = group.psum(local_hist)                              # [local, B]
-    hist_words = torch.tensor(2 * (n - 1) / n, dtype=torch.float32,
-                              device=dev) * B
+    hist_words = torch.full((), 2 * (n - 1) / n, dtype=torch.float32,
+                            device=dev) * B
 
     # --- 3. balanced contiguous bin -> destination assignment ----------------
     cum = torch.cumsum(hist, dim=-1)

@@ -12,6 +12,13 @@ the plain scans that ``SSDScan``'s backward runs to differentiate;
 run can show which route its path took; ``path_kernels`` names the kernels
 a Zen sync route launches.
 
+``TRACE`` is the op trace recording a sync (``analysis/trace_ir.OpTrace``),
+or None.  While it is set, each wrapper call, on either route, is one
+opaque ``kernel:<name>`` record of that trace: the ops of its plain
+version (the CPU route, or the ``"torch"`` route of
+``batched_coo_reduce_op``) are the kernel's, not the sync's own.  Nothing
+else changes: the same calls, the same results.
+
 Two kernel sets carry the Zen sync.  The fused route (the default) runs the
 three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
 and/or ``fused_commit=False``) runs the pre-fusion chain of five smaller
@@ -46,6 +53,20 @@ KERNELS = FUSED_KERNELS + UNFUSED_KERNELS + MODEL_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 RECOMPUTE_CALLS = {"ssd_fwd": 0}
+TRACE = None
+
+
+def _opaque(name: str):
+    """A wrapper that the active ``TRACE`` logs as one ``kernel:<name>``
+    record (``OpTrace.kernel``); without a trace, the wrapper itself."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if TRACE is None:
+                return fn(*args, **kwargs)
+            return TRACE.kernel(name, fn, args, kwargs)
+        return call
+    return deco
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -204,6 +225,7 @@ def _encode_sizes(C: int, n: int, r1: int, r2: int) -> tuple[int, int]:
             max(1, lib.zen_encode_gscratch(C, r1, r2, n)))
 
 
+@_opaque("zen_encode")
 def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
                         r1: int, r2: int):
     """Zen encode: indices int32 [C] (unique, EMPTY-padded) -> (pidx int32
@@ -290,6 +312,7 @@ def zen_commit_push_grid(lp: torch.Tensor, vals: torch.Tensor, *,
     return grid, kept
 
 
+@_opaque("zen_commit_push")
 def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
                              cap_server: int, cap_pull: int):
     """Zen commit push: lp int32 [C] server-local positions (EMPTY and
@@ -339,6 +362,7 @@ _PULL_SCRATCH: dict[tuple[int, int], list] = {}
 _PULL_LOCK = threading.Lock()
 
 
+@_opaque("zen_commit_pull")
 def zen_commit_pull_fused_op(words: torch.Tensor, cap_server: int,
                              cap_pull: int) -> torch.Tensor:
     """Zen pull decode: int32 words [n, W] -> int32 [n, cap_pull], each
@@ -372,6 +396,7 @@ def zen_commit_pull_fused_op(words: torch.Tensor, cap_server: int,
 # The pre-fusion chain's kernels
 # ---------------------------------------------------------------------------
 
+@_opaque("hash_stage")
 def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
                   r1: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Alg. 1's hash stage: indices int32 [C] (EMPTY-padded) -> (p int32
@@ -396,6 +421,7 @@ def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
     return p, q
 
 
+@_opaque("row_compact")
 def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
     """int32 [R, L] -> [R, L]: each row's live (non-EMPTY) entries to the
     front in slot order, EMPTY-padded tail."""
@@ -415,6 +441,7 @@ def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_opaque("bitmap_pack")
 def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
     """bool [n, L] -> int32 words [n, ceil(L/32)]: each row packed LSB
     first (the reference's uint32 bits), bits past L zero; one launch."""
@@ -435,6 +462,7 @@ def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
     return words
 
 
+@_opaque("bitmap_pack")
 def bitmap_pack_op(mask: torch.Tensor) -> torch.Tensor:
     """bool [M] -> int32 words [ceil(M/32)]: ``bitmap_pack_rows_op`` of one
     row."""
@@ -444,6 +472,7 @@ def bitmap_pack_op(mask: torch.Tensor) -> torch.Tensor:
     return bitmap_pack_rows_op(mask[None])[0]
 
 
+@_opaque("bitmap_unpack")
 def bitmap_unpack_rows_op(words: torch.Tensor, length: int) -> torch.Tensor:
     """int32 words [n, W] -> bool [n, length], length <= 32 W: bit j of row
     r is bit (j mod 32) of ``words[r, j // 32]``; one launch."""
@@ -467,6 +496,7 @@ def bitmap_unpack_rows_op(words: torch.Tensor, length: int) -> torch.Tensor:
     return bits
 
 
+@_opaque("bitmap_unpack")
 def bitmap_unpack_op(words: torch.Tensor, length: int) -> torch.Tensor:
     """int32 words [W] -> bool [length]: ``bitmap_unpack_rows_op`` of one
     row."""
@@ -485,6 +515,7 @@ _SCATTER_SCRATCH: dict[tuple[int, int], list] = {}
 _SCATTER_LOCK = threading.Lock()
 
 
+@_opaque("coo_scatter_add")
 def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
                        vals: torch.Tensor) -> torch.Tensor:
     """``out[idx[i]] += vals[i]`` IN PLACE, and returns ``out`` [M, d].
@@ -527,6 +558,7 @@ def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@_opaque("coo_scatter_add")
 def batched_coo_reduce_op(out: torch.Tensor, idx: torch.Tensor,
                           vals: torch.Tensor, *,
                           backend: str = "torch") -> torch.Tensor:
@@ -598,6 +630,7 @@ FLASH_HEAD_DIMS = (32, 64, 128, 160)
 FLASH_HEAD_PAIRS = tuple((hd, hd) for hd in FLASH_HEAD_DIMS) + ((96, 64),)
 
 
+@_opaque("flash_fwd")
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: int = 0,
                  q_offset: int = 0) -> torch.Tensor:
@@ -647,6 +680,7 @@ SSD_STATE_DIMS = (16, 32, 64, 128)
 SSD_MAX_CHUNK = 64
 
 
+@_opaque("ssd_fwd")
 def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, *, chunk: int = 64):
     """The Mamba2 SSD chunk scan (``ref.ssd_fwd_ref``): x [Bt, S, H, hd],

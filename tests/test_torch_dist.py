@@ -40,6 +40,10 @@ outputs back the same way.  The JAX reference runs here, while they run.
   row w of the in-process ``SimGroup`` run, and the 4x1 ``--node-size 2``
   trainer's losses, words and parameters bitwise the in-process
   two-level trainer's;
+* zenlint's trace sweep (``repro_torch.analysis.lint``) on the 4 ranks'
+  ``DistGroup``: no finding, and each rank's recorded bytes per case and
+  (collective kind, group size) those of the in-process ``SimGroup(4)``
+  sweep of the same cases;
 * the launcher under ``torchrun --nproc-per-node 2 ... --dist gloo``
   prints the in-process 2x1 run's losses, and its misuses raise.
 """
@@ -83,6 +87,7 @@ RANK_MAIN = Path(__file__).resolve().parent / "torch_dist_rank.py"
 TIMEOUT_S = 240
 MLEN, D = 1 << 11, 8
 BUCKET_BYTES = 1 << 20
+LINT_M = 1024    # zenlint's payload length in the 4-rank ``lint`` job
 JD = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TD = {"f32": torch.float32, "bf16": torch.bfloat16}
 U = {"f32": 2.0 ** -24, "bf16": 2.0 ** -8}      # unit roundoff
@@ -273,12 +278,12 @@ def groups(tmp_path_factory):
     common = {**flat, **{f"batch/{k}": v for k, v in batch.items()}}
     out = {"ref_params": ref_params, "batch": batch}
     for n, jobs in ((4, ["zen", "schemes", "dense", "gradsync",
-                         "broadcast", "trainer", "hier"]),
+                         "broadcast", "trainer", "hier", "lint"]),
                     (2, ["dense", "gradsync", "compress", "trainer",
                          "zero1"])):
         work = tmp_path_factory.mktemp(f"ranks{n}")
         inp = {**common, **_grad_inputs(n, seed=n), "n": n,
-               "gs_bucket_bytes": BUCKET_BYTES}
+               "gs_bucket_bytes": BUCKET_BYTES, "lint_m": LINT_M}
         if "zen" in jobs:
             zinp, out["layouts"] = _zen_inputs(n)
             inp.update(zinp)
@@ -639,6 +644,20 @@ def test_torchrun_cli_prints_the_in_process_losses(groups, capsys):
     assert dres["sparse_words"] == local["sparse_words"]
     assert dres["plain_calls"] == local["plain_calls"]
     assert dres["launches_by_rank"]["zen_encode"] == [0, 0]
+
+
+def test_zenlint_dist_group_bytes_equal_simgroup(groups):
+    """Each rank's trace sweep over gloo is clean and records, case by
+    case, the per-worker bytes the in-process sweep records."""
+    from repro_torch.analysis.lint import run_trace_sweep
+    findings, wires = run_trace_sweep(ns=(4,), M=LINT_M, verbose=False)
+    assert not findings, [str(f) for f in findings]
+    want = {f"{label}|{kind}|{g}": b for label, wire in wires.items()
+            for (kind, g), b in wire.items()}
+    for r, res in enumerate(groups[4]["ranks"].results()):
+        assert list(res["lint/findings"]) == [""], (r, res["lint/findings"])
+        got = dict(zip(res["lint/keys"].tolist(), res["lint/bytes"]))
+        assert got == want, r
 
 
 def test_mesh_larger_than_the_group_raises(groups):

@@ -1,7 +1,8 @@
 """Import hygiene and device policy of the PyTorch port.
 
-* ``src/repro_torch/**`` and ``chip_smoke.py`` import neither JAX nor the
-  reference package ``repro`` (an ``ast`` walk);
+* ``src/repro_torch/**`` (its zenlint ``analysis/`` included), the port's
+  examples ``examples/torch_*.py`` and ``chip_smoke.py`` import neither JAX
+  nor the reference package ``repro`` (an ``ast`` walk);
 * entry points run on CUDA unless ``device="cpu"`` is passed, and raise
   without a GPU instead of falling back to the CPU;
 * every CUDA source names the TPU kernel it replaces.
@@ -42,6 +43,7 @@ def _forbidden(mod: str) -> bool:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         sorted((ROOT / "examples").glob("torch_*.py")) +
                          [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):

@@ -28,6 +28,7 @@
   --device cpu``, the trainer logging ``moe/*``.
 """
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -62,6 +63,16 @@ FIELDS = ("name", "kind", "n_layers", "d_model", "n_heads", "n_kv", "d_ff",
           "rope_theta", "n_experts", "top_k", "capacity_factor",
           "shared_attn_every", "sliding_window", "source")
 STATS = ("moe/aux_loss", "moe/dropped", "moe/skew")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small ops: a pool of threads
+    in each test worker only contends with the other workers' pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_configs_match_reference():
@@ -174,8 +185,8 @@ def test_moe_layer_matches_reference(rows):
             np.float32)
     p = {"ffn": {k: jnp.asarray(getattr(layer, k).detach().numpy())
                  for k in ("router_w", "w_gate", "w_up", "w_down")}}
-    want, wst = moe_ffn_replicated(p, "ffn", jnp.asarray(x), rcfg,
-                                   make_ctx(rcfg, 1, 1))
+    want, wst = jax.jit(lambda p, x: moe_ffn_replicated(
+        p, "ffn", x, rcfg, make_ctx(rcfg, 1, 1)))(p, jnp.asarray(x))
     got, gst = layer(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-5, rtol=0)
@@ -207,6 +218,15 @@ def _port_cfg(arch):
     return dataclasses.replace(_small(get_config(arch)), dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch):
+    """The reference's seed-0 parameters of ``arch``'s small config, made
+    once for the module (its serving and its trainer case share them)."""
+    prog = ref_build_program(_ref_cfg(arch),
+                             make_mesh((1, 1), ("data", "model")))
+    return prog.init_params(0)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def ref_run(request):
     """The reference's parameters, prefill, two decode steps from its
@@ -215,7 +235,7 @@ def ref_run(request):
     cfg = _ref_cfg(arch)
     prog = ref_build_program(cfg, make_mesh((1, 1), ("data", "model")))
     ref_attach_serve(prog, seq_len=S, global_batch=B, mode="prefill")
-    params = prog.init_params(0)
+    params = _ref_params(arch)
     data = next(iter(RefSyntheticLM(cfg, RefDataConfig(seq_len=S, batch=B))))
     logits, pf = prog.prefill_step(params,
                                    {"tokens": jnp.asarray(data["tokens"])})
@@ -235,8 +255,9 @@ def ref_run(request):
     params = jax.tree.map(np.asarray, params)
     model = build_model(cfg, make_ctx(cfg, 1, 1))
     jb = {k: jnp.asarray(v) for k, v in data.items()}
-    (loss, metrics), grads = jax.value_and_grad(
-        model.train_loss, has_aux=True)(jax.tree.map(jnp.asarray, params), jb)
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        model.train_loss, has_aux=True))(jax.tree.map(jnp.asarray, params),
+                                         jb)
     return {"arch": arch, "params": params, "data": data,
             "logits": np.asarray(logits, np.float32),
             "gen": np.stack(toks, 1), "lmax": np.stack(lmax),
@@ -368,7 +389,7 @@ def test_trainer_steps_match_reference():
                             RefTrainerConfig(sync=RefSyncConfig(
                                 scheme="dense")))
     ref_attach_train(ref, seq_len=seq, global_batch=batch)
-    params = ref.init_params(0)
+    params = _ref_params(arch)
     data = next(iter(RefSyntheticLM(cfg, RefDataConfig(seq_len=seq,
                                                        batch=batch))))
     port = build_program(_port_cfg(arch), "1x1",

@@ -41,6 +41,16 @@ HYBRID_GRAD_TOL = 2e-4
 HYBRID_LOGIT_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small ops: a pool of threads
+    in each test worker only contends with the other workers' pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def groups(tmp_path_factory):
     out = K.start(ARCHS, ZEN, tmp_path_factory,

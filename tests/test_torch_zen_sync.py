@@ -31,6 +31,16 @@ ROUTES = [(False, True), (True, False), (False, False)]
 ROUTE_IDS = ["encode-unfused", "commit-unfused", "both-unfused"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small ops: a pool of threads
+    in each test worker only contends with the other workers' pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _integer_workers(seed, n, m, density, dtype, d=None):
     key = jax.random.PRNGKey(seed)
     masks = metrics.synth_sparse_masks(key, n, m, density)
@@ -55,23 +65,57 @@ def _assert_sync_equal(got, ref):
                                   np.asarray(ref[1].overflow))
 
 
+# Each reference result below is computed once for the module, by one
+# jitted program a layout (integer-valued sums are exact in any order), and
+# shared by every case (and route) that holds the port to it.
+
+N, MLEN = 4, 1 << 11
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_zen(density_budget: float, r1_factor: float = 2.0,
+             use_hash_bitmap: bool = True):
+    """(the reference layout, its jitted ``simulate(zen_sync)``)."""
+    lo = S.make_zen_layout(MLEN, N, density_budget=density_budget,
+                           r1_factor=r1_factor)
+    return lo, jax.jit(functools.partial(
+        S.simulate, S.zen_sync, layout=lo, backend="xla",
+        use_hash_bitmap=use_hash_bitmap))
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_case(density, dtype, mode):
+    """(reference result, port inputs, port layout) of one zen_sync case;
+    one layout sized for density 1.0 serves every density."""
+    d = None if mode == "element" else 8
+    jd, td = DTYPES[dtype]
+    vals = _integer_workers(2, N, MLEN, density, jd, d)
+    lo, ref_fn = _ref_zen(1.0)
+    tlo = TS.make_zen_layout(MLEN, N, density_budget=1.0, seeds=lo.seeds)
+    return ref_fn(vals), _to_torch(vals, td), tlo
+
+
+@functools.lru_cache(maxsize=None)
+def _overflow_case(use_hash_bitmap):
+    """(reference result, port inputs, port layout) at an undersized
+    layout that overflows."""
+    vals = _integer_workers(4, N, MLEN, 0.2, jnp.float32)
+    lo, ref_fn = _ref_zen(0.05, 0.5, use_hash_bitmap)
+    tlo = TS.make_zen_layout(MLEN, N, density_budget=0.05, r1_factor=0.5,
+                             seeds=lo.seeds)
+    return ref_fn(vals), _to_torch(vals, torch.float32), tlo
+
+
 @pytest.mark.parametrize("mode", ["element", "row"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("density", [0.01, 0.1, 1.0])
 def test_zen_sync_bitwise_vs_reference(density, dtype, mode):
     """One layout sized for density 1.0 serves every density, so the
     reference compiles once per (dtype, mode)."""
-    n, m = 4, 1 << 11
-    d = None if mode == "element" else 8
-    jd, td = DTYPES[dtype]
-    vals = _integer_workers(2, n, m, density, jd, d)
-    lo = S.make_zen_layout(m, n, density_budget=1.0)
-    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla")
-    tlo = TS.make_zen_layout(m, n, density_budget=1.0, seeds=lo.seeds)
-    tv = _to_torch(vals, td)
+    ref, tv, tlo = _sync_case(density, dtype, mode)
     for backend in ("torch", "cuda"):   # "cuda" on CPU tensors: plain route
         got = TS.simulate(TS.zen_sync, tv, layout=tlo, backend=backend)
-        assert got[0].dtype == td
+        assert got[0].dtype == DTYPES[dtype][1]
         _assert_sync_equal(got, ref)
 
 
@@ -81,16 +125,10 @@ def test_zen_sync_overflow_edge_and_coo_pull(use_hash_bitmap):
     """An undersized layout (tiny r1/r2) overflows: the port must drop the
     same rows and count the same overflow; the COO-pull ablation changes
     the wire words only."""
-    n, m = 4, 1 << 11
-    vals = _integer_workers(4, n, m, 0.2, jnp.float32)
-    lo = S.make_zen_layout(m, n, density_budget=0.05, r1_factor=0.5)
-    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla",
-                     use_hash_bitmap=use_hash_bitmap)
+    ref, tv, tlo = _overflow_case(use_hash_bitmap)
     assert int(np.asarray(ref[1].overflow).sum()) > 0
-    tlo = TS.make_zen_layout(m, n, density_budget=0.05, r1_factor=0.5,
-                             seeds=lo.seeds)
-    got = TS.simulate(TS.zen_sync, _to_torch(vals, torch.float32),
-                      layout=tlo, use_hash_bitmap=use_hash_bitmap)
+    got = TS.simulate(TS.zen_sync, tv, layout=tlo,
+                      use_hash_bitmap=use_hash_bitmap)
     _assert_sync_equal(got, ref)
 
 
@@ -104,6 +142,35 @@ def test_dense_sync_matches_reference():
 
 GRADSYNC_SCHEMES = ["zen", "dense", "agsparse", "sparcml", "sparse_ps",
                     "omnireduce", "balanced", "auto"]
+GS_SHAPES = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
+             "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _gs_inputs(step: int) -> tuple[np.ndarray, np.ndarray]:
+    """Step ``step``'s worker gradients of the GradSync cases: the
+    row-sparse embedding and the dense leaf."""
+    rng = np.random.default_rng(0)
+    for _ in range(step + 1):
+        dense = np.round(rng.standard_normal((4, 6, 5)) * 8).astype(
+            np.float32)
+    return (np.array(_integer_workers(3 + step, 4, 512, 0.05, jnp.float32,
+                                      8)), dense)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_gradsync(scheme: str):
+    """The reference GradSync of ``scheme`` over the 4 workers, and its
+    result on each step's inputs (vmapped, one jitted program)."""
+    ref_gs = RefGradSync(RefSyncConfig(scheme=scheme), ["embed/table"],
+                         GS_SHAPES, 4)
+    fn = jax.jit(jax.vmap(ref_gs, axis_name="data"))
+    outs = []
+    for step in range(2):
+        emb, dense = _gs_inputs(step)
+        outs.append(fn({"embed": {"table": jnp.asarray(emb)},
+                        "w": jnp.asarray(dense)}))
+    return ref_gs, outs
 
 
 @pytest.mark.parametrize("scheme", GRADSYNC_SCHEMES)
@@ -114,11 +181,7 @@ def test_gradsync_matches_reference(scheme):
     synced grads, the sync metrics and the describe() lines equal the
     reference's, on both routes."""
     n = 4
-    rng = np.random.default_rng(0)
-    shapes = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
-              "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
-    ref_gs = RefGradSync(RefSyncConfig(scheme=scheme), ["embed/table"],
-                         shapes, n)
+    ref_gs, ref_outs = _ref_gradsync(scheme)
     leaves = [("embed/table", (512, 8), torch.float32),
               ("w", (6, 5), torch.float32)]
     ports = {}
@@ -132,12 +195,8 @@ def test_gradsync_matches_reference(scheme):
                 512, n, density_budget=0.25, seeds=lo.seeds)
         ports[backend] = gs
     for step in range(2):
-        emb = np.array(_integer_workers(3 + step, n, 512, 0.05, jnp.float32,
-                                        8))
-        dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(
-            np.float32)
-        ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
-            {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
+        emb, dense = _gs_inputs(step)
+        ref_out, ref_st = ref_outs[step]
         for backend, gs in ports.items():
             out, st = gs({"embed/table": torch.from_numpy(emb),
                           "w": torch.from_numpy(dense)})
@@ -193,21 +252,6 @@ def test_gradsync_rejects_unported_settings():
 # cases and reference programs as above
 # ---------------------------------------------------------------------------
 
-N, MLEN = 4, 1 << 11
-
-
-@functools.lru_cache(maxsize=None)
-def _sync_case(density, dtype, mode):
-    """(reference result, port inputs, port layout) of one zen_sync case;
-    one layout sized for density 1.0 serves every density."""
-    d = None if mode == "element" else 8
-    jd, td = DTYPES[dtype]
-    vals = _integer_workers(2, N, MLEN, density, jd, d)
-    lo = S.make_zen_layout(MLEN, N, density_budget=1.0)
-    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla")
-    tlo = TS.make_zen_layout(MLEN, N, density_budget=1.0, seeds=lo.seeds)
-    return ref, _to_torch(vals, td), tlo
-
 
 @pytest.mark.parametrize("fused,fused_commit", ROUTES, ids=ROUTE_IDS)
 @pytest.mark.parametrize("mode", ["element", "row"])
@@ -246,15 +290,10 @@ def test_zen_sync_unfused_encode_vs_reference_pallas_route():
                          ids=["bitmap-pull", "coo-pull"])
 def test_zen_sync_unfused_overflow_edge_and_coo_pull(use_hash_bitmap, fused,
                                                      fused_commit):
-    vals = _integer_workers(4, N, MLEN, 0.2, jnp.float32)
-    lo = S.make_zen_layout(MLEN, N, density_budget=0.05, r1_factor=0.5)
-    ref = S.simulate(S.zen_sync, vals, layout=lo, backend="xla",
-                     use_hash_bitmap=use_hash_bitmap)
+    ref, tv, tlo = _overflow_case(use_hash_bitmap)
     assert int(np.asarray(ref[1].overflow).sum()) > 0
-    tlo = TS.make_zen_layout(MLEN, N, density_budget=0.05, r1_factor=0.5,
-                             seeds=lo.seeds)
     tops.reset_counts()
-    got = TS.simulate(TS.zen_sync, _to_torch(vals, torch.float32),
+    got = TS.simulate(TS.zen_sync, tv,
                       layout=tlo, use_hash_bitmap=use_hash_bitmap,
                       backend="cuda", fused=fused, fused_commit=fused_commit)
     _assert_sync_equal(got, ref)
@@ -267,14 +306,10 @@ def test_gradsync_unfused_matches_reference(fused_encode, fused_commit):
     """GradSync with the unfused chain(s) on the row-sparse embedding vs
     the reference GradSync on its "xla" route, bitwise."""
     n = 4
-    rng = np.random.default_rng(0)
-    emb = np.array(_integer_workers(3, n, 512, 0.05, jnp.float32, 8))
-    dense = np.round(rng.standard_normal((n, 6, 5)) * 8).astype(np.float32)
-    shapes = {"embed": {"table": jax.ShapeDtypeStruct((512, 8), jnp.float32)},
-              "w": jax.ShapeDtypeStruct((6, 5), jnp.float32)}
-    ref_gs = RefGradSync(RefSyncConfig(), ["embed/table"], shapes, n)
-    ref_out, ref_st = jax.vmap(ref_gs, axis_name="data")(
-        {"embed": {"table": jnp.asarray(emb)}, "w": jnp.asarray(dense)})
+    emb, dense = _gs_inputs(0)
+    ref_gs, ref_outs = _ref_gradsync("zen")   # the default scheme
+    assert RefSyncConfig().scheme == "zen"
+    ref_out, ref_st = ref_outs[0]
     cfg = SyncConfig(fused_encode=fused_encode, fused_commit=fused_commit)
     gs = GradSync(cfg, ["embed/table"],
                   [("embed/table", (512, 8), torch.float32),

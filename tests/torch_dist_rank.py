@@ -40,7 +40,11 @@ Jobs:
             2``, the level groups made by ``launch.mesh.make_level_groups``):
             the ``gradsync`` job's two GradSyncs, then the ``trainer`` job,
             after which rank 0 runs the in-process two-level trainer on the
-            same inputs.
+            same inputs;
+  lint      zenlint's trace sweep (``repro_torch.analysis.lint``) on this
+            rank of the group (``DistGroup``, n the group's size, M
+            ``lint_m``): its findings and, per case, the bytes it recorded
+            by (collective kind, group size).
 """
 from __future__ import annotations
 
@@ -238,6 +242,18 @@ def _train(inp, group, out: dict, prefix: str, node_size: int = 1,
                                                     for m in moments}))
 
 
+def _lint(inp: dict, w: int, group, out: dict) -> None:
+    from repro_torch.analysis.lint import run_trace_sweep
+    findings, wires = run_trace_sweep(ns=(group.n,), M=int(inp["lint_m"]),
+                                      verbose=False, device="cpu",
+                                      group=group)
+    out["lint/findings"] = np.array([str(f) for f in findings] or [""])
+    rows = [(f"{label}|{kind}|{g}", b) for label, wire in wires.items()
+            for (kind, g), b in wire.items()]
+    out["lint/keys"] = np.array([k for k, _ in rows])
+    out["lint/bytes"] = np.array([b for _, b in rows])
+
+
 def main(work: Path, jobs: list[str]) -> None:
     torch.set_num_threads(1)
     inp = dict(np.load(work / "inputs.npz"))
@@ -248,7 +264,7 @@ def main(work: Path, jobs: list[str]) -> None:
         for job, fn in (("zen", _zen), ("dense", _dense),
                         ("schemes", _schemes),
                         ("gradsync", _gradsync), ("compress", _compress),
-                        ("broadcast", _broadcast)):
+                        ("broadcast", _broadcast), ("lint", _lint)):
             if job in jobs:
                 fn(inp, w, group, out)
         if "trainer" in jobs:
