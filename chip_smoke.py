@@ -340,6 +340,24 @@ Phases (any failure exits non-zero; nothing is caught):
      tokens ``launch/serve.py --reduced``'s on the same prompt) and
      ``torch_analyze_sparsity.py`` (the row masks the batches' token sets);
      ``flash_fwd`` launched.
+  8h. dryrun: the dry run (``launch/dryrun.py``) on the meta device over a
+     fake world: qwen2-0.5b ``train_4k`` at the production meshes 16x16
+     and 2x16x16 with ``--node-size 4`` (the records logged); then three
+     cut steps predicted on meta over a fake world of one rank and run on
+     the card over a gloo world of one rank, both under
+     ``launch/trace_cost.CostMode`` (``DRYRUN_CHECKS``: the train step at
+     full width and ``CUT_LAYERS``, one sequence of 4096; the
+     ``prefill_32k`` prefill of one sequence; one ``decode_32k`` step of 8
+     sequences): the walked FLOPs and ``FlopCounterMode``'s equal exactly,
+     the predicted peak of new buffers within ``DRYRUN_PEAK_TOL`` of
+     ``max_memory_allocated`` above the step's baseline (after one warm
+     step), ``flash_fwd`` launched, nothing plain (at 1x1 the data group
+     is one rank, which syncs nothing).  Phase 8's 4 gloo ranks (or a
+     torchrun of their own) trace one 2x2 qwen2-0.5b train step at
+     ``CUT_LAYERS``: rank 0's collective bytes by (kind, group size)
+     equal the fake 2x2 world's prediction, key for key, and every rank
+     launched the Zen kernels, nothing plain.  Then ``launch/serve.py --shape prefill_32k --batch 1`` and
+     ``--shape decode_32k --batch 8``: prefill ms, decode tok/s, peak GiB.
   9. times: median of 20 CUDA-event timings of each kernel and its plain
      version at the slice and serve shapes, with the least time the card
      could take and, where one PyTorch call computes the same function,
@@ -2583,7 +2601,8 @@ def dist_zen_sync(dev, mesh3: dict | None = None) -> list[dict] | None:
 
 
 def phase_dist(dev, smi: str, tp: bool = False, mesh3: dict | None = None,
-               lint: bool = False) -> tuple[list[dict], list[dict] | None]:
+               lint: bool = False, dryrun: bool = False
+               ) -> tuple[list[dict], list[dict] | None]:
     """The per-rank data-parallel path over a gloo group on this one card:
     zen_sync at the slice shapes on 8 ranks (and two-level plans over
     nodes of 4 and 2), then the full-width trainer on 4 ranks, per leaf,
@@ -2591,14 +2610,15 @@ def phase_dist(dev, smi: str, tp: bool = False, mesh3: dict | None = None,
     4x1 trainer on the same topology.  The 4 ranks are one torchrun
     (``gloo4_ranks``) that also runs phase tp's work when ``tp`` is set
     (a start of 4 processes costs about 20 s), and phase lint's sweep on
-    their ``DistGroup`` when ``lint`` is set; the 8 zen_sync ranks run
+    their ``DistGroup`` when ``lint`` is set, and phase dryrun's 2x2 step
+    when ``dryrun`` is; the 8 zen_sync ranks run
     phases mesh3 and serve_dp's work when ``mesh3`` (``mesh3_job``) is
     given.  The 4 ranks' and the 8 ranks' results return."""
     torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_reserved(dev)} B of "
         f"the card ({torch.cuda.memory_allocated(dev)} B allocated)")
     ranks8 = dist_zen_sync(dev, mesh3)
-    ranks = gloo4_ranks(DIST_VARIANTS, tp, lint)
+    ranks = gloo4_ranks(DIST_VARIANTS, tp, lint, dryrun)
     dist_trainer("gloo", smi, variants=DIST_VARIANTS,
                  runs=gloo4_dist_runs(ranks, DIST_VARIANTS))
     return ranks, ranks8
@@ -4012,6 +4032,9 @@ def gloo4_rank(work: Path) -> None:
         if job["lint"]:
             lint_rank(world, out)
             done("lint")
+        if job["dryrun"]:
+            dryrun_rank(world, dev, out)
+            done("dryrun")
         for name, extra in job["dist"]:
             K.reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -4027,16 +4050,19 @@ def gloo4_rank(work: Path) -> None:
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
-def gloo4_ranks(dist_variants, tp: bool, lint: bool = False) -> list[dict]:
+def gloo4_ranks(dist_variants, tp: bool, lint: bool = False,
+                dryrun: bool = False) -> list[dict]:
     """``gloo4_rank`` on 4 ranks of this card: if ``lint``, phase lint's
-    sweep on their ``DistGroup``, then the dist phase's ``dist_variants``
+    sweep on their ``DistGroup``, if ``dryrun`` phase dryrun's traced 2x2
+    step, then the dist phase's ``dist_variants``
     (``DIST_STEPS`` steps each) and, if ``tp``, phase tp's runs; the
     ranks' results, by rank."""
     work = Path(tempfile.mkdtemp(prefix="gloo4_", dir=Path(__file__)
                                  .resolve().parent / "build"))
     (work / "job.json").write_text(json.dumps(
         {"dist": [[name, list(extra)] for name, extra in dist_variants],
-         "dist_steps": DIST_STEPS, "tp": tp, "lint": lint}))
+         "dist_steps": DIST_STEPS, "tp": tp, "lint": lint,
+         "dryrun": dryrun}))
     run_ranks(TP["ranks"], [str(Path(__file__).resolve()), "--dist-rank",
                             "gloo4", str(work)], "gloo4",
               env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
@@ -5850,6 +5876,187 @@ def phase_examples() -> dict:
             "train_losses": tr["losses"], "tok_per_s": tr["tok_per_s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8h: the dry run, its predictions against the card
+# ---------------------------------------------------------------------------
+
+# (name, step spec, depth): qwen2-0.5b at full width; the train step at
+# CUT_LAYERS with one sequence of 4096, the serve steps at full depth
+DRYRUN_CHECKS = (
+    ("train 1x1", dict(mode="train", seq_len=4096, global_batch=1),
+     CUT_LAYERS),
+    ("prefill_32k", dict(mode="prefill", seq_len=32768, global_batch=1),
+     None),
+    ("decode_32k", dict(mode="decode", seq_len=32768, global_batch=8), None))
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_GEN = 16
+# the 2x2 step whose collective bytes the card and the fake world compare
+DRYRUN_TP_SPEC = dict(mode="train", seq_len=TP["seq"],
+                      global_batch=TP["batch"])
+
+
+@contextlib.contextmanager
+def gloo_world_of_one():
+    """A gloo world of this one process (``tcp://localhost``, a free
+    port), as its ``DistGroup``; destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.schemes import DistGroup
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield DistGroup()
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_rank(world, dev, out: dict) -> None:
+    """One rank of the 4 gloo ranks: the 2x2 qwen2-0.5b train step at
+    full width and ``CUT_LAYERS`` traced on the card; its collective
+    bytes by (kind, group size), its FLOPs and the step's launches into
+    ``out``."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.trace_cost import collective_wire
+    from repro_torch.train.steps import TrainerConfig
+
+    prog = dryrun.build_on(serve_cfg("qwen2-0.5b", CUT_LAYERS), (1, 2, 2),
+                           world, TrainerConfig(), dev)
+    K.reset_counts()
+    res = dryrun.trace_step(prog, DRYRUN_TP_SPEC)
+    out["dryrun"] = {"wire": collective_wire(res["records"]),
+                     "flops": res["walked"]["flops"],
+                     "launches": dict(K.LAUNCHES),
+                     "plain": dict(K.PLAIN_CALLS)}
+
+
+def dryrun_card_check(name: str, spec: dict, layers, world, want: dict,
+                      smi: str) -> dict:
+    """One of ``DRYRUN_CHECKS`` traced on the card (after a warm step)
+    against its prediction ``want``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.steps import TrainerConfig
+
+    prog = dryrun.build_on(serve_cfg("qwen2-0.5b", layers), (1, 1, 1), world,
+                           TrainerConfig(), "cuda")
+    base = {}
+
+    def ready():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base["allocated"] = torch.cuda.memory_allocated()
+    got = dryrun.trace_step(prog, spec, ready=ready, warmup=1)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base["allocated"]
+    del prog
+    free_card()
+    c = {"flops": got["walked"]["flops"],
+         "flops_predicted": want["walked"]["flops"],
+         "torch_flops": got["torch_flops"],
+         "torch_flops_predicted": want["torch_flops"],
+         "bytes": got["walked"]["bytes"],
+         "bytes_predicted": want["walked"]["bytes"],
+         "temp_bytes_predicted": want["memory"]["temp_bytes"],
+         "temp_bytes_traced": got["memory"]["temp_bytes"],
+         "temp_bytes_measured": measured,
+         "argument_bytes_predicted": want["memory"]["argument_bytes"],
+         "allocated_before_step": base["allocated"],
+         "trace_s": got["trace_s"]}
+    c["peak_gap"] = (c["temp_bytes_predicted"] - measured) / measured
+    log(f"[dryrun] {name}: {json.dumps(c)} | {smi}")
+    require(c["flops"] == c["flops_predicted"]
+            and c["torch_flops"] == c["torch_flops_predicted"],
+            f"dryrun {name}: FLOPs on the card {c['flops']} / "
+            f"{c['torch_flops']} != predicted {c['flops_predicted']} / "
+            f"{c['torch_flops_predicted']}")
+    require(abs(c["peak_gap"]) <= DRYRUN_PEAK_TOL,
+            f"dryrun {name}: predicted peak {c['temp_bytes_predicted']} B, "
+            f"measured {measured} B above the baseline")
+    return c
+
+
+def phase_dryrun(smi: str, ranks4: list[dict] | None) -> dict:
+    """Phase 8h (``DRYRUN_CHECKS``; the module docstring)."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.launch.trace_cost import collective_wire
+    from repro_torch.train.steps import TrainerConfig
+
+    free_card()
+    for tag, mp, ns in (("16x16", False, 1),
+                        ("2x16x16 --node-size 4", True, 4)):
+        rec = dryrun.dryrun_combo("qwen2-0.5b", "train_4k", mp, node_size=ns)
+        log(f"[dryrun] qwen2-0.5b train_4k {tag}: {json.dumps(rec)} | {smi}")
+    preds = {}
+    for name, spec, layers in DRYRUN_CHECKS:
+        with fake_world(1) as world:
+            prog = dryrun.build_on(serve_cfg("qwen2-0.5b", layers), (1, 1, 1),
+                                   world, TrainerConfig(), "meta")
+            preds[name] = dryrun.trace_step(prog, spec)
+            del prog
+    K.reset_counts()
+    with gloo_world_of_one() as world:
+        checks = {name: dryrun_card_check(name, spec, layers, world,
+                                          preds[name], smi)
+                  for name, spec, layers in DRYRUN_CHECKS}
+    # (at 1x1 the data group is one rank: no Zen sync, as the reference)
+    launches, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    log(f"[dryrun] card launches {launches}, plain {plain} | {smi}")
+    require(launches["flash_fwd"] and not any(plain.values()),
+            f"dryrun: launches {launches}, plain calls {plain}")
+    # the 2x2 step's collective bytes on the card against the fake world's
+    if ranks4 is None or "dryrun" not in ranks4[0]:
+        ranks4 = gloo4_ranks((), False, dryrun=True)
+    with fake_world(4) as world:
+        prog = dryrun.build_on(serve_cfg("qwen2-0.5b", CUT_LAYERS),
+                               (1, 2, 2), world, TrainerConfig(), "meta")
+        res = dryrun.trace_step(prog, DRYRUN_TP_SPEC)
+        del prog
+    wire, card = collective_wire(res["records"]), ranks4[0]["dryrun"]
+    log(f"[dryrun] 2x2 collective bytes: card rank 0 {card['wire']}, "
+        f"predicted {wire}; FLOPs {card['flops']} / {res['walked']['flops']}"
+        f" | {smi}")
+    require(card["wire"] == wire and card["flops"] == res["walked"]["flops"],
+            f"dryrun 2x2: card {card} != predicted {wire}")
+    for r in ranks4:
+        d = r["dryrun"]
+        log(f"[dryrun] 2x2 rank {r['rank']} launches {d['launches']}, plain "
+            f"{d['plain']} | {smi}")
+        require(all(d["launches"][k] for k in ZEN_KERNELS)
+                and not any(d["plain"].values()),
+                f"dryrun 2x2 rank {r['rank']}: launches {d['launches']}, "
+                f"plain {d['plain']}")
+    # launch/serve.py --shape on the card
+    served = {}
+    for shape, batch in (("prefill_32k", 1), ("decode_32k", 8)):
+        K.reset_counts()
+        r = serve.main(["--arch", "qwen2-0.5b", "--shape", shape, "--batch",
+                        str(batch), "--gen", str(DRYRUN_GEN)])
+        served[shape] = {k: r[k] for k in (
+            "prefill_ms", "decode_tok_per_s", "peak_gib", "cache_len",
+            "launches", "plain_calls")}
+        served[shape]["finite"] = bool(np.isfinite(r["logit_max"]).all())
+        log(f"[dryrun] serve.py --shape {shape} --batch {batch}: "
+            f"{json.dumps(served[shape])} | {smi}")
+        require(served[shape]["finite"]
+                and r["launches"]["flash_fwd"] == 24
+                and not any(r["plain_calls"].values()),
+                f"serve --shape {shape}: {served[shape]}")
+        free_card()
+    return {"checks": checks, "served": served,
+            "launches": {"dryrun cut steps (qwen2-0.5b)": launches,
+                         "dryrun 2x2 step (4 processes)": {
+                             k: sum(r["dryrun"]["launches"][k]
+                                    for r in ranks4) for k in launches}}}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
@@ -5858,7 +6065,7 @@ def main(argv=None) -> None:
                          "zen_sync,trainer,breakdown,buckets,overlap,"
                          "serve_kernels,serve,mamba2_train,compress,schemes,"
                          "hier,zoo,hybrid_moe,enc_dec_vlm,mla_zero1,dist,tp,"
-                         "mesh3,serve_dp,calib,lint,examples,times "
+                         "mesh3,serve_dp,calib,lint,examples,dryrun,times "
                          "(bitmap_times: the "
                          "bitmap call sites alone; dist_hier: the dist "
                          "trainer on nodes of 2 ranks alone; dist_parts: the dist "
@@ -5904,7 +6111,8 @@ def main(argv=None) -> None:
         # (its 4 gloo processes also run phase tp's work, its 8 phases
         # mesh3 and serve_dp's)
         ranks4, ranks8 = phase_dist(dev, dev_info["smi"], tp=want("tp"),
-                                    mesh3=job8, lint=want("lint"))
+                                    mesh3=job8, lint=want("lint"),
+                                    dryrun=want("dryrun"))
         phase_done("dist")
     else:
         if "dist_sync" in only:
@@ -5938,6 +6146,8 @@ def main(argv=None) -> None:
     phase_done("lint")
     examples = phase_examples() if want("examples") else None
     phase_done("examples")
+    dried = phase_dryrun(dev_info["smi"], ranks4) if want("dryrun") else None
+    phase_done("dryrun")
     # zoo next: its trainers fill most of the card, before other phases
     # leave kernel scratch and cached blocks behind
     zoo = phase_zoo(dev_info["smi"]) if want("zoo") else None
@@ -6028,7 +6238,7 @@ def main(argv=None) -> None:
         by_path["trainer --zero1 (8x1)"] = mla["zero1_8x1"]["zero1"]
     if tp:   # summed over the four processes
         by_path.update({p: {"launches": n} for p, n in tp["launches"].items()})
-    for part in (mesh3, served_dp, calib, linted, examples):
+    for part in (mesh3, served_dp, calib, linted, examples, dried):
         # (mesh3's, serve_dp's and calib's summed over the processes)
         by_path.update({p: {"launches": n}
                         for p, n in (part or {}).get("launches", {}).items()})

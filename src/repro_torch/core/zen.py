@@ -420,6 +420,13 @@ class GradSync:
             return (out[0] / n).expand_as(out), st
         return out / n, st
 
+    def upload_tables(self, device) -> list[torch.Tensor]:
+        """Upload every Zen layout's offline tables to ``device`` (what the
+        first sync there would upload; a CUDA device with its index, as
+        the payloads name it) and return them."""
+        return [t for lo in self._layouts.values()
+                for t in lo.tables(device).values()]
+
     def _side_stream(self, dev: torch.device) -> torch.cuda.Stream | None:
         """The encodes' side stream on a CUDA ``dev`` (made on first use),
         None on the CPU."""

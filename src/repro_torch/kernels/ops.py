@@ -12,12 +12,18 @@ the plain scans that ``SSDScan``'s backward runs to differentiate;
 run can show which route its path took; ``path_kernels`` names the kernels
 a Zen sync route launches.
 
-``TRACE`` is the op trace recording a sync (``analysis/trace_ir.OpTrace``),
-or None.  While it is set, each wrapper call, on either route, is one
-opaque ``kernel:<name>`` record of that trace: the ops of its plain
-version (the CPU route, or the ``"torch"`` route of
-``batched_coo_reduce_op``) are the kernel's, not the sync's own.  Nothing
-else changes: the same calls, the same results.
+A meta tensor (the dry run's, ``launch/dryrun.py``) takes neither: the
+wrapper makes the kernel's own checks of shapes, dtypes and domain (a
+shape the card would refuse raises the same ``ValueError``) and returns
+empty meta outputs of the kernel's shapes and dtypes, counted nowhere.
+:func:`kernel_cost` gives a call's operations and bytes from its shapes.
+
+``TRACE`` is the op trace recording a sync (``analysis/trace_ir.OpTrace``)
+or a step (``launch/trace_cost.CostMode``), or None.  While it is set,
+each wrapper call, on any route, is one opaque ``kernel:<name>`` record
+of that trace: the ops of its plain version (the CPU route, or the
+``"torch"`` route of ``batched_coo_reduce_op``) are the kernel's, not the
+sync's own.  Nothing else changes: the same calls, the same results.
 
 Two kernel sets carry the Zen sync.  The fused route (the default) runs the
 three megakernels; the unfused route (``SyncConfig(fused_encode=False)``
@@ -37,7 +43,9 @@ import functools
 import threading
 from typing import Sequence
 
+import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.core.hashing import (EMPTY, check_backend, compact_indices,
                                       compact_rows, hierarchical_hash)
@@ -175,6 +183,12 @@ def _check(lib, src: str, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def _plain(t: torch.Tensor) -> bool:
+    """A tensor on the CPU (or another host device) takes the plain
+    version; a CUDA tensor the kernel and a meta one its output shapes."""
+    return not (t.is_cuda or t.is_meta)
+
+
 def _need(t: torch.Tensor, dtype, ndim: int, what: str) -> None:
     if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
         raise ValueError(
@@ -232,18 +246,20 @@ def zen_encode_fused_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
     [n, r1+r2], occ int32 words [n, ceil((r1+r2)/32)], overflow int32).
     Rows too wide for shared memory (an EF-compressed bucket's) run from
     the kept global scratch."""
-    if not indices.is_cuda:
+    if _plain(indices):
         PLAIN_CALLS["zen_encode"] += 1
         return ref.zen_encode_ref(indices, seeds, n, r1, r2)
     _need(indices, torch.int32, 1, "zen_encode indices")
     seeds = [int(s) & 0xFFFFFFFF for s in seeds]
-    lib = _lib("zen_encode")
     C, L = indices.shape[0], r1 + r2
-    _, ng = _encode_sizes(C, n, r1, r2)
     dev = indices.device
     pidx = torch.empty((n, L), dtype=torch.int32, device=dev)
     occ = torch.empty((n, -(-L // BITS)), dtype=torch.int32, device=dev)
     ovf = torch.empty((), dtype=torch.int32, device=dev)
+    if indices.is_meta:
+        return pidx, occ, ovf
+    lib = _lib("zen_encode")
+    _, ng = _encode_sizes(C, n, r1, r2)
     sd = (ctypes.c_uint * len(seeds))(*seeds)
     stream = _stream(indices)
     with _ENCODE_LOCK:
@@ -320,7 +336,7 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
     [cap_pull(, d)], bm int32 words [ceil(cap_server/32)], overflow).
     Past 376,832 slots (an EF-compressed bucket's server) the bitmap's
     prefix is scanned grid-wide in global scratch."""
-    if not lp.is_cuda:
+    if _plain(lp):
         PLAIN_CALLS["zen_commit_push"] += 1
         return ref.zen_commit_push_ref(lp, vals, cap_server, cap_pull)
     squeeze = vals.ndim == 1
@@ -333,13 +349,15 @@ def zen_commit_push_fused_op(lp: torch.Tensor, vals: torch.Tensor, *,
     if v2.device != lp.device or v2.shape[0] != lp.shape[0]:
         raise ValueError("zen_commit_push: lp and vals must share device "
                          "and row count")
-    lib = _lib("zen_commit")
     C, d = v2.shape
     dev = lp.device
     lpos = torch.empty((cap_pull,), dtype=torch.int32, device=dev)
     out = torch.empty((cap_pull, d), dtype=v2.dtype, device=dev)
     bm = torch.empty((-(-cap_server // BITS),), dtype=torch.int32, device=dev)
     ovf = torch.empty((1,), dtype=torch.int32, device=dev)
+    if lp.is_meta:
+        return lpos, (out[:, 0] if squeeze else out), bm, ovf[0]
+    lib = _lib("zen_commit")
     stream = _stream(lp)
     with _PUSH_LOCK:
         st = _push_scratch(lib, dev, stream, C, d, v2.element_size(),
@@ -369,14 +387,16 @@ def zen_commit_pull_fused_op(words: torch.Tensor, cap_server: int,
     row's set-bit positions below ``cap_server``, ascending, EMPTY-padded.
     Rows wider than SMs / n x 1024 words (an EF-compressed bucket's) run
     as one cooperative launch with a grid barrier."""
-    if not words.is_cuda:
+    if _plain(words):
         PLAIN_CALLS["zen_commit_pull"] += 1
         return ref.zen_commit_pull_ref(words, cap_server, cap_pull)
     _need(words, torch.int32, 2, "zen_commit_pull words")
-    lib = _lib("zen_commit")
     n, W = words.shape
     dev = words.device
     lpos = torch.empty((n, cap_pull), dtype=torch.int32, device=dev)
+    if words.is_meta:
+        return lpos
+    lib = _lib("zen_commit")
     stream = _stream(words)
     ni = lib.zen_commit_pull_iscratch(n, W)
     if ni < 0:
@@ -401,17 +421,17 @@ def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
                   r1: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Alg. 1's hash stage: indices int32 [C] (EMPTY-padded) -> (p int32
     [C], q int32 [k, C]) with k = len(seeds) - 1; EMPTY maps to (n, r1)."""
-    if not indices.is_cuda:
+    if _plain(indices):
         PLAIN_CALLS["hash_stage"] += 1
         return ref.hash_stage_ref(indices, seeds, n, r1)
     _need(indices, torch.int32, 1, "hash_stage indices")
     seeds = [int(s) & 0xFFFFFFFF for s in seeds]
-    lib = _lib("hash_stage")
     C, k = indices.shape[0], len(seeds) - 1
     p = torch.empty((C,), dtype=torch.int32, device=indices.device)
     q = torch.empty((k, C), dtype=torch.int32, device=indices.device)
-    if C == 0:
+    if C == 0 or indices.is_meta:
         return p, q
+    lib = _lib("hash_stage")
     sd = (ctypes.c_uint * len(seeds))(*seeds)
     rc = lib.hash_stage_launch(indices.data_ptr(), C, ctypes.cast(sd, _P),
                                len(seeds), n, r1, p.data_ptr(), q.data_ptr(),
@@ -425,15 +445,15 @@ def hash_stage_op(indices: torch.Tensor, seeds: Sequence[int], n: int,
 def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
     """int32 [R, L] -> [R, L]: each row's live (non-EMPTY) entries to the
     front in slot order, EMPTY-padded tail."""
-    if not mem.is_cuda:
+    if _plain(mem):
         PLAIN_CALLS["row_compact"] += 1
         return ref.row_compact_ref(mem)
     _need(mem, torch.int32, 2, "row_compact mem")
-    lib = _lib("row_compact")
     R, L = mem.shape
     out = torch.empty_like(mem)
-    if out.numel() == 0:
+    if out.numel() == 0 or mem.is_meta:
         return out
+    lib = _lib("row_compact")
     rc = lib.row_compact_launch(mem.data_ptr(), R, L, out.data_ptr(),
                                 _stream(mem))
     _check(lib, "row_compact", rc, "row_compact launch")
@@ -445,14 +465,14 @@ def row_compact_op(mem: torch.Tensor) -> torch.Tensor:
 def bitmap_pack_rows_op(mask: torch.Tensor) -> torch.Tensor:
     """bool [n, L] -> int32 words [n, ceil(L/32)]: each row packed LSB
     first (the reference's uint32 bits), bits past L zero; one launch."""
-    if not mask.is_cuda:
+    if _plain(mask):
         PLAIN_CALLS["bitmap_pack"] += 1
         return ref.bitmap_pack_rows_ref(mask)
     _need(mask, torch.bool, 2, "bitmap_pack mask")
     n, L = mask.shape
     words = torch.empty((n, -(-L // BITS)), dtype=torch.int32,
                         device=mask.device)
-    if words.numel() == 0:
+    if words.numel() == 0 or mask.is_meta:
         return words
     lib = _lib("bitmap")
     rc = lib.bitmap_pack_launch(mask.data_ptr(), n, L, words.data_ptr(),
@@ -480,13 +500,13 @@ def bitmap_unpack_rows_op(words: torch.Tensor, length: int) -> torch.Tensor:
         raise ValueError(f"bitmap_unpack: need words [n, W] and 0 <= length "
                          f"<= 32 W, got shape {tuple(words.shape)} and "
                          f"length {length}")
-    if not words.is_cuda:
+    if _plain(words):
         PLAIN_CALLS["bitmap_unpack"] += 1
         return ref.bitmap_unpack_rows_ref(words, length)
     _need(words, torch.int32, 2, "bitmap_unpack words")
     n, W = words.shape
     bits = torch.empty((n, length), dtype=torch.bool, device=words.device)
-    if bits.numel() == 0:
+    if bits.numel() == 0 or words.is_meta:
         return bits
     lib = _lib("bitmap")
     rc = lib.bitmap_unpack_launch(words.data_ptr(), n, W, length,
@@ -524,7 +544,7 @@ def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
     stream order, in the values' dtype (one rounding per add), starting
     from ``out``'s row.  Only touched rows of ``out`` are read and written.
     ``out`` and ``vals`` share a dtype (float32 or bfloat16)."""
-    if not out.is_cuda:
+    if _plain(out):
         PLAIN_CALLS["coo_scatter_add"] += 1
         return out.copy_(ref.coo_scatter_add_ref(out, idx, vals))
     _need(idx, torch.int32, 1, "coo_scatter_add idx")
@@ -540,7 +560,7 @@ def coo_scatter_add_op(out: torch.Tensor, idx: torch.Tensor,
                          f"out [M, d] on one device, got {tuple(idx.shape)}, "
                          f"{tuple(vals.shape)}, {tuple(out.shape)}")
     (M, d), C = out.shape, idx.shape[0]
-    if C == 0 or M == 0:
+    if C == 0 or M == 0 or out.is_meta:
         return out
     lib = _lib("scatter_add")
     stream = _stream(out)
@@ -640,7 +660,7 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel takes bfloat16 (on the tensor cores) or float32 (on the FMA
     units), (hd, hd_v) in ``FLASH_HEAD_PAIRS`` and H / KV <= 128; any
     other pair raises ``ValueError``."""
-    if not q.is_cuda:
+    if _plain(q):
         PLAIN_CALLS["flash_fwd"] += 1
         return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
@@ -662,7 +682,7 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     out = q.new_empty((B, Sq, H, hd_v))
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return out
     _aligned(q, k, v)
     lib = _lib("flash_fwd")
@@ -688,7 +708,7 @@ def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     Q = min(chunk, S) -> (y [Bt, S, H, hd], state [Bt, H, hd, N]).  The
     kernel takes hd in ``SSD_HEAD_DIMS``, N in ``SSD_STATE_DIMS`` and
     Q <= ``SSD_MAX_CHUNK``."""
-    if not x.is_cuda:
+    if _plain(x):
         PLAIN_CALLS["ssd_fwd"] += 1
         return ref.ssd_fwd_ref(x, dA, Bm, Cm, chunk=chunk)
     _need(x, torch.float32, 4, "ssd_fwd x")
@@ -709,6 +729,10 @@ def ssd_fwd_op(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                          f"and N in {SSD_STATE_DIMS}; got {tuple(x.shape)}, "
                          f"{tuple(dA.shape)}, {tuple(Bm.shape)}, "
                          f"{tuple(Cm.shape)}, Q={Q}")
+    if x.is_meta:
+        # the shared-memory check below needs the library; within the
+        # domain the scan takes at most 107,776 B (hd 64, N 128, Q 64)
+        return (torch.empty_like(x), x.new_empty((Bt, H, hd, N)))
     lib = _lib("ssd_fwd")
     smem = lib.ssd_fwd_smem_bytes(hd, N, Q)
     if smem > _MAX_SMEM:
@@ -758,3 +782,69 @@ class SSDScan(torch.autograd.Function):
                                     ins, [g for _, g in outs],
                                     allow_unused=True)   # state skips Cm
         return (*grads, None)
+
+
+# ---------------------------------------------------------------------------
+# What a call costs, from its shapes
+# ---------------------------------------------------------------------------
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flash_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                 q_offset: int) -> int:
+    """The (query, key) pairs ``flash_fwd_ref`` keeps for one head of one
+    sequence: key j for the query at position p = q_offset + i where
+    j <= p (causal) and j > p - window (window > 0)."""
+    pos = q_offset + np.arange(Sq)
+    hi = np.minimum(Sk - 1, pos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def kernel_cost(name: str, args: tuple, kwargs: dict, outs) -> dict:
+    """One wrapper call's cost from its shapes, under the bound convention
+    of the kernel table (``PERF.md`` §6): ``flops``, the operations it
+    does (the floating adds of the scatter-adds, the hash stage's integer
+    hashing, the attention's and the scan's products; 0 for the integer
+    compaction, packing and decoding), and ``bytes``, each input read once
+    and each output written once (the scatter-add reads and writes at most
+    C rows of ``out``).  ``fusable_bytes`` is what the plain version would
+    write and read besides: ``flash_fwd``'s f32 scores.  Every row counts
+    as live: the data is not looked at, so a meta call and a card call of
+    one shape cost the same."""
+    ins = [t for t in tree_flatten((args, kwargs))[0]
+           if isinstance(t, torch.Tensor)]
+    outs = [t for t in tree_flatten(outs)[0] if isinstance(t, torch.Tensor)]
+    io = _nbytes(ins) + _nbytes(outs)
+    flops = fusable = 0
+    if name == "coo_scatter_add":   # (out, idx, vals): out updated in place
+        out, idx, vals = ins[:3]
+        M = out.shape[0]
+        d = out.numel() // max(M, 1)
+        C = idx.numel()
+        io = _nbytes([idx, vals]) + 2 * min(C, M) * d * out.element_size()
+        flops = C * d
+    elif name == "zen_commit_push":
+        flops = ins[1].numel()                      # C x d adds
+    elif name == "hash_stage":
+        seeds = args[1] if len(args) > 1 else kwargs["seeds"]
+        flops = ins[0].numel() * len(seeds) * 19   # hash_stage's ops a row
+    elif name == "flash_fwd":
+        q, k, v = ins[:3]
+        B, Sq, H, hd = q.shape
+        pairs = B * H * _flash_pairs(
+            Sq, k.shape[1], kwargs.get("causal", True),
+            kwargs.get("window", 0), kwargs.get("q_offset", 0))
+        flops = 2 * pairs * (hd + v.shape[-1])
+        fusable = 2 * 4 * B * H * Sq * k.shape[1]
+    elif name == "ssd_fwd":
+        x, _, Bm = ins[:3]
+        Bt, S, H, hd = x.shape
+        N = Bm.shape[-1]
+        Q = min(args[4] if len(args) > 4 else kwargs.get("chunk", 64), S)
+        tri = Q * (Q + 1) // 2
+        flops = (Bt * (S // Q)
+                 * (2 * tri * N + H * (2 * tri * hd + 4 * Q * N * hd)))
+    return {"flops": flops, "bytes": io, "fusable_bytes": fusable}

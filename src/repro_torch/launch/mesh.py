@@ -35,6 +35,7 @@ deadlock the others.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 
@@ -63,6 +64,42 @@ def check_node_size(dp: int, node_size: int) -> None:
         raise ValueError(
             f"node_size={node_size} does not divide the data axis "
             f"(size {dp}); pick a divisor of {dp}")
+
+
+def production_mesh(multi_pod: bool = False, node_size: int = 1
+                    ) -> tuple[int, int, int]:
+    """The reference's production mesh as ``(P, D, M)``: 16 x 16 = 256
+    ranks a pod, two pods with ``multi_pod`` (``make_production_mesh``);
+    ``node_size`` must divide D, as ``split_node_axes`` checks it."""
+    pods, dp, tp = (2, 16, 16) if multi_pod else (1, 16, 16)
+    check_node_size(dp, node_size)
+    return pods, dp, tp
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """Join a world of ``world_size`` ranks as ``rank`` over torch's
+    ``"fake"`` backend (no peer, no transfer: every collective returns at
+    once, leaving its output as it is), so one process runs one rank of a
+    production mesh on the meta device (``launch/dryrun.py``), the
+    counterpart of the reference's forced host devices.  Yields the
+    world's ``DistGroup``; the group is destroyed on exit.  Refuses to
+    start where a default group exists.
+
+    ``FakeStore`` is a torch-internal module
+    (``torch.testing._internal.distributed.fake_pg``), checked on torch
+    2.13.0+cpu and 2.11.0+cu128."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists "
+                           "already; destroy it first")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield DistGroup()
+    finally:
+        dist.destroy_process_group()
 
 
 def make_level_groups(group, topology, pods: int = 1) -> None:

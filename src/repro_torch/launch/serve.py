@@ -5,6 +5,13 @@ greedy decode (port of ``examples/serve_batched.py``).
         --batch 8 --prompt-len 512 --gen 16
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path on the CPU.
+``--shape NAME`` takes one of the paper's input shapes
+(``configs.INPUT_SHAPES``; ``--batch`` and ``--layers`` still cut it to
+one card): a prefill shape sets the prompt to its length and the batch to
+its own; a decode shape sets the batch and sizes the decode cache to its
+length (a sliding window of ``sliding_window`` slots above 65,536 tokens,
+as ``attach_serve`` does), and decodes from a ``--prompt-len`` prompt's
+prefill.
 The prompts are ``SyntheticLM`` batches from ``--seed``; the weights are
 random, drawn from the same seed.  Prefill runs every layer over the whole
 prompt (attention on the ``flash_fwd`` kernel, the Mamba2 scan on
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import get_config
+from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import BACKENDS, make_mesh_groups
@@ -67,8 +74,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCHS)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences (default 4, or the --shape's batch)")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="prompt tokens (default 32, or a prefill "
+                         "--shape's length)")
+    ap.add_argument("--shape", default=None,
+                    choices=[k for k, v in INPUT_SHAPES.items()
+                             if v["mode"] != "train"],
+                    help="one of the paper's serve input shapes")
     ap.add_argument("--gen", type=int, default=48,
                     help="new tokens per sequence (>= 1)")
     ap.add_argument("--reduced", action="store_true")
@@ -98,6 +112,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="MoE: the token-sharded all-to-all dispatch over "
                          "the model axis (M > 1)")
     args = ap.parse_args(argv)
+    spec = INPUT_SHAPES[args.shape] if args.shape else None
+    if args.batch is None:
+        args.batch = spec["global_batch"] if spec else 4
+    if spec and spec["mode"] == "prefill":
+        if args.prompt_len not in (None, spec["seq_len"]):
+            ap.error(f"--shape {args.shape} prefills {spec['seq_len']} "
+                     f"tokens; drop --prompt-len")
+        args.prompt_len = spec["seq_len"]
+    elif args.prompt_len is None:
+        args.prompt_len = 32
     pods, dp, _ = parse_mesh(args.mesh)
     if pods * dp > 1 and args.dist is None:
         ap.error(f"--mesh {args.mesh}: a data-parallel server runs one "
@@ -106,6 +130,10 @@ def parse_args(argv=None) -> argparse.Namespace:
             or (args.layers is not None and args.layers < 1):
         ap.error("--gen, --prompt-len, --batch and --layers must be "
                  "positive")
+    if spec and spec["mode"] == "decode" \
+            and args.prompt_len + args.gen > spec["seq_len"]:
+        ap.error(f"--shape {args.shape}: the prompt and the new tokens "
+                 f"must fit its {spec['seq_len']} positions")
     return args
 
 
@@ -142,7 +170,9 @@ def main(argv=None) -> dict:
     of the whole batch, the rows ``(lo, hi)`` this process served, its
     per-step max logits and top-2 gaps, prefill ms, decode tok/s (host
     clock after a device sync; the slowest data rank's), the positions the first layer's decode cache holds
-    at the end (``cache_pos``: this rank's share) and this process's
+    at the end (``cache_pos``: this rank's share), the card's peak
+    allocated GiB over the run (``peak_gib``; None on the CPU), the
+    decode cache's slots (``cache_len``) and this process's
     model kernels' launch and plain-call counters (and the launches of
     the decode steps alone: whisper's cross-attention)."""
     args = parse_args(argv)
@@ -186,13 +216,17 @@ def serve(args, group, model_group, device) -> dict:
     log = print if root else (lambda *a, **k: None)   # rank 0 prints
     log(f"arch={cfg.name} mesh={args.mesh} params="
           f"{sum(p.numel() for p in prog.model.parameters()) / 1e6:.1f}M "
-          f"batch={B} prompt={S} gen={args.gen} backend={args.backend} "
+          f"batch={B} prompt={S} gen={args.gen} shape={args.shape} "
+          f"backend={args.backend} "
           f"device={dev} dtype={str(cfg.dtype).replace('torch.', '')}",
           flush=True)
 
     def sync() -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
     b = next(iter(SyntheticLM(cfg, DataConfig(seq_len=S, batch=B,
                                               seed=args.seed))))
@@ -207,8 +241,11 @@ def serve(args, group, model_group, device) -> dict:
     prefill_ms = (time.perf_counter() - t0) * 1e3
     in_prefill = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
 
-    attach_serve(prog, seq_len=S + args.gen, global_batch=hi - lo,
-                 mode="decode")
+    # a decode shape sizes the cache to its length, else the run's tokens
+    attach_serve(prog, seq_len=(INPUT_SHAPES[args.shape]["seq_len"]
+                                if args.shape and INPUT_SHAPES[args.shape]
+                                ["mode"] == "decode" else S + args.gen),
+                 global_batch=hi - lo, mode="decode")
     decode = st.make_decode_step(prog.model, prog.cache_specs["window"],
                                  return_gap=True)
     lf = prog.model.gather_vocab(logits).float()
@@ -242,8 +279,12 @@ def serve(args, group, model_group, device) -> dict:
     counts = {k: ops.LAUNCHES[k] for k in ops.MODEL_KERNELS}
     plain = {k: ops.PLAIN_CALLS[k] for k in ops.MODEL_KERNELS}
     in_decode = {k: counts[k] - in_prefill[k] for k in counts}
+    peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else None)
     log(f"prefill: {prefill_ms:.1f} ms | decode: {args.gen - 1} steps "
-        f"{decode_s * 1e3:.1f} ms, {tok_s:,.0f} tok/s | launches {counts} "
+        f"{decode_s * 1e3:.1f} ms, {tok_s:,.0f} tok/s | cache "
+        f"{prog.cache_specs['cache_len']} slots | peak {peak_gib} GiB | "
+        f"launches {counts} "
         f"(in decode {in_decode}) "
         f"plain calls {plain}", flush=True)
     log("sample token ids:", gen[0][:16].tolist())
@@ -253,7 +294,8 @@ def serve(args, group, model_group, device) -> dict:
             "top2_gap": torch.stack(gaps).float().cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_s": decode_s,
             "decode_tok_per_s": tok_s, "launches": counts,
-            "decode_launches": in_decode,
+            "decode_launches": in_decode, "peak_gib": peak_gib,
+            "cache_len": prog.cache_specs["cache_len"],
             "cache_pos": None if attn is None else attn["pos"].cpu().numpy(),
             "plain_calls": plain}
 

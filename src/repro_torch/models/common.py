@@ -110,6 +110,52 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return pad_to(self.vocab, VOCAB_PAD)
 
+    def n_params(self) -> int:
+        """The reference's approximate parameter count (its roofline's
+        MODEL_FLOPS): the unpadded embedding, per layer the attention
+        projections (MLA's five), the SwiGLU or every expert's and the
+        router, a Mamba2 mixer; an encoder-decoder's encoder layers and
+        cross-attention, a hybrid's Mamba2 layers and one shared block.
+        No norm, bias or LM head counts, as in the reference."""
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab * d
+        din = self.d_inner
+        ssm_per = (d * (2 * din + 2 * self.ssm_heads + 2 * self.ssm_state)
+                   + din * d + din * self.ssm_conv)
+        if self.kind == "ssm":
+            return emb + L * ssm_per
+        attn = (d * (self.n_heads * self.hd) * 2
+                + d * (self.n_kv * self.hd) * 2)
+        if self.mla_q_rank:
+            attn = (d * self.mla_q_rank
+                    + self.mla_q_rank * self.n_heads
+                    * (self.hd + self.mla_rope_dim)
+                    + d * (self.mla_kv_rank + self.mla_rope_dim)
+                    + self.mla_kv_rank * self.n_heads
+                    * (self.hd + self.mla_v_dim)
+                    + self.n_heads * self.mla_v_dim * d)
+        if self.kind == "moe":
+            ffn = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+        else:
+            ffn = 3 * d * self.d_ff
+        total = emb + L * (attn + ffn)
+        if self.kind == "enc_dec":
+            total += self.n_enc_layers * (attn + ffn) + L * attn
+        if self.kind == "hybrid":
+            total = emb + L * ssm_per + (attn + ffn)
+        return total
+
+    def n_active_params(self) -> int:
+        """Parameters a token uses (the reference's): an MoE model's top_k
+        of its n_experts; every other kind's :meth:`n_params`."""
+        if self.kind != "moe":
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        attn = (d * (self.n_heads * self.hd) * 2
+                + d * (self.n_kv * self.hd) * 2)
+        ffn = self.top_k * 3 * d * self.d_ff + d * self.n_experts
+        return self.vocab * d + L * (attn + ffn)
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant, the reference's shapes: 2 layers (and <= 2
         encoder layers), d_model 256, 4 heads of 64, d_ff 384, vocab 512,

@@ -242,8 +242,9 @@ class Model(nn.Module):
     :meth:`train_loss` (and calling the model) is the train loss of a
     batch, :meth:`prefill` / :meth:`decode` serve.
 
-    Built on ``cuda`` unless ``device="cpu"`` is passed; parameters are
-    drawn from a ``torch.Generator`` seeded with ``seed``.  ``backend``
+    Built on ``cuda`` unless ``device="cpu"`` is passed (or ``"meta"``:
+    shapes without values, ``launch/dryrun.py``); parameters are drawn
+    from a ``torch.Generator`` seeded with ``seed``.  ``backend``
     picks the model kernels' route (prefill, and the Mamba2 scan in the
     train loss): ``"cuda"`` (the hand-written kernels for CUDA tensors,
     their plain versions for CPU ones) or ``"torch"`` (the plain
@@ -263,7 +264,10 @@ class Model(nn.Module):
         check_backend(backend)
         self.cfg, self.backend, self.ctx = cfg, backend, ctx
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # the meta device (the dry run's) has no generator: its draws take
+        # a host one, whose values it never makes
+        gen = torch.Generator(device="cpu" if device.type == "meta"
+                              else device).manual_seed(seed)
         vp = cfg.vocab_padded
         self.embed = Embedding(cfg.vocab, vp, cfg.d_model, dtype=cfg.dtype,
                                device=device, gen=gen, ctx=ctx)

@@ -76,9 +76,12 @@ def route(logits: torch.Tensor, top_k: int, cap: int) -> dict:
     rank[order] = ar - torch.searchsorted(sorted_e, sorted_e)
     keep = rank < cap
     slot = flat_e * cap + rank
-    pair_of_slot = torch.full((E * cap,), n, dtype=torch.long,
+    # dropped pairs go to a dump slot past the end, cut off (kept slots are
+    # unique): the shapes do not depend on the data
+    pair_of_slot = torch.full((E * cap + 1,), n, dtype=torch.long,
                               device=logits.device)
-    pair_of_slot[slot[keep]] = ar[keep]
+    pair_of_slot[torch.where(keep, slot, E * cap)] = ar
+    pair_of_slot = pair_of_slot[:E * cap]
     return {"probs": probs, "gate": gate, "eidx": eidx, "keep": keep,
             "slot": slot, "pair_of_slot": pair_of_slot}
 
@@ -92,8 +95,11 @@ def _pad_row(x: torch.Tensor) -> torch.Tensor:
 def expert_share(eidx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """f_e [E] f32: the pairs routed to expert e over the T tokens of
     ``eidx`` [T, K] (each of a token's K choices counts once)."""
-    return torch.bincount(eidx.reshape(-1),
-                          minlength=n_experts).float() / eidx.shape[0]
+    flat = eidx.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.long, device=flat.device)
+    # a scatter-add into E bins: bincount's length depends on the data
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    return counts.float() / eidx.shape[0]
 
 
 def moe_stats(r: dict, n_experts: int, mean=lambda x: x) -> dict:

@@ -145,7 +145,8 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
     ``SimGroup(n_data)``) says which ranks this process computes.  Metrics
     are f32 scalars averaged over the group's ranks and the model group's
     (``loss``, ``grad_norm``, the ``sync/*`` counters and an MoE model's
-    ``moe/*``); ``step_fn.rank_metrics`` keeps the last step's before the
+    ``moe/*``); ``step_fn.stacks`` holds the per-rank gradient stacks the
+    step reuses; ``step_fn.rank_metrics`` keeps the last step's before the
     model group's mean (a model rank's own ``sync/*`` words, the
     reference's per-device values).  ``state`` continues an
     earlier step function's optimizer state (a replan: bucket keys and
@@ -262,6 +263,7 @@ def make_train_step(model: Model, tcfg: TrainerConfig, n_data: int,
 
     step_fn.gradsync = gradsync
     step_fn.state = state
+    step_fn.stacks = stacks
     step_fn.rank_metrics = rank_metrics
     return step_fn
 
