@@ -14,6 +14,13 @@
 // and lo = pos - window + 1 when window > 0 (else 0).  A row with no key
 // in range writes zeros (the causal diagonal always is in range).
 //
+// Optionally (lse != nullptr, the trainer's FlashAttn) each row's
+// log-sum-exp of its scaled scores, lse [B, Sq, H] f32 = m / sqrt(HD_QK) +
+// log l from the kernel's own running max and sum, +inf for a row with no
+// key; the plain backward (ref.py :: flash_bwd_ref) takes P = exp(s - lse)
+// from it.  One store a row by the lane that holds it after the row sums;
+// o is computed by the same instructions with or without it.
+//
 // Two kernels, chosen by dtype (never by a failure):
 //
 // bf16 (the served dtype): tensor cores.  The rows of a (batch, KV head)
@@ -191,8 +198,9 @@ __global__ void __launch_bounds__(kMmaThreads, bf16_blocks_per_sm<HDQ, HDV>())
 flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int B, int Sq,
-                          int Sk, int H, int KV, int causal, int window,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int B, int Sq, int Sk,
+                          int H, int KV, int causal, int window,
                           int q_offset, float scale_log2e) {
   constexpr int LDK = HDQ + kPad;  // shared-memory row strides, elements
   constexpr int LDV = HDV + kPad;
@@ -434,6 +442,10 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (!live_row[r]) continue;
+    if (lse != nullptr && tq == 0)   // m holds unscaled scores
+      lse[qrow[r]] = l[r] > 0.f ? m[r] * (scale_log2e * 0.6931471805599453f) +
+                                      logf(l[r])
+                                : __int_as_float(0x7f800000);  // +inf
     const float den = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* out = o + qrow[r] * HDV + 2 * tq;
 #pragma unroll
@@ -444,9 +456,9 @@ flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HDQ, int HDV>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KV, int causal, int window,
-                int q_offset, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+                int window, int q_offset, cudaStream_t stream) {
   const long long rows = (long long)Sq * (H / KV);
   const long long blocks = (rows + kBM - 1) / kBM * KV * B;
   if (rows > 0x7fffffffLL || blocks > 0x7fffffffLL)
@@ -461,7 +473,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      B, Sq, Sk, H, KV, causal, window, q_offset,
+      lse, B, Sq, Sk, H, KV, causal, window, q_offset,
       1.4426950408889634f / sqrtf((float)HDQ));
   return (int)cudaGetLastError();
 }
@@ -496,8 +508,8 @@ template <int HDQ, int HDV, int SPLIT = kSplit<HDQ, HDV>>
 __global__ void __launch_bounds__(kRows * SPLIT, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int Sq, int Sk, int H, int KV, int causal, int window,
-                     int q_offset, float scale) {
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                     int causal, int window, int q_offset, float scale) {
   constexpr int CQ = HDQ / 4;       // float4 chunks of a q / k row
   constexpr int CV = HDV / 4;       // and of a v / o row
   constexpr int TQ = CQ / SPLIT;    // chunks a lane owns
@@ -622,6 +634,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (active) {
+    if (lse != nullptr && sub == 0)   // m holds scaled scores
+      lse[row] = l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);  // +inf
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int u = 0; u < TV; ++u)
@@ -632,9 +646,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HDQ, int HDV>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               int q_offset, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, int q_offset, cudaStream_t stream) {
   const int g = H / KV;
   const int bq = kRows / g;
   const dim3 grid((Sq + bq - 1) / bq, KV, B);
@@ -646,8 +660,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_f32_kernel<HDQ, HDV>
       <<<grid, kRows * kSplit<HDQ, HDV>, smem, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H,
-          KV, causal, window, q_offset, 1.0f / sqrtf((float)HDQ));
+          static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk,
+          H, KV, causal, window, q_offset, 1.0f / sqrtf((float)HDQ));
   return (int)cudaGetLastError();
 }
 
@@ -657,23 +671,26 @@ extern "C" {
 
 // q [B, Sq, H, hd], k [B, Sk, KV, hd], v [B, Sk, KV, hd_v] -> o [B, Sq, H,
 // hd_v], all of one dtype (0 = float32: the FMA kernel; 1 = bfloat16: the
-// tensor-core kernel), contiguous, 16-byte aligned.  (hd, hd_v) in {(32,
-// 32), (64, 64), (128, 128), (160, 160), (96, 64)}; H % KV == 0 with H / KV
-// <= 128.  Returns the cudaError_t of the launch (0 = success).
+// tensor-core kernel), contiguous, 16-byte aligned; lse [B, Sq, H] f32 or
+// null (not written).  (hd, hd_v) in {(32, 32), (64, 64), (128, 128),
+// (160, 160), (96, 64)}; H % KV == 0 with H / KV <= 128.  Returns the
+// cudaError_t of the launch (0 = success).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KV, int hd, int hd_v,
-                     int dtype, int causal, int window, int q_offset,
-                     void* stream) {
+                     void* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+                     int hd_v, int dtype, int causal, int window,
+                     int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > kRows || B > 65535 || KV > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* ls = static_cast<float*>(lse);
 #define FLASH_CASE(HDQ, HDV)                                                \
   if (hd == HDQ && hd_v == HDV)                                             \
-    return dtype == 0 ? launch_f32<HDQ, HDV>(q, k, v, o, B, Sq, Sk, H, KV,  \
-                                             causal, window, q_offset, s)   \
-                      : launch_bf16<HDQ, HDV>(q, k, v, o, B, Sq, Sk, H, KV, \
-                                              causal, window, q_offset, s);
+    return dtype == 0                                                       \
+               ? launch_f32<HDQ, HDV>(q, k, v, o, ls, B, Sq, Sk, H, KV,     \
+                                      causal, window, q_offset, s)          \
+               : launch_bf16<HDQ, HDV>(q, k, v, o, ls, B, Sq, Sk, H, KV,    \
+                                       causal, window, q_offset, s);
   FLASH_CASE(64, 64)
   FLASH_CASE(32, 32)
   FLASH_CASE(128, 128)

@@ -6,11 +6,12 @@ device from its tensors: a CUDA tensor launches the hand-written kernel
 ``kernels/ref.py``.  There is no fallback from a failed launch.
 
 ``LAUNCHES[name]`` counts kernel launches and ``PLAIN_CALLS[name]`` counts
-calls that took the plain version; ``RECOMPUTE_CALLS["ssd_fwd"]`` counts
-the plain scans that ``SSDScan``'s backward runs to differentiate;
-``reset_counts()`` zeroes all three.  The counters are plain integers so a
-run can show which route its path took; ``path_kernels`` names the kernels
-a Zen sync route launches.
+calls that took the plain version; ``RECOMPUTE_CALLS[name]`` counts the
+plain backward passes of the autograd Functions over the model kernels
+(``SSDScan``'s plain scan re-run to differentiate, ``FlashAttn``'s
+``ref.flash_bwd_ref``); ``reset_counts()`` zeroes all three.  The
+counters are plain integers so a run can show which route its path took;
+``path_kernels`` names the kernels a Zen sync route launches.
 
 A meta tensor (the dry run's, ``launch/dryrun.py``) takes neither: the
 wrapper makes the kernel's own checks of shapes, dtypes and domain (a
@@ -32,9 +33,9 @@ kernels, whose compositions ``zen_encode_unfused``,
 ``zen_commit_push_unfused`` and ``zen_commit_pull_unfused`` give the fused
 kernels' outputs bit for bit.  ``coo_scatter_add`` is also every
 baseline scheme's server aggregation (``batched_coo_reduce_op``).  Two
-more carry the models' prefill:
-``flash_fwd`` (attention) and ``ssd_fwd`` (the Mamba2 scan), which
-``SSDScan`` also puts under autograd for the Mamba2 trainer.
+more carry the models: ``flash_fwd`` (attention) and ``ssd_fwd`` (the
+Mamba2 scan), in prefill and, under autograd, in training (``FlashAttn``
+in every attention of every trainer, ``SSDScan`` in the Mamba2 layers).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ MODEL_KERNELS = ("flash_fwd", "ssd_fwd")
 KERNELS = FUSED_KERNELS + UNFUSED_KERNELS + MODEL_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
-RECOMPUTE_CALLS = {"ssd_fwd": 0}
+RECOMPUTE_CALLS = {"flash_fwd": 0, "ssd_fwd": 0}
 TRACE = None
 
 
@@ -122,7 +123,7 @@ _SIGNATURES = {
         "scatter_add_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_fwd": {
-        "flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 11 + [_P], _I),
+        "flash_fwd_launch": ([_P] * 5 + [_I] * 11 + [_P], _I),
         "flash_fwd_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd_fwd": {
@@ -652,18 +653,23 @@ FLASH_HEAD_PAIRS = tuple((hd, hd) for hd in FLASH_HEAD_DIMS) + ((96, 64),)
 
 @_opaque("flash_fwd")
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True, window: int = 0,
-                 q_offset: int = 0) -> torch.Tensor:
+                 causal: bool = True, window: int = 0, q_offset: int = 0,
+                 return_lse: bool = False, chunk: int = 512,
+                 q_chunk: int = 1024):
     """GQA attention with an online softmax in f32: q [B, Sq, H, hd], k
     [B, Sk, KV, hd], v [B, Sk, KV, hd_v] -> [B, Sq, H, hd_v] in q's dtype
-    (``ref.flash_fwd_ref`` says which keys each query row keeps).  The
-    kernel takes bfloat16 (on the tensor cores) or float32 (on the FMA
-    units), (hd, hd_v) in ``FLASH_HEAD_PAIRS`` and H / KV <= 128; any
-    other pair raises ``ValueError``."""
+    (``ref.flash_fwd_ref`` says which keys each query row keeps); with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores [B,
+    Sq, H] f32 (+inf where a row keeps no key), the backward's input.
+    The kernel takes bfloat16 (on the tensor cores) or float32 (on the
+    FMA units), (hd, hd_v) in ``FLASH_HEAD_PAIRS`` and H / KV <= 128; any
+    other pair raises ``ValueError``.  ``chunk`` / ``q_chunk`` are the
+    plain version's blocks (the kernel tiles by its own)."""
     if _plain(q):
         PLAIN_CALLS["flash_fwd"] += 1
         return ref.flash_fwd_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, chunk=chunk,
+                                 q_chunk=q_chunk, return_lse=return_lse)
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_fwd: q must be float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -682,17 +688,59 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     out = q.new_empty((B, Sq, H, hd_v))
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or q.is_meta:
-        return out
+        return (out, lse) if return_lse else out
     _aligned(q, k, v)
     lib = _lib("flash_fwd")
     rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
+                              out.data_ptr(),
+                              lse.data_ptr() if return_lse else None,
+                              B, Sq, Sk, H, KV, hd, hd_v,
                               _DTYPE_CODE[q.dtype], int(causal), int(window),
                               int(q_offset), _stream(q))
     _check(lib, "flash_fwd", rc, "flash_fwd launch")
     LAUNCHES["flash_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttn(torch.autograd.Function):
+    """``flash_fwd_op`` under autograd: (q, k, v) -> o, the attention of
+    every trainer (``layers.flash_attention`` with grad enabled).
+
+    The forward is ``flash_fwd_op(..., return_lse=True)``: the kernel for
+    CUDA tensors, the plain version for CPU ones (``plain=True``, the
+    ``"torch"`` route: ``ref.flash_fwd_ref`` on any device).  It keeps (q,
+    k, v, o, lse), O(S) a row, never the S x S scores.  The backward is
+    ``ref.flash_bwd_ref``, blockwise from lse: the reference
+    differentiates its ``flash_attention`` by autodiff and has no backward
+    kernel.  Each backward adds one to ``RECOMPUTE_CALLS["flash_fwd"]``.
+    Where q's dtype differs from k/v's (whisper's cross-attention in
+    training: a bf16 q on f32 K/V) q is promoted to their common dtype
+    (the f32 kernel) and the output and dq cast back: the reference's
+    ``flash_attention`` runs all three in f32 and returns q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int,
+                chunk: int, q_chunk: int, plain: bool):
+        dt = q.dtype
+        ct = torch.promote_types(dt, k.dtype)
+        q, k, v = (t.to(ct).contiguous() for t in (q, k, v))
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  chunk=chunk, q_chunk=q_chunk, return_lse=True)
+        o, lse = (ref.flash_fwd_ref(q, k, v, **kw) if plain
+                  else flash_fwd_op(q, k, v, **kw))
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.dt = kw, dt
+        return o.to(dt)
+
+    @staticmethod
+    def backward(ctx, do):
+        RECOMPUTE_CALLS["flash_fwd"] += 1
+        kw = {k: v for k, v in ctx.kw.items() if k != "return_lse"}
+        dq, dk, dv = ref.flash_bwd_ref(*ctx.saved_tensors, do, **kw)
+        return dq.to(ctx.dt), dk, dv, None, None, None, None, None, None
 
 
 SSD_HEAD_DIMS = (32, 64)

@@ -142,42 +142,55 @@ def zen_commit_pull_ref(words: torch.Tensor, cap_server: int,
 NEG = -1e30   # the reference's mask value (``layers.NEG``)
 
 
+def _flash_valid(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
+                 window: int) -> torch.Tensor:
+    """[Tq, Tk] bool: the keys each query row keeps."""
+    valid = torch.ones((pos_q.shape[0], pos_k.shape[0]), dtype=torch.bool,
+                       device=pos_q.device)
+    if causal:
+        valid &= pos_k[None, :] <= pos_q[:, None]
+    if window > 0:
+        valid &= pos_k[None, :] > pos_q[:, None] - window
+    return valid
+
+
 def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, q_offset: int = 0,
-                  chunk: int = 512, q_chunk: int = 1024) -> torch.Tensor:
-    """GQA attention by online softmax over KV chunks, in f32 (the
-    reference's ``layers._flash_inner`` / ``flash_attention``).
+                  chunk: int = 512, q_chunk: int = 1024,
+                  return_lse: bool = False):
+    """GQA attention by online softmax over KV chunks (the reference's
+    ``layers._flash_inner`` / ``flash_attention``), in float64: the
+    kernels' yardstick and the CPU route round the exact result once to
+    q's dtype (the reference's f32 sums and exps part from it by a few f32
+    ulps, the kernels' too).
 
     q [B, Sq, H, hd]; k [B, Sk, KV, hd]; v [B, Sk, KV, hd_v], H % KV == 0.
     Query row i sits at position ``q_offset + i``; key j at j.  ``causal``
     keeps keys j <= position, ``window > 0`` keys j > position - window.
-    Returns [B, Sq, H, hd_v] in q's dtype."""
+    Returns [B, Sq, H, hd_v] in q's dtype; with ``return_lse`` also the
+    rows' log-sum-exp of the scaled scores, ``m + log l``, [B, Sq, H] f32
+    (+inf for a row that keeps no key: ``flash_bwd_ref`` gives it zero
+    gradient)."""
     B, Sq, H, hd = q.shape
     Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     g = H // KV
-    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Sq, KV, g, hd)
-    kf, vf = k.float(), v.float()
-    out = torch.empty((B, Sq, KV, g, hd_v), dtype=torch.float32,
-                      device=q.device)
+    f64 = torch.float64
+    qf = (q.to(f64) * (1.0 / math.sqrt(hd))).reshape(B, Sq, KV, g, hd)
+    kf, vf = k.to(f64), v.to(f64)
+    out = torch.empty((B, Sq, KV, g, hd_v), dtype=f64, device=q.device)
+    lse = torch.empty((B, Sq, KV, g), dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, q_chunk):
         qb = qf[:, q0:q0 + q_chunk]
         Tq = qb.shape[1]
         pos_q = q_offset + q0 + torch.arange(Tq, device=q.device)
-        m = torch.full((B, Tq, KV, g), NEG, dtype=torch.float32,
-                       device=q.device)
+        m = torch.full((B, Tq, KV, g), NEG, dtype=f64, device=q.device)
         l = torch.zeros_like(m)
-        o = torch.zeros((B, Tq, KV, g, hd_v), dtype=torch.float32,
-                        device=q.device)
+        o = torch.zeros((B, Tq, KV, g, hd_v), dtype=f64, device=q.device)
         for c0 in range(0, Sk, chunk):
             kb, vb = kf[:, c0:c0 + chunk], vf[:, c0:c0 + chunk]
             pos_k = c0 + torch.arange(kb.shape[1], device=q.device)
             s = torch.einsum("bqkgh,bckh->bqkgc", qb, kb)
-            valid = torch.ones((Tq, kb.shape[1]), dtype=torch.bool,
-                               device=q.device)
-            if causal:
-                valid &= pos_k[None, :] <= pos_q[:, None]
-            if window > 0:
-                valid &= pos_k[None, :] > pos_q[:, None] - window
+            valid = _flash_valid(pos_q, pos_k, causal, window)
             s = torch.where(valid[None, :, None, None, :], s, NEG)
             m_new = torch.maximum(m, s.max(-1).values)
             p = torch.exp(s - m_new[..., None])
@@ -186,7 +199,71 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             o = o * corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vb)
             m = m_new
         out[:, q0:q0 + Tq] = o / l.clamp(min=1e-30)[..., None]
-    return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+        if return_lse:   # m is NEG only where every key was masked
+            lse[:, q0:q0 + Tq] = torch.where(m == NEG, math.inf,
+                                             m + torch.log(l))
+    out = out.reshape(B, Sq, H, hd_v).to(q.dtype)
+    return (out, lse.reshape(B, Sq, H)) if return_lse else out
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0,
+                  chunk: int = 512, q_chunk: int = 1024):
+    """The gradient of :func:`flash_fwd_ref` (the reference differentiates
+    its ``flash_attention`` by autodiff through the online softmax; this
+    is the same gradient, taken block by block from the forward's row
+    log-sum-exp).
+
+    q, k, v, the output o [B, Sq, H, hd_v], lse [B, Sq, H] f32 (the
+    forward's ``return_lse``) and the output's gradient do -> (dq, dk, dv)
+    in q's, k's and v's dtypes.  In f32, per block of ``q_chunk`` queries
+    and ``chunk`` keys: P = exp(s - lse) on the kept keys (s the scaled
+    scores), dV += P^T dO, dP = dO V^T, dS = P (dP - D) with D =
+    rowsum(dO o), dQ += dS K / sqrt(hd), dK += dS^T Q / sqrt(hd); dk and dv
+    sum each KV head's g q heads.  A block that no query of it keeps a key
+    of (above the causal diagonal, before the window) is skipped on the
+    Python integers of its bounds, never on a device value, so the loop
+    makes no host sync.  Each transient is at most B x q_chunk x H x chunk
+    f32, the forward's bound.  A row whose lse is +inf (it keeps no key)
+    has P = 0: zero gradient."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q.float() * scale).reshape(B, Sq, KV, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, KV, g, hd_v)
+    D = (dof * o.float().reshape(B, Sq, KV, g, hd_v)).sum(-1)
+    lse = lse.reshape(B, Sq, KV, g)
+    dq = torch.zeros((B, Sq, KV, g, hd), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, Sk, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Sk, KV, hd_v), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, q_chunk):
+        Tq = min(q_chunk, Sq - q0)
+        first, last = q_offset + q0, q_offset + q0 + Tq - 1
+        qb, dob = qf[:, q0:q0 + Tq], dof[:, q0:q0 + Tq]
+        lb, Db = lse[:, q0:q0 + Tq, ..., None], D[:, q0:q0 + Tq, ..., None]
+        pos_q = first + torch.arange(Tq, device=q.device)
+        for c0 in range(0, Sk, chunk):
+            Tc = min(chunk, Sk - c0)
+            if (causal and c0 > last) \
+                    or (window > 0 and c0 + Tc - 1 <= first - window):
+                continue
+            kb, vb = kf[:, c0:c0 + Tc], vf[:, c0:c0 + Tc]
+            pos_k = c0 + torch.arange(Tc, device=q.device)
+            valid = _flash_valid(pos_q, pos_k, causal, window)
+            s = torch.einsum("bqkgh,bckh->bqkgc", qb, kb)
+            p = torch.where(valid[None, :, None, None, :],
+                            torch.exp(s - lb), 0.0)
+            dv[:, c0:c0 + Tc] += torch.einsum("bqkgc,bqkgh->bckh", p, dob)
+            dp = torch.einsum("bqkgh,bckh->bqkgc", dob, vb)
+            ds = p * (dp - Db)
+            dq[:, q0:q0 + Tq] += torch.einsum("bqkgc,bckh->bqkgh", ds, kb)
+            dk[:, c0:c0 + Tc] += torch.einsum("bqkgc,bqkgh->bckh", ds, qb)
+    return ((dq * scale).reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_fwd_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,

@@ -11,13 +11,14 @@ returns at once) on the meta device: the program is built with
 ``build_program(..., device="meta")`` (shapes, no values: nothing is
 allocated, no card is needed), its groups with ``launch/mesh``, and the
 train, prefill or decode step runs once on the shapes of the global
-batch under ``launch/trace_cost.CostMode`` and ``FlopCounterMode``.  The
+batch under ``launch/trace_cost.CostMode``.  The
 kernel wrappers return their outputs' shapes on meta and log their cost
 (``kernels/ops.kernel_cost``).
 
 Each record has the reference's keys but ``lower_s`` / ``compile_s``
 (here ``build_s`` / ``trace_s``) and ``xla_*`` (here
-``torch_flops_per_device``, ``FlopCounterMode``'s count); ``memory``
+``torch_flops_per_device``, the walk's matmul and convolution FLOPs,
+``trace_cost.matmul_flops``); ``memory``
 holds the argument bytes (this rank's parameters, the optimizer state,
 the trainer's gradient stacks and Zen tables, and its batch or decode
 cache), the
@@ -44,8 +45,8 @@ import traceback
 from pathlib import Path
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 from torch.utils._pytree import tree_flatten
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.core.registry import cli_scheme_choices
@@ -53,7 +54,7 @@ from repro_torch.core.topology import build_topology
 from repro_torch.core.zen import SyncConfig
 from repro_torch.launch.mesh import (fake_world, make_level_groups,
                                      mesh_groups, production_mesh)
-from repro_torch.launch.trace_cost import CostMode, analyze
+from repro_torch.launch.trace_cost import CostMode, analyze, matmul_flops
 from repro_torch.models.common import ArchConfig
 from repro_torch.train.build import (Program, attach_serve, attach_train,
                                      build_program)
@@ -105,8 +106,8 @@ def trace_step(prog: Program, spec: dict, fused_attn: bool = False,
                ready=None, warmup: int = 0) -> dict:
     """Attach ``spec``'s step (``mode``: train, prefill or decode, at
     ``seq_len`` and ``global_batch``) to ``prog`` and run it once under
-    ``CostMode`` and ``FlopCounterMode``, on the program's device: the
-    walked cost, ``FlopCounterMode``'s FLOPs, the memory and the kernel
+    ``CostMode``, on the program's device: the walked cost, its matmul
+    FLOPs, the memory and the kernel
     calls.  ``warmup`` steps run first, untraced (on the card: the kernels'
     kept scratch and the libraries' workspaces made before the baseline);
     ``ready()``, when given, runs after them, just before the traced step
@@ -149,13 +150,19 @@ def trace_step(prog: Program, spec: dict, fused_attn: bool = False,
         batch_bytes = 0
     for _ in range(warmup):
         step()
+    # the layers' recompute (torch.utils.checkpoint) sets itself up at its
+    # first call, an import that keeps the caller's frames (and their
+    # tensors) in reference cycles until a collection: one call here
+    # keeps that out of the traced step, whose frees then follow the
+    # step's own references on every device
+    checkpoint(torch.neg, torch.zeros(()), use_reentrant=False)
     arg = _storages((list(prog.model.parameters()), args))
     arg_bytes = sum(arg.values()) + batch_bytes
     if ready is not None:
         ready()
     attach_s = time.time() - t0
     t0 = time.time()
-    with FlopCounterMode(display=False) as fc, CostMode() as cm:
+    with CostMode() as cm:
         out = step()
     trace_s = time.time() - t0
     walked = analyze(cm, exclude="flash_fusable" if fused_attn else None)
@@ -165,7 +172,7 @@ def trace_step(prog: Program, spec: dict, fused_attn: bool = False,
         if r.op.startswith("kernel:"):
             calls[r.op[7:]] = calls.get(r.op[7:], 0) + 1
     return {"attach_s": attach_s, "trace_s": trace_s, "walked": walked,
-            "torch_flops": float(fc.get_total_flops()),
+            "torch_flops": matmul_flops(cm),
             "kernel_calls": dict(sorted(calls.items())),
             "memory": {"argument_bytes": arg_bytes,
                        "output_bytes": out_bytes,

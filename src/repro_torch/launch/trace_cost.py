@@ -30,11 +30,16 @@ reference folds its HLO, with the reference's heuristics:
 
 The reference needs trip counts because its step is a ``lax.scan`` that
 XLA's cost analysis counts once; an eager step runs every layer, so the
-op stream already holds each of them and nothing is multiplied.
+op stream already holds each of them and nothing is multiplied.  A layer
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+remat) runs its forward ops a second time inside the backward, and they
+are walked there; so are ``FlashAttn``'s blockwise backward ops.
 
 Peak memory: the mode counts, by storage, the bytes of every new buffer
 made under it while it is alive (``weakref`` on the storage); ``peak`` is
-the most live at once.  Buffers made before the step (the parameters,
+the most live at once: the recompute keeps a layer's activations alive
+only from its recompute to its backward, as the step without the mode
+does.  Buffers made before the step (the parameters,
 the optimizer state, the batch) are the caller's argument bytes.  A
 kernel wrapper's scratch kept on the card is not seen.
 """
@@ -64,6 +69,10 @@ MATMULS = ("mm", "bmm", "addmm", "baddbmm")
 # device (the CPU wraps it, meta and CUDA make it), so it is not counted
 HOST_SCALARS = ("scalar_tensor",)
 CONVOLUTIONS = ("convolution", "_convolution")
+# the records whose FLOPs are products (``matmul_flops``): what PyTorch's
+# ``FlopCounterMode`` counts of the port's steps, the reference's dots
+PRODUCTS = frozenset(f"aten.{n}" for n in (*MATMULS, *CONVOLUTIONS,
+                                            "convolution_backward"))
 
 
 @dataclasses.dataclass
@@ -176,6 +185,8 @@ class CostMode(TorchDispatchMode):
         self._quiet = 0
         self._depth = 0       # the mode re-enters itself to decompose
         self._seen: weakref.WeakSet = weakref.WeakSet()
+        self._counted: dict[int, weakref.finalize] = {}   # by storage id
+        self._zeros = None    # the storage the last op, a new_zeros, made
 
     def __enter__(self):
         if ops.TRACE is not None and ops.TRACE is not self:
@@ -198,8 +209,14 @@ class CostMode(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- live bytes ------------------------------------------------------------
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, key: int) -> None:
         self.live -= n
+        self._counted.pop(key, None)
+
+    def _count(self, st, n: int) -> None:
+        """Count ``n`` bytes live until storage ``st`` dies."""
+        self._seen.add(st)
+        self._counted[id(st)] = weakref.finalize(st, self._free, n, id(st))
 
     def _new_buffers(self, ins: list, outs: list) -> list[torch.Tensor]:
         """The outputs whose storage no input shares (new buffers), each
@@ -211,13 +228,19 @@ class CostMode(TorchDispatchMode):
             if id(st) in have or st in self._seen:
                 continue
             have.add(id(st))
-            self._seen.add(st)
             n = st.nbytes()
             self.live += n
             self.peak = max(self.peak, self.live)
-            weakref.finalize(st, self._free, n)
+            self._count(st, n)
             new.append(t)
         return new
+
+    def _in_place(self, src, dst) -> None:
+        """Move the count of storage ``src`` to ``dst``, which takes its
+        place: the buffer an op outside the mode would have written in
+        place."""
+        _, _, (n, _), _ = self._counted.pop(id(src)).detach()
+        self._count(dst, n)
 
     # -- recording -------------------------------------------------------------
     def kernel(self, name: str, fn, args, kwargs):
@@ -249,6 +272,7 @@ class CostMode(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
+        zeros, self._zeros = self._zeros, None
         out = func(*args, **kwargs)
         if func.namespace == "c10d":
             self.records.append(_collective(func, args, kwargs))
@@ -257,7 +281,18 @@ class CostMode(TorchDispatchMode):
         if name in HOST_SCALARS:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if name == "scatter_add" and zeros is not None \
+                and zeros() is args[0].untyped_storage():
+            # ATen's gather backward: a zero buffer and a scatter_add into
+            # it, out of place under a dispatch mode (this one) and in
+            # place without; counted as the step without the mode runs it
+            self._in_place(args[0].untyped_storage(), out.untyped_storage())
+            self.records.append(CostRecord(op="aten.scatter_add_",
+                                           flops=float(out.numel())))
+            return out
         new = self._new_buffers(ins, outs)
+        if name == "new_zeros":
+            self._zeros = weakref.ref(out.untyped_storage())
         if func.is_view or (outs and not new
                             and not func._schema.is_mutable):
             return out           # a view, or an alias (``_unsafe_view``)
@@ -292,6 +327,14 @@ def analyze(records: Iterable[CostRecord] | CostMode,
     return {"flops": total.flops, "bytes": total.bytes,
             "collectives": dict(sorted(total.coll.items())),
             "collective_bytes_total": sum(total.coll.values())}
+
+
+def matmul_flops(records: Iterable[CostRecord] | CostMode) -> float:
+    """The FLOPs of the products (``PRODUCTS``: matmuls, convolutions and
+    their backwards) among the records, a kernel wrapper's calls left
+    out as ``FlopCounterMode`` leaves them out."""
+    return sum(r.flops for r in getattr(records, "records", records)
+               if r.op in PRODUCTS)
 
 
 def collective_wire(records: Iterable[CostRecord] | CostMode

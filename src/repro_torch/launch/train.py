@@ -161,8 +161,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
-                    help="kernel route (Zen's, and the Mamba2 scan's): the "
-                         "CUDA kernels, or their plain PyTorch versions")
+                    help="kernel route (Zen's, the attention's and the "
+                         "Mamba2 scan's): the CUDA kernels, or their plain "
+                         "PyTorch versions")
     ap.add_argument("--dist", default=None, choices=BACKENDS,
                     help="one rank per process under torchrun, over this "
                          "torch.distributed backend (default: all ranks "

@@ -5,23 +5,23 @@ cross-attention's variants, and MLA, multi-head latent attention (port of
 ``gqa_cross_decode``, ``init_mla``, ``_mla_qkv``, ``mla_train``,
 ``mla_make_cache`` and ``mla_decode``).
 
-:meth:`GQA.forward` is the trainer's: plain PyTorch with autograd --
-scores by matmul in f32, the causal mask (when ``causal``), an f32 softmax
-and the weighted sum, cast back to the activations' dtype.  The reference
-takes the same softmax chunk by chunk (online softmax); the results agree
-to f32 rounding.  It does not call the ``flash_fwd`` kernel: that kernel,
-like its Pallas original, is forward-only, and the reference trainer never
-calls the Pallas kernel either.  :meth:`GQA.prefill` and
-:meth:`GQA.cross_decode` (serving, no gradient) do: their attention is
-``layers.flash_attention``.
+:meth:`GQA.forward` is the trainer's (and the encoder's): its attention is
+``layers.flash_attention``, under autograd ``ops.FlashAttn`` -- the
+``flash_fwd`` kernel's forward with the rows' log-sum-exp, and the plain
+blockwise backward ``ref.flash_bwd_ref`` (the reference differentiates its
+chunked online softmax by autodiff and has no backward kernel), so no S x S
+score tensor is kept.  :meth:`GQA.prefill` and :meth:`GQA.cross_decode`
+(serving, no gradient) run the same function on ``flash_fwd`` and keep
+the decode cache.
 
 The encoder's self-attention is ``causal=False, use_rope=False``; the
 decoder's cross-attention takes K/V from ``kv_src`` (the encoder output:
 no RoPE, no mask).  dtypes: whisper's frames are f32, so its encoder runs
 in f32 activations on the model's weights, as JAX's promotion runs the
 reference's, and the cross K/V come out in f32 while q is in the model's
-dtype.  The trainer's plain attention takes them so, as the reference
-does.  ``flash_fwd`` takes q, k and v in one dtype, so serving casts the
+dtype.  The trainer's ``FlashAttn`` takes them so, as the reference does,
+promoting q to f32 (the f32 kernel) and casting the output back.
+``flash_fwd`` takes q, k and v in one dtype, so serving casts the
 cross K/V to q's dtype (the model's) once, when it makes the cross cache
 (:meth:`GQA.make_cross_cache`), and the prefill's cross-attention and
 every decode step attend to that cache.  In f32 this is the reference's
@@ -37,7 +37,7 @@ shared RoPE key ``kr`` a position (the last ``mla_rope_dim`` columns of
 ``kv_down``), ``kv_up`` giving each head's nope key and its value of
 ``mla_v_dim``.  So q/k are ``hd + mla_rope_dim`` wide (96 for minicpm3)
 and v ``mla_v_dim`` (64), and the softmax scale is that of q/k's width.
-The trainer's attention is plain; the prefill's is ``flash_fwd`` at that
+The trainer's attention and the prefill's are ``flash_fwd`` at that
 (96, 64) pair; the decode cache is the latent one (``c``, ``kr`` and
 ``pos``: no per-head K/V), and decode attends to it with ``kv_up``
 absorbed into q and the output (the reference's f32 einsums, no kernel).
@@ -74,24 +74,6 @@ from repro_torch.models.common import ArchConfig, ShardCtx
 from repro_torch.models.layers import (NEG, Linear, RMSNorm, cache_write,
                                        decode_attention, flash_attention,
                                        rope)
-
-
-def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
-    """The trainer's attention under autograd: q [B, S, H, hd], k [B, Sk,
-    KV, hd], v [B, Sk, KV, hd_v] -> [B, S, H * hd_v] in q's dtype; scores
-    by matmul in f32 at scale 1/sqrt(hd), the causal mask (when
-    ``causal``), an f32 softmax and the weighted sum."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    qf = (q.float() * (1.0 / math.sqrt(hd))).view(B, S, KV, H // KV, hd)
-    s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.float())
-    if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.full_like(s, NEG))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
-    return o.reshape(B, S, H * v.shape[-1]).to(q.dtype)
 
 
 def local_slots(seq: int, ctx: ShardCtx) -> int:
@@ -197,17 +179,20 @@ class GQA(nn.Module):
         return q, k, self.v(src).view(B, Sk, KV, hd)
 
     def forward(self, x: torch.Tensor, *, causal: bool = True,
-                use_rope: bool = True,
-                kv_src: torch.Tensor | None = None) -> torch.Tensor:
-        """The trainer's attention over x [B, S, d]; with ``kv_src`` [B, Sk,
-        d] the cross-attention (no RoPE, no mask)."""
-        S = x.shape[1]
+                use_rope: bool = True, kv_src: torch.Tensor | None = None,
+                backend: str = "cuda") -> torch.Tensor:
+        """The trainer's attention over x [B, S, d] (and the encoder's, which
+        keeps no cache); with ``kv_src`` [B, Sk, d] the cross-attention (no
+        RoPE, no mask): ``layers.flash_attention`` on the ``backend``
+        route (``ops.FlashAttn`` under autograd)."""
+        B, S, _ = x.shape
         rot = use_rope and kv_src is None
         q, k, v = self._qkv(x, torch.arange(S, device=x.device) if rot
                             else None, kv_src)
         k, v = self._kv_slice(k, v)
-        return self.o(plain_attention(q, k, v,
-                                      causal=causal and kv_src is None))
+        o = flash_attention(q, k.contiguous(), v.contiguous(),
+                            causal=causal and kv_src is None, backend=backend)
+        return self.o(o.reshape(B, S, -1))
 
     def prefill(self, x: torch.Tensor, *, backend: str = "cuda",
                 causal: bool = True, use_rope: bool = True,
@@ -364,13 +349,17 @@ class MLA(nn.Module):
             B, S, H, cfg.mla_rope_dim)], dim=-1)
         return k, kv[..., hd:].contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The trainer's causal attention over x [B, S, d] (plain, under
-        autograd; the reference's ``mla_train``)."""
-        S = x.shape[1]
+    def forward(self, x: torch.Tensor, *,
+                backend: str = "cuda") -> torch.Tensor:
+        """The trainer's causal attention over x [B, S, d]
+        (``layers.flash_attention`` at (hd + rd, vd) on the ``backend``
+        route, ``ops.FlashAttn`` under autograd; the reference's
+        ``mla_train``)."""
+        B, S, _ = x.shape
         q, c, kr = self._qkv(x, torch.arange(S, device=x.device))
         k, v = self._kv(c, kr)
-        return self.o(plain_attention(q, k, v, causal=True))
+        o = flash_attention(q, k, v, causal=True, backend=backend)
+        return self.o(o.reshape(B, S, -1))
 
     def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
         """Causal attention over a prompt x [B, S, d] on ``flash_fwd`` at

@@ -1,9 +1,11 @@
 """Primitive layers of the port's models (port of ``repro.models.layers``).
 
 RMSNorm (plain and over the SSM's d_inner), RoPE, the SwiGLU and GELU
-MLPs, the untied input embedding, the LM head with its cross-entropy, prefill
-attention (:func:`flash_attention`, on the ``flash_fwd`` kernel) and
-decode attention over a KV cache.  Under tensor parallelism (a
+MLPs, the untied input embedding, the LM head with its cross-entropy
+(:func:`lm_head_loss_chunked` in training, 512 positions at a time),
+attention (:func:`flash_attention`, on the ``flash_fwd`` kernel: the
+prefill's, and under autograd every trainer's through ``ops.FlashAttn``)
+and decode attention over a KV cache.  Under tensor parallelism (a
 ``ShardCtx`` with tp > 1, ``models/common.py``) these are the reference's
 Megatron-style layers: ``Linear`` in the col (output features sharded),
 row (input features sharded, a ``psum_tp`` before the bias) and rep
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.hashing import check_backend
 from repro_torch.kernels import ops
@@ -152,20 +155,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    backend: str = "cuda") -> torch.Tensor:
-    """Prefill attention, GQA: q [B, Sq, H, hd], k [B, Sk, KV, hd], v [B,
-    Sk, KV, hd_v] -> [B, Sq, H, hd_v] in q's dtype, online softmax in f32
-    (``hd_v`` differs from ``hd`` for MLA: 96 and 64).
+                    backend: str = "cuda", chunk: int = 512,
+                    q_chunk: int = 1024) -> torch.Tensor:
+    """GQA attention: q [B, Sq, H, hd], k [B, Sk, KV, hd], v [B, Sk, KV,
+    hd_v] -> [B, Sq, H, hd_v] in q's dtype, online softmax in f32 (the
+    plain version in f64; ``hd_v`` differs from ``hd`` for MLA: 96 and
+    64), the reference's
+    ``flash_attention`` (its ``chunk`` / ``q_chunk`` blocks are the plain
+    version's).
 
-    ``backend="cuda"`` goes through ``ops.flash_fwd_op``: the hand-written
-    kernel for CUDA tensors (or an error), the plain version for CPU
-    tensors; ``"torch"`` takes the plain version on any device."""
+    Under autograd (grad enabled and an input that requires it: every
+    trainer's attention) it is ``ops.FlashAttn``, whose forward keeps the
+    row log-sum-exp and whose blockwise backward never holds the S x S
+    scores.  ``backend="cuda"`` goes through ``ops.flash_fwd_op``: the
+    hand-written kernel for CUDA tensors (or an error), the plain version
+    for CPU tensors; ``"torch"`` takes the plain version on any device."""
     check_backend(backend)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, chunk=chunk,
+              q_chunk=q_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return ops.FlashAttn.apply(q, k, v, causal, window, q_offset, chunk,
+                                   q_chunk, backend != "cuda")
     if backend == "cuda":
-        return ops.flash_fwd_op(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
-    return flash_fwd_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+        return ops.flash_fwd_op(q, k, v, **kw)
+    return flash_fwd_ref(q, k, v, **kw)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -256,14 +270,13 @@ def mask_padded_logits(lf: torch.Tensor, valid_vocab: int,
     return torch.where(ok, lf, torch.full_like(lf, NEG))
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  valid_vocab: int, ctx: ShardCtx = ShardCtx()
-                  ) -> torch.Tensor:
-    """Mean next-token cross-entropy over labels >= 0, in f32, with padded
-    vocab columns masked out, over vocab-sharded logits [..., Vp/tp]
-    (``layers.cross_entropy_parts``): a model pmax of the row maxima, a
-    psum of the exp-sums and of the label's logit, which one rank
-    holds."""
+def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
+                        valid_vocab: int, ctx: ShardCtx = ShardCtx()):
+    """(sum of the next-token cross-entropy over labels >= 0, their count),
+    in f32, with padded vocab columns masked out, over vocab-sharded
+    logits [..., Vp/tp] (``layers.cross_entropy_parts``): a model pmax of
+    the row maxima, a psum of the exp-sums and of the label's logit, which
+    one rank holds."""
     v_local = logits.shape[-1]
     off = ctx.tp_rank() * v_local
     lf = mask_padded_logits(logits.float(), valid_vocab, off)
@@ -275,4 +288,37 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if ctx.tp > 1:
         picked = ctx.psum_tp(picked * ((loc >= 0) & (loc < v_local)).float())
     mf = mask.float()
-    return ((lse - picked) * mf).sum() / mf.sum().clamp(min=1.0)
+    return ((lse - picked) * mf).sum(), mf.sum()
+
+
+def _head_chunk_parts(head: Linear, x: torch.Tensor, labels: torch.Tensor,
+                      valid_vocab: int, ctx: ShardCtx):
+    return cross_entropy_parts(head(x), labels, valid_vocab, ctx)
+
+
+def lm_head_loss_chunked(head: Linear, x: torch.Tensor, labels: torch.Tensor,
+                         valid_vocab: int, ctx: ShardCtx = ShardCtx(), *,
+                         chunk: int = 512) -> torch.Tensor:
+    """The LM head and the mean cross-entropy, ``chunk`` positions at a
+    time (the reference's ``lm_head_loss_chunked``): x [B, S, d] (the
+    head's input, copied to the model group by the caller) and labels [B,
+    S] (-1 masked) padded to a multiple of the chunk (padded labels -1),
+    each chunk's vocab-sharded logits [B, chunk, Vp/tp] and their
+    ``cross_entropy_parts`` under ``torch.utils.checkpoint``: the backward
+    recomputes them, so at most one chunk's logits are alive, never [B,
+    S, Vp/tp].  The chunks' (sum, count) are summed; under tensor
+    parallelism each recompute replays its collectives on every rank in
+    the same order."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    pad = -S % c
+    xp = F.pad(x, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+    total = count = None
+    for c0 in range(0, S + pad, c):
+        s, n = checkpoint(_head_chunk_parts, head, xp[:, c0:c0 + c],
+                          lp[:, c0:c0 + c], valid_vocab, ctx,
+                          use_reentrant=False, preserve_rng_state=False)
+        total = s if total is None else total + s
+        count = n if count is None else count + n
+    return total / count.clamp(min=1.0)

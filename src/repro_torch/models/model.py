@@ -51,10 +51,17 @@ cross-attention; the Mamba2 scan on ``ssd_fwd``) and returns the decode
 cache (an enc_dec layer's entry also holds its cross cache under
 ``"cross"``; a VLM's ``t`` counts the patch prefix); :meth:`Model.decode`
 takes one greedy step (an enc_dec layer's cross-attention is one
-``flash_fwd`` at Sq = 1).  The train loss
-runs every kind; a Mamba2 layer's scan is ``ssd_fwd`` under autograd
-(``ops.SSDScan``), whose gradient is the plain chunked scan's, as the
-reference trains by autodiff through that scan.
+``flash_fwd`` at Sq = 1).  The train loss runs every kind with the
+reference's memory structure: every attention (the encoder's, the
+decoder's self- and cross-attention, the hybrid's shared block, MLA's) is
+``flash_fwd`` under autograd (``ops.FlashAttn``: the kernel's forward
+keeps the rows' log-sum-exp, the plain blockwise backward never holds the
+S x S scores), a Mamba2 layer's scan is ``ssd_fwd`` under autograd
+(``ops.SSDScan``, whose gradient is the plain chunked scan's, as the
+reference trains by autodiff through that scan), each layer is recomputed
+in the backward where the reference has ``jax.checkpoint``
+(:func:`recompute`), and the LM head with its loss runs 512 positions at a
+time (``layers.lm_head_loss_chunked``).
 
 Tensor parallelism (``ctx``, a ``ShardCtx`` with tp > 1; every kind):
 each process holds its rank's shard of every model-sharded leaf and the
@@ -78,6 +85,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.hashing import check_backend
@@ -85,13 +93,25 @@ from repro_torch.models.attention import (GQA, MLA, gqa_make_cache,
                                           mla_make_cache)
 from repro_torch.models.common import ArchConfig, ShardCtx, tp_dim
 from repro_torch.models.layers import (Embedding, GeluMLP, Linear, RMSNorm,
-                                       SwiGLU, cross_entropy,
+                                       SwiGLU, lm_head_loss_chunked,
                                        mask_padded_logits)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 
 KINDS = ("dense", "moe", "ssm", "hybrid", "enc_dec", "vlm")
 AUX_LOSS_W = 0.01     # the MoE load-balance loss's weight in the train loss
+
+
+def recompute(layer: nn.Module, x: torch.Tensor, **kw):
+    """``layer(x, **kw)``, recomputed in the backward when grad is enabled
+    (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint`` around a scanned layer body): the forward keeps
+    the layer's input, not its activations.  No layer draws random
+    numbers, so the RNG state is not stashed."""
+    if not torch.is_grad_enabled():
+        return layer(x, **kw)
+    return checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
 
 
 def sinusoid_table(T: int, d: int, device=None) -> torch.Tensor:
@@ -118,15 +138,11 @@ class EncoderLayer(nn.Module):
         self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
                            device=device, gen=gen, ctx=ctx)
 
-    def forward(self, x: torch.Tensor, *, backend: str | None = None):
-        """x [B, T, d] -> [B, T, d]: the trainer's plain attention, or with
-        a ``backend`` the prefill's (``flash_fwd``)."""
-        h = self.ln1(x)
-        if backend is None:
-            x = x + self.attn(h, causal=False, use_rope=False)
-        else:
-            x = x + self.attn.prefill(h, backend=backend, causal=False,
-                                      use_rope=False)[0]
+    def forward(self, x: torch.Tensor, *, backend: str = "cuda"):
+        """x [B, T, d] -> [B, T, d], the attention on ``flash_fwd`` (under
+        autograd through ``ops.FlashAttn``) on the ``backend`` route."""
+        x = x + self.attn(self.ln1(x), causal=False, use_rope=False,
+                          backend=backend)
         return x + self.ffn(self.ln2(x))
 
 
@@ -166,11 +182,11 @@ class DecoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, *, backend: str = "cuda",
                 enc_out: torch.Tensor | None = None):
         """x [B, S, d] (and an enc_dec layer's ``enc_out`` [B, T, d]) ->
-        (x', stats); the trainer's attention is plain (``GQA.forward``), so
-        ``backend`` changes nothing here."""
-        x = x + self.attn(self.ln1(x))
+        (x', stats); the attention (and the cross-attention) on the
+        ``backend`` route, ``ops.FlashAttn`` under autograd."""
+        x = x + self.attn(self.ln1(x), backend=backend)
         if self.cross:
-            x = x + self.xattn(self.lnx(x), kv_src=enc_out)
+            x = x + self.xattn(self.lnx(x), kv_src=enc_out, backend=backend)
         y, stats = self._ffn(self.ln2(x))
         return x + y, stats
 
@@ -245,12 +261,12 @@ class Model(nn.Module):
     Built on ``cuda`` unless ``device="cpu"`` is passed (or ``"meta"``:
     shapes without values, ``launch/dryrun.py``); parameters are drawn
     from a ``torch.Generator`` seeded with ``seed``.  ``backend``
-    picks the model kernels' route (prefill, and the Mamba2 scan in the
-    train loss): ``"cuda"`` (the hand-written kernels for CUDA tensors,
-    their plain versions for CPU ones) or ``"torch"`` (the plain
-    versions).  ``ctx`` (default: tp = 1) is the shard context: at tp > 1
-    this process builds its model rank's shards, drawing each sharded leaf
-    whole and keeping its slice."""
+    picks the model kernels' route (attention and the Mamba2 scan, in
+    prefill and in the train loss): ``"cuda"`` (the hand-written kernels
+    for CUDA tensors, their plain versions for CPU ones) or ``"torch"``
+    (the plain versions).  ``ctx`` (default: tp = 1) is the shard
+    context: at tp > 1 this process builds its model rank's shards,
+    drawing each sharded leaf whole and keeping its slice."""
 
     sparse_paths = ("embed/table",)
 
@@ -308,16 +324,16 @@ class Model(nn.Module):
         """The first vocab id of this rank's shard."""
         return self.ctx.tp_rank() * (self.cfg.vocab_padded // self.ctx.tp)
 
-    def encode(self, frames: torch.Tensor, *,
-               backend: str | None = None) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The whisper encoder over stub frames [B, T, d] (f32: the
         activations stay f32, as the reference's): the sinusoidal table
-        added, the encoder layers (plain attention, or with a ``backend``
-        the prefill's ``flash_fwd``), ``ln_enc``."""
+        added, the encoder layers (``flash_fwd`` on the model's route;
+        each recomputed in the backward when grad is enabled, the
+        reference's ``jax.checkpoint``), ``ln_enc``."""
         x = frames + sinusoid_table(frames.shape[1], self.cfg.d_model,
                                     frames.device).to(frames.dtype)
         for layer in self.enc_layers:
-            x = layer(x, backend=backend)
+            x = recompute(layer, x, backend=self.backend)
         return self.ln_enc(x)
 
     def _inputs(self, tokens: torch.Tensor, patches: torch.Tensor | None):
@@ -334,21 +350,31 @@ class Model(nn.Module):
         """tokens/labels [B, S] (labels -1 masked; whisper adds ``frames``
         [B, T, d], pixtral ``patches`` [B, P, d]) -> (differentiated loss,
         metrics): embed, the layers, ``ln_f``, the untied head (on the
-        token positions only), the mean next-token cross-entropy
+        token positions only) with the mean next-token cross-entropy
         (``metrics["loss"]``), for MoE plus ``AUX_LOSS_W`` x the layers'
         mean ``moe/aux_loss`` (``metrics`` also holds the layers' mean MoE
-        stats)."""
+        stats).  The step's memory is the reference's: every layer
+        application but the hybrid's shared block is recomputed in the
+        backward (:func:`recompute`, where the reference has
+        ``jax.checkpoint``), attention keeps O(S) a row
+        (``ops.FlashAttn``), and the head runs 512 positions at a time
+        (``layers.lm_head_loss_chunked``)."""
         x = self._inputs(tokens, patches)
         kw = ({"enc_out": self.encode(frames)} if self.cfg.kind == "enc_dec"
               else {})
         stats = []
         for layer in self.exec_layers:
-            x, st = layer(x, backend=self.backend, **kw)
+            if layer is getattr(self, "shared", None):
+                # the reference applies the shared block outside any
+                # checkpoint (its ``group_body``)
+                x, st = layer(x, backend=self.backend, **kw)
+            else:
+                x, st = recompute(layer, x, backend=self.backend, **kw)
             if st:
                 stats.append(st)
         h = self.ln_f(x[:, x.shape[1] - tokens.shape[1]:])
-        logits = self.lm_head(self.ctx.copy_tp(h))
-        loss = cross_entropy(logits, labels, self.cfg.vocab, self.ctx)
+        loss = lm_head_loss_chunked(self.lm_head, self.ctx.copy_tp(h), labels,
+                                    self.cfg.vocab, self.ctx)
         metrics = {"loss": loss}
         if stats:
             metrics.update({k: torch.stack([s[k] for s in stats]).mean()
@@ -399,7 +425,7 @@ class Model(nn.Module):
         of them under tensor parallelism (and an enc_dec layer's cross
         cache), or the final SSD state and conv tail)."""
         x = self._inputs(tokens, patches)
-        kw = ({"enc_out": self.encode(frames, backend=self.backend)}
+        kw = ({"enc_out": self.encode(frames)}
               if self.cfg.kind == "enc_dec" else {})
         caches = []
         for layer in self.exec_layers:

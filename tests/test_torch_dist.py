@@ -517,7 +517,9 @@ def test_build_program_gives_every_rank_rank0_parameters(groups):
 def test_trainer_4x1_processes_match_reference_1x1(groups):
     ranks = groups[4]["ranks"].results()
     ref = _ref_losses(groups["ref_params"], groups["batch"])
-    want_plain = [STEPS * tops.path_launches(1).get(k, 0)
+    L = _ref_cfg().n_layers
+    want_plain = [STEPS * (tops.path_launches(1).get(k, 0)
+                           + 2 * L * (k == "flash_fwd"))
                   for k in tops.KERNELS]
     for w, r in enumerate(ranks):
         losses = r["trainer/loss"]
@@ -530,7 +532,8 @@ def test_trainer_4x1_processes_match_reference_1x1(groups):
         for k in ("loss", "sync/overflow", "sync/sparse_sent_words"):
             np.testing.assert_array_equal(r[f"trainer/{k}"],
                                           ranks[0][f"trainer/{k}"])
-        # this rank encodes, serves and decodes once a step
+        # this rank encodes, serves and decodes once a step, and runs each
+        # layer's attention twice (its forward and its recompute)
         assert r["trainer/plain"].tolist() == want_plain, w
         assert not r["trainer/launches"].any()
         # the replicated parameters stay the same bits on every rank
@@ -541,8 +544,10 @@ def test_trainer_4x1_processes_match_reference_1x1(groups):
 def test_trainer_2x1_processes_equal_in_process_2x1(groups):
     ranks = groups[2]["ranks"].results()
     sim = ranks[0]
+    L = _ref_cfg().n_layers
     assert sim["simgroup/plain"].tolist() == [
-        2 * STEPS * tops.path_launches(1).get(k, 0) for k in tops.KERNELS]
+        2 * STEPS * (tops.path_launches(1).get(k, 0)
+                     + 2 * L * (k == "flash_fwd")) for k in tops.KERNELS]
     for w, r in enumerate(ranks):
         for k in ("loss", "sync/overflow", "sync/sparse_sent_words", "embed"):
             np.testing.assert_array_equal(r[f"trainer/{k}"],

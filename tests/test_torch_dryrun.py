@@ -10,9 +10,9 @@
   the scores; the kernel wrappers refuse on meta what the card refuses.
 * Reduced train, prefill and decode steps of every kind give the same
   record on the meta device as on CPU tensors over the same fake 2x2
-  world (but ``FlopCounterMode``'s count where ``flash_fwd`` or
-  ``ssd_fwd`` runs: on the CPU it sees their plain versions' products,
-  on meta and on the card the kernel is opaque).
+  world, the matmul FLOPs included (a kernel wrapper's call is one opaque
+  record on every device, its plain version's products on the CPU
+  unwalked).
 * At a fake 2x2 world the Zen sync's wire bytes are the registry's
   ``wire_words_fn`` x 4; ``make_ctx`` refuses at M = 16 exactly where the
   reference's does, with its message; ``fake_world`` leaves no group.
@@ -243,10 +243,7 @@ def test_meta_record_equals_cpu_record(arch, mode):
         assert meta[key] == cpu[key], key
     # decode attends plain, but whisper's cross-attention (flash_fwd)
     assert bool(meta["kernel_calls"]) == (mode != "decode")
-    if not set(meta["kernel_calls"]) & set(ops.MODEL_KERNELS):
-        # a model kernel's plain version runs on the CPU, where
-        # FlopCounterMode sees its products
-        assert meta["torch_flops"] == cpu["torch_flops"]
+    assert meta["torch_flops"] == cpu["torch_flops"]
     assert meta["walked"]["flops"] > 0 and meta["memory"]["temp_bytes"] > 0
 
 
@@ -394,15 +391,29 @@ def test_serve_records_against_the_reference(arch):
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m"])
 def test_training_ratio_of_the_reference_remat(arch):
     """The reference's layers are ``jax.checkpoint``-ed (its
-    ``models/model.py:229``): its backward runs each layer's forward
-    again, which the port's eager autograd does not.  Its matmul FLOPs a
-    step are so between once (no recompute) and twice the port's (PERF.md
-    §6 records the ratios: 1.76 for qwen2, whose reference also runs the
-    padded-block attention, 1.21 for mamba2)."""
+    ``models/model.py:229``) and so are the port's (``models/model.py``'s
+    ``recompute``): both backwards run each layer's forward again, so
+    their matmul FLOPs a step agree but for what one side alone counts.
+    mamba2: about 1 (0.981 measured).  qwen2 (1.407 measured): the
+    reference's attention pads the keys to its 512-key block (S is 64
+    here), and the port's meta trace holds the attention forward (and
+    its recompute) as one opaque ``flash_fwd`` record, so FLOP counting
+    sees only its blockwise backward's five products; without the
+    attention products the ratio is mamba2's (0.969 measured)."""
     ref, port = _reference(arch, "train"), _port(arch, "train")
     assert port["tokens_per_step"] == ref["tokens_per_step"]
-    ratio = ref["dots"] / port["torch_flops_per_device"]
-    assert 1.0 < ratio < 2.0, ratio
+    ref_dots, port_dots = ref["dots"], port["torch_flops_per_device"]
+    if arch == "qwen2-0.5b":
+        cfg = get_config(arch).reduced()
+        B, S = REF_SPEC["global_batch"], REF_SPEC["seq_len"]
+        pair = 2 * B * cfg.n_heads * cfg.hd          # a product, a (q, k)
+        padded = -(-S // 512) * 512
+        # forward, its remat and the backward's four: 8 products a layer
+        ref_dots -= cfg.n_layers * 8 * pair * S * padded
+        port_dots -= cfg.n_layers * 5 * pair * S * S
+    assert 0.95 < ref_dots / port_dots < 1.05, ref_dots / port_dots
+    if arch == "qwen2-0.5b":
+        assert 1.2 < ref["dots"] / port["torch_flops_per_device"] < 1.6
 
 
 # ---------------------------------------------------------------------------

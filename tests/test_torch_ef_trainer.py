@@ -146,10 +146,12 @@ def test_compressed_trainer_4x1_matches_reference(ref_params, batch):
     assert {k: tuple(v.shape) for k, v in state["residual"].items()} == \
         {k: (N, s) for k, s in gs.compressed_buckets().items()}
     assert all(bool(v.abs().sum() > 0) for v in state["residual"].values())
-    # every rank encodes, serves and decodes each zen bucket once a step
-    n_zen = len(gs._layouts)
+    # every rank encodes, serves and decodes each zen bucket once a step,
+    # and runs each layer's attention twice (its forward and its recompute)
+    n_zen, L = len(gs._layouts), _port_cfg().n_layers
     assert tops.PLAIN_CALLS == {
-        k: N * STEPS * n_zen * (k in tops.path_kernels())
+        k: N * STEPS * (n_zen * (k in tops.path_kernels())
+                        + 2 * L * (k == "flash_fwd"))
         for k in tops.KERNELS}
 
 

@@ -246,4 +246,8 @@ def test_entry_points_run_on_cpu():
                       "--log-every", "1", "--mesh", "2x1", "--device", "cpu"])
     assert np.isfinite(out["losses"]).all() and out["overflow"] == 0
     assert out["sparse_words"] > 0 and "moe" not in out
-    assert out["plain_calls"]["ssd_fwd"] == 2 * 2 * cfg.n_layers
+    # a scan a Mamba2 layer, twice (its forward and its recompute in the
+    # backward); the shared block once a group (the reference does not
+    # checkpoint it)
+    assert out["plain_calls"]["ssd_fwd"] == 2 * 2 * 2 * cfg.n_layers
+    assert out["plain_calls"]["flash_fwd"] == 2 * 2 * cfg.n_layers

@@ -135,14 +135,15 @@ def test_mamba2_trainer_raise_names_the_plain_scan_trainer():
     """The Mamba2 trainer is the plain-scan trainer the reference runs: a
     train loss raises nothing, its backward is the plain chunked scan's
     gradient (one recompute a layer, never a gradient through the SSD
-    kernel); a dense config with ``mla_kv_rank`` set builds MLA, never
+    kernel; the layer's own recompute runs the scan's forward a second
+    time); a dense config with ``mla_kv_rank`` set builds MLA, never
     GQA."""
     cfg = get_config("mamba2-370m").reduced()
     model = Model(cfg, device="cpu")
     tok = torch.zeros((1, 16), dtype=torch.long)
     ops.reset_counts()
     model(tok, tok).backward()
-    assert ops.PLAIN_CALLS["ssd_fwd"] == cfg.n_layers
+    assert ops.PLAIN_CALLS["ssd_fwd"] == 2 * cfg.n_layers
     assert ops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
     assert model.embed.table.grad is not None
     mla = Model(dataclasses.replace(cfg, kind="dense", mla_q_rank=64,

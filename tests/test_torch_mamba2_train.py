@@ -89,9 +89,9 @@ def test_step0_loss_and_grads_match_reference(ref_params, batch):
     loss.backward()
     assert abs(loss.item() - float(ref_loss)) < 1e-4, (loss.item(),
                                                        float(ref_loss))
-    # one scan a layer: the plain forward (CPU tensors), the plain
-    # recompute in the backward
-    assert tops.PLAIN_CALLS["ssd_fwd"] == cfg.n_layers
+    # two scans a layer: the plain forward (CPU tensors) and the layer's
+    # recompute in the backward; one plain recompute in SSDScan's backward
+    assert tops.PLAIN_CALLS["ssd_fwd"] == 2 * cfg.n_layers
     assert tops.RECOMPUTE_CALLS["ssd_fwd"] == cfg.n_layers
     grads = {n: p.grad for n, p in port.named_leaves()}
     ly = ref_g["layers"]
@@ -148,10 +148,12 @@ def test_trainer_4x1_zen_matches_reference_1x1(ref_params, batch):
         (losses, ref)
     assert overflow == [0.0] * STEPS
     assert min(words) > 0
-    # each rank's step: Zen's fused route once, and one scan a layer
+    # each rank's step: Zen's fused route once, and two scans a layer (the
+    # layer's forward and its recompute in the backward)
     n_layers = _port_cfg().n_layers
     assert tops.PLAIN_CALLS == {
-        k: 4 * STEPS * ((k in tops.path_kernels()) + n_layers * (k == "ssd_fwd"))
+        k: 4 * STEPS * ((k in tops.path_kernels())
+                        + 2 * n_layers * (k == "ssd_fwd"))
         for k in tops.KERNELS}
     assert tops.RECOMPUTE_CALLS["ssd_fwd"] == 4 * STEPS * n_layers
     assert not any(tops.LAUNCHES.values())

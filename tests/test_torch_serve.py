@@ -187,8 +187,9 @@ def test_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 def test_mamba2_trains_nowhere_yet():
     """The launcher trains the reduced Mamba2 LM on the CPU: a finite,
-    falling loss, the scan's plain version in every layer's forward and its
-    plain recompute in every backward, no overflow."""
+    falling loss, the scan's plain version in every layer's forward and in
+    its recompute, and its plain recompute in every backward, no
+    overflow."""
     steps, n_layers = 4, get_config("mamba2-370m").reduced().n_layers
     res = train.main(["--arch", "mamba2-370m", "--reduced", "--steps",
                       str(steps), "--log-every", "1", "--mesh", "2x1",
@@ -198,5 +199,5 @@ def test_mamba2_trains_nowhere_yet():
     assert len(losses) == steps and np.isfinite(losses).all(), losses
     assert losses[-1] < losses[0], losses
     assert res["overflow"] == 0 and res["sparse_words"] > 0
-    assert res["plain_calls"]["ssd_fwd"] == 2 * steps * n_layers
+    assert res["plain_calls"]["ssd_fwd"] == 2 * 2 * steps * n_layers
     assert not any(res["launches"].values())

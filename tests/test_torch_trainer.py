@@ -147,7 +147,12 @@ def test_trainer_4x1_zen_matches_reference_1x1(ref_params, batch):
     assert overflow == [0.0] * STEPS
     assert min(words) > 0
     # every rank encodes, serves and decodes once per step (plain route on
-    # the CPU), through the fused route's kernels only
-    assert tops.PLAIN_CALLS == {k: 4 * STEPS * (k in tops.path_kernels())
-                                for k in tops.KERNELS}
+    # the CPU), through the fused route's kernels only; each layer's
+    # attention runs twice a rank a step (its forward, and its recompute
+    # in the backward), with one plain backward
+    L = _port_cfg().n_layers
+    assert tops.PLAIN_CALLS == {
+        k: 4 * STEPS * ((k in tops.path_kernels()) + 2 * L * (k == "flash_fwd"))
+        for k in tops.KERNELS}
+    assert tops.RECOMPUTE_CALLS["flash_fwd"] == 4 * STEPS * L
     assert losses[-1] < losses[0]

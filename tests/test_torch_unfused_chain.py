@@ -26,6 +26,7 @@ from repro.core import schemes as S
 from repro.core.hashing import EMPTY, compact_indices
 from repro.kernels import ops as kops
 from repro.kernels import ref as kref
+from repro_torch.configs import get_config
 from repro_torch.core import formats as tformats
 from repro_torch.core import hashing as thashing
 from repro_torch.kernels import ops as tops
@@ -368,5 +369,8 @@ def test_trainer_no_fused_commit_on_cpu():
     assert unf["overflow"] == 0
     per_sync = tops.path_launches(4, fused_commit=False)
     assert per_sync["bitmap_pack"] == 1   # the 4 server masks in one pack
-    assert tops.PLAIN_CALLS == {k: 2 * per_sync.get(k, 0)
-                                for k in tops.KERNELS}
+    # and each of the 4 ranks runs each layer's attention twice a step
+    L = get_config("qwen2-0.5b").reduced().n_layers
+    assert tops.PLAIN_CALLS == {
+        k: 2 * (per_sync.get(k, 0) + 4 * 2 * L * (k == "flash_fwd"))
+        for k in tops.KERNELS}
